@@ -1,0 +1,280 @@
+#!/usr/bin/env python3
+"""Smoke run of fmvfi_tpu_torch, the PyTorch/CUDA port, on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line with its seconds:
+  1. card   - the card's name and power limit (nvidia-smi);
+  2. build  - nvcc builds the package's CUDA kernels (K1, the AdaCoF warp);
+  3. k1     - K1 against its plain PyTorch version on the card (max abs error
+              <= 1e-5, f32) over F in {5, 11}, d in {1, 2}, unaligned sizes,
+              offsets to +-60, and the main path's 1080p shapes, with the
+              kernel's and the plain version's times and the byte bound;
+  4. golden - adacof_interpolate with the bundled weights on the 128x128
+              translation scene through K1: 42.967 +- 0.05 dB;
+  5. serve  - fusion_interpolate at 1080x1920, batch 1, with the bundled
+              AdaCoF and FusionNet weights and a seeded PhaseNet: 1 warm-up
+              and 3 timed requests on seeded synthetic pairs; K1 must launch
+              exactly 3 times per request, the output must be finite and in
+              [0, 1], and the output through K1 must agree with the output
+              through the plain warp at >= 60 dB PSNR.
+Then the nvidia-smi line, the `kernels` JSON line and, last, the result line
+{"ok": true, "device": {...}}.  Any failed check raises (non-zero exit).
+Without CUDA, or without the package beside this file, it exits non-zero
+and prints no result.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+FP32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
+K1_TOL = 1e-5
+GOLDEN_DB, GOLDEN_TOL = 42.967, 0.05
+PLAIN_AGREEMENT_DB = 60.0
+H_FULL, W_FULL = 1080, 1920
+
+
+def _line(**kw):
+    print(json.dumps(kw), flush=True)
+
+
+def _psnr(a, b):
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    return float("inf") if mse == 0 else -10.0 * np.log10(mse)
+
+
+def _cuda_ms(fn, reps):
+    """Median over `reps` launches of fn, each timed with CUDA events."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return float(np.median(times))
+
+
+def _k1_case(gen, b, c, h, w, f, d, off):
+    import torch
+
+    hin, win = h + (f - 1) * d, w + (f - 1) * d
+    x = torch.rand((b, c, hin, win), generator=gen, device="cuda")
+    # weights sum to 1 over the taps, as the model's softmax heads give them
+    logits = torch.randn((b, f * f, h, w), generator=gen, device="cuda")
+    wgt = torch.softmax(2.0 * logits, dim=1)
+    a = (torch.rand((b, f * f, h, w), generator=gen, device="cuda") * 2 - 1) * off
+    be = (torch.rand((b, f * f, h, w), generator=gen, device="cuda") * 2 - 1) * off
+    return x, wgt, a, be
+
+
+def _k1_bound_ms(b, c, h, w, f, d):
+    """Least time for one launch: every input read once and the output
+    written once over the memory rate, or its float32 operations (per tap:
+    9 for the clamp/trunc/weights, 8 per channel for the 4-corner blend and
+    the weighted add) over the float32 rate; the larger of the two."""
+    hin, win = h + (f - 1) * d, w + (f - 1) * d
+    nbytes = 4 * (b * c * hin * win + 3 * b * f * f * h * w + b * c * h * w)
+    ops = b * h * w * f * f * (9 + 8 * c)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def main() -> int:
+    t_all = time.perf_counter()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; no CUDA card", file=sys.stderr)
+        return 2
+    repo = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, repo)
+    try:
+        from fmvfi_tpu_torch import _build
+        from fmvfi_tpu_torch.eval.synth import translation_triplet
+        from fmvfi_tpu_torch.models.adacof import AdaCoFNet
+        from fmvfi_tpu_torch.models.fusion_net import FusionNet, infer_variant
+        from fmvfi_tpu_torch.models.phase_net import PhaseNetCore
+        from fmvfi_tpu_torch.ops import adacof_cuda
+        from fmvfi_tpu_torch.ops.adacof import adacof_warp as warp_plain
+        from fmvfi_tpu_torch.pipeline.interpolate import (
+            FusionModels,
+            adacof_interpolate,
+            fusion_interpolate,
+        )
+        from fmvfi_tpu_torch.utils.convert import load_adacof_weights, load_fusion_weights
+    except ImportError as e:
+        print(f"chip_smoke: the fmvfi_tpu_torch package is missing beside {__file__}: {e}",
+              file=sys.stderr)
+        return 2
+    ckpt = os.path.join(repo, "checkpoints")
+    ada_path = os.path.join(ckpt, "adacof_synth_demo.msgpack")
+    fusion_path = os.path.join(ckpt, "fusion_synth_demo.msgpack")
+    for p in (ada_path, fusion_path):
+        if not os.path.exists(p):
+            print(f"chip_smoke: bundled checkpoint {p} is missing", file=sys.stderr)
+            return 2
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    # 1. the card
+    t0 = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    _line(phase="card", seconds=time.perf_counter() - t0, nvidia_smi=smi,
+          kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
+          python=sys.version.split()[0], torch=torch.__version__, cuda=torch.version.cuda)
+
+    # 2. the build
+    t0 = time.perf_counter()
+    lib_path = _build.build()
+    _build.library()
+    _line(phase="build", seconds=time.perf_counter() - t0, nvcc_seconds=_build.build_seconds,
+          library=os.path.relpath(lib_path, repo))
+
+    # 3. K1 against its plain version
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = [
+        # (b, c, h, w, F, d, max |offset|, max_offset)
+        (2, 3, 37, 53, 5, 1, 60.0, 48),
+        (2, 3, 37, 53, 5, 2, 60.0, 48),
+        (1, 3, 37, 53, 11, 1, 60.0, 48),
+        (1, 3, 37, 53, 11, 2, 60.0, 48),
+        (2, 3, 37, 53, 5, 1, 60.0, None),
+        (1, 5, 40, 64, 3, 1, 4.0, 10),
+    ]
+    errs = []
+    for b, c, h, w, f, d, off, r in cases:
+        x, wgt, a, be = _k1_case(gen, b, c, h, w, f, d, off)
+        got = adacof_cuda.adacof_warp(x, wgt, a, be, d, r)
+        torch.cuda.synchronize()
+        err = float((got - warp_plain(x, wgt, a, be, d, r)).abs().max())
+        errs.append(dict(shape=[b, c, h, w], F=f, d=d, offset=off, max_offset=r, max_abs_err=err))
+    timings = []
+    for b in (2, 4):  # the main path's launches: 2B and 4B images for B = 1
+        h, w = 1088, 1920  # AdaCoF pads 1080 to /32
+        x, wgt, a, be = _k1_case(gen, b, 3, h, w, 5, 1, 3.0)
+        got = adacof_cuda.adacof_warp(x, wgt, a, be, 1, 48)
+        want = warp_plain(x, wgt, a, be, 1, 48)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        errs.append(dict(shape=[b, 3, h, w], F=5, d=1, offset=3.0, max_offset=48, max_abs_err=err))
+        del got, want
+        k_ms = _cuda_ms(lambda: adacof_cuda.adacof_warp(x, wgt, a, be, 1, 48), 20)
+        p_ms = _cuda_ms(lambda: warp_plain(x, wgt, a, be, 1, 48), 3)
+        bound_ms, bound_by = _k1_bound_ms(b, 3, h, w, 5, 1)
+        timings.append(dict(images=b, x=list(x.shape), fields=list(wgt.shape), ms=k_ms,
+                            plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by))
+        del x, wgt, a, be
+    torch.cuda.empty_cache()
+    max_err = max(e["max_abs_err"] for e in errs)
+    _line(phase="k1", seconds=time.perf_counter() - t0, tol=K1_TOL, max_abs_err=max_err,
+          cases=errs, timings_1080p=timings)
+    bad = [e for e in errs if not e["max_abs_err"] <= K1_TOL]
+    if bad:
+        raise AssertionError(f"K1 disagrees with its plain version beyond {K1_TOL}: {bad}")
+
+    # 4. the held number: bundled AdaCoF on the golden scene, through K1
+    t0 = time.perf_counter()
+    ada = AdaCoFNet().to(dev).eval()
+    ada.load_state_dict(load_adacof_weights(ada_path))
+    f1, mid, f2 = translation_triplet(128, 128, dx=2.0, dy=1.0, seed=0)
+    adacof_cuda.launches = 0
+    pred = adacof_interpolate(ada, f1[None], f2[None], device=dev)
+    torch.cuda.synchronize()
+    if adacof_cuda.launches != 1:
+        raise AssertionError(f"golden scene: {adacof_cuda.launches} K1 launches, expected 1")
+    golden = _psnr(pred[0].cpu().numpy(), mid)
+    _line(phase="golden", seconds=time.perf_counter() - t0, psnr_db=golden,
+          expected_db=GOLDEN_DB, tol_db=GOLDEN_TOL)
+    if not abs(golden - GOLDEN_DB) <= GOLDEN_TOL:
+        raise AssertionError(f"golden scene {golden:.4f} dB, expected {GOLDEN_DB} +- {GOLDEN_TOL}")
+
+    # 5. serving: fusion_interpolate at 1080p, batch 1
+    t0 = time.perf_counter()
+    fusion_sd = load_fusion_weights(fusion_path)
+    fusion = FusionNet(uncertainty_maps=3, variant=infer_variant(fusion_sd)).to(dev).eval()
+    fusion.load_state_dict(fusion_sd)
+    phase = PhaseNetCore().init_params(torch.Generator().manual_seed(0)).to(dev).eval()
+    models = FusionModels(phase_net=phase, adacof=ada, fusion_net=fusion)
+    requests = [
+        translation_triplet(H_FULL, W_FULL, dx=4.0 + i, dy=2.0, seed=i) for i in range(4)
+    ]
+    t_setup = time.perf_counter() - t0
+
+    adacof_cuda.launches = 0  # the main path's run starts here
+    lat_ms, psnrs, outs = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i, (r1, rmid, r2) in enumerate(requests):
+        before = adacof_cuda.launches
+        torch.cuda.synchronize()
+        t_req = time.perf_counter()
+        out = fusion_interpolate(models, r1[None], r2[None], device=dev)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t_req)
+        if adacof_cuda.launches - before != 3:
+            raise AssertionError(
+                f"request {i}: {adacof_cuda.launches - before} K1 launches, expected 3"
+            )
+        o = out[0].cpu().numpy()
+        if o.shape != (H_FULL, W_FULL, 3) or not np.isfinite(o).all():
+            raise AssertionError(f"request {i}: output {o.shape} not finite/right shape")
+        if o.min() < 0.0 or o.max() > 1.0:
+            raise AssertionError(f"request {i}: output outside [0, 1]")
+        psnrs.append(_psnr(o, rmid))
+        lat_ms.append(ms)
+        outs.append(o)
+    k1_launches = adacof_cuda.launches  # read just after the main path's run
+    peak = torch.cuda.max_memory_allocated()
+
+    # the same first request with the warp routed to the plain version
+    ada.warp = warp_plain
+    try:
+        plain_out = fusion_interpolate(models, requests[0][0][None], requests[0][2][None],
+                                       device=dev)[0].cpu().numpy()
+    finally:
+        ada.warp = adacof_cuda.adacof_warp
+    agree = _psnr(outs[0], plain_out)
+    _line(phase="serve", seconds=time.perf_counter() - t0, setup_seconds=t_setup,
+          size=[H_FULL, W_FULL], batch=1, variant=fusion.variant, warmup_ms=lat_ms[0],
+          ms_per_frame=float(np.mean(lat_ms[1:])), ms_requests=lat_ms[1:],
+          peak_memory_bytes=peak, psnr_vs_true_middle_db=psnrs,
+          k1_launches=k1_launches, k1_vs_plain_psnr_db=agree)
+    if not agree >= PLAIN_AGREEMENT_DB:
+        raise AssertionError(f"K1 and plain pipelines agree at {agree:.2f} dB < {PLAIN_AGREEMENT_DB}")
+    if k1_launches == 0:
+        raise AssertionError("the main path launched K1 no time")
+
+    k1_1080 = timings[-1]  # the 4-image launch, the largest on the main path
+    _line(phase="total", seconds=time.perf_counter() - t_all)
+    print(smi, flush=True)
+    _line(kernels=[dict(
+        name=adacof_cuda.NAME, route="cuda", source=adacof_cuda.SOURCE,
+        replaces=adacof_cuda.REPLACES, launches=k1_launches, max_abs_err=max_err,
+        ms=k1_1080["ms"], plain_ms=k1_1080["plain_ms"], bound_ms=k1_1080["bound_ms"],
+        bound_by=k1_1080["bound_by"], library_ms=None,
+    )])
+    _line(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),
+                               count=torch.cuda.device_count()))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,108 @@
+"""Build the package's CUDA kernels with nvcc and load them with ctypes.
+
+Every `*.cu` file under `csrc/` is compiled by one `nvcc` call into a shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds), written to `build/fmvfi_tpu_torch/` at the repository root under a
+name keyed by a hash of the sources and flags: a second run with unchanged
+sources loads the existing library instead of rebuilding.  The build happens
+at first use, never at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "fmvfi_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+build_seconds: float | None = None  # wall time of the last nvcc run, if any
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# name -> argtypes of each exported C function (pointers and the stream as
+# void*, sizes as int); restype is int (a cudaError_t) for all of them
+_SIGNATURES = {
+    "adacof_warp_fwd": [_P, _P, _P, _P, _P, _P] + [_I] * 9,
+}
+
+
+def _find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels of "
+            "fmvfi_tpu_torch are built at first use and need the CUDA toolkit"
+        )
+    return nvcc
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources() + sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libfmvfi_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels if no library for the current sources exists;
+    return the library's path.  Raises RuntimeError with nvcc's stderr if
+    the build fails."""
+    global build_seconds
+    path = _library_path()
+    if path.exists():
+        return path
+    nvcc = _find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # compile to a private name, then rename: a reader never sees half a file
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+            )
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    build_seconds = time.perf_counter() - t0
+    return path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call), with argtypes set."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib

@@ -1,0 +1,158 @@
+"""fmvfi_tpu_torch stands alone: the machine that serves it on a CUDA card has
+PyTorch, numpy and scipy but no jax, flax, msgpack, cv2 or matplotlib, and
+the port must not reach into fmvfi_tpu.  Also: its msgpack reader decodes
+the bundled checkpoints exactly as msgpack + flax do, the bundled AdaCoF
+scores the golden number through it, and the kernel build is keyed by its
+sources.
+"""
+
+import ast
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import msgpack
+import numpy as np
+import pytest
+from flax import serialization
+
+from fmvfi_tpu_torch import _build
+from fmvfi_tpu_torch.utils import msgpack_io
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PACKAGE = os.path.join(ROOT, "fmvfi_tpu_torch")
+CKPTS = [
+    os.path.join(ROOT, "checkpoints", "adacof_synth_demo.msgpack"),
+    os.path.join(ROOT, "checkpoints", "fusion_synth_demo.msgpack"),
+]
+FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "fmvfi_tpu", "cv2", "matplotlib")
+GOLDEN_DB, GOLDEN_TOL = 42.967, 0.05  # tests/test_golden.py, bundled AdaCoF
+
+_ISOLATED = f"""
+import importlib, json, pkgutil, sys
+for name in {FORBIDDEN!r}:
+    sys.modules[name] = None  # any import of these raises ImportError
+import numpy as np
+import fmvfi_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(fmvfi_tpu_torch.__path__, "fmvfi_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+from fmvfi_tpu_torch.eval.synth import translation_triplet
+from fmvfi_tpu_torch.models.adacof import AdaCoFNet
+from fmvfi_tpu_torch.models.fusion_net import FusionNet, infer_variant
+from fmvfi_tpu_torch.pipeline.interpolate import adacof_interpolate
+from fmvfi_tpu_torch.utils.convert import load_adacof_weights, load_fusion_weights
+ada = AdaCoFNet().eval()
+ada.load_state_dict(load_adacof_weights({CKPTS[0]!r}), strict=True)
+fsd = load_fusion_weights({CKPTS[1]!r})
+FusionNet(variant=infer_variant(fsd)).load_state_dict(fsd, strict=True)
+f1, mid, f2 = translation_triplet(128, 128, dx=2.0, dy=1.0, seed=0)
+pred = adacof_interpolate(ada, f1[None], f2[None], device="cpu")[0].numpy()
+psnr = -10 * np.log10(np.mean((pred.astype(np.float64) - mid) ** 2))
+leaked = sorted(n for n in sys.modules if n.split(".")[0] in {FORBIDDEN!r} and sys.modules[n])
+print(json.dumps(dict(modules=mods, psnr=float(psnr), leaked=leaked)))
+"""
+
+
+def test_port_runs_without_jax_flax_msgpack_or_fmvfi_tpu():
+    """Every module imports, both checkpoints load strictly, and the bundled
+    AdaCoF gives the golden 42.967 dB on the CPU (plain warp, 48 px clamp)
+    with jax, flax, msgpack and fmvfi_tpu unimportable."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _ISOLATED], cwd=ROOT, capture_output=True, text=True,
+        timeout=600,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "fmvfi_tpu_torch.pipeline.interpolate" in res["modules"]
+    assert "fmvfi_tpu_torch.ops.adacof_cuda" in res["modules"]
+    assert res["leaked"] == []
+    assert abs(res["psnr"] - GOLDEN_DB) < GOLDEN_TOL, res["psnr"]
+
+
+def _py_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(PACKAGE):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+@pytest.mark.parametrize("path", _py_files(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_forbidden_imports(path):
+    """Static check, lazy imports inside functions included."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module.split(".")[0])
+    assert not names & set(FORBIDDEN), sorted(names & set(FORBIDDEN))
+
+
+@pytest.mark.parametrize("path", CKPTS, ids=os.path.basename)
+def test_msgpack_reader_matches_flax(path):
+    with open(path, "rb") as f:
+        data = f.read()
+    ref = serialization.msgpack_restore(data)
+    ours = msgpack_io.loads(data)
+
+    def leaves(t, pre=()):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                yield from leaves(v, pre + (k,))
+            else:
+                yield pre + (k,), v
+
+    a, b = list(leaves(ref)), list(leaves(ours))
+    assert [k for k, _ in a] == [k for k, _ in b]
+    for (k, x), (_, y) in zip(a, b):
+        assert x.dtype == y.dtype and x.shape == y.shape, k
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize(
+    "obj",
+    [{"a": None}, {"a": True}, {1: 2}, {"a": np.array([1j], np.complex64)}],
+    ids=["nil", "bool", "int-key", "complex-ext"],
+)
+def test_msgpack_reader_rejects_what_flax_files_never_hold(obj):
+    if isinstance(obj.get("a"), np.ndarray):
+        data = serialization.msgpack_serialize(obj)
+    else:
+        data = msgpack.packb(obj)
+    with pytest.raises(msgpack_io.MsgpackError):
+        msgpack_io.loads(data)
+
+
+def test_msgpack_reader_scalar_types():
+    obj = {"i": [0, 127, -1, -32, 200, -200, 70000, -70000, 2**40, -(2**40)],
+           "f": [0.5, 1e300], "s": "x" * 40, "b": b"\x00" * 300,
+           "m": {str(i): i for i in range(20)}}
+    assert msgpack_io.loads(msgpack.packb(obj, use_bin_type=True)) == obj
+    with pytest.raises(msgpack_io.MsgpackError):
+        msgpack_io.loads(msgpack.packb(obj)[:-1])
+
+
+def test_kernel_library_is_keyed_by_its_sources(tmp_path, monkeypatch):
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, src)
+    monkeypatch.setattr(_build, "CSRC_DIR", src)
+    first = _build._library_path()
+    assert first == _build._library_path()
+    assert first.parent == _build.BUILD_DIR
+    cu = src / "adacof_warp.cu"
+    cu.write_text(cu.read_text() + "\n// changed\n")
+    assert _build._library_path() != first
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    assert not (tmp_path / "build").exists()
