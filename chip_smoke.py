@@ -5,11 +5,16 @@
 
 Phases, each printing one JSON line with its seconds:
   1. card   - the card's name and power limit (nvidia-smi);
-  2. build  - nvcc builds the package's CUDA kernels (K1, the AdaCoF warp);
+  2. build  - nvcc builds the package's CUDA kernels (K1, the AdaCoF warp,
+              and K2, its field gradients), one nvcc per source in parallel;
   3. k1     - K1 against its plain PyTorch version on the card (max abs error
               <= 1e-5, f32) over F in {5, 11}, d in {1, 2}, unaligned sizes,
               offsets to +-60, and the main path's 1080p shapes, with the
               kernel's and the plain version's times and the byte bound;
+  k2        - K2 against its plain version (autograd of the plain warp plus
+              the saturation mask; max abs error <= 1e-4) over K1's cases and
+              the training launch, with times and bounds at the training
+              launch and at the 4-image 1080p launch;
   4. golden - adacof_interpolate with the bundled weights on the 128x128
               translation scene through K1: 42.967 +- 0.05 dB;
   5. serve  - fusion_interpolate at 1080x1920, batch 1, with the bundled
@@ -17,7 +22,16 @@ Phases, each printing one JSON line with its seconds:
               and 3 timed requests on seeded synthetic pairs; K1 must launch
               exactly 3 times per request, the output must be finite and in
               [0, 1], and the output through K1 must agree with the output
-              through the plain warp at >= 60 dB PSNR.
+              through the plain warp at >= 60 dB PSNR;
+  train     - AdaCoF training from the bundled weights: make_adacof_trainer
+              and fit over batch_iterator(SyntheticTriplets(n=32, h=272,
+              w=272), 4, crop=256), fp32, TF32 off, 1 warm-up and 20 timed
+              steps; K1 and K2 must each launch exactly once per step, every
+              loss must be finite, a checkpoint must be written and a second
+              fit must resume from it, and one step's parameter gradients
+              through K1/K2 must agree with the same step through the plain
+              warp and its plain gradients (deterministic cuDNN) within 1e-4
+              of each tensor's largest gradient.
 Then the nvidia-smi line, the `kernels` JSON line and, last, the result line
 {"ok": true, "device": {...}}.  Any failed check raises (non-zero exit).
 Without CUDA, or without the package beside this file, it exits non-zero
@@ -26,15 +40,21 @@ and prints no result.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 K1_TOL = 1e-5
+K2_TOL = 1e-4
+GRAD_TOL = 1e-4  # of each parameter tensor's largest gradient
+TRAIN_STEPS = 20  # timed, after one warm-up step
 GOLDEN_DB, GOLDEN_TOL = 42.967, 0.05
 PLAIN_AGREEMENT_DB = 60.0
 H_FULL, W_FULL = 1080, 1920
@@ -92,6 +112,45 @@ def _k1_bound_ms(b, c, h, w, f, d):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _k2_bound_ms(b, c, h, w, f, d):
+    """Least time for one K2 launch: x and the cotangent read once, the three
+    fields read and the three gradients written once, over the memory rate;
+    or its float32 operations (per tap: 11 for the clamp/trunc/weights and
+    the two products with W, 20 per channel for the blend and the two corner
+    differences, each weighted by g) over the float32 rate."""
+    hin, win = h + (f - 1) * d, w + (f - 1) * d
+    nbytes = 4 * (b * c * hin * win + b * c * h * w + 6 * b * f * f * h * w)
+    ops = b * h * w * f * f * (11 + 20 * c)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _plain_warp(warp_plain, field_grads):
+    """The AdaCoF warp through the plain versions on CUDA tensors, with K3's
+    gradient contract: the route the training check compares K1/K2 with.
+    Only this script runs the plain versions on the card."""
+    import torch
+
+    class PlainWarp(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, weight, offset_i, offset_j, dilation, max_offset):
+            ctx.save_for_backward(x, weight, offset_i, offset_j)
+            ctx.dilation, ctx.max_offset = dilation, max_offset
+            return warp_plain(x, weight, offset_i, offset_j, dilation, max_offset)
+
+        @staticmethod
+        def backward(ctx, g):
+            x, weight, offset_i, offset_j = ctx.saved_tensors
+            grads = field_grads(x, weight, offset_i, offset_j, g.contiguous(),
+                                ctx.dilation, ctx.max_offset)
+            return (None, *grads, None, None)  # dx: the frames are data
+
+    def warp(x, weight, offset_i, offset_j, dilation=1, max_offset=48):
+        return PlainWarp.apply(x, weight, offset_i, offset_j, dilation, max_offset)
+
+    return warp
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -109,11 +168,22 @@ def main() -> int:
         from fmvfi_tpu_torch.models.phase_net import PhaseNetCore
         from fmvfi_tpu_torch.ops import adacof_cuda
         from fmvfi_tpu_torch.ops.adacof import adacof_warp as warp_plain
+        from fmvfi_tpu_torch.ops.adacof import adacof_warp_field_grads
         from fmvfi_tpu_torch.pipeline.interpolate import (
             FusionModels,
+            _nchw,
             adacof_interpolate,
             fusion_interpolate,
         )
+        from fmvfi_tpu_torch.train.data import SyntheticTriplets, batch_iterator
+        from fmvfi_tpu_torch.train.loop import fit
+        from fmvfi_tpu_torch.train.losses import parse_loss_spec
+        from fmvfi_tpu_torch.train.trainer import (
+            DEFAULT_LOSS,
+            adacof_loss,
+            make_adacof_trainer,
+        )
+        from fmvfi_tpu_torch.utils.checkpoint import Checkpointer
         from fmvfi_tpu_torch.utils.convert import load_adacof_weights, load_fusion_weights
     except ImportError as e:
         print(f"chip_smoke: the fmvfi_tpu_torch package is missing beside {__file__}: {e}",
@@ -191,6 +261,45 @@ def main() -> int:
     if bad:
         raise AssertionError(f"K1 disagrees with its plain version beyond {K1_TOL}: {bad}")
 
+    # k2: K2 against its plain version
+    t0 = time.perf_counter()
+    k2_errs, k2_timings = [], []
+
+    def k2_case(b, c, h, w, f, d, off):
+        x, wgt, a, be = _k1_case(gen, b, c, h, w, f, d, off)
+        return x, wgt, a, be, torch.randn((b, c, h, w), generator=gen, device="cuda")
+
+    def k2_err(args, d, r):
+        got = adacof_cuda.warp_bwd_cuda(*args, d, r)
+        want = adacof_warp_field_grads(*args, d, r)
+        torch.cuda.synchronize()
+        return max(float((k - p).abs().max()) for k, p in zip(got, want))
+
+    for b, c, h, w, f, d, off, r in cases:
+        err = k2_err(k2_case(b, c, h, w, f, d, off), d, r)
+        k2_errs.append(dict(shape=[b, c, h, w], F=f, d=d, offset=off, max_offset=r,
+                            max_abs_err=err))
+    # the training launch (both frames of a batch of 4 at 256x256), then the
+    # 4-image 1080p launch, for the kernel table only
+    for b, h, w in ((8, 256, 256), (4, 1088, 1920)):
+        args = k2_case(b, 3, h, w, 5, 1, 3.0)
+        err = k2_err(args, 1, 48)
+        k2_errs.append(dict(shape=[b, 3, h, w], F=5, d=1, offset=3.0, max_offset=48,
+                            max_abs_err=err))
+        k_ms = _cuda_ms(lambda: adacof_cuda.warp_bwd_cuda(*args, 1, 48), 20)
+        p_ms = _cuda_ms(lambda: adacof_warp_field_grads(*args, 1, 48), 3)
+        bound_ms, bound_by = _k2_bound_ms(b, 3, h, w, 5, 1)
+        k2_timings.append(dict(images=b, x=list(args[0].shape), fields=list(args[1].shape),
+                               ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by))
+        del args
+    torch.cuda.empty_cache()
+    k2_max_err = max(e["max_abs_err"] for e in k2_errs)
+    _line(phase="k2", seconds=time.perf_counter() - t0, tol=K2_TOL, max_abs_err=k2_max_err,
+          cases=k2_errs, timings=k2_timings)
+    bad = [e for e in k2_errs if not e["max_abs_err"] <= K2_TOL]
+    if bad:
+        raise AssertionError(f"K2 disagrees with its plain version beyond {K2_TOL}: {bad}")
+
     # 4. the held number: bundled AdaCoF on the golden scene, through K1
     t0 = time.perf_counter()
     ada = AdaCoFNet().to(dev).eval()
@@ -214,12 +323,13 @@ def main() -> int:
     fusion.load_state_dict(fusion_sd)
     phase = PhaseNetCore().init_params(torch.Generator().manual_seed(0)).to(dev).eval()
     models = FusionModels(phase_net=phase, adacof=ada, fusion_net=fusion)
-    requests = [
-        translation_triplet(H_FULL, W_FULL, dx=4.0 + i, dy=2.0, seed=i) for i in range(4)
-    ]
+    with ThreadPoolExecutor(max_workers=4) as ex:  # numpy releases the GIL
+        requests = list(ex.map(
+            lambda i: translation_triplet(H_FULL, W_FULL, dx=4.0 + i, dy=2.0, seed=i), range(4)
+        ))
     t_setup = time.perf_counter() - t0
 
-    adacof_cuda.launches = 0  # the main path's run starts here
+    adacof_cuda.launches = adacof_cuda.bwd_launches = 0  # the serving path's run
     lat_ms, psnrs, outs = [], [], []
     torch.cuda.reset_peak_memory_stats()
     for i, (r1, rmid, r2) in enumerate(requests):
@@ -241,7 +351,9 @@ def main() -> int:
         psnrs.append(_psnr(o, rmid))
         lat_ms.append(ms)
         outs.append(o)
-    k1_launches = adacof_cuda.launches  # read just after the main path's run
+    k1_launches = adacof_cuda.launches  # read just after the serving path's run
+    if adacof_cuda.bwd_launches != 0:
+        raise AssertionError(f"serving launched K2 {adacof_cuda.bwd_launches} times")
     peak = torch.cuda.max_memory_allocated()
 
     # the same first request with the warp routed to the plain version
@@ -262,14 +374,107 @@ def main() -> int:
     if k1_launches == 0:
         raise AssertionError("the main path launched K1 no time")
 
+    # train: AdaCoF training at 256x256, batch 4, through K1 and K2
+    t0 = time.perf_counter()
+    del models, fusion, phase, outs
+    torch.cuda.empty_cache()
+    state, step_fn = make_adacof_trainer(device=dev)
+    state.model.load_state_dict(load_adacof_weights(ada_path))
+    batches = batch_iterator(SyntheticTriplets(n=32, h=272, w=272), 4, crop=256)
+    step_ms, losses, per_step = [], [], []
+
+    def timed_step(st, batch):
+        before = (adacof_cuda.launches, adacof_cuda.bwd_launches)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        st, m = step_fn(st, batch)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t))
+        losses.append(float(m["loss"]))
+        per_step.append([adacof_cuda.launches - before[0], adacof_cuda.bwd_launches - before[1]])
+        return st, m
+
+    os.makedirs(os.path.join(repo, "build"), exist_ok=True)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_train_", dir=os.path.join(repo, "build"))
+    try:
+        t_setup = time.perf_counter() - t0
+        adacof_cuda.launches = adacof_cuda.bwd_launches = 0  # the training path's run
+        torch.cuda.reset_peak_memory_stats()
+        state = fit(state, timed_step, batches, out_dir, epochs=1,
+                    steps_per_epoch=TRAIN_STEPS + 1, log_every=1, ckpt_every=TRAIN_STEPS + 1)
+        train_k1, train_k2 = adacof_cuda.launches, adacof_cuda.bwd_launches  # read just after
+        train_peak = torch.cuda.max_memory_allocated()
+        if state.step != TRAIN_STEPS + 1 or any(n != [1, 1] for n in per_step):
+            raise AssertionError(f"training: step {state.step}, K1/K2 launches per step {per_step}")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"training: non-finite losses {losses}")
+
+        # the checkpoint: restore it into a fresh trainer, then let fit resume
+        ckpt = Checkpointer(os.path.join(out_dir, "checkpoint"))
+        fresh, fresh_step = make_adacof_trainer(device=dev)
+        fresh = ckpt.restore(fresh)
+        trained = state.model.state_dict()
+        restored_equal = fresh.step == state.step and all(
+            torch.equal(v, trained[k]) for k, v in fresh.model.state_dict().items()
+        )
+        resumed = fit(fresh, fresh_step, batches, out_dir, epochs=1,
+                      steps_per_epoch=TRAIN_STEPS + 2, log_every=1)
+        if not restored_equal or resumed.step != TRAIN_STEPS + 2 or ckpt.latest() != resumed.step:
+            raise AssertionError(
+                f"checkpoint: restored equal {restored_equal}, resumed to step {resumed.step}, "
+                f"latest {ckpt.latest()}"
+            )
+        del fresh, resumed
+
+        # one step's parameter gradients through K1/K2 and through the plain warp
+        batch = [_nchw(a, dev) for a in next(batches)]
+        model, spec = state.model, parse_loss_spec(DEFAULT_LOSS)
+
+        def param_grads(warp):
+            model.warp = warp
+            loss, _ = adacof_loss(model, spec, *batch)
+            return torch.autograd.grad(loss, list(model.parameters()))
+
+        torch.backends.cudnn.deterministic = True
+        try:
+            g_kernel = param_grads(adacof_cuda.adacof_warp)
+            g_plain = param_grads(_plain_warp(warp_plain, adacof_warp_field_grads))
+        finally:
+            model.warp = adacof_cuda.adacof_warp
+            torch.backends.cudnn.deterministic = False
+        grad_ratio = max(
+            float((k - p).abs().max()) / max(float(p.abs().max()), 1e-30)
+            for k, p in zip(g_kernel, g_plain)
+        )
+    finally:
+        batches.close()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    _line(phase="train", seconds=time.perf_counter() - t0, setup_seconds=t_setup,
+          batch=4, crop=256, steps=TRAIN_STEPS, warmup_ms=step_ms[0],
+          ms_per_step=float(np.median(step_ms[1:])), ms_steps=step_ms[1:],
+          peak_memory_bytes=train_peak, loss_first=losses[0], loss_last=losses[-1],
+          k1_launches=train_k1, k2_launches=train_k2, checkpoint_resumed=True,
+          grad_max_rel_diff=grad_ratio, grad_tol=GRAD_TOL)
+    if not grad_ratio <= GRAD_TOL:
+        raise AssertionError(f"gradients through K1/K2 and plain differ by {grad_ratio:.3g} "
+                             f"of the largest gradient > {GRAD_TOL}")
+
     k1_1080 = timings[-1]  # the 4-image launch, the largest on the main path
+    k2_train = k2_timings[0]  # the training launch
     _line(phase="total", seconds=time.perf_counter() - t_all)
     print(smi, flush=True)
     _line(kernels=[dict(
         name=adacof_cuda.NAME, route="cuda", source=adacof_cuda.SOURCE,
-        replaces=adacof_cuda.REPLACES, launches=k1_launches, max_abs_err=max_err,
+        replaces=adacof_cuda.REPLACES, launches=k1_launches + train_k1, max_abs_err=max_err,
         ms=k1_1080["ms"], plain_ms=k1_1080["plain_ms"], bound_ms=k1_1080["bound_ms"],
         bound_by=k1_1080["bound_by"], library_ms=None,
+        launches_by_path=dict(serve=k1_launches, train=train_k1),
+    ), dict(
+        name=adacof_cuda.NAME_BWD, route="cuda", source=adacof_cuda.SOURCE_BWD,
+        replaces=adacof_cuda.REPLACES_BWD, launches=train_k2, max_abs_err=k2_max_err,
+        ms=k2_train["ms"], plain_ms=k2_train["plain_ms"], bound_ms=k2_train["bound_ms"],
+        bound_by=k2_train["bound_by"], library_ms=None,
+        launches_by_path=dict(serve=0, train=train_k2),
     )])
     _line(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),
                                count=torch.cuda.device_count()))

@@ -1,11 +1,12 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
-Every `*.cu` file under `csrc/` is compiled by one `nvcc` call into a shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds), written to `build/fmvfi_tpu_torch/` at the repository root under a
-name keyed by a hash of the sources and flags: a second run with unchanged
-sources loads the existing library instead of rebuilding.  The build happens
-at first use, never at import.
+Every `*.cu` file under `csrc/` is compiled by its own `nvcc` process, all
+started together, and the objects are linked into one shared library with a
+plain C interface (no PyTorch headers, so the build takes seconds), written
+to `build/fmvfi_tpu_torch/` at the repository root under a name keyed by a
+hash of the sources and flags: a second run with unchanged sources loads the
+existing library instead of rebuilding.  The build happens at first use,
+never at import.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "fmvfi_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -37,7 +38,8 @@ _I = ctypes.c_int
 # name -> argtypes of each exported C function (pointers and the stream as
 # void*, sizes as int); restype is int (a cudaError_t) for all of them
 _SIGNATURES = {
-    "adacof_warp_fwd": [_P, _P, _P, _P, _P, _P] + [_I] * 9,
+    "adacof_warp_fwd": [_P] * 6 + [_I] * 9,
+    "adacof_warp_bwd": [_P] * 9 + [_I] * 9,
 }
 
 
@@ -65,6 +67,22 @@ def _library_path() -> Path:
     return BUILD_DIR / f"libfmvfi_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands as parallel processes, wait for every one, and raise
+    RuntimeError with the stderr of those that failed."""
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for cmd in cmds
+    ]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
     """Compile the kernels if no library for the current sources exists;
     return the library's path.  Raises RuntimeError with nvcc's stderr if
@@ -75,21 +93,18 @@ def build() -> Path:
         return path
     nvcc = _find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: a reader never sees half a file
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-            )
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    # compile and link in a private directory, then rename the library: a
+    # reader never sees half a file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, f"{src.stem}.o") for src in _sources()]
+        _run_all([
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            for obj, src in zip(objs, _sources())
+        ])
+        lib = os.path.join(tmp, path.name)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, path)
     build_seconds = time.perf_counter() - t0
     return path
 

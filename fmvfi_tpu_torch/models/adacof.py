@@ -11,7 +11,8 @@ other); the head tail's `conv3_kernel`/`conv3_bias` pair is `final.conv3`.
 AdaCoFNet: reflect-pad the frames to /32, subtract the fixed RGB mean,
 estimate the fields, replicate-pad the frames by (F-1)*d/2, warp both frames
 in one call, occlusion-blend, then the flow mean/variance maps and the
-uncertainty mask, cropped back.
+(detached) uncertainty mask, cropped back.  `smoothness_penalties` gives the
+g_Spatial / g_Occlusion training terms from the raw heads.
 
 Layout: NCHW; fields (B, F^2, H, W).
 """
@@ -161,6 +162,10 @@ class AdaCoFOutputs(NamedTuple):
     occlusion: torch.Tensor  # (B, 1, H, W)
     mean_flow: Tuple[torch.Tensor, torch.Tensor]  # per frame (B, 2, H, W)
     var_flow: Tuple[torch.Tensor, torch.Tensor]
+    # raw estimator outputs at the padded size, for the smoothness losses:
+    # (w1, a1, b1, w2, a2, b2), each (B, F^2, Hp, Wp), and occlusion (B, 1, Hp, Wp)
+    heads: Tuple[torch.Tensor, ...]
+    occ_raw: torch.Tensor
 
 
 def warp_max_offset(kernel_size: int, dilation: int, max_offset: int | None = 48):
@@ -223,9 +228,10 @@ class AdaCoFNet(nn.Module):
         if with_stats:
             mean1, var1 = flow_stats(w1, a1, b1)
             mean2, var2 = flow_stats(w2, a2, b2)
-            # max of the summed variance components, clipped to [0, 20], to [0, 1]
+            # max of the summed variance components, clipped to [0, 20], to
+            # [0, 1]; detached, as the JAX model's stop_gradient
             unc = torch.maximum(var1.sum(1, keepdim=True), var2.sum(1, keepdim=True))
-            unc = torch.clamp(unc, 0.0, 20.0) / 20.0
+            unc = (torch.clamp(unc, 0.0, 20.0) / 20.0).detach()
         else:
             mean1 = mean2 = var1 = var2 = frame0.new_zeros((b, 2) + frame0.shape[2:])
             unc = frame0.new_zeros((b, 1) + frame0.shape[2:])
@@ -241,4 +247,29 @@ class AdaCoFNet(nn.Module):
             occlusion=crop(occ),
             mean_flow=(crop(mean1), crop(mean2)),
             var_flow=(crop(var1), crop(var2)),
+            heads=(w1, a1, b1, w2, a2, b2),
+            occ_raw=occ,
         )
+
+
+def smoothness_penalties(w1, a1, b1, w2, a2, b2, occ, eps: float = 1e-3):
+    """Training regularizers (g_Spatial, g_Occlusion): Charbonnier of the
+    finite differences of the tap-mean weighted offset fields and of the
+    occlusion map.  Fields (B, F^2, H, W), occ (B, 1, H, W)."""
+
+    def charb(d):
+        return torch.mean(torch.sqrt(d**2 + eps**2))
+
+    def grad_penalty(m):  # m: (B, H, W)
+        return charb(m[:, :, :-1] - m[:, :, 1:]) + charb(m[:, :-1, :] - m[:, 1:, :])
+
+    # mean (not sum) over the taps, as the reference's adacofnet.py:203-206
+    g_spatial = (
+        grad_penalty(torch.mean(w1 * a1, dim=1))
+        + grad_penalty(torch.mean(w1 * b1, dim=1))
+        + grad_penalty(torch.mean(w2 * a2, dim=1))
+        + grad_penalty(torch.mean(w2 * b2, dim=1))
+    )
+    o = occ[:, 0]
+    g_occ = charb(o[:, :, :-1] - o[:, :, 1:]) + charb(o[:, :-1, :] - o[:, 1:, :])
+    return g_spatial, g_occ

@@ -9,7 +9,8 @@ the two corner rows / columns clamped to the image separately.  The input is
 pre-padded: H_in = H + (F-1)*d.
 
 `adacof_warp` is the CPU path and the plain version the CUDA kernel K1
-(ops/adacof_cuda.py) is held against.  With `max_offset` set, offsets are
+(ops/adacof_cuda.py) is held against; `adacof_warp_field_grads` is the same
+for the backward kernel K2.  With `max_offset` set, offsets are
 clamped to [-max_offset, max_offset] first (K1's contract); with None the
 warp is unclamped, as the JAX package runs it off the TPU.
 
@@ -91,6 +92,34 @@ def adacof_warp(
         )
         acc = acc + weight[:, t : t + 1] * sample
     return acc
+
+
+def adacof_warp_field_grads(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    offset_i: torch.Tensor,
+    offset_j: torch.Tensor,
+    g: torch.Tensor,
+    dilation: int = 1,
+    max_offset: float | None = None,
+):
+    """Field gradients (dW, dalpha, dbeta) of the plain warp for the output
+    cotangent g (B, C, H, W): autograd through `adacof_warp`, then the
+    saturation mask of the clamped contract, dalpha and dbeta zero where
+    |offset| >= max_offset (the clamp's own gradient lets |offset| == R
+    through).  With max_offset=None: unclamped, no mask.
+
+    The CPU path of the backward kernel K2 (ops/adacof_cuda.py) and the plain
+    version it is held against."""
+    with torch.enable_grad():
+        fields = [t.detach().requires_grad_(True) for t in (weight, offset_i, offset_j)]
+        out = adacof_warp(x.detach(), *fields, dilation, max_offset)
+        dw, da, db = torch.autograd.grad(out, fields, g)
+    if max_offset is not None:
+        r = float(max_offset)
+        da = da * (offset_i.abs() < r).to(da.dtype)
+        db = db * (offset_j.abs() < r).to(db.dtype)
+    return dw, da, db
 
 
 def pad_replicate(x: torch.Tensor, pad: int) -> torch.Tensor:

@@ -1,27 +1,139 @@
-"""K1, the AdaCoF warp forward as a hand-written CUDA kernel
-(csrc/adacof_warp.cu), replacing the Pallas kernel
-fmvfi_tpu/ops/adacof_pallas.py::_kernel.
+"""The AdaCoF warp on the card: K1, the forward (csrc/adacof_warp.cu,
+replacing the Pallas kernel fmvfi_tpu/ops/adacof_pallas.py::_kernel), K2,
+the field gradients (csrc/adacof_warp_bwd.cu, replacing ::_bwd_kernel), and
+K3, the gradient contract around them (`AdaCoFWarp`, replacing
+adacof_warp_fast[_tm] with its custom VJP, adacof_pallas.py:537-673).
 
 `adacof_warp` takes the same arguments as the plain `ops.adacof.adacof_warp`
-with offsets clamped to +-max_offset (None: unclamped).  A CUDA tensor goes
-to the kernel or raises; a CPU tensor goes to the plain version.  Forward
-only: the field gradients (the Pallas backward kernel, K2) come with the
-training slice.
+with offsets clamped to +-max_offset (None: unclamped), and is
+differentiable in the fields.  The gradient contract, on every device:
+  * dx is zero (None when x needs no gradient): the reference's CUDA module
+    never computed it, and every trainer warps data frames;
+  * dW, dalpha, dbeta are the true gradients of the clamped forward: dalpha
+    and dbeta are zero where |offset| >= max_offset.
+CUDA tensors go to K1 / K2 or raise; CPU tensors go to the plain versions
+(`adacof_warp`, `adacof_warp_field_grads` of ops/adacof.py).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from .. import _build
 from .adacof import adacof_warp as adacof_warp_plain
-from .adacof import check_warp_shapes
+from .adacof import adacof_warp_field_grads, check_warp_shapes
 
 NAME = "adacof_warp_fwd"
 SOURCE = "fmvfi_tpu_torch/csrc/adacof_warp.cu"
 REPLACES = "fmvfi_tpu/ops/adacof_pallas.py:54"
+NAME_BWD = "adacof_warp_bwd"
+SOURCE_BWD = "fmvfi_tpu_torch/csrc/adacof_warp_bwd.cu"
+REPLACES_BWD = "fmvfi_tpu/ops/adacof_pallas.py:267"
 
-launches = 0  # kernel launches since the last reset (set to 0 to reset)
+launches = 0  # K1 launches since the last reset (set to 0 to reset)
+bwd_launches = 0  # K2 launches since the last reset
+
+
+def _on_cpu(tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def _check_cuda(kernel: str, tensors, dilation, max_offset):
+    """Validate a kernel's inputs (x and the three fields first); return
+    (F, H, W, R) with R = -1 for no clamp."""
+    x = tensors[0]
+    if any(t.device != x.device for t in tensors) or x.device.type != "cuda":
+        raise ValueError(
+            f"{kernel} takes tensors on one CUDA device, got {[str(t.device) for t in tensors]}"
+        )
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"{kernel} takes float32, got {[t.dtype for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{kernel} takes contiguous tensors")
+    k, h, w = check_warp_shapes(*tensors[:4], dilation)
+    r = -1 if max_offset is None else int(max_offset)
+    if max_offset is not None and (r != max_offset or r < 0):
+        raise ValueError(f"max_offset must be a non-negative integer or None, got {max_offset}")
+    return k, h, w, r
+
+
+def _call(err: int, kernel: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
+
+
+def warp_fwd_cuda(x, weight, offset_i, offset_j, dilation, max_offset) -> torch.Tensor:
+    """K1: the clamped warp of CUDA tensors; returns (B, C, H, W)."""
+    global launches
+    tensors = (x, weight, offset_i, offset_j)
+    k, h, w, r = _check_cuda("K1", tensors, dilation, max_offset)
+    b, c, h_in, w_in = x.shape
+    lib = _build.library()
+    out = torch.empty((b, c, h, w), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _call(lib.adacof_warp_fwd(
+            x.data_ptr(), weight.data_ptr(), offset_i.data_ptr(),
+            offset_j.data_ptr(), out.data_ptr(), stream,
+            k, dilation, r, b, c, h, w, h_in, w_in,
+        ), NAME)
+    launches += 1
+    return out
+
+
+def warp_bwd_cuda(x, weight, offset_i, offset_j, g, dilation, max_offset):
+    """K2: the field gradients (dW, dalpha, dbeta) of the clamped warp of
+    CUDA tensors for the output cotangent g (B, C, H, W), saturation mask
+    applied; each (B, F*F, H, W)."""
+    global bwd_launches
+    tensors = (x, weight, offset_i, offset_j, g)
+    k, h, w, r = _check_cuda("K2", tensors, dilation, max_offset)
+    b, c, h_in, w_in = x.shape
+    if tuple(g.shape) != (b, c, h, w):
+        raise ValueError(f"cotangent {tuple(g.shape)} is not the output shape {(b, c, h, w)}")
+    lib = _build.library()
+    dw, da, db = (torch.empty_like(weight) for _ in range(3))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _call(lib.adacof_warp_bwd(
+            x.data_ptr(), weight.data_ptr(), offset_i.data_ptr(),
+            offset_j.data_ptr(), g.data_ptr(), dw.data_ptr(), da.data_ptr(),
+            db.data_ptr(), stream, k, dilation, r, b, c, h, w, h_in, w_in,
+        ), NAME_BWD)
+    bwd_launches += 1
+    return dw, da, db
+
+
+class AdaCoFWarp(torch.autograd.Function):
+    """K3: the clamped warp with the gradient contract of the module
+    docstring; K1 / K2 on CUDA tensors, the plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, x, weight, offset_i, offset_j, dilation, max_offset):
+        tensors = (x, weight, offset_i, offset_j)
+        if _on_cpu(tensors):
+            out = adacof_warp_plain(x, weight, offset_i, offset_j, dilation, max_offset)
+        else:
+            out = warp_fwd_cuda(x, weight, offset_i, offset_j, dilation, max_offset)
+        # the raw (unclamped) offsets: the saturation mask reads them
+        ctx.save_for_backward(x, weight, offset_i, offset_j)
+        ctx.dilation, ctx.max_offset = dilation, max_offset
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, weight, offset_i, offset_j = ctx.saved_tensors
+        # g reaches the warp through slices and a crop: often not contiguous
+        g = g.contiguous()
+        args = (x, weight, offset_i, offset_j, g, ctx.dilation, ctx.max_offset)
+        if _on_cpu((x, weight, offset_i, offset_j, g)):
+            dw, da, db = adacof_warp_field_grads(*args)
+        else:
+            dw, da, db = warp_bwd_cuda(*args)
+        dx = torch.zeros_like(x) if ctx.needs_input_grad[0] else None
+        return dx, dw, da, db, None, None
 
 
 def adacof_warp(
@@ -32,42 +144,7 @@ def adacof_warp(
     dilation: int = 1,
     max_offset: int | None = 48,
 ) -> torch.Tensor:
-    """AdaCoF warp, offsets clamped to +-max_offset.  x (B, C, H_in, W_in)
-    pre-padded by (F-1)*dilation; fields (B, F*F, H, W); returns (B, C, H, W)."""
-    global launches
-    tensors = (x, weight, offset_i, offset_j)
-    if all(t.device.type == "cpu" for t in tensors):
-        return adacof_warp_plain(x, weight, offset_i, offset_j, dilation, max_offset)
-    if any(t.device != x.device for t in tensors) or x.device.type != "cuda":
-        raise ValueError(
-            f"K1 takes tensors on one CUDA device, got {[str(t.device) for t in tensors]}"
-        )
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors[1:]):
-        raise NotImplementedError(
-            "K1 is forward only: the field gradients need the AdaCoF warp "
-            "backward kernel K2 (fmvfi_tpu/ops/adacof_pallas.py::_bwd_kernel), "
-            "which is not ported yet"
-        )
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"K1 takes float32, got {[t.dtype for t in tensors]}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("K1 takes contiguous tensors")
-    k, h, w = check_warp_shapes(x, weight, offset_i, offset_j, dilation)
-    b, c, h_in, w_in = x.shape
-    r = -1 if max_offset is None else int(max_offset)
-    if max_offset is not None and (r != max_offset or r < 0):
-        raise ValueError(f"max_offset must be a non-negative integer or None, got {max_offset}")
-
-    lib = _build.library()
-    out = torch.empty((b, c, h, w), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        err = lib.adacof_warp_fwd(
-            x.data_ptr(), weight.data_ptr(), offset_i.data_ptr(),
-            offset_j.data_ptr(), out.data_ptr(), stream,
-            k, dilation, r, b, c, h, w, h_in, w_in,
-        )
-    if err != 0:
-        raise RuntimeError(f"{NAME} launch failed: cudaError {err}")
-    launches += 1
-    return out
+    """AdaCoF warp, offsets clamped to +-max_offset, differentiable in the
+    fields.  x (B, C, H_in, W_in) pre-padded by (F-1)*dilation; fields
+    (B, F*F, H, W); returns (B, C, H, W)."""
+    return AdaCoFWarp.apply(x, weight, offset_i, offset_j, dilation, max_offset)

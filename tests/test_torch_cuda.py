@@ -1,4 +1,4 @@
-"""fmvfi_tpu_torch's CUDA kernels on the card.  This file imports neither
+"""fmvfi_tpu_torch's CUDA kernels (K1 and K2) on the card.  This file imports neither
 jax nor flax, so it also runs on the card's machine, which has neither:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
@@ -16,7 +16,7 @@ from fmvfi_tpu_torch.ops import adacof_cuda
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K1 has no CPU mode")
+        pytest.skip("needs a CUDA card: K1 and K2 have no CPU mode")
     return torch.device("cuda")
 
 
@@ -49,8 +49,69 @@ def test_k1_wrapper_checks_its_inputs(cuda_device):
         adacof_cuda.adacof_warp(x, w.transpose(2, 3).contiguous().transpose(2, 3), a, b, 1, 48)
     with pytest.raises(ValueError):
         adacof_cuda.adacof_warp(x, w.cpu(), a, b, 1, 48)
-    with pytest.raises(NotImplementedError, match="K2"):
-        adacof_cuda.adacof_warp(x, w.requires_grad_(), a, b, 1, 48)
+    with pytest.raises(ValueError):
+        adacof_cuda.warp_bwd_cuda(x, w, a, b, torch.rand((1, 3, 8, 9), device=cuda_device), 1, 48)
+    # fields that need a gradient go through K1, then K2 on the way back
+    before = (adacof_cuda.launches, adacof_cuda.bwd_launches)
+    adacof_cuda.adacof_warp(x, w.requires_grad_(), a, b, 1, 48).sum().backward()
+    torch.cuda.synchronize()
+    assert (adacof_cuda.launches, adacof_cuda.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert w.grad is not None and w.grad.device == x.device
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f,d,r", [(5, 1, 48), (5, 2, 48), (11, 1, 48), (11, 2, 48), (5, 1, None)])
+def test_k2_matches_plain_on_the_card(cuda_device, f, d, r):
+    """K2 against its plain version (autograd of the plain warp, saturation
+    mask) on the card: offsets to +-60 so that the 48 px clamp saturates, an
+    unaligned 37x53 output, softmax-normalised weights, within 1e-4."""
+    g = torch.Generator(device=cuda_device).manual_seed(f * 10 + d)
+    b, c, h, w = 2, 3, 37, 53
+    x = torch.rand((b, c, h + (f - 1) * d, w + (f - 1) * d), generator=g, device=cuda_device)
+    fields = [torch.rand((b, f * f, h, w), generator=g, device=cuda_device) for _ in range(3)]
+    wgt = torch.softmax(4.0 * fields[0], dim=1)
+    a, be = ((t * 2 - 1) * 60 for t in fields[1:])
+    cot = torch.randn((b, c, h, w), generator=g, device=cuda_device)
+    before = adacof_cuda.bwd_launches
+    got = adacof_cuda.warp_bwd_cuda(x, wgt, a, be, cot, d, r)
+    torch.cuda.synchronize()
+    assert adacof_cuda.bwd_launches == before + 1
+    want = pt_adacof.adacof_warp_field_grads(x, wgt, a, be, cot, d, r)
+    for k, o in zip(got, want):
+        torch.testing.assert_close(k, o, rtol=0, atol=1e-4)
+    if r is not None:
+        assert (got[1][a.abs() >= r] == 0).all() and (got[2][be.abs() >= r] == 0).all()
+
+
+@pytest.mark.gpu
+def test_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """One AdaCoF train step at 64x64, batch 2, random weights: the loss and
+    the updated params on the card (K1 once, K2 once, fp32, TF32 off,
+    deterministic cuDNN) against the same step on the CPU."""
+    import numpy as np
+
+    from fmvfi_tpu_torch.eval.synth import translation_triplet
+    from fmvfi_tpu_torch.train.trainer import make_adacof_trainer
+
+    items = [translation_triplet(64, 64, dx=3.0 + i, dy=1.0, seed=i) for i in range(2)]
+    batch = tuple(np.stack([it[j] for it in items]) for j in range(3))
+    cpu_state, cpu_step = make_adacof_trainer(device="cpu")
+    card_state, card_step = make_adacof_trainer(device=cuda_device)
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = False, True
+    try:
+        before = (adacof_cuda.launches, adacof_cuda.bwd_launches)
+        card_state, card_m = card_step(card_state, batch)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = flags
+    assert (adacof_cuda.launches, adacof_cuda.bwd_launches) == (before[0] + 1, before[1] + 1)
+    cpu_state, cpu_m = cpu_step(cpu_state, batch)
+    for k in cpu_m:
+        assert abs(float(card_m[k]) - float(cpu_m[k])) <= 1e-5 * abs(float(cpu_m[k])), k
+    card_sd = card_state.model.state_dict()
+    for k, v in cpu_state.model.state_dict().items():
+        torch.testing.assert_close(card_sd[k].cpu(), v, rtol=0, atol=1e-4, msg=k)
 
 
 @pytest.mark.gpu

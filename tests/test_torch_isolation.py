@@ -27,7 +27,9 @@ CKPTS = [
     os.path.join(ROOT, "checkpoints", "adacof_synth_demo.msgpack"),
     os.path.join(ROOT, "checkpoints", "fusion_synth_demo.msgpack"),
 ]
-FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "fmvfi_tpu", "cv2", "matplotlib")
+FORBIDDEN = (
+    "jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "fmvfi_tpu", "cv2", "matplotlib",
+)
 GOLDEN_DB, GOLDEN_TOL = 42.967, 0.05  # tests/test_golden.py, bundled AdaCoF
 
 _ISOLATED = f"""
@@ -72,8 +74,43 @@ def test_port_runs_without_jax_flax_msgpack_or_fmvfi_tpu():
     assert abs(res["psnr"] - GOLDEN_DB) < GOLDEN_TOL, res["psnr"]
 
 
+_TRAIN_ISOLATED = f"""
+import json, sys, tempfile
+for name in {FORBIDDEN!r}:
+    sys.modules[name] = None  # any import of these raises ImportError
+import torch
+from fmvfi_tpu_torch.ops import adacof_cuda
+from fmvfi_tpu_torch.train.data import SyntheticTriplets, batch_iterator
+from fmvfi_tpu_torch.train.loop import fit
+from fmvfi_tpu_torch.train.trainer import make_adacof_trainer
+from fmvfi_tpu_torch.utils.checkpoint import Checkpointer
+state, step = make_adacof_trainer(device="cpu")
+with tempfile.TemporaryDirectory() as out:
+    batches = batch_iterator(SyntheticTriplets(n=4, h=40, w=40), 2, crop=32)
+    state = fit(state, step, batches, out, epochs=1, steps_per_epoch=2, log_every=1)
+    latest = Checkpointer(out + "/checkpoint").latest()
+w = torch.rand(1, 9, 6, 6, requires_grad=True)
+adacof_cuda.AdaCoFWarp.apply(torch.rand(1, 3, 8, 8), w, torch.zeros_like(w), torch.zeros_like(w), 1, 4).sum().backward()
+leaked = sorted(n for n in sys.modules if n.split(".")[0] in {FORBIDDEN!r} and sys.modules[n])
+print(json.dumps(dict(step=state.step, latest=latest, grad=float(w.grad.abs().sum()), leaked=leaked)))
+"""
+
+
+def test_training_runs_without_jax_flax_optax_or_fmvfi_tpu():
+    """The training slice (trainer, K3, data, fit, checkpoints) imports and
+    runs two steps on the CPU with the reference's libraries blocked."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _TRAIN_ISOLATED], cwd=ROOT, capture_output=True, text=True,
+        timeout=600,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["step"] == 2 and res["latest"] == 2 and res["grad"] > 0
+    assert res["leaked"] == []
+
+
 def _py_files():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tools", "torch_train_profile.py")]
     for d, _, names in os.walk(PACKAGE):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -156,3 +193,41 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
     assert not (tmp_path / "build").exists()
+
+
+_FAKE_NVCC = """#!{python}
+import os, sys, time
+args = sys.argv[1:]
+with open({log!r}, "a") as f:
+    f.write(f"start {{time.time()}} {{' '.join(args)}}\\n")
+if "-c" in args:
+    time.sleep(0.5)
+open(args[args.index("-o") + 1], "w").write("built")
+with open({log!r}, "a") as f:
+    f.write(f"end {{time.time()}} {{' '.join(args)}}\\n")
+"""
+
+
+def test_build_compiles_each_source_in_parallel_then_links(monkeypatch, tmp_path):
+    """One nvcc per csrc/*.cu, all started together, then one link into
+    the library (a stand-in nvcc records its calls)."""
+    log = tmp_path / "nvcc.log"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(_FAKE_NVCC.format(python=sys.executable, log=str(log)))
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build.shutil, "which", lambda name: str(nvcc))
+    path = _build.build()
+    assert path.read_text() == "built" and path.parent == tmp_path / "build"
+    assert os.listdir(tmp_path / "build") == [path.name]  # no temporaries left
+    calls = [line.split(" ", 2) for line in log.read_text().splitlines()]
+    compiles = [c for c in calls if " -c " in f" {c[2]} "]
+    sources = [str(p) for p in _build._sources()]
+    assert len(sources) >= 2 and "adacof_warp_bwd.cu" in " ".join(sources)
+    assert sorted(c[2].split()[-1] for c in compiles if c[0] == "start") == sorted(sources)
+    starts = [float(c[1]) for c in compiles if c[0] == "start"]
+    ends = [float(c[1]) for c in compiles if c[0] == "end"]
+    assert max(starts) < min(ends)  # every compile started before any ended
+    link = [c for c in calls if c[0] == "start" and "-shared" in c[2]]
+    assert len(link) == 1 and float(link[0][1]) >= max(ends)
+    assert _build.build() == path  # a second build finds the library

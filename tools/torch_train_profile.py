@@ -1,0 +1,106 @@
+#!/usr/bin/env python3
+"""Where the time of one AdaCoF training step of fmvfi_tpu_torch goes on a
+CUDA card.
+
+    python3 tools/torch_train_profile.py
+
+Builds the port's AdaCoF trainer (random weights from seed 0, fp32 with TF32
+off, the default loss and Adamax), takes 3 warm-up steps on a seeded
+synthetic batch of 4 at 256x256 (the training shape of chip_smoke.py), then
+traces 5 steps with torch.profiler and prints one JSON
+line: the host ms per step (the step ends in a synchronize), the device's
+kernel ms per step and its idle share, the kernel time of K1, K2 and the
+convolutions per step, and the top kernels.  Exits non-zero without a card.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+STEPS, BATCH, CROP = 5, 4, 256
+CONV_MARKS = ("conv", "cudnn", "xmma", "implicit_gemm", "wgrad", "dgrad", "fprop", "winograd")
+
+
+def _device_us(avg) -> float:
+    """Self device time of a profiler average, across torch versions."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(avg, name):
+            return float(getattr(avg, name))
+    return 0.0
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_train_profile: no CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from fmvfi_tpu_torch.eval.synth import translation_triplet
+    from fmvfi_tpu_torch.ops import adacof_cuda
+    from fmvfi_tpu_torch.train.data import augment_triplet
+    from fmvfi_tpu_torch.train.trainer import make_adacof_trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    rng = np.random.default_rng(0)
+    size = CROP + 16
+    items = [
+        augment_triplet(translation_triplet(size, size, dx=2.0 + i, dy=1.0, seed=i), rng,
+                        crop=CROP)
+        for i in range(BATCH)
+    ]
+    batch = tuple(np.stack([it[j] for it in items]) for j in range(3))
+    state, step = make_adacof_trainer(device="cuda")
+    for _ in range(3):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+
+    from torch.profiler import ProfilerActivity, profile
+
+    adacof_cuda.launches = adacof_cuda.bwd_launches = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    # device work only: kernels and copies have no host time of their own;
+    # operators and annotated ranges (Optimizer.step#...) do
+    kernels = {}
+    for avg in prof.key_averages():
+        us = _device_us(avg)
+        if us > 0 and avg.cpu_time_total == 0 and "#" not in avg.key:
+            kernels[avg.key] = kernels.get(avg.key, 0.0) + us
+    busy_ms = sum(kernels.values()) / 1e3
+    per_step = lambda ms: ms / STEPS  # noqa: E731
+
+    def group(pred):
+        return per_step(sum(us for k, us in kernels.items() if pred(k.lower())) / 1e3)
+
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    print(json.dumps(dict(
+        nvidia_smi=smi, torch=torch.__version__, batch=BATCH, crop=CROP, steps=STEPS, k1_launches=adacof_cuda.launches,
+        k2_launches=adacof_cuda.bwd_launches,
+        host_ms_per_step=per_step(wall_ms),
+        device_ms_per_step=per_step(busy_ms) if busy_ms > 0 else None,
+        device_idle_share=(1.0 - busy_ms / wall_ms) if busy_ms > 0 else None,
+        k1_ms_per_step=group(lambda k: "adacof_warp_fwd" in k),
+        k2_ms_per_step=group(lambda k: "adacof_warp_bwd" in k),
+        conv_ms_per_step=group(lambda k: any(m in k for m in CONV_MARKS)),
+        top_kernels_ms_per_step=[[k[:120], per_step(us / 1e3)] for k, us in top],
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+    )))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
