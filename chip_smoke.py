@@ -8,25 +8,40 @@ Phases, each printing one JSON line with its seconds:
   2. build  - nvcc builds the package's CUDA kernels (K1, the AdaCoF warp,
               and K2, its field gradients), one nvcc per source in parallel;
   3. k1     - K1 against its plain PyTorch version on the card (max abs error
-              <= 1e-5, f32) over F in {5, 11}, d in {1, 2}, unaligned sizes,
-              offsets to +-60, and the main path's 1080p shapes, with the
-              kernel's and the plain version's times and the byte bound;
+              <= 1e-5, f32) over every instantiation (F 5 and 11 with C 3;
+              F and C at run time, here F 7 and F 3 with C 5), each through
+              the asynchronous-copy ring (W % 4 == 0) and without it (the
+              unaligned 37x53 cases), d in {1, 2}, offsets to +-60 with
+              max_offset 48 and None, the training launch and the main
+              path's 1080p launches, with the kernel's and the plain
+              version's times and the byte bound;
   k2        - K2 against its plain version (autograd of the plain warp plus
-              the saturation mask; max abs error <= 1e-4) over K1's cases and
-              the training launch, with times and bounds at the training
-              launch and at the 4-image 1080p launch;
+              the saturation mask; max abs error <= 1e-4) over K1's cases,
+              on the RGBX copy of x that K1 wrote, as on the training path,
+              with times and bounds at the training launch and at the
+              4-image 1080p launch;
+  stress    - K1 and K2 launched back to back STRESS_LAUNCHES times each at
+              the 2- and 4-image 1080p launches: every result bit-equal to
+              the first, and the first within 1e-5 / 1e-4 of the plain
+              version (a race in the ring would show as a difference);
   4. golden - adacof_interpolate with the bundled weights on the 128x128
               translation scene through K1: 42.967 +- 0.05 dB;
+  fields    - K1 and K2 timed (and held against their plain versions) on
+              the fields the bundled AdaCoF gives for the golden scene
+              rendered at 1080x1920 (both frames: a 2-image launch), beside
+              the same launch on uniform +-3 px offsets;
   5. serve  - fusion_interpolate at 1080x1920, batch 1, with the bundled
               AdaCoF and FusionNet weights and a seeded PhaseNet: 1 warm-up
               and 3 timed requests on seeded synthetic pairs; K1 must launch
-              exactly 3 times per request, the output must be finite and in
+              exactly 3 times per request, through the asynchronous-copy
+              F5C3 instantiation, the output must be finite and in
               [0, 1], and the output through K1 must agree with the output
               through the plain warp at >= 60 dB PSNR;
   train     - AdaCoF training from the bundled weights: make_adacof_trainer
               and fit over batch_iterator(SyntheticTriplets(n=32, h=272,
               w=272), 4, crop=256), fp32, TF32 off, 1 warm-up and 20 timed
-              steps; K1 and K2 must each launch exactly once per step, every
+              steps; K1 and K2 must each launch exactly once per step,
+              through the asynchronous-copy F5C3 instantiation, every
               loss must be finite, a checkpoint must be written and a second
               fit must resume from it, and one step's parameter gradients
               through K1/K2 must agree with the same step through the plain
@@ -51,10 +66,17 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
+RING_PATH = "f5c3/ring"  # the instantiation of every launch on the main paths
+DESIGN = (  # of K1 and K2, for the kernels line
+    "8x64 tiles; fields through a 4-stage shared-memory ring of bulk async copies "
+    "(cp.async.bulk, mbarriers, L2 evict-first) fed by a producer warp; RGBX corner "
+    "gathers for C=3 and F 5 or 11 (K2 reuses K1's RGBX copy); tap loop unrolled for F 5 and 11"
+)
 K1_TOL = 1e-5
 K2_TOL = 1e-4
 GRAD_TOL = 1e-4  # of each parameter tensor's largest gradient
 TRAIN_STEPS = 20  # timed, after one warm-up step
+STRESS_LAUNCHES = 1000  # per kernel and launch shape
 GOLDEN_DB, GOLDEN_TOL = 42.967, 0.05
 PLAIN_AGREEMENT_DB = 60.0
 H_FULL, W_FULL = 1080, 1920
@@ -69,8 +91,10 @@ def _psnr(a, b):
     return float("inf") if mse == 0 else -10.0 * np.log10(mse)
 
 
-def _cuda_ms(fn, reps):
-    """Median over `reps` launches of fn, each timed with CUDA events."""
+def _cuda_ms(fn, reps, inner=10):
+    """Median over `reps` of the mean time of `inner` back-to-back calls of
+    fn, timed with CUDA events (back to back, so that the host's work per
+    call overlaps the device's, as on the main paths)."""
     import torch
 
     fn()
@@ -80,10 +104,11 @@ def _cuda_ms(fn, reps):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        fn()
+        for _ in range(inner):
+            fn()
         e1.record()
         e1.synchronize()
-        times.append(e0.elapsed_time(e1))
+        times.append(e0.elapsed_time(e1) / inner)
     return float(np.median(times))
 
 
@@ -218,87 +243,150 @@ def main() -> int:
     _line(phase="build", seconds=time.perf_counter() - t0, nvcc_seconds=_build.build_seconds,
           library=os.path.relpath(lib_path, repo))
 
-    # 3. K1 against its plain version
+    # 3. K1 against its plain version, over every instantiation
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [
-        # (b, c, h, w, F, d, max |offset|, max_offset)
+        # (b, c, h, w, F, d, max |offset|, max_offset); W = 53 runs without
+        # the ring (fields rows not 16-byte aligned), W % 4 == 0 through it
         (2, 3, 37, 53, 5, 1, 60.0, 48),
         (2, 3, 37, 53, 5, 2, 60.0, 48),
         (1, 3, 37, 53, 11, 1, 60.0, 48),
         (1, 3, 37, 53, 11, 2, 60.0, 48),
         (2, 3, 37, 53, 5, 1, 60.0, None),
+        (2, 3, 37, 53, 7, 2, 60.0, 48),  # F at run time (planar x)
+        (1, 5, 37, 53, 3, 2, 4.0, 10),  # F and C at run time, C in two passes
+        (2, 3, 37, 52, 5, 1, 60.0, 48),  # ragged tiles at both edges
+        (2, 3, 40, 64, 5, 2, 60.0, None),
+        (1, 3, 40, 136, 11, 1, 60.0, 48),
+        (1, 3, 40, 64, 11, 2, 60.0, None),
+        (2, 3, 37, 52, 7, 1, 60.0, 48),
         (1, 5, 40, 64, 3, 1, 4.0, 10),
     ]
-    errs = []
+
+    def took(counter, fn):
+        """fn's result and the instantiation its one launch took."""
+        before = dict(counter)
+        out = fn()
+        new = [k for k in counter if counter[k] != before.get(k, 0)]
+        if len(new) != 1:
+            raise AssertionError(f"expected one launch, the counts moved for {new}")
+        return out, new[0]
+
+    errs, k1_seen = [], set()
     for b, c, h, w, f, d, off, r in cases:
         x, wgt, a, be = _k1_case(gen, b, c, h, w, f, d, off)
-        got = adacof_cuda.adacof_warp(x, wgt, a, be, d, r)
+        got, path = took(adacof_cuda.paths, lambda: adacof_cuda.adacof_warp(x, wgt, a, be, d, r))
         torch.cuda.synchronize()
         err = float((got - warp_plain(x, wgt, a, be, d, r)).abs().max())
-        errs.append(dict(shape=[b, c, h, w], F=f, d=d, offset=off, max_offset=r, max_abs_err=err))
+        k1_seen.add(path)
+        errs.append(dict(shape=[b, c, h, w], F=f, d=d, offset=off, max_offset=r, path=path,
+                         max_abs_err=err))
     timings = []
-    for b in (2, 4):  # the main path's launches: 2B and 4B images for B = 1
-        h, w = 1088, 1920  # AdaCoF pads 1080 to /32
+    # the training launch (both frames of a batch of 4 at 256x256), then the
+    # main path's 1080p launches: 2B and 4B images for B = 1 (AdaCoF pads
+    # 1080 to /32)
+    for b, h, w in ((8, 256, 256), (2, 1088, 1920), (4, 1088, 1920)):
         x, wgt, a, be = _k1_case(gen, b, 3, h, w, 5, 1, 3.0)
-        got = adacof_cuda.adacof_warp(x, wgt, a, be, 1, 48)
+        k_ms = _cuda_ms(lambda: adacof_cuda.adacof_warp(x, wgt, a, be, 1, 48), 10)
+        p_ms = _cuda_ms(lambda: warp_plain(x, wgt, a, be, 1, 48), 3, inner=1)
+        # checked after the timed launches
+        got, path = took(adacof_cuda.paths, lambda: adacof_cuda.adacof_warp(x, wgt, a, be, 1, 48))
         want = warp_plain(x, wgt, a, be, 1, 48)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        errs.append(dict(shape=[b, 3, h, w], F=5, d=1, offset=3.0, max_offset=48, max_abs_err=err))
+        errs.append(dict(shape=[b, 3, h, w], F=5, d=1, offset=3.0, max_offset=48, path=path,
+                         max_abs_err=err))
         del got, want
-        k_ms = _cuda_ms(lambda: adacof_cuda.adacof_warp(x, wgt, a, be, 1, 48), 20)
-        p_ms = _cuda_ms(lambda: warp_plain(x, wgt, a, be, 1, 48), 3)
         bound_ms, bound_by = _k1_bound_ms(b, 3, h, w, 5, 1)
         timings.append(dict(images=b, x=list(x.shape), fields=list(wgt.shape), ms=k_ms,
-                            plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by))
+                            plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by,
+                            share_of_bound=bound_ms / k_ms))
         del x, wgt, a, be
     torch.cuda.empty_cache()
     max_err = max(e["max_abs_err"] for e in errs)
     _line(phase="k1", seconds=time.perf_counter() - t0, tol=K1_TOL, max_abs_err=max_err,
-          cases=errs, timings_1080p=timings)
+          instantiations=sorted(k1_seen), cases=errs, timings=timings)
     bad = [e for e in errs if not e["max_abs_err"] <= K1_TOL]
     if bad:
         raise AssertionError(f"K1 disagrees with its plain version beyond {K1_TOL}: {bad}")
+    if k1_seen != set(adacof_cuda.PATH_NAMES):
+        missed = set(adacof_cuda.PATH_NAMES) - k1_seen
+        raise AssertionError(f"K1 cases missed instantiations {missed}")
 
     # k2: K2 against its plain version
     t0 = time.perf_counter()
-    k2_errs, k2_timings = [], []
+    k2_errs, k2_timings, k2_seen = [], [], set()
 
     def k2_case(b, c, h, w, f, d, off):
         x, wgt, a, be = _k1_case(gen, b, c, h, w, f, d, off)
         return x, wgt, a, be, torch.randn((b, c, h, w), generator=gen, device="cuda")
 
     def k2_err(args, d, r):
-        got = adacof_cuda.warp_bwd_cuda(*args, d, r)
+        x4 = adacof_cuda.warp_fwd_cuda(*args[:4], d, r)[1]  # K1's RGBX copy, as K3 keeps it
+        got, path = took(adacof_cuda.bwd_paths,
+                         lambda: adacof_cuda.warp_bwd_cuda(*args, d, r, x4))
         want = adacof_warp_field_grads(*args, d, r)
         torch.cuda.synchronize()
-        return max(float((k - p).abs().max()) for k, p in zip(got, want))
+        k2_seen.add(path)
+        return max(float((k - p).abs().max()) for k, p in zip(got, want)), path
 
     for b, c, h, w, f, d, off, r in cases:
-        err = k2_err(k2_case(b, c, h, w, f, d, off), d, r)
-        k2_errs.append(dict(shape=[b, c, h, w], F=f, d=d, offset=off, max_offset=r,
+        err, path = k2_err(k2_case(b, c, h, w, f, d, off), d, r)
+        k2_errs.append(dict(shape=[b, c, h, w], F=f, d=d, offset=off, max_offset=r, path=path,
                             max_abs_err=err))
-    # the training launch (both frames of a batch of 4 at 256x256), then the
-    # 4-image 1080p launch, for the kernel table only
+    # the training launch, then the 4-image 1080p launch, for the kernel table
     for b, h, w in ((8, 256, 256), (4, 1088, 1920)):
         args = k2_case(b, 3, h, w, 5, 1, 3.0)
-        err = k2_err(args, 1, 48)
-        k2_errs.append(dict(shape=[b, 3, h, w], F=5, d=1, offset=3.0, max_offset=48,
+        x4 = adacof_cuda.warp_fwd_cuda(*args[:4], 1, 48)[1]
+        k_ms = _cuda_ms(lambda: adacof_cuda.warp_bwd_cuda(*args, 1, 48, x4=x4), 10)
+        p_ms = _cuda_ms(lambda: adacof_warp_field_grads(*args, 1, 48), 3, inner=1)
+        err, path = k2_err(args, 1, 48)  # checked after the timed launches
+        k2_errs.append(dict(shape=[b, 3, h, w], F=5, d=1, offset=3.0, max_offset=48, path=path,
                             max_abs_err=err))
-        k_ms = _cuda_ms(lambda: adacof_cuda.warp_bwd_cuda(*args, 1, 48), 20)
-        p_ms = _cuda_ms(lambda: adacof_warp_field_grads(*args, 1, 48), 3)
         bound_ms, bound_by = _k2_bound_ms(b, 3, h, w, 5, 1)
         k2_timings.append(dict(images=b, x=list(args[0].shape), fields=list(args[1].shape),
-                               ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by))
-        del args
+                               ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by,
+                               share_of_bound=bound_ms / k_ms))
+        del args, x4
     torch.cuda.empty_cache()
     k2_max_err = max(e["max_abs_err"] for e in k2_errs)
     _line(phase="k2", seconds=time.perf_counter() - t0, tol=K2_TOL, max_abs_err=k2_max_err,
-          cases=k2_errs, timings=k2_timings)
+          instantiations=sorted(k2_seen), cases=k2_errs, timings=k2_timings)
     bad = [e for e in k2_errs if not e["max_abs_err"] <= K2_TOL]
     if bad:
         raise AssertionError(f"K2 disagrees with its plain version beyond {K2_TOL}: {bad}")
+    if k2_seen != set(adacof_cuda.PATH_NAMES):
+        missed = set(adacof_cuda.PATH_NAMES) - k2_seen
+        raise AssertionError(f"K2 cases missed instantiations {missed}")
+
+    # stress: many back-to-back launches of K1 and K2 at the 1080p launches
+    t0 = time.perf_counter()
+    stress = []
+    for b in (2, 4):
+        args = k2_case(b, 3, 1088, 1920, 5, 1, 3.0)
+        first, x4 = adacof_cuda.warp_fwd_cuda(*args[:4], 1, 48)
+        first_g = adacof_cuda.warp_bwd_cuda(*args, 1, 48, x4=x4)
+        k1_err = float((first - warp_plain(*args[:4], 1, 48)).abs().max())
+        k2_err_ = max(float((k - p).abs().max())
+                      for k, p in zip(first_g, adacof_warp_field_grads(*args, 1, 48)))
+        k1_diff = torch.zeros((), dtype=torch.int64, device="cuda")
+        k2_diff = torch.zeros((), dtype=torch.int64, device="cuda")
+        for _ in range(STRESS_LAUNCHES):  # no host synchronization in the loop
+            k1_diff += (adacof_cuda.warp_fwd_cuda(*args[:4], 1, 48)[0] != first).any()
+        for _ in range(STRESS_LAUNCHES):
+            got = adacof_cuda.warp_bwd_cuda(*args, 1, 48, x4=x4)
+            k2_diff += torch.stack([(k != f).any() for k, f in zip(got, first_g)]).any()
+        stress.append(dict(images=b, launches=STRESS_LAUNCHES, k1_max_abs_err=k1_err,
+                           k2_max_abs_err=k2_err_, k1_launches_differing=int(k1_diff),
+                           k2_launches_differing=int(k2_diff)))
+        del args, first, x4, first_g, got
+    torch.cuda.empty_cache()
+    _line(phase="stress", seconds=time.perf_counter() - t0, cases=stress)
+    bad = [s for s in stress if s["k1_launches_differing"] or s["k2_launches_differing"]
+           or not (s["k1_max_abs_err"] <= K1_TOL and s["k2_max_abs_err"] <= K2_TOL)]
+    if bad:
+        raise AssertionError(f"repeated launches differ or disagree with the plain versions: {bad}")
 
     # 4. the held number: bundled AdaCoF on the golden scene, through K1
     t0 = time.perf_counter()
@@ -316,6 +404,49 @@ def main() -> int:
     if not abs(golden - GOLDEN_DB) <= GOLDEN_TOL:
         raise AssertionError(f"golden scene {golden:.4f} dB, expected {GOLDEN_DB} +- {GOLDEN_TOL}")
 
+    # fields: K1 and K2 on the fields the bundled AdaCoF gives for the golden
+    # scene rendered at 1080x1920, beside uniform +-3 px offsets
+    t0 = time.perf_counter()
+    g1, _, g2 = translation_triplet(H_FULL, W_FULL, dx=2.0, dy=1.0, seed=0)
+    captured = []
+
+    def capture(*args):
+        captured.append(args)
+        return adacof_cuda.adacof_warp(*args)
+
+    ada.warp = capture
+    try:
+        adacof_interpolate(ada, g1[None], g2[None], device=dev)
+    finally:
+        ada.warp = adacof_cuda.adacof_warp
+    (x, wgt, a, be, d, r), = captured
+    cot = torch.randn((x.shape[0], 3) + tuple(wgt.shape[2:]), generator=gen, device="cuda")
+    x4 = adacof_cuda.warp_fwd_cuda(x, wgt, a, be, d, r)[1]
+    model = dict(
+        images=x.shape[0], fields=list(wgt.shape),
+        mean_abs_offset=[float(a.abs().mean()), float(be.abs().mean())],
+        k1_ms=_cuda_ms(lambda: adacof_cuda.adacof_warp(x, wgt, a, be, d, r), 10),
+        k2_ms=_cuda_ms(lambda: adacof_cuda.warp_bwd_cuda(x, wgt, a, be, cot, d, r, x4=x4), 10),
+        k1_max_abs_err=float((adacof_cuda.adacof_warp(x, wgt, a, be, d, r)
+                              - warp_plain(x, wgt, a, be, d, r)).abs().max()),
+        k2_max_abs_err=max(float((k - p).abs().max()) for k, p in zip(
+            adacof_cuda.warp_bwd_cuda(x, wgt, a, be, cot, d, r, x4=x4),
+            adacof_warp_field_grads(x, wgt, a, be, cot, d, r))),
+    )
+    del x, x4, wgt, a, be, cot, captured
+    ux, uw, ua, ub, ug = k2_case(model["images"], 3, *model["fields"][2:], 5, 1, 3.0)
+    ux4 = adacof_cuda.warp_fwd_cuda(ux, uw, ua, ub, 1, 48)[1]
+    uniform = dict(
+        k1_ms=_cuda_ms(lambda: adacof_cuda.adacof_warp(ux, uw, ua, ub, 1, 48), 10),
+        k2_ms=_cuda_ms(lambda: adacof_cuda.warp_bwd_cuda(ux, uw, ua, ub, ug, 1, 48, x4=ux4), 10),
+    )
+    del ux, ux4, uw, ua, ub, ug
+    torch.cuda.empty_cache()
+    _line(phase="fields", seconds=time.perf_counter() - t0, scene=[H_FULL, W_FULL, 2.0, 1.0, 0],
+          model=model, uniform_3px=uniform)
+    if not (model["k1_max_abs_err"] <= K1_TOL and model["k2_max_abs_err"] <= K2_TOL):
+        raise AssertionError(f"K1/K2 on the model's fields beyond {K1_TOL}/{K2_TOL}: {model}")
+
     # 5. serving: fusion_interpolate at 1080p, batch 1
     t0 = time.perf_counter()
     fusion_sd = load_fusion_weights(fusion_path)
@@ -330,6 +461,7 @@ def main() -> int:
     t_setup = time.perf_counter() - t0
 
     adacof_cuda.launches = adacof_cuda.bwd_launches = 0  # the serving path's run
+    adacof_cuda.paths.clear()
     lat_ms, psnrs, outs = [], [], []
     torch.cuda.reset_peak_memory_stats()
     for i, (r1, rmid, r2) in enumerate(requests):
@@ -352,6 +484,10 @@ def main() -> int:
         lat_ms.append(ms)
         outs.append(o)
     k1_launches = adacof_cuda.launches  # read just after the serving path's run
+    serve_paths = dict(adacof_cuda.paths)
+    if serve_paths != {RING_PATH: k1_launches}:
+        raise AssertionError(f"serving: K1 launches by instantiation {serve_paths}, "
+                             f"expected all {k1_launches} through {RING_PATH}")
     if adacof_cuda.bwd_launches != 0:
         raise AssertionError(f"serving launched K2 {adacof_cuda.bwd_launches} times")
     peak = torch.cuda.max_memory_allocated()
@@ -368,7 +504,7 @@ def main() -> int:
           size=[H_FULL, W_FULL], batch=1, variant=fusion.variant, warmup_ms=lat_ms[0],
           ms_per_frame=float(np.mean(lat_ms[1:])), ms_requests=lat_ms[1:],
           peak_memory_bytes=peak, psnr_vs_true_middle_db=psnrs,
-          k1_launches=k1_launches, k1_vs_plain_psnr_db=agree)
+          k1_launches=k1_launches, k1_paths=serve_paths, k1_vs_plain_psnr_db=agree)
     if not agree >= PLAIN_AGREEMENT_DB:
         raise AssertionError(f"K1 and plain pipelines agree at {agree:.2f} dB < {PLAIN_AGREEMENT_DB}")
     if k1_launches == 0:
@@ -399,10 +535,16 @@ def main() -> int:
     try:
         t_setup = time.perf_counter() - t0
         adacof_cuda.launches = adacof_cuda.bwd_launches = 0  # the training path's run
+        adacof_cuda.paths.clear()
+        adacof_cuda.bwd_paths.clear()
         torch.cuda.reset_peak_memory_stats()
         state = fit(state, timed_step, batches, out_dir, epochs=1,
                     steps_per_epoch=TRAIN_STEPS + 1, log_every=1, ckpt_every=TRAIN_STEPS + 1)
         train_k1, train_k2 = adacof_cuda.launches, adacof_cuda.bwd_launches  # read just after
+        train_paths = [dict(adacof_cuda.paths), dict(adacof_cuda.bwd_paths)]
+        if train_paths != [{RING_PATH: train_k1}, {RING_PATH: train_k2}]:
+            raise AssertionError(f"training: K1, K2 launches by instantiation {train_paths}, "
+                                 f"expected all through {RING_PATH}")
         train_peak = torch.cuda.max_memory_allocated()
         if state.step != TRAIN_STEPS + 1 or any(n != [1, 1] for n in per_step):
             raise AssertionError(f"training: step {state.step}, K1/K2 launches per step {per_step}")
@@ -453,7 +595,8 @@ def main() -> int:
           batch=4, crop=256, steps=TRAIN_STEPS, warmup_ms=step_ms[0],
           ms_per_step=float(np.median(step_ms[1:])), ms_steps=step_ms[1:],
           peak_memory_bytes=train_peak, loss_first=losses[0], loss_last=losses[-1],
-          k1_launches=train_k1, k2_launches=train_k2, checkpoint_resumed=True,
+          k1_launches=train_k1, k2_launches=train_k2, k1_k2_paths=train_paths,
+          checkpoint_resumed=True,
           grad_max_rel_diff=grad_ratio, grad_tol=GRAD_TOL)
     if not grad_ratio <= GRAD_TOL:
         raise AssertionError(f"gradients through K1/K2 and plain differ by {grad_ratio:.3g} "
@@ -467,13 +610,15 @@ def main() -> int:
         name=adacof_cuda.NAME, route="cuda", source=adacof_cuda.SOURCE,
         replaces=adacof_cuda.REPLACES, launches=k1_launches + train_k1, max_abs_err=max_err,
         ms=k1_1080["ms"], plain_ms=k1_1080["plain_ms"], bound_ms=k1_1080["bound_ms"],
-        bound_by=k1_1080["bound_by"], library_ms=None,
+        bound_by=k1_1080["bound_by"], library_ms=None, design=DESIGN,
+        train_launch_ms=timings[0]["ms"],
         launches_by_path=dict(serve=k1_launches, train=train_k1),
     ), dict(
         name=adacof_cuda.NAME_BWD, route="cuda", source=adacof_cuda.SOURCE_BWD,
         replaces=adacof_cuda.REPLACES_BWD, launches=train_k2, max_abs_err=k2_max_err,
         ms=k2_train["ms"], plain_ms=k2_train["plain_ms"], bound_ms=k2_train["bound_ms"],
-        bound_by=k2_train["bound_by"], library_ms=None,
+        bound_by=k2_train["bound_by"], library_ms=None, design=DESIGN,
+        launch_1080p_ms=k2_timings[1]["ms"],
         launches_by_path=dict(serve=0, train=train_k2),
     )])
     _line(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),

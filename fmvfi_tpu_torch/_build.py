@@ -6,7 +6,8 @@ plain C interface (no PyTorch headers, so the build takes seconds), written
 to `build/fmvfi_tpu_torch/` at the repository root under a name keyed by a
 hash of the sources and flags: a second run with unchanged sources loads the
 existing library instead of rebuilding.  The build happens at first use,
-never at import.
+never at import.  `build(flags)` adds nvcc flags, for the kernels' diagnostic
+forms (scripts/adacof_kernel_diagnostics.py); the package uses none.
 """
 
 from __future__ import annotations
@@ -35,11 +36,13 @@ build_seconds: float | None = None  # wall time of the last nvcc run, if any
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# name -> argtypes of each exported C function (pointers and the stream as
-# void*, sizes as int); restype is int (a cudaError_t) for all of them
+_IP = ctypes.POINTER(ctypes.c_int)
+# name -> argtypes of each exported C function (tensor pointers and the
+# stream as void*, the instantiation it reports as int*, sizes as int);
+# restype is int (a cudaError_t) for all of them
 _SIGNATURES = {
-    "adacof_warp_fwd": [_P] * 6 + [_I] * 9,
-    "adacof_warp_bwd": [_P] * 9 + [_I] * 9,
+    "adacof_warp_fwd": [_P] * 7 + [_IP] + [_I] * 9,
+    "adacof_warp_bwd": [_P] * 10 + [_IP] + [_I] * 9,
 }
 
 
@@ -59,8 +62,8 @@ def _sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
-def _library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _library_path(flags: tuple[str, ...] = ()) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + flags).encode())
     for src in _sources() + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -83,12 +86,13 @@ def _run_all(cmds: list[list[str]]) -> None:
         raise RuntimeError("\n".join(failed))
 
 
-def build() -> Path:
-    """Compile the kernels if no library for the current sources exists;
-    return the library's path.  Raises RuntimeError with nvcc's stderr if
-    the build fails."""
+def build(flags: tuple[str, ...] = ()) -> Path:
+    """Compile the kernels, with nvcc's `flags` added, if no library for the
+    current sources and flags exists; return the library's path.  Raises
+    RuntimeError with nvcc's stderr if the build fails."""
     global build_seconds
-    path = _library_path()
+    flags = tuple(flags)
+    path = _library_path(flags)
     if path.exists():
         return path
     nvcc = _find_nvcc()
@@ -99,7 +103,7 @@ def build() -> Path:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, f"{src.stem}.o") for src in _sources()]
         _run_all([
-            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            [nvcc, *NVCC_FLAGS, *flags, "-c", "-o", obj, str(src)]
             for obj, src in zip(objs, _sources())
         ])
         lib = os.path.join(tmp, path.name)
@@ -109,15 +113,20 @@ def build() -> Path:
     return path
 
 
+def load(path: Path) -> ctypes.CDLL:
+    """Load a library that `build` wrote, with argtypes set."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call), with argtypes set."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = load(build())
         return _lib

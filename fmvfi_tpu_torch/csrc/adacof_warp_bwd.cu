@@ -24,32 +24,32 @@
 // The input gradient is not computed (the reference's module never did).
 //
 // Bound: device memory.  Per output pixel the kernel reads 3*F*F field values
-// and C cotangent values once and writes 3*F*F gradients; the image gathers
-// (4*C per tap) mostly hit L1/L2, since neighbouring pixels sample
+// and C cotangent values once and writes 3*F*F gradients; the corner gathers
+// (4 per tap) mostly hit L1/L2, since neighbouring pixels sample
 // neighbouring source pixels.  About 327 MB at the training launch
 // (x (8,3,260,260), fields (8,25,256,256)), ~0.10 ms at 3.35 TB/s.
 //
-// Design: one thread per output pixel (b, i, j) in 32x8 blocks, like K1, so
-// the field and gradient rows of a warp are 32 consecutive floats along j
-// (coalesced).  A thread loads its C cotangent values into registers (in
-// chunks of kChunk channels), then loops over the F*F taps; per tap it reads
-// W, alpha, beta, gathers the 4 corners per channel and writes dW, dalpha,
-// dbeta.  Each output element has exactly one owner thread: no atomics and
-// no reduction across threads.  With more than kChunk channels, the later
-// chunks add to what the first wrote (the same thread, so no race).
-// Accumulation in f32; offsets into the tensors are 64-bit.
+// Design: K1's (adacof_ring.cuh): 8 x 64 tiles, 2 pixels per consumer lane.
+// The producer warp streams W, alpha, beta tap by tap through the 4-stage ring
+// with bulk asynchronous copies (L2 evict-first); each consumer lane loads
+// the C cotangent values of its pixels once, then per tap gathers the 4
+// corners (with C = 3 and F 5 or 11 from the RGBX copy of x that K1 wrote
+// in the forward) and writes dW, dalpha, dbeta
+// with streaming stores.  Each output element has exactly one owner thread:
+// no atomics and no reduction across threads.  In the run-time-C
+// instantiation, with more than kChunk channels, the later passes add to
+// what the first wrote (the same thread, so no race).  Accumulation in f32.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "adacof_ring.cuh"
 
 namespace {
 
-constexpr int kBlockX = 32;
-constexpr int kBlockY = 8;
-constexpr int kChunk = 4;  // cotangent channels held in registers at a time
+using namespace adacof;
 
-__global__ void __launch_bounds__(kBlockX * kBlockY)
+template <int KF, int KC, bool RING>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 adacof_warp_bwd_kernel(const float* __restrict__ x,
+                       const float4* __restrict__ x4,
                        const float* __restrict__ weight,
                        const float* __restrict__ alpha,
                        const float* __restrict__ beta,
@@ -57,110 +57,176 @@ adacof_warp_bwd_kernel(const float* __restrict__ x,
                        float* __restrict__ dweight,
                        float* __restrict__ dalpha,
                        float* __restrict__ dbeta,
-                       int F, int d, int R, int C, int H, int W,
+                       int F_rt, int d, int R, int C_rt, int H, int W,
                        int H_in, int W_in) {
-  const int j = blockIdx.x * kBlockX + threadIdx.x;
-  const int i = blockIdx.y * kBlockY + threadIdx.y;
-  const int b = blockIdx.z;
-  if (i >= H || j >= W) return;
-
+  constexpr int CH = KC > 0 ? KC : kChunk;
+  const int F = KF > 0 ? KF : F_rt;
+  const int C = KC > 0 ? KC : C_rt;
   const int F2 = F * F;
-  const int64_t plane = (int64_t)H * W;
-  const int64_t plane_in = (int64_t)H_in * W_in;
-  const int64_t pix = (int64_t)i * W + j;
-  const int64_t field0 = (int64_t)b * F2 * plane + pix;
+  // at least one pass, so that C == 0 writes zero gradients
+  const int nchunks = KC > 0 ? 1 : max((C + CH - 1) / CH, 1);
+  const int b = blockIdx.z;
+  const int ti0 = blockIdx.y * kTileH;
+  const int tj0 = blockIdx.x * kTileW;
+  const int rows = min(kTileH, H - ti0);
+  const int cols = min(kTileW, W - tj0);
+  const int plane = H * W;
+  const int plane_in = H_in * W_in;
+  // one 64-bit base per image; 32-bit offsets within it
+  const size_t fimg = (size_t)b * F2 * plane;
+  const float* wimg = weight + fimg;
+  const float* aimg = alpha + fimg;
+  const float* bimg = beta + fimg;
+  float* dwimg = dweight + fimg;
+  float* daimg = dalpha + fimg;
+  float* dbimg = dbeta + fimg;
+  const float* ximg = x + (size_t)b * C * plane_in;
+  const float4* x4img = x4 + (size_t)b * plane_in;
+  const float* gimg = g + (size_t)b * C * plane;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Ring ring(smem);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (RING) {
+    if (threadIdx.x == 0) ring.init();
+    __syncthreads();
+    if (warp == kTileH) {
+      ring.produce(wimg, aimg, bimg, nchunks * F2, F2, plane, W, ti0, tj0, rows, cols);
+      return;
+    }
+  }
+
+  // consumer: row `warp` of the tile, pixels lane + 32 p
+  const int i = ti0 + warp;
+  bool ok[kPix];
+#pragma unroll
+  for (int p = 0; p < kPix; ++p) ok[p] = warp < rows && lane + 32 * p < cols;
+  const int pix = i * W + tj0 + lane;  // offset of pixel p = 0 in a plane
+  const int fpix = kDiagForm == 2 ? warp * W + lane : pix;  // where its fields are read
+  const bool clamp = R >= 0;
   const float r = (float)R;
 
-  // at least one pass, so that C == 0 writes zero gradients
-  int c0 = 0;
-  do {
-    const int nc = min(kChunk, C - c0);
-    const float* xb = x + ((int64_t)b * C + c0) * plane_in;
-    const float* gb = g + ((int64_t)b * C + c0) * plane + pix;
-    float gc[kChunk];
+  int n = 0;  // ring position
+  for (int chunk = 0; chunk < nchunks; ++chunk) {
+    const int c0 = chunk * CH;
+    const int nc = KC > 0 ? KC : min(CH, C - c0);
+    float gc[kPix][CH];
 #pragma unroll
-    for (int c = 0; c < kChunk; ++c) gc[c] = c < nc ? gb[c * plane] : 0.f;
+    for (int c = 0; c < CH; ++c) {
+      const float* src = gimg + (c0 + c) * plane + pix;
+#pragma unroll
+      for (int p = 0; p < kPix; ++p)
+        gc[p][c] = (KC > 0 || c < nc) && ok[p] ? __ldcs(src + 32 * p) : 0.f;
+    }
 
-    for (int t = 0; t < F2; ++t) {
-      const int64_t fo = field0 + (int64_t)t * plane;
-      const float w = weight[fo];
-      const float a_raw = alpha[fo];
-      const float b_raw = beta[fo];
-      float a = a_raw;
-      float be = b_raw;
-      if (R >= 0) {
-        a = fminf(fmaxf(a, -r), r);
-        be = fminf(fmaxf(be, -r), r);
-      }
-      const float ta = truncf(a);
-      const float tb = truncf(be);
-      const float fi = a - ta;
-      const float fj = be - tb;
-      // __float2int_rz saturates, so an unclamped huge offset stays finite
-      const int64_t i0 = (int64_t)i + (t / F) * d + __float2int_rz(ta);
-      const int64_t j0 = (int64_t)j + (t % F) * d + __float2int_rz(tb);
-      const int64_t i0c = min(max(i0, (int64_t)0), (int64_t)H_in - 1);
-      const int64_t i1c = min(max(i0 + 1, (int64_t)0), (int64_t)H_in - 1);
-      const int64_t j0c = min(max(j0, (int64_t)0), (int64_t)W_in - 1);
-      const int64_t j1c = min(max(j0 + 1, (int64_t)0), (int64_t)W_in - 1);
-      const float w00 = (1.f - fi) * (1.f - fj);
-      const float w10 = fi * (1.f - fj);
-      const float w01 = (1.f - fi) * fj;
-      const float w11 = fi * fj;
-      const int64_t o00 = i0c * W_in + j0c;
-      const int64_t o10 = i1c * W_in + j0c;
-      const int64_t o01 = i0c * W_in + j1c;
-      const int64_t o11 = i1c * W_in + j1c;
-      float sw = 0.f, sa = 0.f, sb = 0.f;
 #pragma unroll
-      for (int c = 0; c < kChunk; ++c) {
-        if (c < nc) {
-          const float* xc = xb + c * plane_in;
-          const float x00 = __ldg(xc + o00);
-          const float x10 = __ldg(xc + o10);
-          const float x01 = __ldg(xc + o01);
-          const float x11 = __ldg(xc + o11);
-          sw += gc[c] * (w00 * x00 + w10 * x10 + w01 * x01 + w11 * x11);
-          sa += gc[c] * ((1.f - fj) * (x10 - x00) + fj * (x11 - x01));
-          sb += gc[c] * ((1.f - fi) * (x01 - x00) + fi * (x11 - x10));
+    for (int t = 0; t < F2; ++t, ++n) {
+      float w[kPix], a[kPix], be[kPix];
+      const int fo = t * plane + pix;
+      if (RING) {
+        ring.consume(n, warp, w, a, be);
+      } else {
+        const int fi = t * plane + fpix;
+#pragma unroll
+        for (int p = 0; p < kPix; ++p) {
+          w[p] = ok[p] ? __ldcs(wimg + fi + 32 * p) : 0.f;
+          a[p] = ok[p] ? __ldcs(aimg + fi + 32 * p) : 0.f;
+          be[p] = ok[p] ? __ldcs(bimg + fi + 32 * p) : 0.f;
         }
       }
-      float da = w * sa;
-      float db = w * sb;
-      if (R >= 0) {
-        if (fabsf(a_raw) >= r) da = 0.f;
-        if (fabsf(b_raw) >= r) db = 0.f;
-      }
-      if (c0 == 0) {
-        dweight[fo] = sw;
-        dalpha[fo] = da;
-        dbeta[fo] = db;
-      } else {
-        dweight[fo] += sw;
-        dalpha[fo] += da;
-        dbeta[fo] += db;
+      const int ii = i + (t / F) * d;
+      const int jj = tj0 + lane + (t % F) * d;
+#pragma unroll
+      for (int p = 0; p < kPix; ++p) {
+        if (!ok[p]) continue;
+        const Corners k = corners(a[p], be[p], ii, jj + 32 * p, H_in, W_in, clamp, r);
+        const float w00 = (1.f - k.fi) * (1.f - k.fj);
+        const float w10 = k.fi * (1.f - k.fj);
+        const float w01 = (1.f - k.fi) * k.fj;
+        const float w11 = k.fi * k.fj;
+        float v[4][CH];
+        gather<KC, CH>(ximg, x4img, c0, nc, plane_in, k, v);
+        float sw = 0.f, sa = 0.f, sb = 0.f;
+#pragma unroll
+        for (int c = 0; c < CH; ++c) {
+          const float x00 = v[0][c], x10 = v[1][c], x01 = v[2][c], x11 = v[3][c];
+          sw += gc[p][c] * (w00 * x00 + w10 * x10 + w01 * x01 + w11 * x11);
+          sa += gc[p][c] * ((1.f - k.fj) * (x10 - x00) + k.fj * (x11 - x01));
+          sb += gc[p][c] * ((1.f - k.fi) * (x01 - x00) + k.fi * (x11 - x10));
+        }
+        float da = w[p] * sa;
+        float db = w[p] * sb;
+        if (clamp) {
+          if (fabsf(a[p]) >= r) da = 0.f;
+          if (fabsf(be[p]) >= r) db = 0.f;
+        }
+        const int o = fo + 32 * p;
+        if (chunk > 0) {  // run-time C only: add to the earlier passes
+          dwimg[o] += sw;
+          daimg[o] += da;
+          dbimg[o] += db;
+        } else {
+          __stcs(dwimg + o, sw);
+          __stcs(daimg + o, da);
+          __stcs(dbimg + o, db);
+        }
       }
     }
-    c0 += kChunk;
-  } while (c0 < C);
+  }
+}
+
+template <int KF, int KC, bool RING>
+int launch(const float* x, const float4* x4, const float* w, const float* a, const float* b,
+           const float* g, float* dw, float* da, float* db, cudaStream_t stream, int F, int d,
+           int R, int B, int C, int H, int W, int H_in, int W_in) {
+  auto kernel = adacof_warp_bwd_kernel<KF, KC, RING>;
+  const size_t smem = RING ? kRingBytes : 0;  // under the 48 KB default limit
+  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
+  kernel<<<grid, RING ? kThreads : kConsumers, smem, stream>>>(x, x4, w, a, b, g, dw, da, db, F,
+                                                               d, R, C, H, W, H_in, W_in);
+  return (int)cudaGetLastError();
+}
+
+template <bool RING>
+int dispatch(const float* x, float4* x4, const float* w, const float* a, const float* b,
+             const float* g, float* dw, float* da, float* db, cudaStream_t stream, int F, int d,
+             int R, int B, int C, int H, int W, int H_in, int W_in, int* path) {
+  if (!uses_rgbx(F, C, x4)) {
+    *path = path_code(0, RING);
+    return launch<0, 0, RING>(x, x4, w, a, b, g, dw, da, db, stream, F, d, R, B, C, H, W, H_in,
+                              W_in);
+  }
+  if (F == 5) {
+    *path = path_code(1, RING);
+    return launch<5, 3, RING>(x, x4, w, a, b, g, dw, da, db, stream, F, d, R, B, C, H, W, H_in,
+                              W_in);
+  }
+  *path = path_code(2, RING);
+  return launch<11, 3, RING>(x, x4, w, a, b, g, dw, da, db, stream, F, d, R, B, C, H, W, H_in,
+                             W_in);
 }
 
 }  // namespace
 
 // x (B, C, H_in, W_in), weight/alpha/beta (B, F*F, H, W), g (B, C, H, W),
 // dweight/dalpha/dbeta (B, F*F, H, W): all f32, contiguous, on the device of
-// `stream`.  Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int adacof_warp_bwd(void* x, void* weight, void* alpha, void* beta,
-                               void* g, void* dweight, void* dalpha,
-                               void* dbeta, void* stream, int F, int d, int R,
-                               int B, int C, int H, int W, int H_in,
-                               int W_in) {
+// `stream`; x4 (B, H_in, W_in, 4) f32, the RGBX copy of x that K1 wrote,
+// from which K2 gathers when C == 3 and F is 5 or 11 (else unused, may be
+// null); every per-image tensor has fewer than 2^31 elements and H_in, W_in
+// < 2^30.  Writes to *path the instantiation
+// launched (adacof_ring.cuh::path_code; kPathNone if nothing was launched)
+// and returns cudaGetLastError() after the launches (0 on success).
+extern "C" int adacof_warp_bwd(void* x, void* x4, void* weight, void* alpha, void* beta,
+                               void* g, void* dweight, void* dalpha, void* dbeta,
+                               void* stream, int* path, int F, int d, int R, int B, int C,
+                               int H, int W, int H_in, int W_in) {
+  *path = adacof::kPathNone;
   if (B == 0 || H == 0 || W == 0) return 0;
-  dim3 block(kBlockX, kBlockY, 1);
-  dim3 grid((W + kBlockX - 1) / kBlockX, (H + kBlockY - 1) / kBlockY, B);
-  adacof_warp_bwd_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)weight, (const float*)alpha,
-      (const float*)beta, (const float*)g, (float*)dweight, (float*)dalpha,
-      (float*)dbeta, F, d, R, C, H, W, H_in, W_in);
-  return (int)cudaGetLastError();
+  const bool ring = W % 4 == 0 && adacof::aligned16(weight) && adacof::aligned16(alpha) &&
+                    adacof::aligned16(beta);
+  const auto fn = ring ? &dispatch<true> : &dispatch<false>;
+  return fn((const float*)x, (float4*)x4, (const float*)weight, (const float*)alpha,
+            (const float*)beta, (const float*)g, (float*)dweight, (float*)dalpha, (float*)dbeta,
+            (cudaStream_t)stream, F, d, R, B, C, H, W, H_in, W_in, path);
 }

@@ -60,6 +60,11 @@ class FusionNet(nn.Module):
         self.dec0 = _RConv(128, 64, 5)
         self.dec1 = _RConv(64, 32, 5)
         self.dec2 = _RConv(32, 6 if variant == 2 else 3, 1)
+        if variant == 2:
+            # a zero head, as the JAX module initializes it: a fresh net
+            # starts at the component mean with a zero residual
+            nn.init.zeros_(self.dec2.weight)
+            nn.init.zeros_(self.dec2.bias)
 
     def forward(self, base, adacof, phase, other, maps=None):
         """Images (B, 3, H, W); other (B, 6, H, W) = frame1 || frame2 (Lab);

@@ -111,23 +111,13 @@ def adacof_interpolate(adacof: AdaCoFNet, frame1, frame2, *, device="cuda") -> t
     return _nhwc(torch.clamp(out.blended, 0.0, 1.0))
 
 
-def fusion_uncertainty(ada_pred: torch.Tensor, phase_pred: torch.Tensor, filters):
-    """The two pyramid-derived uncertainty maps of the fusion pipeline, from
-    (B, 3, H, W) predictions; returns (ada_uncertainty, phase_uncertainty),
-    each (B, H, W).
-
-    (a) phase uncertainty: the finest band + highpass of the channel-mean
-        difference image, as one spectral multiply, |.|, clipped, gaussian.
-    (b) adacof artifact uncertainty: |band difference| of the 6 coarsest
-        levels (channel-averaged before reconstruction), reconstructed, minus
-        its 50x50 median."""
+def adacof_freq_diff(ada_pred: torch.Tensor, phase_pred: torch.Tensor, filters):
+    """The pre-median map of the adacof artifact uncertainty, from (B, 3, H,
+    W) predictions: |band difference| of the 6 coarsest levels (channel-
+    averaged before reconstruction), reconstructed, times 30; (B, H, W)."""
     b, c, h, w = ada_pred.shape
     nlev = filters.height - 2
-
-    g = torch.mean(ada_pred - phase_pred, dim=1)
-    h_diff = torch.abs(_ifft2s(_fft2s(g) * finest_recon_mask(filters)).real)
-    phase_unc = gaussian_blur(torch.clamp(h_diff * 100.0, 0.0, 1.0), 5.0)
-
+    dev = ada_pred.device
     start = max(nlev - 6, 0)
     rgb_batch = torch.cat([ada_pred.reshape(b * c, h, w), phase_pred.reshape(b * c, h, w)], 0)
     vals_ada, vals_ph = dec_ops.split_frames(decompose_coarse(rgb_batch, filters, start), 2)
@@ -139,8 +129,8 @@ def fusion_uncertainty(ada_pred: torch.Tensor, phase_pred: torch.Tensor, filters
     for lvl in range(nlev):
         if lvl < start:
             sh = (b, filters.nbands) + tuple(filters.level_shapes[lvl])
-            phases.append(torch.zeros(sh, device=g.device))
-            amps.append(torch.zeros(sh, device=g.device))
+            phases.append(torch.zeros(sh, device=dev))
+            amps.append(torch.zeros(sh, device=dev))
             continue
         da = torch.abs(vals_ph.amplitude[lvl] - vals_ada.amplitude[lvl])
         dp = torch.abs(vals_ph.phase[lvl] - vals_ada.phase[lvl])
@@ -149,12 +139,28 @@ def fusion_uncertainty(ada_pred: torch.Tensor, phase_pred: torch.Tensor, filters
         phases.append(torch.atan2(band.imag, band.real))
     low = chan_mean(torch.abs(vals_ph.low - vals_ada.low))
     dvals = Decomp(
-        high=torch.zeros((b, h, w), device=g.device),
+        high=torch.zeros((b, h, w), device=dev),
         low=low,
         phase=tuple(phases),
         amplitude=tuple(amps),
     )
-    freq_diff = reconstruct_coarse(dvals, filters, start) * 30.0
+    return reconstruct_coarse(dvals, filters, start) * 30.0
+
+
+def fusion_uncertainty(ada_pred: torch.Tensor, phase_pred: torch.Tensor, filters):
+    """The two pyramid-derived uncertainty maps of the fusion pipeline, from
+    (B, 3, H, W) predictions; returns (ada_uncertainty, phase_uncertainty),
+    each (B, H, W).
+
+    (a) phase uncertainty: the finest band + highpass of the channel-mean
+        difference image, as one spectral multiply, |.|, clipped, gaussian.
+    (b) adacof artifact uncertainty: `adacof_freq_diff` minus its 50x50
+        median."""
+    g = torch.mean(ada_pred - phase_pred, dim=1)
+    h_diff = torch.abs(_ifft2s(_fft2s(g) * finest_recon_mask(filters)).real)
+    phase_unc = gaussian_blur(torch.clamp(h_diff * 100.0, 0.0, 1.0), 5.0)
+
+    freq_diff = adacof_freq_diff(ada_pred, phase_pred, filters)
     freq_med = median_filter_fast(freq_diff, size=50)
     ada_unc = torch.clamp(torch.abs(freq_diff - freq_med) * 5.0, 0.0, 1.0)
     return ada_unc, phase_unc

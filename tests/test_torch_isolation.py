@@ -186,6 +186,14 @@ def test_kernel_library_is_keyed_by_its_sources(tmp_path, monkeypatch):
     assert _build._library_path() != first
 
 
+def test_kernel_library_is_keyed_by_its_flags():
+    """A diagnostic build (extra nvcc flags) gets a library of its own."""
+    plain = _build._library_path()
+    assert _build._library_path(()) == plain
+    form1 = _build._library_path(("-DADACOF_DIAG_FORM=1",))
+    assert form1 != plain and form1 != _build._library_path(("-DADACOF_DIAG_FORM=2",))
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)

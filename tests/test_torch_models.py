@@ -170,3 +170,29 @@ def test_fusion_net_matches_jax(variant, maps, bundled):
         ours = port(_nchw(base), _nchw(ada), _nchw(ph), _nchw(other),
                     _nchw(m) if maps else None)
     _close(_nhwc(ours), ref)
+
+
+def test_fresh_variant2_fusion_net_starts_at_the_component_mean():
+    """A fresh variant-2 FusionNet has a zero head (dec2), as the JAX module's
+    init gives it: the output is clamp((base + adacof + phase) / 3) with no
+    residual, whatever the other convolutions' random init."""
+    maps = 3
+    z = jnp.zeros((1, 16, 16, 3))
+    tree = jax.jit(lambda k: jx_fusion.FusionNet(uncertainty_maps=maps).init(
+        k, z, z, z, jnp.zeros((1, 16, 16, 6)), jnp.zeros((1, 16, 16, maps)), 2))(
+        jax.random.key(3))
+    torch.manual_seed(3)
+    port = FusionNet(uncertainty_maps=maps, variant=2).eval()
+
+    rng = np.random.default_rng(16)
+    base, ada, ph = (rng.uniform(0, 1, (2, 24, 32, 3)).astype(np.float32) for _ in range(3))
+    other = rng.uniform(0, 1, (2, 24, 32, 6)).astype(np.float32)
+    m = rng.uniform(0, 1, (2, 24, 32, maps)).astype(np.float32)
+    ref = jax.jit(
+        lambda *a: jx_fusion.FusionNet(uncertainty_maps=maps).apply(tree, *a, variant=2)
+    )(base, ada, ph, other, m)
+    with torch.no_grad():
+        ours = port(_nchw(base), _nchw(ada), _nchw(ph), _nchw(other), _nchw(m))
+    mean = np.clip((base + ada + ph) / 3.0, 0.0, 1.0)
+    _close(np.asarray(ref), mean, tol=1e-6)
+    _close(_nhwc(ours), np.asarray(ref), tol=1e-6)

@@ -144,3 +144,41 @@ def test_fusion_interpolate_without_maps_matches_jax(weights):
                                              return_parts=True, device="cpu")
     assert "maps" not in parts
     assert _psnr(ours.numpy(), ref) >= PIPE_DB
+
+
+def test_fusion_at_pyramid_height_10_matches_jax(weights, monkeypatch):
+    """128x128: pyramid height 10, so the uncertainty section's coarse
+    decomposition starts at level 2 (the 64x64 cases above start at 0).
+    The fused frame is held at >= 60 dB.  The adacof artifact map is held
+    in its two parts, since its 50x50 histogram median turns float noise at
+    a bin edge into a whole bin: the pre-median `adacof_freq_diff` against
+    the map JAX's `_fusion_uncertainty_impl` hands its median (to 1e-5), and
+    the two medians on one shared input (to 1e-6)."""
+    jx, pt = weights
+    h = w = 128
+    f1, _, f2 = translation_triplet(h, w, dx=2.0, dy=1.0, seed=4)
+    ref, ref_parts = jax.jit(
+        lambda a, b: jx_pipe.fusion_interpolate(jx, a, b, variant=2, return_parts=True)
+    )(jnp.asarray(f1[None]), jnp.asarray(f2[None]))
+    ours = pt_pipe.fusion_interpolate(pt, f1[None], f2[None], device="cpu")
+    assert _psnr(ours.numpy(), ref) >= PIPE_DB
+
+    fj = jx_pipe.make_filters(h, w, jx_pipe.max_pyr_height(h, w))
+    ft = pt_pipe.make_filters(h, w, pt_pipe.max_pyr_height(h, w))
+    assert ft.height == 10 and ft.height - 2 - 6 == 2
+    ada, ph = np.asarray(ref_parts["adacof"]), np.asarray(ref_parts["phase"])
+    seen = []  # the traced input of JAX's median, returned from the jit
+    jx_median = jx_pipe.median_filter_fast
+    monkeypatch.setattr(jx_pipe, "median_filter_fast",
+                        lambda x, size: seen.append(x) or jx_median(x, size=size))
+    ref_diff = np.asarray(jax.jit(
+        lambda a, p: (jx_pipe._fusion_uncertainty_impl(fj, a, p), seen[-1])[1]
+    )(jnp.asarray(ada), jnp.asarray(ph)))
+    assert len(seen) == 1
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(np.moveaxis(a, -1, 1)))
+    ours_diff = pt_pipe.adacof_freq_diff(to(ada), to(ph), ft)
+    np.testing.assert_allclose(ours_diff.numpy(), ref_diff, rtol=0, atol=1e-5)
+
+    ref_med = np.asarray(jx_median(jnp.asarray(ref_diff), size=50))
+    ours_med = pt_pipe.median_filter_fast(torch.from_numpy(ref_diff), size=50)
+    np.testing.assert_allclose(ours_med.numpy(), ref_med, rtol=0, atol=1e-6)
