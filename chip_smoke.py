@@ -37,6 +37,30 @@ Phases, each printing one JSON line with its seconds:
               F5C3 instantiation, the output must be finite and in
               [0, 1], and the output through K1 must agree with the output
               through the plain warp at >= 60 dB PSNR;
+  video     - double_frame_rate on translation_video(5, 1080, 1920) with the
+              serve phase's models, each mode after a warm-up on 3 frames:
+              per pair, stream (windows 8 and 2), batch 2 with seq_chunk 1
+              and unchunked (on 4 frames: 3 pairs, the tail padded).  Each
+              run gives 2N-1 frames with the originals bit-equal at the even
+              positions, finite and in [0, 1], each interpolated frame >= 60
+              dB against per pair; K1 launches exactly as many times, on as
+              many images each, as the mode's structure says (per pair 2, 4,
+              2 per pair; stream 4, 4 per step, one step per frame; batch 2:
+              4, 8, 4 per dispatch, with seq_chunk 1: 4, then 4, 2 per
+              chunk), all through the asynchronous-copy F5C3 instantiation,
+              and K2 not at all; the seq_chunk=1 peak memory is below the
+              unchunked one; the stream through K1 agrees with the stream
+              through the plain warp at >= 60 dB.  Also: how many host
+              synchronizations one request makes
+              (torch.cuda.set_sync_debug_mode), and multiply_frame_rate 4x
+              (adacof, 3 frames of 256x256) giving 4N-3 frames whose even
+              positions are the 2x sequence;
+  eval      - evaluate_suite on synthetic_sets(256, 4) (8 sets, 2 triplets
+              each) for fusion, adacof, phase and baseline: finite means, a
+              summary.json, K1 launched 5 times per set (3 + 1 + 0 + 1), a
+              rerun served from the cache with the same numbers, and per-set
+              fusion PSNR within 0.05 dB of the same suite through the plain
+              warp;
   train     - AdaCoF training from the bundled weights: make_adacof_trainer
               and fit over batch_iterator(SyntheticTriplets(n=32, h=272,
               w=272), 4, crop=256), fp32, TF32 off, 1 warm-up and 20 timed
@@ -60,6 +84,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -79,6 +104,10 @@ TRAIN_STEPS = 20  # timed, after one warm-up step
 STRESS_LAUNCHES = 1000  # per kernel and launch shape
 GOLDEN_DB, GOLDEN_TOL = 42.967, 0.05
 PLAIN_AGREEMENT_DB = 60.0
+MODE_AGREEMENT_DB = 60.0  # each video mode against per pair
+EVAL_PLAIN_DB = 0.05  # per-set fusion PSNR, through K1 and through the plain warp
+EVAL_METHODS = ("fusion", "adacof", "phase", "baseline")
+EVAL_K1_PER_SET = 3 + 1 + 0 + 1  # fusion, adacof, phase, baseline: one dispatch each
 H_FULL, W_FULL = 1080, 1920
 
 
@@ -187,7 +216,8 @@ def main() -> int:
     sys.path.insert(0, repo)
     try:
         from fmvfi_tpu_torch import _build
-        from fmvfi_tpu_torch.eval.synth import translation_triplet
+        from fmvfi_tpu_torch.eval.evaluate import evaluate_suite, synthetic_sets
+        from fmvfi_tpu_torch.eval.synth import translation_triplet, translation_video
         from fmvfi_tpu_torch.models.adacof import AdaCoFNet
         from fmvfi_tpu_torch.models.fusion_net import FusionNet, infer_variant
         from fmvfi_tpu_torch.models.phase_net import PhaseNetCore
@@ -199,6 +229,12 @@ def main() -> int:
             _nchw,
             adacof_interpolate,
             fusion_interpolate,
+        )
+        from fmvfi_tpu_torch.pipeline.video import (
+            _interp_fn,
+            double_frame_rate,
+            multiply_frame_rate,
+            to_device,
         )
         from fmvfi_tpu_torch.train.data import SyntheticTriplets, batch_iterator
         from fmvfi_tpu_torch.train.loop import fit
@@ -285,8 +321,8 @@ def main() -> int:
     timings = []
     # the training launch (both frames of a batch of 4 at 256x256), then the
     # main path's 1080p launches: 2B and 4B images for B = 1 (AdaCoF pads
-    # 1080 to /32)
-    for b, h, w in ((8, 256, 256), (2, 1088, 1920), (4, 1088, 1920)):
+    # 1080 to /32), and 4B for B = 2, the batched video's middle launch
+    for b, h, w in ((8, 256, 256), (2, 1088, 1920), (4, 1088, 1920), (8, 1088, 1920)):
         x, wgt, a, be = _k1_case(gen, b, 3, h, w, 5, 1, 3.0)
         k_ms = _cuda_ms(lambda: adacof_cuda.adacof_warp(x, wgt, a, be, 1, 48), 10)
         p_ms = _cuda_ms(lambda: warp_plain(x, wgt, a, be, 1, 48), 3, inner=1)
@@ -510,9 +546,177 @@ def main() -> int:
     if k1_launches == 0:
         raise AssertionError("the main path launched K1 no time")
 
+    # video: double_frame_rate at 1080p in every mode, on the serve phase's models
+    t0 = time.perf_counter()
+    del outs
+    t_clip = time.perf_counter()
+    clip = translation_video(5, H_FULL, W_FULL, step=2.0, seed=0)
+    clip_seconds = time.perf_counter() - t_clip
+    n_pairs = len(clip) - 1
+    images = []  # images of each K1 launch, recorded around the model's warp
+
+    def recording_warp(x, *args):
+        images.append(x.shape[0])
+        return adacof_cuda.adacof_warp(x, *args)
+
+    # (name, frames, options, images of each K1 launch in order)
+    modes = [
+        ("per_pair", clip, {}, [2, 4, 2] * n_pairs),
+        ("stream8", clip, dict(stream=True), [4, 4] * len(clip)),
+        ("stream2", clip, dict(stream=True, stream_window=2), [4, 4] * len(clip)),
+        ("batch2_chunk1", clip[:4], dict(batch=2, seq_chunk=1), [4, 4, 2, 4, 2] * 2),
+        ("batch2", clip[:4], dict(batch=2), [4, 8, 4] * 2),
+    ]
+    video, runs = {}, {}
+    video_k1 = 0
+    ada.warp = recording_warp
+    try:
+        for name, frames, kw, want_images in modes:
+            list(double_frame_rate(frames[:3], models, **kw, device=dev))  # warm-up
+            torch.cuda.synchronize()
+            adacof_cuda.launches = adacof_cuda.bwd_launches = 0  # this mode's run
+            adacof_cuda.paths.clear()
+            images.clear()
+            torch.cuda.reset_peak_memory_stats()
+            t_run = time.perf_counter()
+            out = list(double_frame_rate(frames, models, **kw, device=dev))
+            torch.cuda.synchronize()
+            run_ms = 1e3 * (time.perf_counter() - t_run)
+            launches, paths = adacof_cuda.launches, dict(adacof_cuda.paths)  # read just after
+            k2 = adacof_cuda.bwd_launches
+            video_k1 += launches
+            runs[name] = out
+            video[name] = dict(frames=len(frames), options=kw, ms_per_frame=run_ms / (len(frames) - 1),
+                               ms=run_ms, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                               k1_launches=launches, k1_paths=paths, k1_images=list(images),
+                               k2_launches=k2)
+            if len(out) != 2 * len(frames) - 1:
+                raise AssertionError(f"video {name}: {len(out)} frames from {len(frames)}")
+            if not all(np.array_equal(out[2 * i], frames[i]) for i in range(len(frames))):
+                raise AssertionError(f"video {name}: the originals are not at the even positions")
+            mids = np.stack(out[1::2])
+            if mids.shape[1:] != (H_FULL, W_FULL, 3) or not np.isfinite(mids).all():
+                raise AssertionError(f"video {name}: frames {mids.shape} not finite/right shape")
+            if mids.min() < 0.0 or mids.max() > 1.0:
+                raise AssertionError(f"video {name}: frames outside [0, 1]")
+            if images != want_images or launches != len(want_images):
+                raise AssertionError(f"video {name}: K1 launches on {images} images "
+                                     f"({launches} counted), expected {want_images}")
+            if paths != {RING_PATH: launches} or k2 != 0:
+                raise AssertionError(f"video {name}: K1 launches by instantiation {paths}, "
+                                     f"K2 launches {k2}; expected all through {RING_PATH}, no K2")
+        ada.warp = warp_plain  # the first stream run through the plain warp
+        plain_stream = list(double_frame_rate(clip, models, stream=True, device=dev))
+    finally:
+        ada.warp = adacof_cuda.adacof_warp
+    ref = runs["per_pair"]
+    for name, out in runs.items():
+        pairs = list(zip(out[1::2], ref[1::2]))
+        video[name]["psnr_vs_per_pair_db"] = [_psnr(a, b) for a, b in pairs]
+        video[name]["max_abs_diff_vs_per_pair"] = max(float(np.abs(a - b).max()) for a, b in pairs)
+    stream_plain_db = [_psnr(a, b) for a, b in zip(runs["stream8"][1::2], plain_stream[1::2])]
+    del runs, ref, plain_stream
+
+    # host synchronizations inside one per-pair request, on frames already on
+    # the card, and how long the host takes to queue the request against how
+    # long the request takes: the prefetch overlaps only what the host queues
+    # ahead of the card
+    a, b = (to_device(clip[i : i + 1], dev) for i in (0, 1))
+    request = _interp_fn(models, "fusion", device=dev)
+    request(a, b)
+    torch.cuda.synchronize()
+    t_req = time.perf_counter()
+    request(a, b)
+    enqueue_ms = 1e3 * (time.perf_counter() - t_req)
+    torch.cuda.synchronize()
+    request_ms = 1e3 * (time.perf_counter() - t_req)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            request(a, b)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = [f"{os.path.relpath(w.filename, repo)}:{w.lineno}: {str(w.message)[:120]}"
+             for w in caught if "called a synchronizing" in str(w.message)]
+    del a, b
+
+    # multiply_frame_rate: 4x through two doublings
+    small = translation_video(3, 256, 256, step=2.0, seed=1)
+    twice = list(double_frame_rate(small, models, "adacof", device=dev))
+    four = list(multiply_frame_rate(small, models, "adacof", factor=4, device=dev))
+    multiply_diff = max(float(np.abs(four[2 * i] - f).max()) for i, f in enumerate(twice))
+    del clip
+    torch.cuda.empty_cache()
+    _line(phase="video", seconds=time.perf_counter() - t0, clip_seconds=clip_seconds,
+          size=[H_FULL, W_FULL], modes=video, stream_vs_plain_warp_psnr_db=stream_plain_db,
+          request_host_syncs=len(syncs), request_sync_sites=sorted(set(syncs)),
+          request_enqueue_ms=enqueue_ms, request_ms=request_ms,
+          multiply=dict(frames=len(four), expected=4 * len(small) - 3,
+                        max_abs_diff_even_vs_2x=multiply_diff))
+    for name, v in video.items():
+        if not min(v["psnr_vs_per_pair_db"]) >= MODE_AGREEMENT_DB:
+            raise AssertionError(f"video {name} against per pair: {v['psnr_vs_per_pair_db']} dB")
+    if not min(stream_plain_db) >= PLAIN_AGREEMENT_DB:
+        raise AssertionError(f"stream through K1 and the plain warp: {stream_plain_db} dB")
+    if not video["batch2_chunk1"]["peak_memory_bytes"] < video["batch2"]["peak_memory_bytes"]:
+        raise AssertionError("seq_chunk=1 did not lower the peak memory of batch 2")
+    if len(four) != 4 * len(small) - 3 or not multiply_diff <= 1e-6:
+        raise AssertionError(f"multiply_frame_rate: {len(four)} frames, even positions "
+                             f"{multiply_diff} from the 2x sequence")
+    if video_k1 == 0:
+        raise AssertionError("the video path launched K1 no time")
+
+    # eval: evaluate_suite on the synthetic sets, four methods
+    t0 = time.perf_counter()
+    sets = synthetic_sets(dim=256, n_frames=4)
+    t_setup = time.perf_counter() - t0
+    os.makedirs(os.path.join(repo, "build"), exist_ok=True)
+    eval_dir = tempfile.mkdtemp(prefix="chip_smoke_eval_", dir=os.path.join(repo, "build"))
+    try:
+        adacof_cuda.launches = adacof_cuda.bwd_launches = 0  # the evaluation path's run
+        adacof_cuda.paths.clear()
+        t_run = time.perf_counter()
+        summary = evaluate_suite(models, os.path.join(eval_dir, "k1"), sets=sets,
+                                 methods=EVAL_METHODS, dim=256, device=dev)
+        run_seconds = time.perf_counter() - t_run
+        eval_k1, eval_k2 = adacof_cuda.launches, adacof_cuda.bwd_launches  # read just after
+        eval_paths = dict(adacof_cuda.paths)
+        has_summary = os.path.exists(os.path.join(eval_dir, "k1", "summary.json"))
+        rerun = evaluate_suite(models, os.path.join(eval_dir, "k1"), sets=sets,
+                               methods=EVAL_METHODS, dim=256, device=dev)
+        rerun_k1 = adacof_cuda.launches - eval_k1
+        ada.warp = warp_plain  # its own directory: the weights digest is the same
+        try:
+            plain = evaluate_suite(models, os.path.join(eval_dir, "plain"), sets=sets,
+                                   methods=("fusion",), dim=256, device=dev)
+        finally:
+            ada.warp = adacof_cuda.adacof_warp
+    finally:
+        shutil.rmtree(eval_dir, ignore_errors=True)
+    plain_gap = {k: abs(summary[k]["fusion"]["psnr"] - plain[k]["fusion"]["psnr"]) for k in sets}
+    _line(phase="eval", seconds=time.perf_counter() - t0, setup_seconds=t_setup,
+          run_seconds=run_seconds, dim=256, n_frames=4, sets=len(sets),
+          psnr={k: {m: summary[k][m]["psnr"] for m in EVAL_METHODS} for k in sets},
+          ssim={k: {m: summary[k][m]["ssim"] for m in EVAL_METHODS} for k in sets},
+          k1_launches=eval_k1, k1_paths=eval_paths, k2_launches=eval_k2,
+          rerun_k1_launches=rerun_k1, fusion_psnr_gap_vs_plain_warp_db=plain_gap)
+    means = [v for k in sets for m in EVAL_METHODS for v in summary[k][m].values()]
+    if not np.isfinite(means).all() or not has_summary:
+        raise AssertionError(f"eval: finite means {np.isfinite(means).all()}, "
+                             f"summary.json {has_summary}")
+    if rerun != summary or rerun_k1 != 0:
+        raise AssertionError(f"eval: the rerun launched K1 {rerun_k1} times or differs")
+    if eval_k1 != EVAL_K1_PER_SET * len(sets) or eval_paths != {RING_PATH: eval_k1} or eval_k2:
+        raise AssertionError(f"eval: K1 {eval_k1} launches ({eval_paths}), K2 {eval_k2}; expected "
+                             f"{EVAL_K1_PER_SET * len(sets)} through {RING_PATH} and no K2")
+    if not max(plain_gap.values()) <= EVAL_PLAIN_DB:
+        raise AssertionError(f"eval: fusion through K1 and the plain warp differ {plain_gap} dB")
+
     # train: AdaCoF training at 256x256, batch 4, through K1 and K2
     t0 = time.perf_counter()
-    del models, fusion, phase, outs
+    del models, fusion, phase
     torch.cuda.empty_cache()
     state, step_fn = make_adacof_trainer(device=dev)
     state.model.load_state_dict(load_adacof_weights(ada_path))
@@ -602,24 +806,27 @@ def main() -> int:
         raise AssertionError(f"gradients through K1/K2 and plain differ by {grad_ratio:.3g} "
                              f"of the largest gradient > {GRAD_TOL}")
 
-    k1_1080 = timings[-1]  # the 4-image launch, the largest on the main path
+    k1_1080, k1_1080_8 = timings[2], timings[3]  # the 4-image and the batched 8-image launch
     k2_train = k2_timings[0]  # the training launch
     _line(phase="total", seconds=time.perf_counter() - t_all)
     print(smi, flush=True)
     _line(kernels=[dict(
         name=adacof_cuda.NAME, route="cuda", source=adacof_cuda.SOURCE,
-        replaces=adacof_cuda.REPLACES, launches=k1_launches + train_k1, max_abs_err=max_err,
+        replaces=adacof_cuda.REPLACES, launches=k1_launches + video_k1 + eval_k1 + train_k1,
+        max_abs_err=max_err,
         ms=k1_1080["ms"], plain_ms=k1_1080["plain_ms"], bound_ms=k1_1080["bound_ms"],
         bound_by=k1_1080["bound_by"], library_ms=None, design=DESIGN,
         train_launch_ms=timings[0]["ms"],
-        launches_by_path=dict(serve=k1_launches, train=train_k1),
+        launch_8_images_ms=k1_1080_8["ms"], launch_8_images_plain_ms=k1_1080_8["plain_ms"],
+        launch_8_images_bound_ms=k1_1080_8["bound_ms"],
+        launches_by_path=dict(serve=k1_launches, video=video_k1, eval=eval_k1, train=train_k1),
     ), dict(
         name=adacof_cuda.NAME_BWD, route="cuda", source=adacof_cuda.SOURCE_BWD,
         replaces=adacof_cuda.REPLACES_BWD, launches=train_k2, max_abs_err=k2_max_err,
         ms=k2_train["ms"], plain_ms=k2_train["plain_ms"], bound_ms=k2_train["bound_ms"],
         bound_by=k2_train["bound_by"], library_ms=None, design=DESIGN,
         launch_1080p_ms=k2_timings[1]["ms"],
-        launches_by_path=dict(serve=0, train=train_k2),
+        launches_by_path=dict(serve=0, video=0, eval=0, train=train_k2),
     )])
     _line(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),
                                count=torch.cuda.device_count()))

@@ -34,7 +34,10 @@ _RGB_MEAN = (0.4631, 0.4352, 0.3990)
 
 
 def module_normalize(x: torch.Tensor) -> torch.Tensor:
-    return x - torch.tensor(_RGB_MEAN, dtype=x.dtype, device=x.device).view(1, 3, 1, 1)
+    """x minus the fixed RGB mean, channel by channel with Python scalars: a
+    mean tensor built per call would be a host-to-device copy, which blocks
+    the host until the card has caught up."""
+    return torch.cat([x[:, i : i + 1] - m for i, m in enumerate(_RGB_MEAN)], dim=1)
 
 
 def _conv3(c_in: int, c_out: int) -> nn.Conv2d:
@@ -195,9 +198,19 @@ class AdaCoFNet(nn.Module):
         # the warp function; a check may swap in the plain version on CUDA
         self.warp = adacof_cuda.adacof_warp
 
-    def forward(self, frame0: torch.Tensor, frame2: torch.Tensor, with_stats: bool = True):
+    def forward(
+        self,
+        frame0: torch.Tensor,
+        frame2: torch.Tensor,
+        with_stats: bool = True,
+        stats_batch: int | None = None,
+    ):
         """frame0, frame2: (B, 3, H, W).  `with_stats=False` skips the flow
-        mean/variance tail (zeros are returned in its place)."""
+        mean/variance tail (zeros are returned in its place).
+        `stats_batch=N` computes that tail for the first N batch entries only,
+        so `uncertainty`, `mean_flow` and `var_flow` have N entries (the
+        stream path batches a stats-free pass behind the main pair;
+        fmvfi_tpu/models/adacof.py:344,441-450); None: the whole batch."""
         if frame0.shape != frame2.shape:
             raise ValueError(f"frame sizes do not match: {frame0.shape} vs {frame2.shape}")
         b, _, h0, w0 = frame0.shape
@@ -226,8 +239,9 @@ class AdaCoFNet(nn.Module):
         blended = occ * warped0 + (1.0 - occ) * warped2
 
         if with_stats:
-            mean1, var1 = flow_stats(w1, a1, b1)
-            mean2, var2 = flow_stats(w2, a2, b2)
+            n = stats_batch
+            mean1, var1 = flow_stats(w1[:n], a1[:n], b1[:n])
+            mean2, var2 = flow_stats(w2[:n], a2[:n], b2[:n])
             # max of the summed variance components, clipped to [0, 20], to
             # [0, 1]; detached, as the JAX model's stop_gradient
             unc = torch.maximum(var1.sum(1, keepdim=True), var2.sum(1, keepdim=True))

@@ -31,6 +31,9 @@ FORBIDDEN = (
     "jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "fmvfi_tpu", "cv2", "matplotlib",
 )
 GOLDEN_DB, GOLDEN_TOL = 42.967, 0.05  # tests/test_golden.py, bundled AdaCoF
+# the video and evaluation modules: imported by the isolated run below and
+# held by the static import check
+NEW_MODULES = ("pipeline.video", "eval.metrics", "eval.evaluate", "eval.uncertainty")
 
 _ISOLATED = f"""
 import importlib, json, pkgutil, sys
@@ -68,8 +71,8 @@ def test_port_runs_without_jax_flax_msgpack_or_fmvfi_tpu():
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     res = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert "fmvfi_tpu_torch.pipeline.interpolate" in res["modules"]
-    assert "fmvfi_tpu_torch.ops.adacof_cuda" in res["modules"]
+    for m in ("pipeline.interpolate", "ops.adacof_cuda", *NEW_MODULES):
+        assert "fmvfi_tpu_torch." + m in res["modules"], m
     assert res["leaked"] == []
     assert abs(res["psnr"] - GOLDEN_DB) < GOLDEN_TOL, res["psnr"]
 
@@ -109,11 +112,66 @@ def test_training_runs_without_jax_flax_optax_or_fmvfi_tpu():
     assert res["leaked"] == []
 
 
+_SERVE_ISOLATED = f"""
+import json, sys, tempfile
+for name in {FORBIDDEN!r}:
+    sys.modules[name] = None  # any import of these raises ImportError
+import numpy as np
+import torch
+torch.set_num_threads(1)  # small work; spinning thread pools across test processes cost more
+from fmvfi_tpu_torch.eval.evaluate import evaluate_suite, synthetic_sets
+from fmvfi_tpu_torch.eval.synth import translation_video
+from fmvfi_tpu_torch.models.adacof import AdaCoFNet
+from fmvfi_tpu_torch.models.fusion_net import FusionNet, infer_variant
+from fmvfi_tpu_torch.models.phase_net import PhaseNetCore
+from fmvfi_tpu_torch.pipeline.interpolate import FusionModels
+from fmvfi_tpu_torch.pipeline.video import double_frame_rate
+from fmvfi_tpu_torch.utils.convert import load_adacof_weights, load_fusion_weights
+ada = AdaCoFNet().eval()
+ada.load_state_dict(load_adacof_weights({CKPTS[0]!r}))
+fsd = load_fusion_weights({CKPTS[1]!r})
+fusion = FusionNet(variant=infer_variant(fsd)).eval()
+fusion.load_state_dict(fsd)
+phase = PhaseNetCore().init_params(torch.Generator().manual_seed(0)).eval()
+models = FusionModels(phase_net=phase, adacof=ada, fusion_net=fusion)
+frames = translation_video(3, 32, 32, step=1.0)
+out = list(double_frame_rate(frames, models, stream=True, stream_window=2, device="cpu"))
+sets = {{k: v for k, v in synthetic_sets(32, 3).items() if k == "translation"}}
+with tempfile.TemporaryDirectory() as d:
+    summary = evaluate_suite(models, d, sets=sets, methods=("fusion", "baseline"), dim=32,
+                             device="cpu")
+leaked = sorted(n for n in sys.modules if n.split(".")[0] in {FORBIDDEN!r} and sys.modules[n])
+print(json.dumps(dict(n_out=len(out), finite=bool(np.isfinite(np.stack(out)).all()),
+                      psnr=[summary["translation"][m]["psnr"] for m in ("fusion", "baseline")],
+                      leaked=leaked)))
+"""
+
+
+def test_video_and_eval_run_without_jax_flax_msgpack_cv2_or_matplotlib():
+    """The stream path of double_frame_rate and evaluate_suite run on the CPU
+    with the reference's libraries, cv2 and matplotlib blocked."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _SERVE_ISOLATED], cwd=ROOT, capture_output=True, text=True,
+        timeout=600,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["n_out"] == 5 and res["finite"]
+    assert all(np.isfinite(res["psnr"])), res["psnr"]
+    assert res["leaked"] == []
+
+
 def _py_files():
     files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tools", "torch_train_profile.py")]
     for d, _, names in os.walk(PACKAGE):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
+
+
+def test_static_check_covers_the_video_and_eval_modules():
+    files = {os.path.relpath(p, PACKAGE) for p in _py_files()}
+    for m in NEW_MODULES:
+        assert m.replace(".", os.sep) + ".py" in files, m
 
 
 @pytest.mark.parametrize("path", _py_files(), ids=lambda p: os.path.relpath(p, ROOT))

@@ -116,7 +116,9 @@ def test_entry_points_check_device_and_options(weights):
     with pytest.raises(ValueError, match="weights are on cpu"):
         pt_pipe.adacof_interpolate(pt.adacof, f, f, device="meta")
     with pytest.raises(NotImplementedError):
-        pt_pipe.fusion_interpolate(pt, f, f, seq_chunk=1, device="cpu")
+        pt_pipe.fusion_interpolate(pt, f, f, compute_dtype=torch.bfloat16, device="cpu")
+    with pytest.raises(NotImplementedError):
+        pt_pipe.fusion_interpolate(pt, f, f, spatial_mesh=object(), device="cpu")
 
 
 def test_synth_copy_equals_jax_package():
