@@ -70,7 +70,36 @@ Phases, each printing one JSON line with its seconds:
               fit must resume from it, and one step's parameter gradients
               through K1/K2 must agree with the same step through the plain
               warp and its plain gradients (deterministic cuDNN) within 1e-4
-              of each tensor's largest gradient.
+              of each tensor's largest gradient;
+  train_phase - PhaseNet training: make_phase_trainer at 256x256, height 12,
+              batch 8 through fit over batch_iterator(SyntheticTriplets(n=32,
+              h=272, w=272), 8, crop=256), 1 warm-up and 10 timed steps: finite
+              losses, no K1 or K2, the BN running statistics moved (train
+              mode), a checkpoint restored with them and resumed; fit's
+              m-schedule (m_init 3, m_update 2) built and logged as it says;
+              one step each in mode fusion (variants 0 and 1) and with
+              high_level from the bundled AdaCoF, each launching K1 once on
+              16 images through F5C3 with the ring and K2 never; one step at
+              128x128 (lr 1e-5) on the card against the same step on the CPU:
+              metrics within 1e-4 relative, params and statistics within
+              1e-4, the gradient within 2e-2 of each tensor's largest;
+  train_fusion - FusionNet training: make_fusion_trainer from the bundled
+              variant-2 FusionNet behind the bundled AdaCoF and a seeded
+              PhaseNet, batch 4 at 256x256 through fit over the mixed diet
+              (SyntheticTriplets(mixed=True)), 1 warm-up and 10 timed steps,
+              then one step each with loss_balance, distill, loss_psnr,
+              loss_psnr + distill, weight_decay and a fresh variant-0 net
+              without maps: K1 exactly 3 launches a step on 8, 16 and 8
+              images through F5C3 with the ring, K2 none, finite losses, the
+              frozen nets unchanged and without gradients, a checkpoint
+              resumed; FusionNet's inputs through K1 within 1e-5 of the
+              plain warp's (base, adacof, phase, and the artifact map before
+              its 50x50 histogram median, which turns float noise at a bin
+              edge into up to ~1e-2 at a few pixels: ROADMAP Q3-3); one
+              step's FusionNet gradients against the plain warp's with the
+              K1 route's maps and loss cotangent on both within 1e-4 of
+              each tensor's largest, end to end within 1e-3, and a K1 with
+              its last tap dropped over 1e-3.
 Then the nvidia-smi line, the `kernels` JSON line and, last, the result line
 {"ok": true, "device": {...}}.  Any failed check raises (non-zero exit).
 Without CUDA, or without the package beside this file, it exits non-zero
@@ -101,6 +130,20 @@ K1_TOL = 1e-5
 K2_TOL = 1e-4
 GRAD_TOL = 1e-4  # of each parameter tensor's largest gradient
 TRAIN_STEPS = 20  # timed, after one warm-up step
+REGIME_STEPS = 10  # timed phase and fusion training steps, after one warm-up step
+PHASE_BATCH, FUSION_BATCH, CROP = 8, 4, 256
+STEP_TOL = 1e-4  # a training step on the card against the same step on the CPU
+PARITY_LR = 1e-5  # of that step: Adam moves noise-level gradient entries by ~lr
+# that step's gradient, of each tensor's largest entry: twice float32's
+# reach for the phase trainer, which tests/test_torch_train_phase_grads.py
+# bounds at 1e-2 of the float64 gradient on the CPU (4.9e-3 measured there;
+# JAX's float32 gradient is 5.7e-2 off), for card and CPU each
+PHASE_GRAD_TOL = 2e-2
+# FusionNet's gradients through K1 against the plain warp, each route with
+# its own uncertainty maps: the maps' histogram median turns float noise at
+# a bin edge into a jump (ROADMAP Q3-3), measured at 8.2e-5 to 1.45e-4 of
+# the largest over four runs; a K1 that drops its last tap reads far over
+ROUTE_GRAD_TOL = 1e-3
 STRESS_LAUNCHES = 1000  # per kernel and launch shape
 GOLDEN_DB, GOLDEN_TOL = 42.967, 0.05
 PLAIN_AGREEMENT_DB = 60.0
@@ -222,12 +265,15 @@ def main() -> int:
         from fmvfi_tpu_torch.models.fusion_net import FusionNet, infer_variant
         from fmvfi_tpu_torch.models.phase_net import PhaseNetCore
         from fmvfi_tpu_torch.ops import adacof_cuda
+        from fmvfi_tpu_torch.ops.pyramid import make_filters, max_pyr_height
         from fmvfi_tpu_torch.ops.adacof import adacof_warp as warp_plain
         from fmvfi_tpu_torch.ops.adacof import adacof_warp_field_grads
         from fmvfi_tpu_torch.pipeline.interpolate import (
             FusionModels,
             _nchw,
+            adacof_freq_diff,
             adacof_interpolate,
+            fusion_inputs,
             fusion_interpolate,
         )
         from fmvfi_tpu_torch.pipeline.video import (
@@ -242,7 +288,10 @@ def main() -> int:
         from fmvfi_tpu_torch.train.trainer import (
             DEFAULT_LOSS,
             adacof_loss,
+            fusion_loss,
             make_adacof_trainer,
+            make_fusion_trainer,
+            make_phase_trainer,
         )
         from fmvfi_tpu_torch.utils.checkpoint import Checkpointer
         from fmvfi_tpu_torch.utils.convert import load_adacof_weights, load_fusion_weights
@@ -806,27 +855,349 @@ def main() -> int:
         raise AssertionError(f"gradients through K1/K2 and plain differ by {grad_ratio:.3g} "
                              f"of the largest gradient > {GRAD_TOL}")
 
+    # train_phase: PhaseNet training at 256x256, batch 8, height 12
+    t0 = time.perf_counter()
+    del state, model, g_kernel, g_plain
+    torch.cuda.empty_cache()
+    height = max_pyr_height(CROP, CROP)
+    images.clear()
+
+    def regime_step(step_fn, rec):
+        """step_fn timed (host clock around a synchronized step), with its
+        loss, its K1 / K2 launches and the images of each K1 launch."""
+
+        def run(st, batch):
+            before = (adacof_cuda.launches, adacof_cuda.bwd_launches, len(images))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            st, m = step_fn(st, batch)
+            torch.cuda.synchronize()
+            rec["ms"].append(1e3 * (time.perf_counter() - t))
+            rec["loss"].append(float(m["loss"]))
+            rec["launches"].append([adacof_cuda.launches - before[0],
+                                    adacof_cuda.bwd_launches - before[1]])
+            rec["images"].append(images[before[2]:])
+            return st, m
+
+        return run
+
+    def new_rec():
+        return dict(ms=[], loss=[], launches=[], images=[])
+
+    def reset_counts():
+        adacof_cuda.launches = adacof_cuda.bwd_launches = 0
+        adacof_cuda.paths.clear()
+        adacof_cuda.bwd_paths.clear()
+
+    def counts():
+        return dict(k1=adacof_cuda.launches, k2=adacof_cuda.bwd_launches,
+                    k1_paths=dict(adacof_cuda.paths), k2_paths=dict(adacof_cuda.bwd_paths))
+
+    def check_launches(name, c, rec, per_step):
+        """Every step launched K1 on exactly the images per_step lists, all
+        through the ring, and K2 never."""
+        want = [per_step] * len(rec["images"])
+        if rec["images"] != want or c["k1"] != sum(map(len, want)):
+            raise AssertionError(f"{name}: K1 images per step {rec['images']}, expected {want}")
+        if c["k1_paths"] != {RING_PATH: c["k1"]} or c["k2"] != 0:
+            raise AssertionError(f"{name}: K1 by instantiation {c['k1_paths']}, K2 {c['k2']}; "
+                                 f"expected all through {RING_PATH} and no K2")
+        if not np.isfinite(rec["loss"]).all():
+            raise AssertionError(f"{name}: non-finite losses {rec['loss']}")
+
+    phase_out = tempfile.mkdtemp(prefix="chip_smoke_train_phase_", dir=os.path.join(repo, "build"))
+    batches = batch_iterator(SyntheticTriplets(n=32, h=CROP + 16, w=CROP + 16), PHASE_BATCH,
+                             crop=CROP)
+    ada = AdaCoFNet().to(dev)  # frozen, for the fusion-mode and high_level steps
+    ada.load_state_dict(load_adacof_weights(ada_path))
+    ada.warp = recording_warp
+    try:
+        t_setup = time.perf_counter() - t0
+        state, step_fn, _, make_step = make_phase_trainer(CROP, CROP, device=dev)
+        init_stats = {k: v.clone() for k, v in state.model.state_dict().items() if "running" in k}
+        rec = new_rec()
+        reset_counts()  # the phase-training path's run
+        torch.cuda.reset_peak_memory_stats()
+        state = fit(state, regime_step(step_fn, rec), batches, phase_out, epochs=1,
+                    steps_per_epoch=REGIME_STEPS + 1, log_every=1, ckpt_every=REGIME_STEPS + 1)
+        phase_counts = counts()
+        phase_peak = torch.cuda.max_memory_allocated()
+        if phase_counts["k1"] or phase_counts["k2"] or not np.isfinite(rec["loss"]).all():
+            raise AssertionError(f"train_phase: {phase_counts}, losses {rec['loss']}")
+        moved = {k: float((v - init_stats[k]).abs().max()) for k, v in
+                 state.model.state_dict().items() if "running" in k}
+        if min(moved[f"blocks.{i}.bn.running_var"] for i in range(8)) == 0.0:
+            raise AssertionError(f"train_phase: running statistics did not move: {moved}")
+
+        # the checkpoint restores the BN buffers, and fit resumes from it
+        ckpt = Checkpointer(os.path.join(phase_out, "checkpoint"))
+        fresh, fresh_step, _, _ = make_phase_trainer(CROP, CROP, seed=1, device=dev)
+        fresh = ckpt.restore(fresh)
+        trained = state.model.state_dict()
+        phase_restored = fresh.step == state.step and all(
+            torch.equal(v, trained[k]) for k, v in fresh.model.state_dict().items())
+        resumed = fit(fresh, fresh_step, batches, phase_out, epochs=1,
+                      steps_per_epoch=REGIME_STEPS + 2, log_every=1)
+        if not phase_restored or resumed.step != REGIME_STEPS + 2:
+            raise AssertionError(f"train_phase checkpoint: restored equal {phase_restored}, "
+                                 f"resumed to step {resumed.step}")
+
+        # fit's hierarchical-m schedule: m rises every 2 batches from 3
+        seen_m = []
+
+        def recording_make_step(m):
+            seen_m.append(m)
+            return make_step(m)
+
+        m_out = os.path.join(phase_out, "m")
+        fit(make_phase_trainer(CROP, CROP, device=dev)[0], None, batches, m_out, epochs=1,
+            steps_per_epoch=5, log_every=1, make_step=recording_make_step, m_init=3, m_update=2)
+        with open(os.path.join(m_out, "train_metrics.jsonl")) as f:
+            logged_m = [json.loads(line)["m"] for line in f]
+        if seen_m != [3, 4, 5] or logged_m != [3, 3, 4, 4, 5]:
+            raise AssertionError(f"m schedule: built {seen_m}, logged {logged_m}")
+
+        # one step each in mode fusion (variants 0 and 1) and with high_level,
+        # from the bundled AdaCoF: K1 once per step on the 2B frames, no K2
+        modes = {}
+        for name, kw in (("fusion_v0", dict(mode="fusion", model_variant=0)),
+                         ("fusion_v1", dict(mode="fusion", model_variant=1)),
+                         ("high_level", dict(high_level=True))):
+            st, fn, _, _ = make_phase_trainer(CROP, CROP, adacof=ada, device=dev, **kw)
+            mrec = new_rec()
+            reset_counts()  # this mode's run
+            st, _ = regime_step(fn, mrec)(st, next(batches))
+            c = counts()
+            check_launches(f"train_phase {name}", c, mrec, [2 * PHASE_BATCH])
+            modes[name] = dict(ms=mrec["ms"][0], loss=mrec["loss"][0], k1_launches=c["k1"],
+                               k1_images=mrec["images"][0], k1_paths=c["k1_paths"],
+                               k2_launches=c["k2"])
+            del st, fn
+        phase_mode_k1 = sum(v["k1_launches"] for v in modes.values())
+
+        # one step on the card against the same step on the CPU (lr 1e-5)
+        pair = translation_triplet(128, 128, dx=3.0, dy=1.0, seed=0), \
+            translation_triplet(128, 128, dx=-2.0, dy=2.0, seed=1)
+        small = tuple(np.stack([it[j] for it in pair]) for j in range(3))
+        card_st, card_fn, _, _ = make_phase_trainer(128, 128, lr=PARITY_LR, device=dev)
+        cpu_st, cpu_fn, _, _ = make_phase_trainer(128, 128, lr=PARITY_LR, device="cpu")
+        cpu_st.model.load_state_dict(card_st.model.state_dict())
+        card_st, card_m = card_fn(card_st, small)
+        cpu_st, cpu_m = cpu_fn(cpu_st, small)
+        cpu_sd = cpu_st.model.state_dict()
+        # the step's gradient on each side: Adam's first moment, 0.1 x it;
+        # a conv1 bias (zero gradient in exact arithmetic: train-mode BN
+        # follows it) is held against the net's largest gradient
+        grads = [{k: st.optimizer.state[p]["exp_avg"].cpu() for k, p in
+                  st.model.named_parameters()} for st in (card_st, cpu_st)]
+        net_top = max(float(g.abs().max()) for g in grads[1].values())
+        grad_gap = {k: float((g - grads[1][k]).abs().max()) / (
+            net_top if k.endswith("conv1.bias") else max(float(grads[1][k].abs().max()), 1e-30))
+            for k, g in grads[0].items()}
+        worst_grad = max(grad_gap, key=grad_gap.get)
+        phase_cpu = dict(
+            loss_rel=max(abs(float(card_m[k]) / float(cpu_m[k]) - 1.0) for k in cpu_m),
+            max_abs_diff=max(float((v.cpu() - cpu_sd[k]).abs().max())
+                             for k, v in card_st.model.state_dict().items()),
+            stats_max_abs_diff=max(float((v.cpu() - cpu_sd[k]).abs().max()) for k, v in
+                                   card_st.model.state_dict().items() if "running" in k),
+            grad_max_rel_diff=grad_gap[worst_grad], grad_worst_tensor=worst_grad)
+        del card_st, cpu_st, grads
+    finally:
+        ada.warp = adacof_cuda.adacof_warp
+        batches.close()
+        shutil.rmtree(phase_out, ignore_errors=True)
+    _line(phase="train_phase", seconds=time.perf_counter() - t0, setup_seconds=t_setup,
+          batch=PHASE_BATCH, crop=CROP, height=height, steps=REGIME_STEPS, warmup_ms=rec["ms"][0],
+          ms_per_step=float(np.median(rec["ms"][1:])), ms_steps=rec["ms"][1:],
+          peak_memory_bytes=phase_peak, loss_first=rec["loss"][0], loss_last=rec["loss"][-1],
+          k1_launches=phase_counts["k1"], k2_launches=phase_counts["k2"],
+          running_stats_moved=min(moved.values()), checkpoint_resumed=True,
+          m_built=seen_m, m_logged=logged_m, modes=modes, step_vs_cpu=phase_cpu,
+          step_vs_cpu_tol=STEP_TOL, step_vs_cpu_lr=PARITY_LR, step_vs_cpu_grad_tol=PHASE_GRAD_TOL)
+    if not (phase_cpu["loss_rel"] <= STEP_TOL and phase_cpu["max_abs_diff"] <= STEP_TOL
+            and phase_cpu["grad_max_rel_diff"] <= PHASE_GRAD_TOL):
+        raise AssertionError(f"train_phase: the card's step against the CPU's {phase_cpu}")
+
+    # train_fusion: FusionNet training at 256x256, batch 4, behind the frozen
+    # bundled AdaCoF and a seeded PhaseNet
+    t0 = time.perf_counter()
+    fusion_out = tempfile.mkdtemp(prefix="chip_smoke_train_fusion_", dir=os.path.join(repo, "build"))
+    batches = batch_iterator(SyntheticTriplets(n=32, h=CROP + 16, w=CROP + 16, mixed=True),
+                             FUSION_BATCH, crop=CROP)
+    phase = PhaseNetCore().init_params(torch.Generator().manual_seed(0)).to(dev)
+    frozen = [{k: v.clone() for k, v in m.state_dict().items()} for m in (phase, ada)]
+    fusion_sd = load_fusion_weights(fusion_path)
+    per_step = [2 * FUSION_BATCH, 4 * FUSION_BATCH, 2 * FUSION_BATCH]
+    ada.warp = recording_warp
+    try:
+        t_setup = time.perf_counter() - t0
+        state, step_fn = make_fusion_trainer(phase, ada, variant=2, device=dev)
+        state.model.load_state_dict(fusion_sd)
+        rec = new_rec()
+        reset_counts()  # the fusion-training path's run
+        torch.cuda.reset_peak_memory_stats()
+        state = fit(state, regime_step(step_fn, rec), batches, fusion_out, epochs=1,
+                    steps_per_epoch=REGIME_STEPS + 1, log_every=1, ckpt_every=REGIME_STEPS + 1)
+        fusion_counts = counts()
+        fusion_peak = torch.cuda.max_memory_allocated()
+        check_launches("train_fusion", fusion_counts, rec, per_step)
+
+        ckpt = Checkpointer(os.path.join(fusion_out, "checkpoint"))
+        fresh, fresh_step = make_fusion_trainer(phase, ada, variant=2, seed=1, device=dev)
+        fresh = ckpt.restore(fresh)
+        trained = state.model.state_dict()
+        fusion_restored = fresh.step == state.step and all(
+            torch.equal(v, trained[k]) for k, v in fresh.model.state_dict().items())
+        resumed = fit(fresh, fresh_step, batches, fusion_out, epochs=1,
+                      steps_per_epoch=REGIME_STEPS + 2, log_every=1)
+        if not fusion_restored or resumed.step != REGIME_STEPS + 2:
+            raise AssertionError(f"train_fusion checkpoint: restored equal {fusion_restored}, "
+                                 f"resumed to step {resumed.step}")
+        del fresh, resumed
+
+        # one step in each loss mode, and a fresh variant-0 net without maps
+        loss_modes = {}
+        for name, kw in (("loss_balance", dict(loss_balance=True)),
+                         ("distill", dict(distill=1.0)),
+                         ("loss_psnr", dict(loss_psnr=True)),
+                         ("loss_psnr_distill", dict(loss_psnr=True, distill=1.0)),
+                         ("weight_decay", dict(weight_decay=1e-4)),
+                         ("fresh_v0_no_maps", dict(variant=0, uncertainty_maps=0))):
+            st, fn = make_fusion_trainer(phase, ada, **{"variant": 2, **kw}, device=dev)
+            if kw.get("variant") is None:
+                st.model.load_state_dict(fusion_sd)
+            mrec = new_rec()
+            reset_counts()  # this mode's run
+            st, _ = regime_step(fn, mrec)(st, next(batches))
+            c = counts()
+            check_launches(f"train_fusion {name}", c, mrec, per_step)
+            loss_modes[name] = dict(ms=mrec["ms"][0], loss=mrec["loss"][0], k1_launches=c["k1"],
+                                    k1_images=mrec["images"][0])
+            del st, fn
+        fusion_mode_k1 = sum(v["k1_launches"] for v in loss_modes.values())
+        frozen_same = all(torch.equal(v, m.state_dict()[k])
+                          for m, sd in zip((phase, ada), frozen) for k, v in sd.items())
+        frozen_grads = [n for m in (phase, ada) for n, p in m.named_parameters()
+                        if p.grad is not None]
+        if not frozen_same or frozen_grads:
+            raise AssertionError(f"train_fusion: frozen nets changed {not frozen_same}, "
+                                 f"gradients on {frozen_grads[:4]}")
+
+        # one step's FusionNet gradients through K1 and through the plain warp
+        batch = next(batches)
+        models = FusionModels(phase, ada, state.model)
+        target = _nchw(batch[1], dev)
+
+        def route_inputs(warp):
+            ada.warp = warp
+            with torch.no_grad():
+                return fusion_inputs(models, batch[0], batch[2], dev)[0]
+
+        def fusion_grads(inputs, cot=None):
+            """(FusionNet's parameter gradients, the loss's cotangent of its
+            prediction); with `cot` given, that cotangent is pulled back
+            instead of the one the prediction's own L1 gives."""
+            pred = state.model(*inputs)
+            if cot is None:
+                loss, _ = fusion_loss(pred, target)
+                cot, = torch.autograd.grad(loss, pred, retain_graph=True)
+            return torch.autograd.grad(pred, list(state.model.parameters()), cot), cot
+
+        def grad_ratio_of(ga, gb):
+            return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                       for a, b in zip(ga, gb))
+
+        def last_tap_dropped(x, weight, *args):
+            """A planted K1 fault: a tap loop that stops one tap short."""
+            return adacof_cuda.adacof_warp(x, weight * (torch.arange(
+                weight.shape[1], device=weight.device) < weight.shape[1] - 1)[:, None, None],
+                *args)
+
+        torch.backends.cudnn.deterministic = True
+        try:
+            in_kernel = route_inputs(adacof_cuda.adacof_warp)
+            in_plain = route_inputs(_plain_warp(warp_plain, adacof_warp_field_grads))
+            g_kernel, cot_kernel = fusion_grads(in_kernel)
+            g_plain, cot_plain = fusion_grads(in_plain)
+            g_plain_shared, _ = fusion_grads(in_plain._replace(maps=in_kernel.maps), cot_kernel)
+            planted_ratio = grad_ratio_of(fusion_grads(route_inputs(last_tap_dropped))[0], g_plain)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        input_diff = {k: float((a - b).abs().max()) for k, a, b in
+                      zip(in_kernel._fields, in_kernel, in_plain)}
+        maps_px = [int(((in_kernel.maps - in_plain.maps).abs()[:, i] > 1e-3).sum())
+                   for i in range(3)]
+        # the artifact map before its 50x50 histogram median, on each route
+        filters = make_filters(CROP, CROP, height, device=dev)
+        pre_median_diff = float((adacof_freq_diff(in_kernel.adacof, in_kernel.phase, filters)
+                                 - adacof_freq_diff(in_plain.adacof, in_plain.phase, filters))
+                                .abs().max())
+        fusion_grad_ratio = grad_ratio_of(g_kernel, g_plain)
+        shared_ratio = grad_ratio_of(g_kernel, g_plain_shared)
+        l1_sign_flips = int((cot_kernel != cot_plain).sum())
+    finally:
+        ada.warp = adacof_cuda.adacof_warp
+        batches.close()
+        shutil.rmtree(fusion_out, ignore_errors=True)
+    _line(phase="train_fusion", seconds=time.perf_counter() - t0, setup_seconds=t_setup,
+          batch=FUSION_BATCH, crop=CROP, variant=2, steps=REGIME_STEPS, warmup_ms=rec["ms"][0],
+          ms_per_step=float(np.median(rec["ms"][1:])), ms_steps=rec["ms"][1:],
+          peak_memory_bytes=fusion_peak, loss_first=rec["loss"][0], loss_last=rec["loss"][-1],
+          k1_launches=fusion_counts["k1"], k1_images_per_step=per_step,
+          k1_paths=fusion_counts["k1_paths"], k2_launches=fusion_counts["k2"],
+          checkpoint_resumed=True, loss_modes=loss_modes, frozen_unchanged=frozen_same,
+          grad_max_rel_diff_shared_maps_cotangent=shared_ratio, grad_tol=GRAD_TOL,
+          grad_max_rel_diff=fusion_grad_ratio, grad_tol_own_maps=ROUTE_GRAD_TOL,
+          l1_sign_flips=l1_sign_flips, pred_elements=cot_kernel.numel(),
+          grad_max_rel_diff_planted_fault=planted_ratio, input_max_abs_diff=input_diff,
+          maps_px_over_1e3=maps_px, pre_median_max_abs_diff=pre_median_diff)
+    # K1 moves base and adacof by float noise; the artifact map's histogram
+    # median turns such noise at a bin edge into up to ~1e-2 at a few pixels
+    # (ROADMAP Q3-3), and the L1 loss flips its sign where the prediction
+    # meets the target, so the routes' gradients are held at GRAD_TOL with
+    # the K1 route's maps and loss cotangent on both, and at ROUTE_GRAD_TOL
+    # end to end
+    if not max(input_diff["base"], input_diff["adacof"], input_diff["phase"]) <= K1_TOL:
+        raise AssertionError(f"FusionNet inputs through K1 and plain differ: {input_diff}")
+    if not pre_median_diff <= K1_TOL:
+        raise AssertionError(f"the pre-median map through K1 and plain differs by "
+                             f"{pre_median_diff:.3g} > {K1_TOL}")
+    if not shared_ratio <= GRAD_TOL:
+        raise AssertionError(f"FusionNet gradients through K1 and plain differ by "
+                             f"{shared_ratio:.3g} of the largest gradient > {GRAD_TOL}")
+    if not fusion_grad_ratio <= ROUTE_GRAD_TOL:
+        raise AssertionError(f"FusionNet gradients through K1 and plain, each with its own "
+                             f"maps, differ by {fusion_grad_ratio:.3g} > {ROUTE_GRAD_TOL}")
+    if not planted_ratio > ROUTE_GRAD_TOL:
+        raise AssertionError(f"a K1 without its last tap moves the gradients by only "
+                             f"{planted_ratio:.3g}: the check at {ROUTE_GRAD_TOL} cannot see it")
+    regime_k1 = dict(train_phase=phase_mode_k1, train_fusion=fusion_counts["k1"] + fusion_mode_k1)
+
     k1_1080, k1_1080_8 = timings[2], timings[3]  # the 4-image and the batched 8-image launch
     k2_train = k2_timings[0]  # the training launch
     _line(phase="total", seconds=time.perf_counter() - t_all)
     print(smi, flush=True)
     _line(kernels=[dict(
         name=adacof_cuda.NAME, route="cuda", source=adacof_cuda.SOURCE,
-        replaces=adacof_cuda.REPLACES, launches=k1_launches + video_k1 + eval_k1 + train_k1,
+        replaces=adacof_cuda.REPLACES,
+        launches=k1_launches + video_k1 + eval_k1 + train_k1 + sum(regime_k1.values()),
         max_abs_err=max_err,
         ms=k1_1080["ms"], plain_ms=k1_1080["plain_ms"], bound_ms=k1_1080["bound_ms"],
         bound_by=k1_1080["bound_by"], library_ms=None, design=DESIGN,
         train_launch_ms=timings[0]["ms"],
         launch_8_images_ms=k1_1080_8["ms"], launch_8_images_plain_ms=k1_1080_8["plain_ms"],
         launch_8_images_bound_ms=k1_1080_8["bound_ms"],
-        launches_by_path=dict(serve=k1_launches, video=video_k1, eval=eval_k1, train=train_k1),
+        launches_by_path=dict(serve=k1_launches, video=video_k1, eval=eval_k1, train=train_k1,
+                              **regime_k1),
     ), dict(
         name=adacof_cuda.NAME_BWD, route="cuda", source=adacof_cuda.SOURCE_BWD,
         replaces=adacof_cuda.REPLACES_BWD, launches=train_k2, max_abs_err=k2_max_err,
         ms=k2_train["ms"], plain_ms=k2_train["plain_ms"], bound_ms=k2_train["bound_ms"],
         bound_by=k2_train["bound_by"], library_ms=None, design=DESIGN,
         launch_1080p_ms=k2_timings[1]["ms"],
-        launches_by_path=dict(serve=0, video=0, eval=0, train=train_k2),
+        launches_by_path=dict(serve=0, video=0, eval=0, train=train_k2, train_phase=0,
+                              train_fusion=0),
     )])
     _line(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),
                                count=torch.cuda.device_count()))

@@ -63,3 +63,56 @@ def concat_for_net(vals_list: Sequence[Decomp]):
     phases = [torch.cat([v.phase[lvl] for v in vals_list], 1) for lvl in range(nlev)]
     amps = [torch.cat([v.amplitude[lvl] for v in vals_list], 1) for lvl in range(nlev)]
     return low, phases[::-1], amps[::-1]
+
+
+def _levels(bands, keep: range) -> Tuple[torch.Tensor, ...]:
+    """The band levels whose index is in `keep`, the others zeroed."""
+    return tuple(b if i in keep else torch.zeros_like(b) for i, b in enumerate(bands))
+
+
+def keep_finest_levels(vals: Decomp, use_levels: int = 1) -> Decomp:
+    """Zero all but the `use_levels` finest band levels; keep high, zero low."""
+    keep = range(use_levels)
+    return Decomp(
+        high=vals.high,
+        low=torch.zeros_like(vals.low),
+        phase=_levels(vals.phase, keep),
+        amplitude=_levels(vals.amplitude, keep),
+    )
+
+
+def keep_coarsest_levels(vals: Decomp, use_levels: int = 1) -> Decomp:
+    """Zero all but the `use_levels` coarsest band levels; keep low, zero high."""
+    n = len(vals.phase)
+    keep = range(n - use_levels, n)
+    return Decomp(
+        high=torch.zeros_like(vals.high),
+        low=vals.low,
+        phase=_levels(vals.phase, keep),
+        amplitude=_levels(vals.amplitude, keep),
+    )
+
+
+def abs_difference(v1: Decomp, v2: Decomp) -> Decomp:
+    """Elementwise |v1 - v2| on every component."""
+    return Decomp(
+        high=torch.abs(v1.high - v2.high),
+        low=torch.abs(v1.low - v2.low),
+        phase=tuple(torch.abs(a - b) for a, b in zip(v1.phase, v2.phase)),
+        amplitude=tuple(torch.abs(a - b) for a, b in zip(v1.amplitude, v2.amplitude)),
+    )
+
+
+def exchange_levels(base: Decomp, changer: Decomp, start: int, end: int) -> Decomp:
+    """`base` with its band levels [start, end) taken from `changer` (the
+    hierarchical training of PhaseNet)."""
+
+    def pick(ours, theirs):
+        return tuple(theirs[i] if start <= i < end else b for i, b in enumerate(ours))
+
+    return Decomp(
+        high=base.high,
+        low=base.low,
+        phase=pick(base.phase, changer.phase),
+        amplitude=pick(base.amplitude, changer.amplitude),
+    )

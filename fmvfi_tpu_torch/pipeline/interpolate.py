@@ -230,6 +230,51 @@ def _chunked_mid_sections(models: FusionModels, f1, f2, ada_pred, filters, seq_c
     return phase_pred, lab1, lab2, base, unc
 
 
+class FusionInputs(NamedTuple):
+    """FusionNet's inputs, NCHW on the /8 grid, in its argument order."""
+
+    base: torch.Tensor  # (B, 3, H, W) the 3-pass AdaCoF baseline composite
+    adacof: torch.Tensor  # (B, 3, H, W) AdaCoF's prediction
+    phase: torch.Tensor  # (B, 3, H, W) PhaseNet's prediction
+    other: torch.Tensor  # (B, 6, H, W) frame1 || frame2 in Lab
+    maps: Optional[torch.Tensor]  # (B, 3, H, W) [ada_unc, phase_unc, flow_var], or None
+
+
+def fusion_inputs(models: FusionModels, frame1, frame2, dev: torch.device, seq_chunk: int = 0):
+    """Sections 1-4 of the fusion pipeline on (B, H, W, 3) frames: the AdaCoF
+    main pass, PhaseNet, the uncertainty maps and the 3-pass baseline.
+    Returns (FusionInputs, (H, W), the size to crop FusionNet's output back
+    to).  `fusion_interpolate` runs FusionNet on them; the fusion trainer
+    runs this under no_grad and FusionNet with grad."""
+    f1, f2 = _nchw(frame1, dev), _nchw(frame2, dev)
+    b, _, full_h, full_w = f1.shape
+    chunked = 0 < seq_chunk < b
+    if chunked and b % seq_chunk:
+        raise ValueError(f"batch {b} not divisible by seq_chunk {seq_chunk}")
+    f1, f2 = _pad8(f1), _pad8(f2)
+    filters = _filters(f1, dev)
+    n_maps = models.fusion_net.uncertainty_maps
+
+    # 1. AdaCoF
+    ada_out = models.adacof(f1, f2, with_stats=n_maps != 0)
+    ada_pred = ada_out.blended
+
+    # 2-4. PhaseNet, uncertainty maps, baseline composite
+    if chunked:
+        mid = _chunked_mid_sections(models, f1, f2, ada_pred, filters, seq_chunk)
+    else:
+        mid = _mid_sections(models, f1, f2, ada_pred, filters)
+    phase_pred, lab1, lab2, base, unc = mid
+
+    # maps ordered [ada_unc, phase_unc, flow_var]
+    maps = None
+    if n_maps:
+        maps = torch.stack([unc[0], unc[1], ada_out.uncertainty[:, 0]], dim=1)
+    # other = the Lab frames
+    other = torch.cat([lab1, lab2], dim=1)
+    return FusionInputs(base, ada_pred, phase_pred, other, maps), (full_h, full_w)
+
+
 @torch.no_grad()
 def fusion_interpolate(
     models: FusionModels,
@@ -267,42 +312,18 @@ def fusion_interpolate(
             "compute_dtype and spatial_mesh are not ported to fmvfi_tpu_torch yet"
         )
     dev = _device(device, *models)
-    f1, f2 = _nchw(frame1, dev), _nchw(frame2, dev)
-    b, _, full_h, full_w = f1.shape
-    chunked = 0 < seq_chunk < b
-    if chunked and b % seq_chunk:
-        raise ValueError(f"batch {b} not divisible by seq_chunk {seq_chunk}")
-    f1, f2 = _pad8(f1), _pad8(f2)
-    filters = _filters(f1, dev)
-    n_maps = models.fusion_net.uncertainty_maps
-
-    # 1. AdaCoF
-    ada_out = models.adacof(f1, f2, with_stats=n_maps != 0)
-    ada_pred = ada_out.blended
-
-    # 2-4. PhaseNet, uncertainty maps, baseline composite
-    if chunked:
-        mid = _chunked_mid_sections(models, f1, f2, ada_pred, filters, seq_chunk)
-    else:
-        mid = _mid_sections(models, f1, f2, ada_pred, filters)
-    phase_pred, lab1, lab2, base, unc = mid
-
-    # maps ordered [ada_unc, phase_unc, flow_var]
-    maps = None
-    if n_maps:
-        maps = torch.stack([unc[0], unc[1], ada_out.uncertainty[:, 0]], dim=1)
-
-    # 5. FusionNet blend; other = the Lab frames
-    other = torch.cat([lab1, lab2], dim=1)
-    final = models.fusion_net(base, ada_pred, phase_pred, other, maps)
+    inputs, (full_h, full_w) = fusion_inputs(models, frame1, frame2, dev, seq_chunk)
+    # 5. FusionNet blend
+    final = models.fusion_net(*inputs)
 
     def out(x):
         return _nhwc(x[:, :, :full_h, :full_w])
 
     if return_parts:
-        parts = {"phase": out(phase_pred), "adacof": out(ada_pred), "baseline": out(base)}
-        if n_maps:
-            parts["maps"] = out(maps)
+        parts = {"phase": out(inputs.phase), "adacof": out(inputs.adacof),
+                 "baseline": out(inputs.base)}
+        if inputs.maps is not None:
+            parts["maps"] = out(inputs.maps)
         return out(final), parts
     return out(final)
 

@@ -3,9 +3,10 @@ checkpoints with resume, a JSONL metrics stream and an optional probe.
 
 - `MetricsWriter`: one JSON record per logged step.
 - `fit()`: the epoch loop gluing a (state, step_fn) pair from train.trainer
-  to a batch iterator, resuming from the latest checkpoint.
-Still to be ported (ROADMAP Queue 1, item 17): the loss-curve plot, the
-hierarchical-m schedule and the image probe.
+  to a batch iterator, resuming from the latest checkpoint, with the
+  hierarchical-m schedule of PhaseNet training.
+Still to be ported (ROADMAP Queue 1, item 17): the loss-curve plot and the
+image probe.
 """
 
 from __future__ import annotations
@@ -45,6 +46,10 @@ def fit(
     ckpt_every: int = 500,
     probe: Optional[Callable] = None,
     resume: bool = True,
+    make_step: Optional[Callable[[Optional[int]], Callable]] = None,
+    m_init: Optional[int] = None,
+    m_update: int = 500,
+    m_max: int = 10,
 ):
     """Run the loop.  `batches` yields (f1, target, f2) NHWC batches; an
     epoch is `steps_per_epoch` batches (or one pass if the iterator is finite
@@ -52,7 +57,14 @@ def fit(
     every `ckpt_every` steps and at the end of each epoch; with `resume`, the
     latest one is restored first and the epoch count picks up where it
     stopped.  `probe(state) -> float` is scored and logged after each
-    epoch."""
+    epoch.
+
+    Hierarchical-m training (PhaseNet): with `make_step` (from
+    make_phase_trainer) and `m_init`, the step is `make_step(m)`, m rising
+    by one every `m_update` batches within an epoch (the count restarts
+    each epoch, m does not) up to `m_max`, and the step is rebuilt at each
+    rise; a resumed run starts at the m an uninterrupted run would have.
+    Each metrics record carries m."""
     writer = MetricsWriter(out_dir)
     ckptr = Checkpointer(os.path.join(out_dir, "checkpoint"))
     if resume and ckptr.latest() is not None:
@@ -67,6 +79,16 @@ def fit(
     else:
         start_epoch, resume_n = 0, 0
 
+    m = m_init
+    if make_step is not None and m is not None:
+        if step:
+            if steps_per_epoch:
+                inc = start_epoch * (steps_per_epoch // m_update) + resume_n // m_update
+            else:
+                inc = step // m_update  # one continuous pass
+            m = min(m_max, m_init + inc)
+        step_fn = make_step(m)
+
     try:
         for epoch in range(start_epoch, epochs):
             n = resume_n if epoch == start_epoch else 0
@@ -79,9 +101,12 @@ def fit(
                 step += 1
                 n += 1
                 if step % log_every == 0:
-                    writer.write(step, metrics, epoch=epoch)
+                    writer.write(step, metrics, epoch=epoch, **({} if m is None else {"m": m}))
                 if step % ckpt_every == 0:
                     ckptr.save(step, state)
+                if make_step is not None and m is not None and n % m_update == 0 and m < m_max:
+                    m += 1
+                    step_fn = make_step(m)
             if probe is not None:
                 writer.write(step, {"probe_psnr": probe(state)}, epoch=epoch)
             ckptr.save(step, state)

@@ -297,3 +297,113 @@ def test_repeated_launches_at_1080p_are_bit_equal(cuda_device):
         got = adacof_cuda.warp_bwd_cuda(x, wgt, a, be, cot, 1, 48, x4=x4)
         differing += torch.stack([(k != f).any() for k, f in zip(got, first_g)]).any()
     assert int(differing) == 0
+
+
+def _triplets(size, n):
+    import numpy as np
+
+    from fmvfi_tpu_torch.eval.synth import translation_triplet
+
+    items = [translation_triplet(size, size, dx=3.0 + i, dy=1.0 - i, seed=i) for i in range(n)]
+    return tuple(np.stack([it[j] for it in items]) for j in range(3))
+
+
+@pytest.mark.gpu
+def test_phase_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """One PhaseNet step at 64x64, batch 2, mode fusion (K1 once on 4
+    images, never K2), fp32, TF32 off, lr 1e-5: the metrics within 1e-4
+    relative, the params and BN running statistics within 1e-4 of the
+    CPU's step, and the step's gradient (Adam's first moment, 0.1 x it)
+    within 2e-2 of each tensor's largest entry: twice float32's reach for
+    this gradient, which tests/test_torch_train_phase_grads.py bounds at
+    1e-2 of the float64 one on the CPU, for card and CPU each; a conv1
+    bias, zero in exact arithmetic, against the net's largest."""
+    from fmvfi_tpu_torch.models.adacof import AdaCoFNet
+    from fmvfi_tpu_torch.train.trainer import make_phase_trainer
+
+    batch = _triplets(64, 2)
+    torch.manual_seed(0)
+    cpu_ada = AdaCoFNet()
+    card_ada = AdaCoFNet().to(cuda_device)
+    card_ada.load_state_dict(cpu_ada.state_dict())
+    cpu_state, cpu_step, _, _ = make_phase_trainer(64, 64, lr=1e-5, mode="fusion",
+                                                   adacof=cpu_ada, device="cpu")
+    card_state, card_step, _, _ = make_phase_trainer(64, 64, lr=1e-5, mode="fusion",
+                                                     adacof=card_ada, device=cuda_device)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        before = (adacof_cuda.launches, adacof_cuda.bwd_launches)
+        card_state, card_m = card_step(card_state, batch)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert (adacof_cuda.launches, adacof_cuda.bwd_launches) == (before[0] + 1, before[1])
+    cpu_state, cpu_m = cpu_step(cpu_state, batch)
+    for k in cpu_m:
+        assert abs(float(card_m[k]) - float(cpu_m[k])) <= 1e-4 * abs(float(cpu_m[k])), k
+    card_sd = card_state.model.state_dict()
+    for k, v in cpu_state.model.state_dict().items():
+        torch.testing.assert_close(card_sd[k].cpu(), v, rtol=0, atol=1e-4, msg=k)
+    card_g, cpu_g = ({k: st.optimizer.state[p]["exp_avg"].cpu()
+                      for k, p in st.model.named_parameters()} for st in (card_state, cpu_state))
+    net_top = max(float(g.abs().max()) for g in cpu_g.values())
+    for k, g in cpu_g.items():
+        top = net_top if k.endswith("conv1.bias") else float(g.abs().max())
+        assert float((card_g[k] - g).abs().max()) <= 2e-2 * top, k
+
+
+@pytest.mark.gpu
+def test_fusion_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """One FusionNet step at 64x64, batch 2, random weights (variant 1, whose
+    head starts nonzero): K1 three times, K2 never, the loss within 1e-4
+    relative and FusionNet's params within 1e-4 of the CPU's step; the
+    frozen nets hold no gradients.  FusionNet's gradient on the card's
+    inputs (`fusion_inputs`) within 1e-4 of each tensor's largest entry of
+    the CPU's on the same inputs: each side's own uncertainty maps can
+    differ at a histogram-median bin edge (ROADMAP Q3-3)."""
+    from fmvfi_tpu_torch.models.adacof import AdaCoFNet
+    from fmvfi_tpu_torch.models.phase_net import PhaseNetCore
+    from fmvfi_tpu_torch.pipeline.interpolate import FusionModels, fusion_inputs
+    from fmvfi_tpu_torch.train.trainer import fusion_loss, make_fusion_trainer
+
+    batch = _triplets(64, 2)
+    torch.manual_seed(0)
+    cpu_nets = (PhaseNetCore().init_params(torch.Generator().manual_seed(1)), AdaCoFNet())
+    card_nets = (PhaseNetCore().to(cuda_device), AdaCoFNet().to(cuda_device))
+    for dst, src in zip(card_nets, cpu_nets):
+        dst.load_state_dict(src.state_dict())
+    cpu_state, cpu_step = make_fusion_trainer(*cpu_nets, variant=1, device="cpu")
+    card_state, card_step = make_fusion_trainer(*card_nets, variant=1, device=cuda_device)
+    card_state.model.load_state_dict(cpu_state.model.state_dict())
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        before = (adacof_cuda.launches, adacof_cuda.bwd_launches)
+        card_state, card_m = card_step(card_state, batch)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert (adacof_cuda.launches, adacof_cuda.bwd_launches) == (before[0] + 3, before[1])
+    cpu_state, cpu_m = cpu_step(cpu_state, batch)
+    assert abs(float(card_m["loss"]) - float(cpu_m["loss"])) <= 1e-4 * abs(float(cpu_m["loss"]))
+    card_sd = card_state.model.state_dict()
+    for k, v in cpu_state.model.state_dict().items():
+        torch.testing.assert_close(card_sd[k].cpu(), v, rtol=0, atol=1e-4, msg=k)
+    assert all(p.grad is None for m in card_nets for p in m.parameters())
+
+    models = FusionModels(*card_nets, card_state.model)
+    target = torch.from_numpy(batch[1]).permute(0, 3, 1, 2).contiguous()
+    grads = []
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            inputs, _ = fusion_inputs(models, batch[0], batch[2], cuda_device)
+        for state, dev in ((card_state, cuda_device), (cpu_state, torch.device("cpu"))):
+            state.model.load_state_dict(card_sd)
+            loss, _ = fusion_loss(state.model(*(x.to(dev) for x in inputs)), target.to(dev))
+            grads.append(torch.autograd.grad(loss, list(state.model.parameters())))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    for k, (a, b) in enumerate(zip(*grads)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(b.abs().max()), k

@@ -112,6 +112,50 @@ def test_training_runs_without_jax_flax_optax_or_fmvfi_tpu():
     assert res["leaked"] == []
 
 
+_REGIMES_ISOLATED = f"""
+import json, sys, tempfile
+for name in {FORBIDDEN!r}:
+    sys.modules[name] = None  # any import of these raises ImportError
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from fmvfi_tpu_torch.models.adacof import AdaCoFNet
+from fmvfi_tpu_torch.models.phase_net import PhaseNetCore
+from fmvfi_tpu_torch.train.data import MixedSynthStream, SyntheticTriplets, batch_iterator
+from fmvfi_tpu_torch.train.loop import fit
+from fmvfi_tpu_torch.train.trainer import make_fusion_trainer, make_phase_trainer
+from fmvfi_tpu_torch.utils.convert import load_adacof_weights
+ada = AdaCoFNet()
+ada.load_state_dict(load_adacof_weights({CKPTS[0]!r}))
+state, step, eval_fn, make_step = make_phase_trainer(32, 32, mode="fusion", adacof=ada, device="cpu")
+with tempfile.TemporaryDirectory() as out:
+    batches = batch_iterator(SyntheticTriplets(n=2, h=40, w=40, mixed=True), 1, crop=32)
+    state = fit(state, step, batches, out, epochs=1, steps_per_epoch=2, log_every=1,
+                make_step=make_step, m_init=3, m_update=1)
+phase = PhaseNetCore().init_params(torch.Generator().manual_seed(0))
+fstate, fstep = make_fusion_trainer(phase, ada, variant=2, device="cpu")
+f1, mid, f2 = (np.stack([x]) for x in MixedSynthStream(n=1, h=32, w=32, workers=1).load(0))
+fstate, m = fstep(fstate, (f1, mid, f2))
+leaked = sorted(n for n in sys.modules if n.split(".")[0] in {FORBIDDEN!r} and sys.modules[n])
+print(json.dumps(dict(phase_step=state.step, fusion_step=fstate.step, loss=float(m["loss"]),
+                      leaked=leaked)))
+"""
+
+
+def test_phase_and_fusion_training_run_without_jax_flax_optax_or_fmvfi_tpu():
+    """The phase trainer (fusion mode, through fit's m-schedule) and the
+    fusion trainer take their steps on the CPU on the mixed diets with the
+    reference's libraries blocked."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _REGIMES_ISOLATED], cwd=ROOT, capture_output=True, text=True,
+        timeout=600,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["phase_step"] == 2 and res["fusion_step"] == 1 and np.isfinite(res["loss"])
+    assert res["leaked"] == []
+
+
 _SERVE_ISOLATED = f"""
 import json, sys, tempfile
 for name in {FORBIDDEN!r}:
