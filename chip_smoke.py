@@ -100,6 +100,38 @@ Phases, each printing one JSON line with its seconds:
               K1 route's maps and loss cotangent on both within 1e-4 of
               each tensor's largest, end to end within 1e-3, and a K1 with
               its last tap dropped over 1e-3.
+  lpips     - (after eval) make_vgg_lpips from a seeded torchvision-format
+              vgg16 state dict (written to a temporary file; no weights are
+              downloaded) on the card against the CPU on a 256x256 pair
+              within 1e-4 relative, then evaluate_suite on the eval phase's
+              sets (adacof and baseline) with it: every set's lpips_vgg
+              finite, K1 once per set and method, through F5C3 with the
+              ring;
+  train_gan - AdaCoF training with the VGG and T_WGAN_GP terms (the default
+              loss + 0.01*VGG + 0.005*T_WGAN_GP, the seeded vgg16, a critic
+              built for 256x256) from the bundled weights through fit over
+              batch_iterator(SyntheticTriplets(n=32, h=272, w=272), 4,
+              crop=256), 1 warm-up and 10 timed steps: K1 and K2 once a
+              step through F5C3 with the ring, finite losses and d_loss, a
+              critic that moved, a checkpoint whose generator, critic (with
+              its BN statistics), critic Adam and draw generator restore
+              exactly; then one step each with GAN, WGAN, WGAN_GP and
+              FI_GAN at the same size;
+  gan_vs_cpu - each of the five adversarial steps at 64x64, batch 2, on
+              the card against the CPU from one critic and one epsilon
+              (plain SGD that records the critic's gradient), in float64:
+              losses within 1e-4 relative, the critic's and the fake's
+              gradients within 1e-4 of each tensor's largest (cuDNN's
+              double backward of the gradient penalty), and the penalty
+              weighted 0 reading over those bounds; the float32 gaps are
+              printed, not held (leaky-ReLU kinks that float noise moves a
+              pre-activation across change a float32 gradient by up to
+              ~5e-2 of a tensor's largest at this size, on the CPU as on
+              the card);
+  native    - the C++ augmentation library builds (its g++ seconds),
+              batch_iterator over a MixedSynthStream takes the native path
+              (its path counter), and its batches equal the numpy path's
+              within 1e-6.
 Then the nvidia-smi line, the `kernels` JSON line and, last, the result line
 {"ok": true, "device": {...}}.  Any failed check raises (non-zero exit).
 Without CUDA, or without the package beside this file, it exits non-zero
@@ -152,6 +184,15 @@ EVAL_PLAIN_DB = 0.05  # per-set fusion PSNR, through K1 and through the plain wa
 EVAL_METHODS = ("fusion", "adacof", "phase", "baseline")
 EVAL_K1_PER_SET = 3 + 1 + 0 + 1  # fusion, adacof, phase, baseline: one dispatch each
 H_FULL, W_FULL = 1080, 1920
+GAN_TYPES = ("GAN", "WGAN", "WGAN_GP", "FI_GAN", "T_WGAN_GP")
+GAN_TERMS = "+0.01*VGG+0.005*{}"  # added to the default AdaCoF loss
+GAN_STEPS = 10  # timed adversarial training steps, after one warm-up step
+GAN_CPU_SIZE, GAN_CPU_BATCH, GAN_CPU_LR = 64, 2, 1e-3
+# losses (relative) and gradients (of each tensor's largest), in float64
+GAN_CPU_TOL = 1e-4
+LPIPS_TOL = 1e-4  # relative, card against CPU
+NATIVE_TOL = 1e-6  # native batches against the numpy path: x * (1/255) against x / 255
+VGG16_CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M", 512, 512, 512]
 
 
 def _line(**kw):
@@ -246,6 +287,301 @@ def _plain_warp(warp_plain, field_grads):
         return PlainWarp.apply(x, weight, offset_i, offset_j, dilation, max_offset)
 
     return warp
+
+
+def _seeded_vgg16(path):
+    """A torchvision-format vgg16 `features.*` state dict from seed 0
+    (He-scaled normal weights, small biases), saved to `path`: no vgg16
+    weights are in the repository and nothing is downloaded."""
+    import torch
+
+    gen = torch.Generator().manual_seed(0)
+    sd, idx, cin = {}, 0, 3
+    for v in VGG16_CFG:
+        if v == "M":
+            idx += 1
+            continue
+        sd[f"features.{idx}.weight"] = torch.randn(v, cin, 3, 3, generator=gen) * (
+            2.0 / (9 * cin)) ** 0.5
+        sd[f"features.{idx}.bias"] = 0.01 * torch.randn(v, generator=gen)
+        cin, idx = v, idx + 2
+    torch.save(sd, path)
+    return path
+
+
+def _reset_counts():
+    from fmvfi_tpu_torch.ops import adacof_cuda
+
+    adacof_cuda.launches = adacof_cuda.bwd_launches = 0
+    adacof_cuda.paths.clear()
+    adacof_cuda.bwd_paths.clear()
+
+
+def _counts():
+    from fmvfi_tpu_torch.ops import adacof_cuda
+
+    return dict(k1=adacof_cuda.launches, k2=adacof_cuda.bwd_launches,
+                k1_paths=dict(adacof_cuda.paths), k2_paths=dict(adacof_cuda.bwd_paths))
+
+
+def _work_dir(repo):
+    """A temporary directory under the repository's git-ignored build/."""
+    os.makedirs(os.path.join(repo, "build"), exist_ok=True)
+    return tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.path.join(repo, "build"))
+
+
+def phase_lpips(dev, repo, models, sets):
+    """make_vgg_lpips on the card against the CPU, then evaluate_suite with it;
+    returns the path's K1 launches."""
+    with _work_dir(repo) as work_dir:
+        return _lpips(dev, models, sets, _seeded_vgg16(os.path.join(work_dir, "vgg16.pth")),
+                      work_dir)
+
+
+def _lpips(dev, models, sets, vgg_path, work_dir):
+    import torch
+    from fmvfi_tpu_torch.eval.evaluate import evaluate_suite
+    from fmvfi_tpu_torch.eval.metrics import make_vgg_lpips
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(0)
+    a, b = (torch.rand(CROP, CROP, 3, generator=gen) for _ in range(2))
+    card_fn = make_vgg_lpips(vgg_path, device=dev)
+    card = float(card_fn(a.to(dev), b.to(dev)))
+    cpu = float(make_vgg_lpips(vgg_path, device="cpu")(a, b))
+    same = float(card_fn(a.to(dev), a.to(dev)))
+    rel = abs(card / cpu - 1.0)
+    methods = ("adacof", "baseline")
+    _reset_counts()  # the lpips evaluation path's run
+    t_run = time.perf_counter()
+    summary = evaluate_suite(models, os.path.join(work_dir, "lpips"), sets=sets, methods=methods,
+                             dim=CROP, lpips_fn=card_fn, device=dev)
+    run_seconds = time.perf_counter() - t_run
+    c = _counts()
+    lpips = {k: {m: summary[k][m].get("lpips_vgg") for m in methods} for k in sets}
+    _line(phase="lpips", seconds=time.perf_counter() - t0, size=[CROP, CROP], card=card, cpu=cpu,
+          rel_diff=rel, tol=LPIPS_TOL, same_pair=same, suite_run_seconds=run_seconds,
+          lpips_vgg=lpips, k1_launches=c["k1"], k1_paths=c["k1_paths"], k2_launches=c["k2"])
+    if not rel <= LPIPS_TOL or not same == 0.0:
+        raise AssertionError(f"lpips: card {card} against CPU {cpu} ({rel:.3g}), a pair with "
+                             f"itself {same}")
+    vals = [v for row in lpips.values() for v in row.values()]
+    if None in vals or not np.isfinite(vals).all():
+        raise AssertionError(f"lpips: evaluate_suite's lpips_vgg {lpips}")
+    if c["k1"] != 2 * len(sets) or c["k1_paths"] != {RING_PATH: c["k1"]} or c["k2"]:
+        raise AssertionError(f"lpips: K1 {c['k1_paths']}, K2 {c['k2']}; expected one K1 launch "
+                             f"per set and method through {RING_PATH}")
+    return c["k1"]
+
+
+def phase_train_gan(dev, repo, ada_path):
+    """AdaCoF training with the VGG and T_WGAN_GP terms through fit, its
+    checkpoint, and one step of each other gan type; returns the K1 and K2
+    launches of the T_WGAN_GP run and of the other types' steps."""
+    with _work_dir(repo) as work_dir:
+        return _train_gan(dev, ada_path, _seeded_vgg16(os.path.join(work_dir, "vgg16.pth")),
+                          work_dir)
+
+
+def _train_gan(dev, ada_path, vgg_path, work_dir):
+    import torch
+    from fmvfi_tpu_torch.ops import adacof_cuda
+    from fmvfi_tpu_torch.train.data import SyntheticTriplets, batch_iterator
+    from fmvfi_tpu_torch.train.loop import fit
+    from fmvfi_tpu_torch.train.losses import parse_loss_spec
+    from fmvfi_tpu_torch.train.trainer import DEFAULT_LOSS, make_adacof_trainer
+    from fmvfi_tpu_torch.utils.checkpoint import Checkpointer
+    from fmvfi_tpu_torch.utils.convert import load_adacof_weights
+
+    t0 = time.perf_counter()
+
+    def trainer(gan, seed=0):
+        spec = parse_loss_spec(DEFAULT_LOSS + GAN_TERMS.format(gan))
+        st, fn = make_adacof_trainer(loss_spec=spec, vgg_checkpoint=vgg_path, h=CROP, w=CROP,
+                                     seed=seed, device=dev)
+        st.model.load_state_dict(load_adacof_weights(ada_path))
+        return st, fn
+
+    def timed(step_fn, rec):
+        def run(st, batch):
+            before = (adacof_cuda.launches, adacof_cuda.bwd_launches)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            st, m = step_fn(st, batch)
+            torch.cuda.synchronize()
+            rec["ms"].append(1e3 * (time.perf_counter() - t))
+            rec["loss"].append(float(m["loss"]))
+            rec["d_loss"].append(float(m["d_loss"]))
+            rec["launches"].append([adacof_cuda.launches - before[0],
+                                    adacof_cuda.bwd_launches - before[1]])
+            return st, m
+
+        return run
+
+    def check(name, c, rec):
+        if any(n != [1, 1] for n in rec["launches"]) or c["k1_paths"] != {RING_PATH: c["k1"]} \
+                or c["k2_paths"] != {RING_PATH: c["k2"]}:
+            raise AssertionError(f"{name}: K1/K2 launches per step {rec['launches']}, by "
+                                 f"instantiation {c['k1_paths']} {c['k2_paths']}")
+        if not np.isfinite(rec["loss"] + rec["d_loss"]).all():
+            raise AssertionError(f"{name}: losses {rec['loss']}, d_loss {rec['d_loss']}")
+
+    def new_rec():
+        return dict(ms=[], loss=[], d_loss=[], launches=[])
+
+    state, step_fn = trainer("T_WGAN_GP")
+    critic0 = {k: v.clone() for k, v in state.extra.critic.state_dict().items()}
+    batches = batch_iterator(SyntheticTriplets(n=32, h=CROP + 16, w=CROP + 16), FUSION_BATCH,
+                             crop=CROP)
+    out_dir = os.path.join(work_dir, "train_gan")
+    try:
+        t_setup = time.perf_counter() - t0
+        rec = new_rec()
+        _reset_counts()  # the adversarial training path's run
+        torch.cuda.reset_peak_memory_stats()
+        state = fit(state, timed(step_fn, rec), batches, out_dir, epochs=1,
+                    steps_per_epoch=GAN_STEPS + 1, log_every=1, ckpt_every=GAN_STEPS + 1)
+        counts = _counts()
+        peak = torch.cuda.max_memory_allocated()
+        check("train_gan", counts, rec)
+        moved = max(float((v - critic0[k]).abs().max())
+                    for k, v in state.extra.critic.state_dict().items())
+        if state.step != GAN_STEPS + 1 or not moved > 0:
+            raise AssertionError(f"train_gan: step {state.step}, critic moved {moved}")
+
+        # the checkpoint restores the adversarial state exactly
+        fresh, _ = trainer("T_WGAN_GP", seed=1)
+        fresh = Checkpointer(os.path.join(out_dir, "checkpoint")).restore(fresh)
+        pairs = [(fresh.model.state_dict(), state.model.state_dict()),
+                 (fresh.extra.critic.state_dict(), state.extra.critic.state_dict())]
+        opt_a, opt_b = (s.extra.optimizer.state_dict()["state"] for s in (fresh, state))
+        pairs += [(opt_a[i], opt_b[i]) for i in opt_b]
+        # (Adam's step counts stay on the host in a trained state and come
+        # back on the card from a checkpoint mapped there: compare on the host)
+        restored = fresh.step == state.step and len(opt_a) == len(opt_b) > 0 and all(
+            torch.equal(v.cpu(), b[k].cpu()) for a, b in pairs for k, v in a.items()
+        ) and torch.equal(fresh.extra.generator.get_state(), state.extra.generator.get_state())
+        if not restored:
+            raise AssertionError("train_gan: the checkpoint did not restore the adversarial state")
+        del fresh, state, pairs, opt_a, opt_b
+
+        # one step of each other gan type at the same size
+        types, types_k1, types_k2 = {}, 0, 0
+        for gan in GAN_TYPES[:-1]:
+            st, fn = trainer(gan)
+            trec = new_rec()
+            _reset_counts()  # this type's run
+            st, _ = timed(fn, trec)(st, next(batches))
+            c = _counts()
+            check(f"train_gan {gan}", c, trec)
+            types_k1, types_k2 = types_k1 + c["k1"], types_k2 + c["k2"]
+            types[gan] = dict(ms=trec["ms"][0], loss=trec["loss"][0], d_loss=trec["d_loss"][0])
+            del st, fn
+            torch.cuda.empty_cache()
+    finally:
+        batches.close()
+    _line(phase="train_gan", seconds=time.perf_counter() - t0, setup_seconds=t_setup,
+          loss=DEFAULT_LOSS + GAN_TERMS.format("T_WGAN_GP"), batch=FUSION_BATCH, crop=CROP,
+          steps=GAN_STEPS, warmup_ms=rec["ms"][0], ms_per_step=float(np.median(rec["ms"][1:])),
+          ms_steps=rec["ms"][1:], peak_memory_bytes=peak, loss_first=rec["loss"][0],
+          loss_last=rec["loss"][-1], d_loss_first=rec["d_loss"][0],
+          d_loss_last=rec["d_loss"][-1], critic_moved=moved, k1_launches=counts["k1"],
+          k2_launches=counts["k2"], k1_k2_paths=[counts["k1_paths"], counts["k2_paths"]],
+          checkpoint_restored=restored, other_types=types)
+    return counts["k1"], counts["k2"], types_k1, types_k2
+
+
+def phase_gan_vs_cpu(dev):
+    """Each adversarial step on the card against the same step on the CPU,
+    from one critic and one epsilon, held in float64 (the float32 gaps are
+    reported: there they come from leaky-ReLU kinks that float noise moves
+    a pre-activation across, on the CPU as on the card)."""
+    import torch
+    from fmvfi_tpu_torch.train import adversarial as adv_mod
+
+    t0 = time.perf_counter()
+
+    class RecordingSGD(torch.optim.SGD):
+        def step(self, closure=None):
+            self.grads = [p.grad.clone() for g in self.param_groups for p in g["params"]]
+            return super().step(closure)
+
+    gen = torch.Generator().manual_seed(0)
+    shape = (GAN_CPU_BATCH, 3, GAN_CPU_SIZE, GAN_CPU_SIZE)
+    fake, real, f0, f2, eps = (torch.rand(shape, generator=gen) for _ in range(5))
+
+    def run(gan, device, dtype):
+        adv = adv_mod.Adversarial(gan, GAN_CPU_SIZE, device=device)
+        st = adv.init_state()  # the same seeded critic on both sides
+        st.critic.to(dtype)
+        st = st._replace(optimizer=RecordingSGD(st.critic.parameters(), lr=GAN_CPU_LR))
+        x = fake.to(device, dtype).requires_grad_(True)
+        frames = (f0.to(device, dtype), f2.to(device, dtype))
+        g_loss, st, aux = adv.step(st, x, real.to(device, dtype), frames)
+        dfake, = torch.autograd.grad(g_loss, x)
+        return (float(g_loss.detach()), float(aux["d_loss"]), [dfake.cpu()],
+                [g.cpu() for g in st.optimizer.grads])
+
+    def gap(card, cpu):
+        def rel_max(xs, ys):
+            return max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-300)
+                       for x, y in zip(xs, ys))
+        return dict(loss=max(abs(card[0] / cpu[0] - 1.0), abs(card[1] / cpu[1] - 1.0)),
+                    dfake=rel_max(card[2], cpu[2]), critic_grad=rel_max(card[3], cpu[3]))
+
+    draw, gp_weight = adv_mod.draw_eps, adv_mod.GP_WEIGHT
+    adv_mod.draw_eps = lambda generator, like: eps.to(like.device, like.dtype)
+    torch.backends.cudnn.deterministic = True
+    try:
+        gaps, gaps_f32, cpu_runs = {}, {}, {}
+        for gan in GAN_TYPES:
+            cpu_runs[gan] = run(gan, "cpu", torch.float64)
+            gaps[gan] = gap(run(gan, dev, torch.float64), cpu_runs[gan])
+            gaps_f32[gan] = gap(run(gan, dev, torch.float32), run(gan, "cpu", torch.float32))
+        adv_mod.GP_WEIGHT = 0.0  # a planted fault: the gradient penalty dropped on the card
+        planted = gap(run("WGAN_GP", dev, torch.float64), cpu_runs["WGAN_GP"])
+    finally:
+        adv_mod.draw_eps, adv_mod.GP_WEIGHT = draw, gp_weight
+        torch.backends.cudnn.deterministic = False
+    _line(phase="gan_vs_cpu", seconds=time.perf_counter() - t0, size=GAN_CPU_SIZE,
+          batch=GAN_CPU_BATCH, dtype="float64", tol=GAN_CPU_TOL, gaps=gaps,
+          planted_gp_weight_0=planted, float32_gaps_not_held=gaps_f32)
+    worst = max(v for g in gaps.values() for v in g.values())
+    if not worst <= GAN_CPU_TOL:
+        raise AssertionError(f"gan_vs_cpu: the card's steps against the CPU's {gaps}")
+    if not (planted["loss"] > GAN_CPU_TOL and planted["critic_grad"] > GAN_CPU_TOL):
+        raise AssertionError(f"gan_vs_cpu: a dropped gradient penalty reads {planted}")
+
+
+def phase_native():
+    """The native augmentation library builds, batch_iterator takes its path
+    over a MixedSynthStream, and its batches equal the numpy path's."""
+    from fmvfi_tpu_torch import native
+    from fmvfi_tpu_torch.train import data
+
+    t0 = time.perf_counter()
+    native.library()  # builds it, or raises with the compiler's error
+    build_seconds = native.build_seconds
+    n = 2 * FUSION_BATCH
+    stream = data.MixedSynthStream(n=n, h=CROP + 16, w=CROP + 48, workers=4)
+    data.paths.clear()
+    t_run = time.perf_counter()
+    fast = list(data.batch_iterator(stream, FUSION_BATCH, seed=0, crop=CROP, epochs=2))
+    native_seconds = time.perf_counter() - t_run
+    paths = dict(data.paths)
+    t_run = time.perf_counter()
+    plain = list(data.batch_iterator(stream, FUSION_BATCH, seed=0, crop=CROP, epochs=2,
+                                     use_native=False))
+    numpy_seconds = time.perf_counter() - t_run
+    diff = max(float(np.abs(a - b).max()) for x, y in zip(fast, plain) for a, b in zip(x, y))
+    _line(phase="native", seconds=time.perf_counter() - t0, build_seconds=build_seconds,
+          batches=len(fast), paths=paths, native_seconds=native_seconds,
+          numpy_seconds=numpy_seconds, max_abs_diff=diff, tol=NATIVE_TOL)
+    if paths != {"native": len(fast)} or len(fast) != len(plain) or len(fast) != 4:  # 2 epochs
+        raise AssertionError(f"native: batches by path {paths}, {len(fast)} native and "
+                             f"{len(plain)} numpy batches")
+    if not diff <= NATIVE_TOL:
+        raise AssertionError(f"native: batches differ from the numpy path's by {diff:.3g}")
 
 
 def main() -> int:
@@ -763,6 +1099,9 @@ def main() -> int:
     if not max(plain_gap.values()) <= EVAL_PLAIN_DB:
         raise AssertionError(f"eval: fusion through K1 and the plain warp differ {plain_gap} dB")
 
+    # lpips: the VGG LPIPS on the card, and evaluate_suite filling lpips_vgg
+    lpips_k1 = phase_lpips(dev, repo, models, sets)
+
     # train: AdaCoF training at 256x256, batch 4, through K1 and K2
     t0 = time.perf_counter()
     del models, fusion, phase
@@ -884,15 +1223,6 @@ def main() -> int:
     def new_rec():
         return dict(ms=[], loss=[], launches=[], images=[])
 
-    def reset_counts():
-        adacof_cuda.launches = adacof_cuda.bwd_launches = 0
-        adacof_cuda.paths.clear()
-        adacof_cuda.bwd_paths.clear()
-
-    def counts():
-        return dict(k1=adacof_cuda.launches, k2=adacof_cuda.bwd_launches,
-                    k1_paths=dict(adacof_cuda.paths), k2_paths=dict(adacof_cuda.bwd_paths))
-
     def check_launches(name, c, rec, per_step):
         """Every step launched K1 on exactly the images per_step lists, all
         through the ring, and K2 never."""
@@ -916,11 +1246,11 @@ def main() -> int:
         state, step_fn, _, make_step = make_phase_trainer(CROP, CROP, device=dev)
         init_stats = {k: v.clone() for k, v in state.model.state_dict().items() if "running" in k}
         rec = new_rec()
-        reset_counts()  # the phase-training path's run
+        _reset_counts()  # the phase-training path's run
         torch.cuda.reset_peak_memory_stats()
         state = fit(state, regime_step(step_fn, rec), batches, phase_out, epochs=1,
                     steps_per_epoch=REGIME_STEPS + 1, log_every=1, ckpt_every=REGIME_STEPS + 1)
-        phase_counts = counts()
+        phase_counts = _counts()
         phase_peak = torch.cuda.max_memory_allocated()
         if phase_counts["k1"] or phase_counts["k2"] or not np.isfinite(rec["loss"]).all():
             raise AssertionError(f"train_phase: {phase_counts}, losses {rec['loss']}")
@@ -965,9 +1295,9 @@ def main() -> int:
                          ("high_level", dict(high_level=True))):
             st, fn, _, _ = make_phase_trainer(CROP, CROP, adacof=ada, device=dev, **kw)
             mrec = new_rec()
-            reset_counts()  # this mode's run
+            _reset_counts()  # this mode's run
             st, _ = regime_step(fn, mrec)(st, next(batches))
-            c = counts()
+            c = _counts()
             check_launches(f"train_phase {name}", c, mrec, [2 * PHASE_BATCH])
             modes[name] = dict(ms=mrec["ms"][0], loss=mrec["loss"][0], k1_launches=c["k1"],
                                k1_images=mrec["images"][0], k1_paths=c["k1_paths"],
@@ -1035,11 +1365,11 @@ def main() -> int:
         state, step_fn = make_fusion_trainer(phase, ada, variant=2, device=dev)
         state.model.load_state_dict(fusion_sd)
         rec = new_rec()
-        reset_counts()  # the fusion-training path's run
+        _reset_counts()  # the fusion-training path's run
         torch.cuda.reset_peak_memory_stats()
         state = fit(state, regime_step(step_fn, rec), batches, fusion_out, epochs=1,
                     steps_per_epoch=REGIME_STEPS + 1, log_every=1, ckpt_every=REGIME_STEPS + 1)
-        fusion_counts = counts()
+        fusion_counts = _counts()
         fusion_peak = torch.cuda.max_memory_allocated()
         check_launches("train_fusion", fusion_counts, rec, per_step)
 
@@ -1068,9 +1398,9 @@ def main() -> int:
             if kw.get("variant") is None:
                 st.model.load_state_dict(fusion_sd)
             mrec = new_rec()
-            reset_counts()  # this mode's run
+            _reset_counts()  # this mode's run
             st, _ = regime_step(fn, mrec)(st, next(batches))
-            c = counts()
+            c = _counts()
             check_launches(f"train_fusion {name}", c, mrec, per_step)
             loss_modes[name] = dict(ms=mrec["ms"][0], loss=mrec["loss"][0], k1_launches=c["k1"],
                                     k1_images=mrec["images"][0])
@@ -1174,6 +1504,15 @@ def main() -> int:
                              f"{planted_ratio:.3g}: the check at {ROUTE_GRAD_TOL} cannot see it")
     regime_k1 = dict(train_phase=phase_mode_k1, train_fusion=fusion_counts["k1"] + fusion_mode_k1)
 
+    # train_gan: AdaCoF training with the VGG and adversarial terms; each
+    # adversarial step on the card against the CPU; the native loader
+    del state, models
+    torch.cuda.empty_cache()
+    gan_k1, gan_k2, gan_types_k1, gan_types_k2 = phase_train_gan(dev, repo, ada_path)
+    phase_gan_vs_cpu(dev)
+    phase_native()
+    regime_k1.update(lpips=lpips_k1, train_gan=gan_k1, train_gan_types=gan_types_k1)
+
     k1_1080, k1_1080_8 = timings[2], timings[3]  # the 4-image and the batched 8-image launch
     k2_train = k2_timings[0]  # the training launch
     _line(phase="total", seconds=time.perf_counter() - t_all)
@@ -1192,12 +1531,13 @@ def main() -> int:
                               **regime_k1),
     ), dict(
         name=adacof_cuda.NAME_BWD, route="cuda", source=adacof_cuda.SOURCE_BWD,
-        replaces=adacof_cuda.REPLACES_BWD, launches=train_k2, max_abs_err=k2_max_err,
+        replaces=adacof_cuda.REPLACES_BWD, launches=train_k2 + gan_k2 + gan_types_k2,
+        max_abs_err=k2_max_err,
         ms=k2_train["ms"], plain_ms=k2_train["plain_ms"], bound_ms=k2_train["bound_ms"],
         bound_by=k2_train["bound_by"], library_ms=None, design=DESIGN,
         launch_1080p_ms=k2_timings[1]["ms"],
-        launches_by_path=dict(serve=0, video=0, eval=0, train=train_k2, train_phase=0,
-                              train_fusion=0),
+        launches_by_path=dict(serve=0, video=0, eval=0, lpips=0, train=train_k2, train_phase=0,
+                              train_fusion=0, train_gan=gan_k2, train_gan_types=gan_types_k2),
     )])
     _line(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),
                                count=torch.cuda.device_count()))

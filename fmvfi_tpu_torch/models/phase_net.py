@@ -31,8 +31,7 @@ from torch import nn
 
 from ..ops.decomp import Decomp
 from ..ops.resize import resize_bilinear
-
-BN_MOMENTUM = 0.9  # flax's convention: running <- 0.9 * running + 0.1 * batch
+from . import flax_bn
 
 
 class PhaseNetBlock(nn.Module):
@@ -48,29 +47,10 @@ class PhaseNetBlock(nn.Module):
         p = self.pad
         return F.pad(x, (p, p, p, p), mode="reflect") if p else x
 
-    def _train_norm(self, x: torch.Tensor) -> torch.Tensor:
-        """flax's train-mode BatchNorm: normalize by the batch mean and the
-        biased batch variance over (N, H, W), E[x^2] - E[x]^2 clipped at 0,
-        and move the running statistics toward them.  F.batch_norm would
-        move running_var toward the unbiased variance."""
-        bn = self.bn
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-        with torch.no_grad():
-            bn.running_mean.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean)
-            bn.running_var.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var)
-        scale = torch.rsqrt(var + bn.eps) * bn.weight
-        return (x - mean[:, None, None]) * scale[:, None, None] + bn.bias[:, None, None]
-
     def forward(self, x: torch.Tensor, train: bool = False):
-        bn = self.bn
-        x = self.conv1(self._rpad(x))
-        if train:
-            x = self._train_norm(x)
-        else:  # the running statistics, whatever the module's mode
-            x = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.0,
-                             bn.eps)
-        x = F.elu(x)
+        # train: the batch moments, moving the running statistics; else the
+        # running statistics, whatever the module's mode
+        x = F.elu(flax_bn.normalize(self.conv1(self._rpad(x)), self.bn, train, move=train))
         feat = F.elu(self.conv2(self._rpad(x)))
         return feat, torch.tanh(self.pred(feat))
 

@@ -1,0 +1,136 @@
+"""Native host runtime: the C++ triplet augmentation of augment.cpp, loaded
+with ctypes (port of fmvfi_tpu/native, with its own copy of the source).
+
+The library is built at first use, never at import, with `g++ -O3
+-march=native -fPIC -shared -pthread`, into `build/fmvfi_tpu_torch/` at the
+repository root (git-ignored) under a name keyed by a hash of the source
+and flags; a second run with the same source loads the existing library.
+This is host code for the input pipeline: the crop, flips, time reversal,
+uint8 -> float32 and the batch assembly of train.data.batch_iterator run in
+C++ threads outside the interpreter lock.  `available()` says whether the
+library builds (a g++ is on PATH); the functions raise RuntimeError when it
+does not.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Optional, Tuple
+
+import numpy as np
+
+from .._build import BUILD_DIR
+
+SOURCE = Path(__file__).resolve().parent / "augment.cpp"
+FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-pthread")
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+_error: Optional[str] = None  # why the build failed, once it has
+build_seconds: Optional[float] = None  # wall time of the last g++ run, if any
+
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+_F32P = ctypes.POINTER(ctypes.c_float)
+_I32 = ctypes.c_int32
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    h.update(SOURCE.read_bytes())
+    return BUILD_DIR / f"libfmvfi_native_{h.hexdigest()[:16]}.so"
+
+
+def _build(path: Path) -> None:
+    """Compile augment.cpp into `path` through a private temporary name, so
+    a reader never sees half a library."""
+    global build_seconds
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        out = os.path.join(tmp, path.name)
+        subprocess.run(["g++", *FLAGS, "-o", out, str(SOURCE)], check=True,
+                       capture_output=True, text=True, timeout=300)
+        os.replace(out, path)
+    build_seconds = time.perf_counter() - t0
+
+
+def library() -> ctypes.CDLL:
+    """The loaded library (built on the first call); raises RuntimeError,
+    with the reason, when it does not build or load."""
+    global _lib, _error
+    with _lock:
+        if _lib is not None:
+            return _lib
+        if _error is None:
+            path = library_path()
+            try:
+                if not path.exists():
+                    _build(path)
+                lib = ctypes.CDLL(str(path))
+            except FileNotFoundError:
+                _error = "g++ not found on PATH"
+            except subprocess.CalledProcessError as e:
+                _error = f"g++ failed ({e.returncode}):\n{e.stderr}"
+            except (subprocess.TimeoutExpired, OSError) as e:
+                _error = f"{type(e).__name__}: {e}"
+            else:
+                lib.fmvfi_augment_batch.argtypes = [
+                    _U8P, _I32, _I32, _I32, _I32, ctypes.POINTER(_I32), _F32P, _F32P, _F32P,
+                ]
+                lib.fmvfi_augment_batch.restype = None
+                lib.fmvfi_u8_to_f32.argtypes = [_U8P, _F32P, ctypes.c_int64]
+                lib.fmvfi_u8_to_f32.restype = None
+                _lib = lib
+                return _lib
+        raise RuntimeError(f"the native augmentation library is unavailable: {_error}")
+
+
+def available() -> bool:
+    """Whether the library builds and loads (built on the first call)."""
+    try:
+        library()
+    except RuntimeError:
+        return False
+    return True
+
+
+def augment_batch(frames_u8: np.ndarray, crop: int, params: np.ndarray
+                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """frames_u8: (B, 3, H, W, 3) uint8 RGB triplets; params (B, 5) ints of
+    (y0, x0, hflip, vflip, tswap).  Returns three (B, crop, crop, 3) float32
+    batches in [0, 1] (frame1, target, frame2), time reversal applied."""
+    lib = library()
+    frames_u8 = np.ascontiguousarray(frames_u8, dtype=np.uint8)
+    params = np.ascontiguousarray(params, dtype=np.int32)
+    if frames_u8.ndim != 5 or frames_u8.shape[1] != 3 or frames_u8.shape[4] != 3:
+        raise ValueError(f"frames must be (B, 3, H, W, 3), got {frames_u8.shape}")
+    b, _, h, w, _ = frames_u8.shape
+    if params.shape != (b, 5):
+        raise ValueError(f"params must be ({b}, 5), got {params.shape}")
+    y0, x0 = params[:, 0], params[:, 1]
+    if crop < 1 or (y0 < 0).any() or (x0 < 0).any() or (y0 + crop > h).any() \
+            or (x0 + crop > w).any():
+        raise ValueError(f"crops of {crop} at {params[:, :2].tolist()} leave {h}x{w} frames")
+    outs = [np.empty((b, crop, crop, 3), np.float32) for _ in range(3)]
+    lib.fmvfi_augment_batch(
+        frames_u8.ctypes.data_as(_U8P), h, w, b, crop,
+        params.ctypes.data_as(ctypes.POINTER(_I32)),
+        *(o.ctypes.data_as(_F32P) for o in outs),
+    )
+    return tuple(outs)
+
+
+def u8_to_f32(src: np.ndarray) -> np.ndarray:
+    """uint8 -> float32 in [0, 1] (x / 255), any shape."""
+    lib = library()
+    src = np.ascontiguousarray(src, dtype=np.uint8)
+    dst = np.empty(src.shape, np.float32)
+    lib.fmvfi_u8_to_f32(src.ctypes.data_as(_U8P), dst.ctypes.data_as(_F32P), src.size)
+    return dst

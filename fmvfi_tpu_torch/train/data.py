@@ -1,26 +1,38 @@
 """Host-side input pipeline (port of fmvfi_tpu/train/data.py, its Python
-path): the synthetic triplet sets (one regime, or the six mixed), the
-continuously jittered mixed-regime pool, the reference's augmentations
-(shared random crop, h/v flips, time reversal) and a thread-prefetched batch
-iterator.
+path and its native one): the synthetic triplet sets (one regime, or the
+six mixed), the continuously jittered mixed-regime pool, the reference's
+augmentations (shared random crop, h/v flips, time reversal) and a
+thread-prefetched batch iterator, which augments in numpy or, for a
+dataset of uint8 frames, in the C++ library of fmvfi_tpu_torch.native.
 
 Batches are NHWC numpy arrays, as the JAX package yields them, and a seed
 draws the same random numbers in the same order, so it gives the same
 batches.  Still to be ported (ROADMAP Queue 1, items 17-18): the Vimeo90k
-reader, the native C++ augmentation and the photo sources of
-MixedSynthStream.
+reader and the photo sources of MixedSynthStream.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import native
 from ..eval import synth
+
+# batches that batch_iterator assembled, by path ("native" or "numpy"),
+# since the last reset (clear() to reset); producer threads count under the lock
+paths = Counter()
+_paths_lock = threading.Lock()
+
+
+def _count(path: str) -> None:
+    with _paths_lock:
+        paths[path] += 1
 
 
 def _mixed_item(i: int, h: int, w: int):
@@ -145,35 +157,64 @@ def augment_triplet(frames: Sequence[np.ndarray], rng: np.random.Generator, crop
     return np.ascontiguousarray(f0), np.ascontiguousarray(f1), np.ascontiguousarray(f2)
 
 
+def _native_params(rng: np.random.Generator, n: int, h: int, w: int, crop: int) -> np.ndarray:
+    """(n, 5) int32 (y0, x0, hflip, vflip, tswap), drawn per item in
+    augment_triplet's order, so that both paths give the same batches."""
+    if h < crop or w < crop:
+        raise ValueError(f"frame {h}x{w} smaller than crop {crop}")
+    return np.array([[rng.integers(0, h - crop + 1), rng.integers(0, w - crop + 1),
+                      rng.random() < 0.5, rng.random() < 0.5, rng.random() < 0.5]
+                     for _ in range(n)], np.int32)
+
+
 def batch_iterator(
     dataset,
     batch_size: int,
     seed: int = 0,
     crop: int = 256,
+    shuffle: bool = True,
+    prefetch: int = 2,
     epochs: Optional[int] = None,
+    use_native: Optional[bool] = None,
 ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
     """Yield (frame1, target, frame2) batches, each (B, crop, crop, 3), in a
-    fresh random order each epoch, augmented on a background thread two
-    batches ahead; a ragged last batch of an epoch is dropped.  An error in the thread is raised here; closing the generator
-    stops the thread."""
+    fresh random order each epoch (`shuffle`; else in index order),
+    augmented on a background thread up to `prefetch` batches ahead; a
+    ragged last batch of an epoch is dropped.  A dataset with `load_u8`
+    ((3, H, W, 3) uint8 triplets) is augmented by the native C++ library
+    when it builds (use_native None) or always (True: raises RuntimeError
+    when it does not build); False, or a dataset without `load_u8`, takes
+    the numpy path.  Each batch counts in `paths`.  An error in the thread
+    is raised here; closing the generator stops the thread."""
     rng = np.random.default_rng(seed)
-    q: "queue.Queue" = queue.Queue(maxsize=2)
+    on_native = False
+    if use_native is not False and hasattr(dataset, "load_u8"):
+        if use_native:
+            native.library()  # raises RuntimeError, with the reason, if it does not build
+        on_native = native.available()
+    q: "queue.Queue" = queue.Queue(maxsize=prefetch)
     stop = threading.Event()
     errors: list = []
+
+    def make_batch(idx):
+        if on_native:
+            raw = np.stack([dataset.load_u8(int(i)) for i in idx])
+            params = _native_params(rng, len(idx), raw.shape[2], raw.shape[3], crop)
+            _count("native")
+            return native.augment_batch(raw, crop, params)
+        items = [augment_triplet(dataset.load(int(i)), rng, crop=crop) for i in idx]
+        _count("numpy")
+        return tuple(np.stack([it[j] for it in items]) for j in range(3))
 
     def producer():
         epoch = 0
         try:
             while not stop.is_set() and (epochs is None or epoch < epochs):
-                order = rng.permutation(len(dataset))
+                order = rng.permutation(len(dataset)) if shuffle else np.arange(len(dataset))
                 for s in range(0, len(order) - batch_size + 1, batch_size):
                     if stop.is_set():
                         return
-                    items = [
-                        augment_triplet(dataset.load(int(i)), rng, crop=crop)
-                        for i in order[s : s + batch_size]
-                    ]
-                    batch = tuple(np.stack([it[j] for it in items]) for j in range(3))
+                    batch = make_batch(order[s : s + batch_size])
                     # a bounded put that keeps observing `stop`: a plain put
                     # blocks forever once the consumer has left a full queue
                     while not stop.is_set():

@@ -4,7 +4,7 @@
 - Charbonnier and the spec-string loss factory of the reference's AdaCoF
   ('1*Charb+0.01*g_Spatial+0.005*g_Occlusion'): weighted terms parsed once,
   evaluated on tensors.  VGG and the GAN family parse here; the AdaCoF
-  trainer raises for them until they are ported.
+  trainer computes them (train/vgg.py, train/adversarial.py).
 """
 
 from __future__ import annotations

@@ -3,7 +3,9 @@
 - PhaseNet (`make_phase_trainer`): Adam on L1 of the Lab image plus 0.005 x
   the circular phase loss, the target riding through the inputs' pyramid
   pass; hierarchical training through `make_step(m)`.
-- AdaCoF (`make_adacof_trainer`): the loss spec, Adamax, clip + finite skip.
+- AdaCoF (`make_adacof_trainer`): the loss spec, Adamax, clip + finite
+  skip; a VGG perceptual term and one adversarial term, whose critic state
+  rides in `TrainState.extra`.
 - FusionNet (`make_fusion_trainer`): the frozen PhaseNet and AdaCoF make
   FusionNet's inputs, only FusionNet trains; Adam/AdamW, clip + finite
   skip, plain L1 or the balance / distill / log-MSE modes.
@@ -16,7 +18,7 @@ returned state carries the same objects and the step count advanced by one.
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Optional, Sequence
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence
 
 import torch
 from torch import nn
@@ -28,6 +30,7 @@ from ..ops import decomp as dec_ops
 from ..ops.color import rgb_to_lab
 from ..ops.pyramid import decompose, make_filters, max_pyr_height, reconstruct
 from ..pipeline.interpolate import FusionModels, _chan_batch, _device, _nchw, fusion_inputs
+from .adversarial import Adversarial
 from .losses import (
     LossSpec,
     charbonnier,
@@ -38,6 +41,7 @@ from .losses import (
     parse_loss_spec,
     phase_net_loss,
 )
+from .vgg import VGGLoss
 
 DEFAULT_LOSS = "1*Charb+0.01*g_Spatial+0.005*g_Occlusion"
 
@@ -45,12 +49,14 @@ DEFAULT_LOSS = "1*Charb+0.01*g_Spatial+0.005*g_Occlusion"
 class TrainState(NamedTuple):
     """The model (its parameters are the params), the optimizer (its state
     is the opt_state; its param group's `updates` counts the updates
-    applied, which drives the LR schedule) and `step`, the steps taken,
-    skipped ones included."""
+    applied, which drives the LR schedule), `step`, the steps taken,
+    skipped ones included, and `extra`, the adversarial term's state
+    (train.adversarial.AdvState) or None."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int
+    extra: Any = None
 
 
 def staircase_lr(lr: float, decay_steps: Optional[int], rate: float) -> Callable[[int], float]:
@@ -102,9 +108,10 @@ def clipped_update(opt: torch.optim.Optimizer, params, grads, clip: float, loss=
     return True
 
 
-def adacof_loss(model: AdaCoFNet, spec: LossSpec, f1, target, f2):
+def adacof_loss(model: AdaCoFNet, spec: LossSpec, f1, target, f2, terms=None):
     """The AdaCoF training loss of NCHW frames: (total, dict of the terms
-    Charb, L1, MSE, g_Spatial and g_Occlusion)."""
+    Charb, L1, MSE, g_Spatial and g_Occlusion, and those that
+    `terms(prediction, target, f1, f2)` returns)."""
     out = model(f1, f2)
     g_spatial, g_occ = smoothness_penalties(*out.heads, out.occ_raw)
     values = {
@@ -114,6 +121,8 @@ def adacof_loss(model: AdaCoFNet, spec: LossSpec, f1, target, f2):
         "g_Spatial": g_spatial,
         "g_Occlusion": g_occ,
     }
+    if terms is not None:
+        values.update(terms(out.blended, target, f1, f2))
     return spec(values), values
 
 
@@ -128,6 +137,9 @@ def make_adacof_trainer(
     grad_clip: float = 1.0,
     seed: int = 0,
     device="cuda",
+    vgg_checkpoint: Optional[str] = None,
+    h: Optional[int] = None,
+    w: Optional[int] = None,
 ):
     """AdaCoF training: the loss spec (default 1*Charb+0.01*g_Spatial
     +0.005*g_Occlusion) on the blended prediction, Adamax at lr 1e-3.
@@ -140,14 +152,24 @@ def make_adacof_trainer(
     - The model is AdaCoFNet(kernel_size, dilation) with the 48 px offset
       clamp, initialised from `seed`; load weights into `state.model` to
       start from them.
+    - A VGG term: the conv4_3 feature MSE (train.vgg.VGGLoss) from
+      `vgg_checkpoint`, a torchvision vgg16 state dict file.
+    - At most one adversarial term (GAN, WGAN, WGAN_GP, FI_GAN, T_WGAN_GP):
+      train.adversarial.Adversarial with a critic built for h x w crops
+      and seeded from `seed`; its state rides in `state.extra` and takes
+      one critic step per training step, also when the generator's update
+      is skipped.  Its loss and "d_loss" join the metrics.
     The warp runs K1 / K2 on CUDA and the plain versions on the CPU."""
     spec = loss_spec or parse_loss_spec(DEFAULT_LOSS)
-    unported = [n for _, n in gan_terms(spec)] + (["VGG"] if has_term(spec, "VGG") else [])
-    if unported:
-        raise NotImplementedError(
-            f"loss terms {unported} are not ported yet (ROADMAP Queue 1, item 17: "
-            "train/vgg.py, train/adversarial.py)"
-        )
+    gans = [n for _, n in gan_terms(spec)]
+    if len(gans) > 1:
+        raise ValueError(f"at most one adversarial term per spec, got {gans}")
+    if gans and not (h and w):
+        raise ValueError(f"loss spec contains {gans[0]}: pass h= and w=, the crop its critic "
+                         "is built for")
+    if has_term(spec, "VGG") and not vgg_checkpoint:
+        raise ValueError("loss spec contains VGG: pass vgg_checkpoint= (a torchvision vgg16 "
+                         "state dict; this offline build cannot download one)")
     if optimizer not in _OPTIMIZERS:
         raise ValueError(f"unknown optimizer {optimizer!r} (have {sorted(_OPTIMIZERS)})")
     dev = _device(device)
@@ -158,10 +180,22 @@ def make_adacof_trainer(
     schedule = staircase_lr(lr, lr_decay_steps, lr_decay_rate)
     opt = _OPTIMIZERS[optimizer](model.parameters(), lr=schedule(0))
     opt.param_groups[0]["updates"] = 0
+    vgg_loss = VGGLoss(vgg_checkpoint, dev) if has_term(spec, "VGG") else None
+    adv = Adversarial(gans[0], (h, w), seed=seed, device=dev) if gans else None
 
     def step_fn(state: TrainState, batch):
         model, opt = state.model, state.optimizer
-        loss, values = adacof_loss(model, spec, *(_nchw(a, dev) for a in batch))
+
+        def terms(pred, target, f1, f2):
+            values = {}
+            if vgg_loss is not None:
+                values["VGG"] = vgg_loss(pred, target)
+            if adv is not None:
+                values[gans[0]], _, aux = adv.step(state.extra, pred, target, (f1, f2))
+                values["d_loss"] = aux["d_loss"]
+            return values
+
+        loss, values = adacof_loss(model, spec, *(_nchw(a, dev) for a in batch), terms)
         params = list(model.parameters())
         grads = _grads(loss, params)
         metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in values.items()}}
@@ -175,7 +209,7 @@ def make_adacof_trainer(
             group["updates"] += 1
         return state._replace(step=state.step + 1), metrics
 
-    return TrainState(model, opt, 0), step_fn
+    return TrainState(model, opt, 0, adv.init_state() if adv else None), step_fn
 
 
 # ---------------------------------------------------------------- PhaseNet

@@ -2,9 +2,11 @@
 fmvfi_tpu/utils/checkpoint.py, on torch.save instead of orbax).
 
 One file per step, `<directory>/step_%08d`, holding the model's state dict
-("params"), the optimizer's ("opt_state") and the step.  A save writes a
-private temporary name and renames it into place, so a reader never sees
-half a checkpoint.
+("params"), the optimizer's ("opt_state"), the step and, where the state
+has one, the state dict of `state.extra` ("extra": the adversarial term's
+critic with its BN statistics, its optimizer and its generator).  A save
+writes a private temporary name and renames it into place, so a reader
+never sees half a checkpoint.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ class Checkpointer:
             "opt_state": state.optimizer.state_dict(),
             "step": int(state.step),
         }
+        if getattr(state, "extra", None) is not None:
+            payload["extra"] = state.extra.state_dict()
         fd, tmp = tempfile.mkstemp(prefix=".tmp_", dir=self._dir)
         try:
             with os.fdopen(fd, "wb") as f:
@@ -52,8 +56,8 @@ class Checkpointer:
         return max(steps) if steps else None
 
     def restore(self, state, step: Optional[int] = None):
-        """Load a checkpoint (the latest by default) into state's model and
-        optimizer; return the state with its step."""
+        """Load a checkpoint (the latest by default) into state's model,
+        optimizer and extra; return the state with its step."""
         step = step if step is not None else self.latest()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self._dir}")
@@ -61,4 +65,6 @@ class Checkpointer:
         payload = torch.load(self._path(step), map_location=dev, weights_only=True)
         state.model.load_state_dict(payload["params"])
         state.optimizer.load_state_dict(payload["opt_state"])
+        if "extra" in payload:
+            state.extra.load_state_dict(payload["extra"])
         return state._replace(step=payload["step"])

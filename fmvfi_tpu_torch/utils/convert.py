@@ -2,8 +2,10 @@
 
 A flax tree here is nested dicts of numpy arrays ({'params': ...} and, for
 PhaseNet, {'batch_stats': ...}), as utils/msgpack_io.py reads it from a
-.msgpack file.  Conv kernels are HWIO in flax and OIHW in torch; BatchNorm
-{scale, bias} + {mean, var} become {weight, bias, running_mean, running_var}.
+.msgpack file.  Conv kernels are HWIO (DHWIO in 3-D) in flax and OIHW
+(OIDHW) in torch, Dense kernels (in, out) and Linear weights (out, in);
+BatchNorm {scale, bias} + {mean, var} become {weight, bias, running_mean,
+running_var}.
 Every returned state dict loads into its module with strict=True.
 """
 
@@ -58,6 +60,14 @@ def fusion_net_from_flax(tree) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _bn(out: Dict[str, torch.Tensor], key: str, params, stats) -> None:
+    out[f"{key}.weight"] = _t(params["scale"])
+    out[f"{key}.bias"] = _t(params["bias"])
+    out[f"{key}.running_mean"] = _t(stats["mean"])
+    out[f"{key}.running_var"] = _t(stats["var"])
+    out[f"{key}.num_batches_tracked"] = torch.tensor(0)
+
+
 def phase_net_from_flax(tree) -> Dict[str, torch.Tensor]:
     """PhaseNetCore variables (params + batch_stats) ->
     models.phase_net.PhaseNetCore state dict."""
@@ -68,11 +78,39 @@ def phase_net_from_flax(tree) -> Dict[str, torch.Tensor]:
         p, s = params[name], stats[name]["bn"]
         for conv in ("conv1", "conv2", "pred"):
             _conv(out, f"blocks.{i}.{conv}", p[conv]["kernel"], p[conv]["bias"])
-        out[f"blocks.{i}.bn.weight"] = _t(p["bn"]["scale"])
-        out[f"blocks.{i}.bn.bias"] = _t(p["bn"]["bias"])
-        out[f"blocks.{i}.bn.running_mean"] = _t(s["mean"])
-        out[f"blocks.{i}.bn.running_var"] = _t(s["var"])
-        out[f"blocks.{i}.bn.num_batches_tracked"] = torch.tensor(0)
+        _bn(out, f"blocks.{i}.bn", p["bn"], s)
+    return out
+
+
+def discriminator_from_flax(tree, gan_type: str) -> Dict[str, torch.Tensor]:
+    """A flax critic's variables (params, and batch_stats for the BN
+    critics of GAN, WGAN and FI_GAN) -> the state dict of
+    models.discriminator.make_critic(gan_type, ...).  The port's trunk
+    permutes its features to NHWC before fc1, so fc1's kernel is only
+    transposed."""
+    params = _params(tree)
+    stats = tree.get("batch_stats", {}).get("trunk", {})
+    trunk = params["trunk"]
+    out: Dict[str, torch.Tensor] = {}
+    if gan_type == "T_WGAN_GP":
+        for name in ("conv3d_0", "conv3d_1"):
+            out[f"{name}.weight"] = _t(np.transpose(params[name]["kernel"], (4, 3, 0, 1, 2)))
+            out[f"{name}.bias"] = _t(params[name]["bias"])
+    for name, p in trunk.items():
+        if name.startswith("conv"):
+            out[f"trunk.{name}.weight"] = _t(np.transpose(p["kernel"], (3, 2, 0, 1)))
+        elif name.startswith("bn"):
+            _bn(out, f"trunk.{name}", p, stats[name])
+        else:  # fc1, fc2
+            out[f"trunk.{name}.weight"] = _t(np.transpose(p["kernel"]))
+            out[f"trunk.{name}.bias"] = _t(p["bias"])
+    return out
+
+
+def vgg_from_flax(tree) -> Dict[str, torch.Tensor]:
+    """VGGFeatures variables -> train.vgg.VGGFeatures state dict."""
+    out: Dict[str, torch.Tensor] = {}
+    _convs(out, _params(tree))
     return out
 
 

@@ -31,9 +31,11 @@ FORBIDDEN = (
     "jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "fmvfi_tpu", "cv2", "matplotlib",
 )
 GOLDEN_DB, GOLDEN_TOL = 42.967, 0.05  # tests/test_golden.py, bundled AdaCoF
-# the video and evaluation modules: imported by the isolated run below and
-# held by the static import check
-NEW_MODULES = ("pipeline.video", "eval.metrics", "eval.evaluate", "eval.uncertainty")
+# the video, evaluation, adversarial, VGG and native-loader modules:
+# imported by the isolated run below and held by the static import check
+NEW_MODULES = ("pipeline.video", "eval.metrics", "eval.evaluate", "eval.uncertainty",
+               "models.discriminator", "models.flax_bn", "train.adversarial", "train.vgg",
+               "native")
 
 _ISOLATED = f"""
 import importlib, json, pkgutil, sys
@@ -205,6 +207,66 @@ def test_video_and_eval_run_without_jax_flax_msgpack_cv2_or_matplotlib():
     assert res["leaked"] == []
 
 
+_GAN_ISOLATED = f"""
+import json, sys, tempfile
+for name in {FORBIDDEN!r}:
+    sys.modules[name] = None  # any import of these raises ImportError
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from fmvfi_tpu_torch import native
+from fmvfi_tpu_torch.eval.metrics import make_vgg_lpips
+from fmvfi_tpu_torch.train import data
+from fmvfi_tpu_torch.train.loop import fit
+from fmvfi_tpu_torch.train.losses import parse_loss_spec
+from fmvfi_tpu_torch.train.trainer import make_adacof_trainer
+g = torch.Generator().manual_seed(0)
+sd, idx, cin = {{}}, 0, 3
+for v in [64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M", 512, 512, 512]:
+    if v == "M":
+        idx += 1
+        continue
+    w = torch.randn(v, cin, 3, 3, generator=g)
+    sd[f"features.{{idx}}.weight"] = w * (2.0 / (9 * cin)) ** 0.5
+    sd[f"features.{{idx}}.bias"] = torch.zeros(v)
+    cin, idx = v, idx + 2
+with tempfile.TemporaryDirectory() as out:
+    vgg = out + "/vgg16.pth"
+    torch.save(sd, vgg)
+    spec = parse_loss_spec("1*Charb+0.01*VGG+0.005*T_WGAN_GP")
+    state, step = make_adacof_trainer(loss_spec=spec, vgg_checkpoint=vgg, h=32, w=32, device="cpu")
+    batches = data.batch_iterator(data.MixedSynthStream(n=4, h=40, w=40, workers=1), 2, crop=32)
+    state = fit(state, step, batches, out, epochs=1, steps_per_epoch=2, log_every=1)
+    with open(out + "/train_metrics.jsonl") as f:
+        last = json.loads(f.read().splitlines()[-1])
+    x = torch.rand(32, 32, 3, generator=g)
+    lp = float(make_vgg_lpips(vgg, device="cpu")(x, x.flip(0)))
+leaked = sorted(n for n in sys.modules if n.split(".")[0] in {FORBIDDEN!r} and sys.modules[n])
+print(json.dumps(dict(step=state.step, d_loss=last["d_loss"], gan=last["T_WGAN_GP"],
+                      vgg=last["VGG"], lpips=lp, paths=dict(data.paths),
+                      native=native.available(), leaked=leaked)))
+"""
+
+
+def test_adversarial_training_and_lpips_run_without_jax_flax_optax_or_fmvfi_tpu():
+    """The AdaCoF trainer with the VGG and T_WGAN_GP terms takes two steps
+    through fit on batches of the native loader (the numpy path where no
+    g++ builds it), and the VGG LPIPS scores a pair, on the CPU with the
+    reference's libraries blocked."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _GAN_ISOLATED], cwd=ROOT, capture_output=True, text=True,
+        timeout=600,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["step"] == 2
+    assert all(np.isfinite(res[k]) for k in ("d_loss", "gan", "vgg", "lpips")) and res["lpips"] > 0
+    # the producer runs up to prefetch batches ahead of the two consumed
+    path = "native" if res["native"] else "numpy"
+    assert set(res["paths"]) == {path} and res["paths"][path] >= 2
+    assert res["leaked"] == []
+
+
 def _py_files():
     files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tools", "torch_train_profile.py")]
     for d, _, names in os.walk(PACKAGE):
@@ -215,7 +277,8 @@ def _py_files():
 def test_static_check_covers_the_video_and_eval_modules():
     files = {os.path.relpath(p, PACKAGE) for p in _py_files()}
     for m in NEW_MODULES:
-        assert m.replace(".", os.sep) + ".py" in files, m
+        path = m.replace(".", os.sep)
+        assert path + ".py" in files or os.path.join(path, "__init__.py") in files, m
 
 
 @pytest.mark.parametrize("path", _py_files(), ids=lambda p: os.path.relpath(p, ROOT))

@@ -253,8 +253,17 @@ def test_loss_spec_parser():
 
 @pytest.mark.parametrize("spec", ["1*Charb+1*VGG", "1*Charb+0.01*WGAN_GP"])
 def test_trainer_raises_for_unported_terms(spec):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The VGG and GAN terms are ported; what raises now is what JAX's
+    trainer raises for (tests/test_wiring.py): a VGG term without
+    vgg_checkpoint, and a GAN term without the crop its critic is built
+    for (JAX's trainer always has h and w)."""
+    match = "vgg_checkpoint" if "VGG" in spec else "h= and w="
+    with pytest.raises(ValueError, match=match):
         make_adacof_trainer(loss_spec=pt_losses.parse_loss_spec(spec), device="cpu")
+    if "GAN" in spec:
+        with pytest.raises(ValueError, match="at most one adversarial term"):
+            make_adacof_trainer(loss_spec=pt_losses.parse_loss_spec(spec + "+0.01*GAN"), h=32,
+                                w=32, device="cpu")
 
 
 # ------------------------------------------------------------ trainer parity
