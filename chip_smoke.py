@@ -107,6 +107,29 @@ Phases, each printing one JSON line with its seconds:
               sets (adacof and baseline) with it: every set's lpips_vgg
               finite, K1 once per set and method, through F5C3 with the
               ring;
+  cli       - (after train_fusion) the command line on PNG files: the serve phase's
+              first pair and the video phase's 5-frame clip written with
+              the port's imwrite, read back bit-equal, and the C++ row
+              unfilter held bit-equal to its numpy oracle on each (read and
+              write ms, median of the clip's 5); `python3 -m
+              fmvfi_tpu_torch.cli interpolate --method fusion` as a process
+              of its own (the bundled AdaCoF, the demo FusionNet and a
+              seeded PhaseNet written in phase_net.pt's layout), its cold
+              start (process start to PNG written) on a line of its own
+              beside a process that only imports torch and the CLI and
+              makes the card's context, its
+              PNG within 1 LSB of the same request run here on the decoded
+              frames, which launches K1 3 times through F5C3 with the ring;
+              then through cli.main: `video` per pair and --batch 2 (9
+              PNGs, the originals exact at the even positions, K1 [2, 4, 2]
+              per pair and [4, 8, 4] per dispatch, batch 2 within 1 LSB of
+              per pair), `evaluate` on a 2-scene middlebury layout of
+              256x256 PNGs for fusion,adacof (its result JSONs, finite
+              PSNR, K1 [2, 4, 2] and [2] per scene), and `train` on a
+              4-triplet Vimeo90k layout of 288x448 PNGs at crop 256, batch
+              4: adacof 3 steps (K1 and K2 once a step), phase and fusion 2
+              steps (no K1; K1 [8, 16, 8] a step), finite losses, batches
+              through the native loader, a checkpoint and config.json;
   train_gan - AdaCoF training with the VGG and T_WGAN_GP terms (the default
               loss + 0.01*VGG + 0.005*T_WGAN_GP, the seeded vgg16, a critic
               built for 256x256) from the bundled weights through fit over
@@ -192,6 +215,7 @@ GAN_CPU_SIZE, GAN_CPU_BATCH, GAN_CPU_LR = 64, 2, 1e-3
 GAN_CPU_TOL = 1e-4
 LPIPS_TOL = 1e-4  # relative, card against CPU
 NATIVE_TOL = 1e-6  # native batches against the numpy path: x * (1/255) against x / 255
+CLI_LSB = 1  # a PNG written by a command against the same frame computed in this process
 VGG16_CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M", 512, 512, 512]
 
 
@@ -582,6 +606,270 @@ def phase_native():
                              f"{len(plain)} numpy batches")
     if not diff <= NATIVE_TOL:
         raise AssertionError(f"native: batches differ from the numpy path's by {diff:.3g}")
+
+
+def _reference_phase_pt(path, seed=0):
+    """A seeded PhaseNet saved in phase_net.pt's layout (layers.{i}
+    .feature_map.{0,1,3}, layers.{i}.prediction_map.0): no published
+    PhaseNet weights are in the repository."""
+    import torch
+    from fmvfi_tpu_torch.models.phase_net import PhaseNetCore
+
+    names = {"conv1": "feature_map.0", "bn": "feature_map.1", "conv2": "feature_map.3",
+             "pred": "prediction_map.0"}
+    sd = PhaseNetCore().init_params(torch.Generator().manual_seed(seed)).state_dict()
+    torch.save({f"layers.{k.split('.')[1]}.{names[k.split('.')[2]]}.{k.split('.')[3]}": v
+                for k, v in sd.items() if not k.endswith("num_batches_tracked")}, path)
+    return path
+
+
+def phase_cli(dev, repo, ada_path, fusion_path, pair, clip):
+    """The command line on PNG files of a 1080p `pair` of frames and a
+    1080p `clip`, float in [0, 1]; returns its K1 and K2 launches."""
+    with _work_dir(repo) as work_dir:
+        return _cli(dev, repo, ada_path, fusion_path, pair, clip, work_dir)
+
+
+def _cli(dev, repo, ada_path, fusion_path, pair, clip, work):
+    import torch
+    from fmvfi_tpu_torch import cli, native
+    from fmvfi_tpu_torch.eval.synth import translation_triplet
+    from fmvfi_tpu_torch.models.adacof import AdaCoFNet
+    from fmvfi_tpu_torch.models.fusion_net import FusionNet, infer_variant
+    from fmvfi_tpu_torch.models.phase_net import PhaseNetCore
+    from fmvfi_tpu_torch.ops import adacof_cuda
+    from fmvfi_tpu_torch.pipeline.interpolate import FusionModels, fusion_interpolate
+    from fmvfi_tpu_torch.pipeline.video import quantize
+    from fmvfi_tpu_torch.train import data, loop
+    from fmvfi_tpu_torch.utils import imageio
+    from fmvfi_tpu_torch.utils.convert import (
+        load_adacof_weights,
+        load_fusion_weights,
+        phase_net_from_torch,
+    )
+
+    t0 = time.perf_counter()
+    native.library()
+
+    # the codec on the card's host: 1080p frames written, read back
+    # bit-equal, and the C++ unfilter against its numpy oracle
+    os.makedirs(os.path.join(work, "clip"))
+    frames = {os.path.join(work, "a.png"): quantize(pair[0]),
+              os.path.join(work, "b.png"): quantize(pair[1])}
+    frames.update({os.path.join(work, "clip", f"{i:03d}.png"): quantize(f)
+                   for i, f in enumerate(clip)})
+    write_ms, read_ms, filter_types, t_oracle = [], [], np.zeros(5, np.int64), 0.0
+    for path, u8 in frames.items():
+        t = time.perf_counter()
+        imageio.imwrite(path, u8)
+        write_ms.append(1e3 * (time.perf_counter() - t))
+    for path, u8 in frames.items():
+        t = time.perf_counter()
+        back = imageio.imread(path)
+        read_ms.append(1e3 * (time.perf_counter() - t))
+        if not np.array_equal(back, u8):
+            raise AssertionError(f"cli: {path} does not read back as written")
+        raw = imageio.read_raw(path)
+        t = time.perf_counter()
+        oracle = imageio.unfilter_numpy(raw.rows, raw.height, raw.rows.shape[1] - 1, raw.bpp)
+        t_oracle += time.perf_counter() - t
+        if not np.array_equal(native.png_unfilter(raw.rows, raw.height, raw.rows.shape[1] - 1,
+                                                  raw.bpp), oracle):
+            raise AssertionError(f"cli: the C++ unfilter and its numpy oracle differ on {path}")
+        filter_types += np.bincount(raw.rows[:, 0], minlength=5)
+    png_bytes = os.path.getsize(os.path.join(work, "a.png"))
+
+    phase_pt = _reference_phase_pt(os.path.join(work, "phase_net.pt"))
+    images = []
+    real_warp = adacof_cuda.adacof_warp
+
+    def recording_warp(x, *args):
+        images.append(x.shape[0])
+        return real_warp(x, *args)
+
+    # interpolate: a process of its own, cold, with the bundled AdaCoF, the
+    # demo FusionNet (the default file is absent) and the seeded PhaseNet
+    out_png = os.path.join(work, "mid.png")
+    t_start, t = time.time(), time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "fmvfi_tpu_torch.cli", "interpolate", "--first_frame",
+         os.path.join(work, "a.png"), "--second_frame", os.path.join(work, "b.png"),
+         "--output_frame", out_png, "--method", "fusion", "--phase_checkpoint", phase_pt],
+        cwd=repo, capture_output=True, text=True, timeout=600)
+    process_s = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise AssertionError(f"cli interpolate exited {proc.returncode}: {proc.stderr[-3000:]}")
+    cold_start_s = os.path.getmtime(out_png) - t_start
+    # the part of it that is not the command's: a process that imports torch
+    # and the CLI module and makes the card's context, and nothing else
+    t = time.perf_counter()
+    subprocess.run([sys.executable, "-c", "import torch, fmvfi_tpu_torch.cli; "
+                    "torch.zeros(1, device='cuda'); torch.cuda.synchronize()"],
+                   cwd=repo, check=True, capture_output=True, timeout=600)
+    bare_s = time.perf_counter() - t
+    _line(phase="cli_interpolate_cold_start", seconds=cold_start_s, process_seconds=process_s,
+          import_and_context_seconds=bare_s, size=list(pair[0].shape[:2]),
+          stderr=proc.stderr.strip().splitlines())
+
+    # the same request in this process, on the decoded frames
+    ada = AdaCoFNet().to(dev).eval()
+    ada.load_state_dict(load_adacof_weights(ada_path))
+    fusion_sd = load_fusion_weights(fusion_path)
+    fusion = FusionNet(variant=infer_variant(fusion_sd)).to(dev).eval()
+    fusion.load_state_dict(fusion_sd)
+    phase = PhaseNetCore().to(dev).eval()
+    phase.load_state_dict(phase_net_from_torch(phase_pt))
+    f1, f2 = (imageio.imread(os.path.join(work, n)).astype(np.float32) / 255.0
+              for n in ("a.png", "b.png"))
+    ada.warp = recording_warp
+    try:
+        _reset_counts()
+        images.clear()
+        want = quantize(fusion_interpolate(FusionModels(phase, ada, fusion), f1[None], f2[None],
+                                           device=dev)[0].cpu().numpy())
+        interp_counts, interp_images = _counts(), list(images)
+    finally:
+        ada.warp = real_warp
+    del ada, fusion, phase
+    got = imageio.imread(out_png)
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    interp = dict(max_lsb=int(diff.max()), share_differing=float((diff > 0).mean()),
+                  k1_launches=interp_counts["k1"], k1_images=interp_images,
+                  k1_paths=interp_counts["k1_paths"], k2_launches=interp_counts["k2"])
+    if interp["max_lsb"] > CLI_LSB:
+        raise AssertionError(f"cli interpolate against the in-process pipeline: {interp}")
+    if interp_images != [2, 4, 2] or interp_counts["k1_paths"] != {RING_PATH: 3}:
+        raise AssertionError(f"cli: the in-process request's K1 launches {interp}")
+
+    # video, evaluate and train through cli.main in this process, K1 and K2
+    # counted around each command; the models the commands build take the
+    # recording warp from adacof_cuda
+    runs, k1, k2 = {}, 0, 0
+
+    def run(name, argv, want_images, want_k2=0):
+        nonlocal k1, k2
+        adacof_cuda.adacof_warp = recording_warp
+        try:
+            _reset_counts()  # this command's run
+            images.clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            cli.main(argv)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t)
+            c = _counts()  # read just after
+        finally:
+            adacof_cuda.adacof_warp = real_warp
+        k1 += c["k1"]
+        k2 += c["k2"]
+        runs[name] = dict(ms=ms, k1_launches=c["k1"], k1_images=list(images),
+                          k1_paths=c["k1_paths"], k2_launches=c["k2"])
+        if images != want_images or c["k1"] != len(want_images) or c["k2"] != want_k2:
+            raise AssertionError(f"cli {name}: K1 images {images} ({c['k1']} launches), K2 "
+                                 f"{c['k2']}; expected {want_images} and {want_k2}")
+        if [c["k1_paths"], c["k2_paths"]] != [{RING_PATH: n} if n else {} for n in (c["k1"], c["k2"])]:
+            raise AssertionError(f"cli {name}: launches by instantiation {c}")
+        return runs[name]
+
+    clip_dir = os.path.join(work, "clip")
+    n_frames = len(clip)
+    n_pairs = n_frames - 1
+    for name, extra, want_images in (("video_per_pair", [], [2, 4, 2] * n_pairs),
+                                     ("video_batch2", ["--batch", "2"], [4, 8, 4] * (n_pairs // 2))):
+        out_dir = os.path.join(work, name)
+        r = run(name, ["video", "--input", clip_dir, "--output_dir", out_dir, "--phase_checkpoint",
+                       phase_pt, *extra], want_images)
+        names = sorted(os.listdir(out_dir))
+        r["ms_per_interpolated_frame"] = r["ms"] / n_pairs
+        r["ms_per_output_frame"] = r["ms"] / len(names)
+        if names != [f"{i:05d}.png" for i in range(2 * n_frames - 1)]:
+            raise AssertionError(f"cli {name}: wrote {names}")
+        src = sorted(os.listdir(clip_dir))
+        for i, n in enumerate(src):
+            if not np.array_equal(imageio.imread(os.path.join(out_dir, names[2 * i])),
+                                  imageio.imread(os.path.join(clip_dir, n))):
+                raise AssertionError(f"cli {name}: original {n} is not at position {2 * i}")
+    batch_lsb = max(int(np.abs(
+        imageio.imread(os.path.join(work, "video_per_pair", n)).astype(np.int16)
+        - imageio.imread(os.path.join(work, "video_batch2", n)).astype(np.int16)).max())
+        for n in sorted(os.listdir(os.path.join(work, "video_batch2"))))
+    if batch_lsb > CLI_LSB:
+        raise AssertionError(f"cli video: --batch 2 against per pair differs by {batch_lsb} LSB")
+
+    # evaluate: a 2-scene middlebury layout of 256x256 PNGs, two methods
+    mb = os.path.join(work, "mb")
+    for k, scene in enumerate(("Grove", "Urban")):
+        a, mid, b = translation_triplet(CROP, CROP, dx=2.0 + k, dy=1.0, seed=30 + k)
+        for sub, name, f in (("in", "frame10.png", a), ("in", "frame11.png", b),
+                             ("gt", "frame10i11.png", mid)):
+            os.makedirs(os.path.join(mb, sub, scene), exist_ok=True)
+            imageio.imwrite(os.path.join(mb, sub, scene, name), quantize(f))
+    eval_dir = os.path.join(work, "eval")
+    run("evaluate", ["evaluate", "--test_sets", f"middlebury:{mb}/in:{mb}/gt", "--methods",
+                     "fusion,adacof", "--out_dir", eval_dir, "--phase_checkpoint", phase_pt],
+        [2, 4, 2] * 2 + [2] * 2)
+    psnr = {}
+    for method in ("fusion", "adacof"):
+        with open(os.path.join(eval_dir, f"result_middlebury_{method}.json")) as f:
+            res = json.load(f)
+        psnr[method] = {k: v["psnr"] for k, v in res.items()}
+        if sorted(res) != ["Grove", "Urban", "average"] or not np.isfinite(
+                list(psnr[method].values())).all():
+            raise AssertionError(f"cli evaluate {method}: {res}")
+    runs["evaluate"]["psnr"] = psnr
+
+    # train: Vimeo90k layout of 288x448 PNGs; fit recorded step by step
+    vimeo = os.path.join(work, "vimeo")
+    for k in range(4):
+        d = os.path.join(vimeo, "sequences", "00001", f"{k + 1:04d}")
+        os.makedirs(d)
+        for i, f in enumerate(translation_triplet(288, 448, dx=2.0 + k, dy=1.0, seed=40 + k)):
+            imageio.imwrite(os.path.join(d, f"im{i + 1}.png"), quantize(f))
+    real_fit = loop.fit
+    per_step = []
+
+    def recording_fit(state, step_fn, batches, out_dir, **kw):
+        def step(st, batch):
+            before = (adacof_cuda.launches, adacof_cuda.bwd_launches)
+            st, m = step_fn(st, batch)
+            per_step.append([adacof_cuda.launches - before[0], adacof_cuda.bwd_launches - before[1],
+                             float(m["loss"])])
+            return st, m
+        return real_fit(state, step, batches, out_dir, **kw)
+
+    loop.fit = recording_fit
+    try:
+        for regime, steps, want in (("adacof", 3, [2 * FUSION_BATCH]),
+                                    ("phase", 2, []),
+                                    ("fusion", 2, [2 * FUSION_BATCH, 4 * FUSION_BATCH,
+                                                   2 * FUSION_BATCH])):
+            per_step.clear()
+            data.paths.clear()
+            out_dir = os.path.join(work, f"train_{regime}")
+            r = run(f"train_{regime}", [
+                "train", "--regime", regime, "--data_dir", vimeo, "--out_dir", out_dir,
+                "--epochs", "1", "--steps_per_epoch", str(steps), "--batch_size",
+                str(FUSION_BATCH), "--crop", str(CROP), "--phase_checkpoint", phase_pt],
+                want * steps, want_k2=steps if regime == "adacof" else 0)
+            r.update(steps=per_step[:], batches_by_path=dict(data.paths))
+            launches = [s[:2] for s in per_step]
+            if launches != [[len(want), int(regime == "adacof")]] * steps:
+                raise AssertionError(f"cli train {regime}: K1/K2 launches per step {launches}")
+            if not np.isfinite([s[2] for s in per_step]).all():
+                raise AssertionError(f"cli train {regime}: losses {per_step}")
+            if data.paths.get("native", 0) < steps or data.paths.get("numpy", 0):
+                raise AssertionError(f"cli train {regime}: batches by path {dict(data.paths)}")
+            if not (os.listdir(os.path.join(out_dir, "checkpoint"))
+                    and os.path.exists(os.path.join(out_dir, "config.json"))):
+                raise AssertionError(f"cli train {regime}: no checkpoint or config.json")
+    finally:
+        loop.fit = real_fit
+    _line(phase="cli", seconds=time.perf_counter() - t0, size=list(clip.shape[1:3]), png_write_ms=float(np.median(write_ms[2:])),
+          png_read_ms=float(np.median(read_ms[2:])), png_write_ms_all=write_ms,
+          png_read_ms_all=read_ms, png_bytes=png_bytes, png_filter_types=filter_types.tolist(),
+          unfilter_oracle_seconds=t_oracle, interpolate=interp, video_batch2_vs_per_pair_lsb=batch_lsb,
+          commands=runs, k1_launches=k1 + interp_counts["k1"], k2_launches=k2)
+    return k1 + interp_counts["k1"], k2
 
 
 def main() -> int:
@@ -1032,7 +1320,6 @@ def main() -> int:
     twice = list(double_frame_rate(small, models, "adacof", device=dev))
     four = list(multiply_frame_rate(small, models, "adacof", factor=4, device=dev))
     multiply_diff = max(float(np.abs(four[2 * i] - f).max()) for i, f in enumerate(twice))
-    del clip
     torch.cuda.empty_cache()
     _line(phase="video", seconds=time.perf_counter() - t0, clip_seconds=clip_seconds,
           size=[H_FULL, W_FULL], modes=video, stream_vs_plain_warp_psnr_db=stream_plain_db,
@@ -1504,14 +1791,21 @@ def main() -> int:
                              f"{planted_ratio:.3g}: the check at {ROUTE_GRAD_TOL} cannot see it")
     regime_k1 = dict(train_phase=phase_mode_k1, train_fusion=fusion_counts["k1"] + fusion_mode_k1)
 
-    # train_gan: AdaCoF training with the VGG and adversarial terms; each
-    # adversarial step on the card against the CPU; the native loader
+    # cli: the command line on PNG files of the serve phase's first pair and
+    # the video phase's clip, after the training phases (the commands' own
+    # setup, not the first step of a shape in this process, is then timed)
     del state, models
     torch.cuda.empty_cache()
+    cli_k1, cli_k2 = phase_cli(dev, repo, ada_path, fusion_path,
+                               (requests[0][0], requests[0][2]), clip)
+    del clip, requests
+
+    # train_gan: AdaCoF training with the VGG and adversarial terms; each
+    # adversarial step on the card against the CPU; the native loader
     gan_k1, gan_k2, gan_types_k1, gan_types_k2 = phase_train_gan(dev, repo, ada_path)
     phase_gan_vs_cpu(dev)
     phase_native()
-    regime_k1.update(lpips=lpips_k1, train_gan=gan_k1, train_gan_types=gan_types_k1)
+    regime_k1.update(lpips=lpips_k1, cli=cli_k1, train_gan=gan_k1, train_gan_types=gan_types_k1)
 
     k1_1080, k1_1080_8 = timings[2], timings[3]  # the 4-image and the batched 8-image launch
     k2_train = k2_timings[0]  # the training launch
@@ -1531,13 +1825,14 @@ def main() -> int:
                               **regime_k1),
     ), dict(
         name=adacof_cuda.NAME_BWD, route="cuda", source=adacof_cuda.SOURCE_BWD,
-        replaces=adacof_cuda.REPLACES_BWD, launches=train_k2 + gan_k2 + gan_types_k2,
+        replaces=adacof_cuda.REPLACES_BWD, launches=train_k2 + gan_k2 + gan_types_k2 + cli_k2,
         max_abs_err=k2_max_err,
         ms=k2_train["ms"], plain_ms=k2_train["plain_ms"], bound_ms=k2_train["bound_ms"],
         bound_by=k2_train["bound_by"], library_ms=None, design=DESIGN,
         launch_1080p_ms=k2_timings[1]["ms"],
-        launches_by_path=dict(serve=0, video=0, eval=0, lpips=0, train=train_k2, train_phase=0,
-                              train_fusion=0, train_gan=gan_k2, train_gan_types=gan_types_k2),
+        launches_by_path=dict(serve=0, video=0, eval=0, lpips=0, cli=cli_k2, train=train_k2,
+                              train_phase=0, train_fusion=0, train_gan=gan_k2,
+                              train_gan_types=gan_types_k2),
     )])
     _line(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),
                                count=torch.cuda.device_count()))

@@ -5,10 +5,9 @@ are cached per (set, method, weights) in `result_*.npz` files beside a
 `summary.json`.
 
 Sets are (N, H, W, 3) arrays (float in [0, 1] or uint8), frame iterators,
-or zero-argument callables returning a fresh iterator.  Reading sets from
-video files or frame directories (load_set), the panels of `visualize` and
-the PNGs of `evaluate_triplets(output_dir=...)` need cv2 or matplotlib and
-are not ported.
+or zero-argument callables returning a fresh iterator; `load_set` reads
+them from directories of PNG frames.  The panels of `visualize` need
+matplotlib and are not ported (ROADMAP Queue 1, item 18.6).
 """
 
 from __future__ import annotations
@@ -22,7 +21,16 @@ import numpy as np
 import torch
 
 from ..pipeline.interpolate import FusionModels, _device
-from ..pipeline.video import _interp_fn, to_device
+from ..pipeline.video import (
+    _interp_fn,
+    iter_frame_dir,
+    iter_video_frames,
+    quantize,
+    read_frame_dir,
+    read_video_frames,
+    to_device,
+)
+from ..utils import imageio
 from .metrics import all_metrics
 from .synth import benchmark_sets, translation_video
 
@@ -125,7 +133,8 @@ def synthetic_sets(
     `seeds` each set is drawn once per seed under `<name>@s<k>`.  The photo
     set needs matplotlib and PIL: include_photo=True raises."""
     if include_photo:
-        raise NotImplementedError("the photo set needs matplotlib and PIL, not ported")
+        raise NotImplementedError("the photo set needs matplotlib and PIL, not ported yet "
+                                  "(ROADMAP Queue 1, item 18.6)")
     multi = len(seeds) > 1
     sets: Dict[str, np.ndarray] = {}
     for k in seeds:
@@ -220,6 +229,21 @@ def evaluate_suite(
     return summary
 
 
+def load_set(path: str, resize=None, stream: bool = False):
+    """A test set from a directory of frames (fmvfi_tpu/eval/evaluate.py:
+    332-347): (N, H, W, 3) float32 in [0, 1], or with stream=True a
+    zero-argument callable returning a fresh uint8 frame iterator (for
+    evaluate_suite, which calls it once per method).  A video file raises
+    NotImplementedError (no video decoder)."""
+    if stream:
+        if os.path.isdir(path):
+            return lambda: iter_frame_dir(path)
+        return lambda: iter_video_frames(path, resize=resize)
+    if os.path.isdir(path):
+        return read_frame_dir(path)
+    return read_video_frames(path, resize=resize)
+
+
 def evaluate_triplets(
     triplets: Dict[str, tuple],
     models: FusionModels,
@@ -232,14 +256,17 @@ def evaluate_triplets(
     """Score {scene: (f1, gt, f2)} triplets of (H, W, 3) frames at their own
     resolution: per-scene metrics and an "average" row; gt=None scenes are
     interpolated but not scored (fmvfi_tpu/eval/evaluate.py:368-424).
-    Writing the predictions (output_dir) needs cv2 and raises."""
-    if output_dir is not None:
-        raise NotImplementedError("output_dir writes PNGs with cv2, not ported")
+    With `output_dir`, each prediction is written as
+    <output_dir>/<scene>/output.png, quantized as JAX writes it."""
     dev = _device(device)
     results: Dict[str, Dict[str, float]] = {}
     for name, (f1, gt, f2) in triplets.items():
         fn = _interp_fn(models, method, device=dev)
         pred = fn(_upload(f1[None], dev), _upload(f2[None], dev))
+        if output_dir is not None:
+            os.makedirs(os.path.join(output_dir, name), exist_ok=True)
+            imageio.imwrite(os.path.join(output_dir, name, "output.png"),
+                            quantize(pred[0].cpu().numpy()))
         if gt is not None:
             with torch.no_grad():
                 m = all_metrics(pred, _upload(gt[None], dev), lpips_fn)

@@ -1,15 +1,16 @@
-"""Native host runtime: the C++ triplet augmentation of augment.cpp, loaded
-with ctypes (port of fmvfi_tpu/native, with its own copy of the source).
+"""Native host runtime, loaded with ctypes: the C++ triplet augmentation of
+augment.cpp (port of fmvfi_tpu/native, with its own copy of the source) and
+the PNG row filters of png.cpp (for utils/imageio.py).
 
 The library is built at first use, never at import, with `g++ -O3
 -march=native -fPIC -shared -pthread`, into `build/fmvfi_tpu_torch/` at the
 repository root (git-ignored) under a name keyed by a hash of the source
 and flags; a second run with the same source loads the existing library.
-This is host code for the input pipeline: the crop, flips, time reversal,
-uint8 -> float32 and the batch assembly of train.data.batch_iterator run in
-C++ threads outside the interpreter lock.  `available()` says whether the
-library builds (a g++ is on PATH); the functions raise RuntimeError when it
-does not.
+This is host code: the crop, flips, time reversal, uint8 -> float32 and the
+batch assembly of train.data.batch_iterator run in C++ threads outside the
+interpreter lock, and the PNG codec's row filters in C++ loops.
+`available()` says whether the library builds (a g++ is on PATH); the
+functions raise RuntimeError when it does not.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import numpy as np
 from .._build import BUILD_DIR
 
 SOURCE = Path(__file__).resolve().parent / "augment.cpp"
+PNG_SOURCE = Path(__file__).resolve().parent / "png.cpp"
 FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-pthread")
 
 _lock = threading.Lock()
@@ -39,23 +41,25 @@ build_seconds: Optional[float] = None  # wall time of the last g++ run, if any
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _F32P = ctypes.POINTER(ctypes.c_float)
 _I32 = ctypes.c_int32
+_I64 = ctypes.c_int64
 
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    h.update(SOURCE.read_bytes())
+    for src in (SOURCE, PNG_SOURCE):
+        h.update(src.read_bytes())
     return BUILD_DIR / f"libfmvfi_native_{h.hexdigest()[:16]}.so"
 
 
 def _build(path: Path) -> None:
-    """Compile augment.cpp into `path` through a private temporary name, so
-    a reader never sees half a library."""
+    """Compile augment.cpp and png.cpp into `path` through a private
+    temporary name, so a reader never sees half a library."""
     global build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         out = os.path.join(tmp, path.name)
-        subprocess.run(["g++", *FLAGS, "-o", out, str(SOURCE)], check=True,
+        subprocess.run(["g++", *FLAGS, "-o", out, str(SOURCE), str(PNG_SOURCE)], check=True,
                        capture_output=True, text=True, timeout=300)
         os.replace(out, path)
     build_seconds = time.perf_counter() - t0
@@ -87,9 +91,13 @@ def library() -> ctypes.CDLL:
                 lib.fmvfi_augment_batch.restype = None
                 lib.fmvfi_u8_to_f32.argtypes = [_U8P, _F32P, ctypes.c_int64]
                 lib.fmvfi_u8_to_f32.restype = None
+                lib.fmvfi_png_unfilter.argtypes = [_U8P, _I64, _I64, _I32, _U8P]
+                lib.fmvfi_png_unfilter.restype = _I64
+                lib.fmvfi_png_filter.argtypes = [_U8P, _I64, _I64, _I32, _U8P]
+                lib.fmvfi_png_filter.restype = None
                 _lib = lib
                 return _lib
-        raise RuntimeError(f"the native augmentation library is unavailable: {_error}")
+        raise RuntimeError(f"the native library is unavailable: {_error}")
 
 
 def available() -> bool:
@@ -134,3 +142,34 @@ def u8_to_f32(src: np.ndarray) -> np.ndarray:
     dst = np.empty(src.shape, np.float32)
     lib.fmvfi_u8_to_f32(src.ctypes.data_as(_U8P), dst.ctypes.data_as(_F32P), src.size)
     return dst
+
+
+def png_unfilter(data: np.ndarray, rows: int, rowbytes: int, bpp: int) -> np.ndarray:
+    """Undo the PNG row filters: `data` holds rows * (1 + rowbytes) uint8,
+    each row its filter type and its filtered bytes; returns the (rows,
+    rowbytes) image bytes.  bpp: max(1, bits per pixel // 8).  Raises
+    ValueError on a filter type other than 0-4."""
+    lib = library()
+    data = np.ascontiguousarray(data, dtype=np.uint8).reshape(-1)
+    if data.size != rows * (rowbytes + 1) or bpp < 1:
+        raise ValueError(f"{data.size} bytes for {rows} rows of {rowbytes} (+1), bpp {bpp}")
+    out = np.empty((rows, rowbytes), np.uint8)
+    bad = lib.fmvfi_png_unfilter(data.ctypes.data_as(_U8P), rows, rowbytes, bpp,
+                                 out.ctypes.data_as(_U8P))
+    if bad >= 0:
+        raise ValueError(f"row {bad} has filter type {data[bad * (rowbytes + 1)]}, not 0-4")
+    return out
+
+
+def png_filter(image: np.ndarray, bpp: int) -> np.ndarray:
+    """The PNG row filters of a (rows, rowbytes) uint8 image, each row's
+    chosen by libpng's heuristic (least sum of absolute signed bytes):
+    (rows, 1 + rowbytes), each row its filter type and its filtered bytes."""
+    lib = library()
+    image = np.ascontiguousarray(image, dtype=np.uint8)
+    if image.ndim != 2 or bpp < 1:
+        raise ValueError(f"image must be (rows, rowbytes) with bpp >= 1, got {image.shape}, {bpp}")
+    rows, rowbytes = image.shape
+    out = np.empty((rows, rowbytes + 1), np.uint8)
+    lib.fmvfi_png_filter(image.ctypes.data_as(_U8P), rows, rowbytes, bpp, out.ctypes.data_as(_U8P))
+    return out

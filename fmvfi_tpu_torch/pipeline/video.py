@@ -1,23 +1,27 @@
-"""Frame-rate doubling of a frame sequence (port of the array side of
-fmvfi_tpu/pipeline/video.py:111-367): per pair, `batch` pairs per dispatch
-(with `seq_chunk`), or the streaming fusion, each with a one-deep prefetch.
+"""Frame-rate doubling of a frame sequence (port of
+fmvfi_tpu/pipeline/video.py): per pair, `batch` pairs per dispatch (with
+`seq_chunk`), or the streaming fusion, each with a one-deep prefetch; and
+directories of PNG frames, read and written with utils.imageio.
 
 Frames are host arrays (N, H, W, 3), float32 in [0, 1]; the frames yielded
 are numpy (H, W, 3).  On the card, frames go up through pinned memory and
 results come down into pinned memory, both copied asynchronously, so the
 host waits only for a finished result: pair i+1's work is queued on the card
-before the host waits for pair i's.  The file readers and writers of the JAX
-module (cv2) are not ported.
+before the host waits for pair i's.  Video files are not read: the card's
+machine has no video decoder (ROADMAP Queue 1, item 18.4).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterator, List
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Iterator, List, Sequence
 
 import numpy as np
 import torch
 
 from ..ops.pyramid import make_filters, max_pyr_height
+from ..utils import imageio
 from .interpolate import (
     FusionModels,
     _device,
@@ -32,6 +36,68 @@ from .interpolate import (
 )
 
 METHODS = ("fusion", "phase", "adacof", "baseline")
+FRAME_SUFFIXES = (".png", ".jpg", ".jpeg")  # JAX's; a JPEG raises in imageio.imread
+
+
+def _no_video_decoder(path: str):
+    return NotImplementedError(
+        f"{path}: reading video files needs a video decoder, which the card's machine lacks "
+        "(ROADMAP Queue 1, item 18.4); pass a directory of PNG frames")
+
+
+def read_video_frames(path: str, resize=None) -> np.ndarray:
+    """Not ported: raises NotImplementedError (no video decoder)."""
+    raise _no_video_decoder(path)
+
+
+def iter_video_frames(path: str, resize=None) -> Iterator[np.ndarray]:
+    """Not ported: raises NotImplementedError (no video decoder)."""
+    raise _no_video_decoder(path)
+
+
+def interpolate_video_file(src: str, dst_dir: str, models: FusionModels, method: str = "fusion",
+                           resize=None) -> int:
+    """Not ported: raises NotImplementedError (no video decoder)."""
+    raise _no_video_decoder(src)
+
+
+def _frame_names(path: str) -> List[str]:
+    names = sorted(f for f in os.listdir(path) if f.lower().endswith(FRAME_SUFFIXES))
+    if not names:
+        raise ValueError(f"no frames in {path}")
+    return names
+
+
+def iter_frame_dir(path: str) -> Iterator[np.ndarray]:
+    """Stream a directory of frames, in sorted name order, as (H, W, 3)
+    uint8 RGB (fmvfi_tpu/pipeline/video.py:71-84)."""
+    for n in _frame_names(path):
+        yield imageio.imread(os.path.join(path, n))
+
+
+def read_frame_dir(path: str) -> np.ndarray:
+    """A directory of frames, in sorted name order, as (N, H, W, 3) float32
+    in [0, 1] (x / 255 in float32, as JAX reads them)."""
+    frames = [imageio.imread(os.path.join(path, n)) for n in _frame_names(path)]
+    return np.stack(frames).astype(np.float32) / 255.0
+
+
+def quantize(frame) -> np.ndarray:
+    """A [0, 1] float frame as the uint8 JAX writes: x * 255 in the frame's
+    dtype, clipped, truncated (not rounded)."""
+    return (np.asarray(frame) * 255).clip(0, 255).astype(np.uint8)
+
+
+def write_frame_dir(path: str, frames: Sequence[np.ndarray]) -> None:
+    """Write frames as <path>/00000.png, 00001.png, ... (quantized as JAX
+    does).  The frames are encoded on a few threads: zlib and the row
+    filters release the interpreter lock."""
+    os.makedirs(path, exist_ok=True)
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        futures = [ex.submit(imageio.imwrite, os.path.join(path, f"{i:05d}.png"), quantize(f))
+                   for i, f in enumerate(frames)]
+        for fut in futures:
+            fut.result()
 
 
 def to_device(x: np.ndarray, dev: torch.device) -> torch.Tensor:

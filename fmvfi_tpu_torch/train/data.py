@@ -1,18 +1,20 @@
 """Host-side input pipeline (port of fmvfi_tpu/train/data.py, its Python
-path and its native one): the synthetic triplet sets (one regime, or the
-six mixed), the continuously jittered mixed-regime pool, the reference's
+path and its native one): the Vimeo90k triplet reader, the synthetic
+triplet sets (one regime, or the six mixed), the continuously jittered
+mixed-regime pool, the reference's
 augmentations (shared random crop, h/v flips, time reversal) and a
 thread-prefetched batch iterator, which augments in numpy or, for a
 dataset of uint8 frames, in the C++ library of fmvfi_tpu_torch.native.
 
 Batches are NHWC numpy arrays, as the JAX package yields them, and a seed
 draws the same random numbers in the same order, so it gives the same
-batches.  Still to be ported (ROADMAP Queue 1, items 17-18): the Vimeo90k
-reader and the photo sources of MixedSynthStream.
+batches.  Still to be ported (ROADMAP Queue 1, item 18.6): the photo
+sources of MixedSynthStream.
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 from collections import Counter
@@ -23,6 +25,7 @@ import numpy as np
 
 from .. import native
 from ..eval import synth
+from ..utils import imageio
 
 # batches that batch_iterator assembled, by path ("native" or "numpy"),
 # since the last reset (clear() to reset); producer threads count under the lock
@@ -53,6 +56,36 @@ def _mixed_item(i: int, h: int, w: int):
     else:
         v = synth.brightness_video(3, h, w, step=1.0 + (i % 4), seed=i)
     return v[0], v[1], v[2]
+
+
+class Vimeo90kTriplets:
+    """vimeo_triplet/sequences/<seq>/<clip>/im{1,2,3}.png, clips in sorted
+    order (fmvfi_tpu/train/data.py:20-52)."""
+
+    def __init__(self, db_dir: str):
+        seq_dir = os.path.join(db_dir, "sequences")
+        self.triplets = []
+        for seq in sorted(os.listdir(seq_dir)):
+            sp = os.path.join(seq_dir, seq)
+            if not os.path.isdir(sp):
+                continue
+            for clip in sorted(os.listdir(sp)):
+                cp = os.path.join(sp, clip)
+                if os.path.isdir(cp):
+                    self.triplets.append(cp)
+        if not self.triplets:
+            raise ValueError(f"no triplets under {seq_dir}")
+
+    def __len__(self):
+        return len(self.triplets)
+
+    def load_u8(self, index: int) -> np.ndarray:
+        """(3, H, W, 3) uint8 RGB triplet (the native loader's input)."""
+        path = self.triplets[index]
+        return np.stack([imageio.imread(os.path.join(path, f"im{i}.png")) for i in (1, 2, 3)])
+
+    def load(self, index: int):
+        return tuple(f.astype(np.float32) / 255.0 for f in self.load_u8(index))
 
 
 class SyntheticTriplets:
@@ -124,7 +157,7 @@ class MixedSynthStream:
         if photo_frac > 0.0:
             raise NotImplementedError(
                 "MixedSynthStream(photo_frac > 0) needs the photo sources of "
-                "eval.synth, not ported yet (ROADMAP Queue 1, item 18)"
+                "eval.synth, not ported yet (ROADMAP Queue 1, item 18.6)"
             )
         with ThreadPoolExecutor(max_workers=max(1, workers)) as ex:
             self._items = list(ex.map(lambda i: _stream_item(i, h, w, seed0), range(n)))

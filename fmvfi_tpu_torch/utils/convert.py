@@ -1,4 +1,5 @@
-"""Flax variable trees -> state dicts of the port's modules.
+"""Flax variable trees and the reference's PyTorch checkpoints -> state
+dicts of the port's modules.
 
 A flax tree here is nested dicts of numpy arrays ({'params': ...} and, for
 PhaseNet, {'batch_stats': ...}), as utils/msgpack_io.py reads it from a
@@ -6,11 +7,15 @@ PhaseNet, {'batch_stats': ...}), as utils/msgpack_io.py reads it from a
 (OIDHW) in torch, Dense kernels (in, out) and Linear weights (out, in);
 BatchNorm {scale, bias} + {mean, var} become {weight, bias, running_mean,
 running_var}.
-Every returned state dict loads into its module with strict=True.
+The reference's .pt files (phase_net.pt, fusion_net*.pt, AdaCoF's
+ckpt.pth) are already in torch's layout: their keys are renamed, nothing
+is transposed.  Every returned state dict loads into its module with
+strict=True.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict
 
 import numpy as np
@@ -114,12 +119,93 @@ def vgg_from_flax(tree) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _load_state_dict(path_or_sd) -> Dict[str, torch.Tensor]:
+    """A reference checkpoint (a path, or a loaded dict) -> its tensors by
+    key: read with weights_only=True, unwrapped from AdaCoF's {'epoch',
+    'state_dict'}, entries that are not tensors dropped
+    (fmvfi_tpu/utils/convert.py:46-57)."""
+    sd = path_or_sd
+    if isinstance(sd, (str, bytes)) or hasattr(sd, "__fspath__"):
+        sd = torch.load(sd, map_location="cpu", weights_only=True)
+    if "state_dict" in sd and isinstance(sd["state_dict"], dict):
+        sd = sd["state_dict"]
+    return {k: torch.as_tensor(v).detach().to(torch.float32).contiguous().clone()
+            for k, v in sd.items() if isinstance(v, (torch.Tensor, np.ndarray))}
+
+
+def _renamed(sd, names: Dict[str, str]) -> Dict[str, torch.Tensor]:
+    """{port key: sd[reference key]} for each (reference prefix -> port
+    prefix) of `names`, the .weight and .bias of each."""
+    return {f"{port}.{p}": sd[f"{ref}.{p}"] for ref, port in names.items()
+            for p in ("weight", "bias")}
+
+
+def phase_net_from_torch(path_or_sd) -> Dict[str, torch.Tensor]:
+    """phase_net.pt (layers.{i}.feature_map.{0 conv, 1 BN, 3 conv} and
+    layers.{i}.prediction_map.0) -> models.phase_net.PhaseNetCore state
+    dict."""
+    sd = _load_state_dict(path_or_sd)
+    n_blocks = 1 + max(int(k.split(".")[1]) for k in sd if k.startswith("layers."))
+    out: Dict[str, torch.Tensor] = {}
+    for i in range(n_blocks):
+        ref, port = f"layers.{i}", f"blocks.{i}"
+        out.update(_renamed(sd, {f"{ref}.feature_map.0": f"{port}.conv1",
+                                 f"{ref}.feature_map.3": f"{port}.conv2",
+                                 f"{ref}.prediction_map.0": f"{port}.pred"}))
+        for p in ("weight", "bias", "running_mean", "running_var"):
+            out[f"{port}.bn.{p}"] = sd[f"{ref}.feature_map.1.{p}"]
+        out[f"{port}.bn.num_batches_tracked"] = torch.tensor(0)
+    return out
+
+
+def fusion_net_from_torch(path_or_sd) -> Dict[str, torch.Tensor]:
+    """fusion_net*.pt -> models.fusion_net.FusionNet state dict (the
+    checkpoint's unused `net.*` keys are ignored)."""
+    sd = _load_state_dict(path_or_sd)
+    names = {f"encoder_layers.{i}": f"enc{i}" for i in range(3)}
+    names.update({f"decoder_layers.{i}": f"dec{i}" for i in range(3)})
+    names["bottleneck_layer"] = "bottleneck"
+    return _renamed(sd, names)
+
+
+def adacof_from_torch(path_or_sd) -> Dict[str, torch.Tensor]:
+    """AdaCoF's ckpt.pth ({'epoch', 'state_dict'} or a bare state dict, keys
+    with or without DataParallel's 'module.') -> models.adacof.AdaCoFNet
+    state dict."""
+    sd = {k.removeprefix("module."): v for k, v in _load_state_dict(path_or_sd).items()}
+    g = "get_kernel"
+    names = {}
+    for ref, port in (("Conv", "conv"), ("Deconv", "deconv")):
+        for n in range(1, 6):
+            if ref == "Deconv" and n == 1:
+                continue
+            for j in range(3):  # Basic: convs at Sequential indices 0, 2, 4
+                names[f"{g}.module{ref}{n}.{2 * j}"] = f"{g}.{port}{n}.conv{j}"
+    for n in range(2, 6):
+        names[f"{g}.moduleUpsample{n}.1"] = f"{g}.upsample{n}.conv"
+    for head in ("Weight1", "Alpha1", "Beta1", "Weight2", "Alpha2", "Beta2"):
+        ref, port = f"{g}.module{head}", f"{g}.{head.lower()}"
+        names.update({f"{ref}.0": f"{port}.conv0", f"{ref}.2": f"{port}.conv1",
+                      f"{ref}.4": f"{port}.final.conv2", f"{ref}.7": f"{port}.final.conv3"})
+    for j, idx in enumerate((0, 2, 4, 7)):
+        names[f"{g}.moduleOcclusion.{idx}"] = f"{g}.occlusion.conv{j}"
+    return _renamed(sd, names)
+
+
 def load_adacof_weights(path) -> Dict[str, torch.Tensor]:
-    """AdaCoFNet state dict from an fmvfi .msgpack file."""
-    return adacof_from_flax(msgpack_io.load(path))
+    """AdaCoFNet state dict from an fmvfi .msgpack file or the reference's
+    ckpt.pth (fmvfi_tpu/utils/convert.py:210-223).  The kernel size and
+    dilation are the module's: a strict load checks the heads' shapes."""
+    if os.fspath(path).endswith(".msgpack"):
+        return adacof_from_flax(msgpack_io.load(path))
+    return adacof_from_torch(path)
 
 
 def load_fusion_weights(path) -> Dict[str, torch.Tensor]:
-    """FusionNet state dict from an fmvfi .msgpack file; the head variant is
-    models.fusion_net.infer_variant(state_dict)."""
-    return fusion_net_from_flax(msgpack_io.load(path))
+    """FusionNet state dict from an fmvfi .msgpack file or the reference's
+    fusion_net*.pt (fmvfi_tpu/utils/convert.py:157-186); the head variant of
+    a .msgpack is models.fusion_net.infer_variant(state_dict), the maps the
+    module's (a strict load checks enc0's input channels)."""
+    if os.fspath(path).endswith(".msgpack"):
+        return fusion_net_from_flax(msgpack_io.load(path))
+    return fusion_net_from_torch(path)

@@ -290,13 +290,14 @@ def test_generate_uncertainty_maps_matches_jax(weights, monkeypatch):
 
 
 def test_file_and_plot_options_raise(weights, tmp_path):
-    """The options that write PNGs or plots need cv2 or matplotlib, which the
-    card's machine lacks."""
+    """The plot option needs matplotlib, which the card's machine lacks, and
+    raises; the options that write PNGs write them with the port's codec
+    (tests/test_torch_datasets.py holds their bytes against JAX's)."""
     _, pt = weights
-    f = np.zeros((16, 16, 3), np.float32)
+    f = np.zeros((32, 32, 3), np.float32)
     with pytest.raises(NotImplementedError):
         pt_eval.evaluate_suite(pt, str(tmp_path), sets={}, visualize=True, **CPU)
-    with pytest.raises(NotImplementedError):
-        pt_eval.evaluate_triplets({"a": (f, f, f)}, pt, output_dir=str(tmp_path), **CPU)
-    with pytest.raises(NotImplementedError):
-        pt_unc.generate_uncertainty_maps(pt, f, f, out_dir=str(tmp_path), **CPU)
+    pt_eval.evaluate_triplets({"a": (f, f, f)}, pt, output_dir=str(tmp_path / "t"), **CPU)
+    assert os.listdir(tmp_path / "t" / "a") == ["output.png"]
+    maps = pt_unc.generate_uncertainty_maps(pt, f, f, out_dir=str(tmp_path / "u"), **CPU)
+    assert sorted(os.listdir(tmp_path / "u")) == sorted(f"maps_{k}.png" for k in maps)

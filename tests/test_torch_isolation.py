@@ -1,6 +1,6 @@
 """fmvfi_tpu_torch stands alone: the machine that serves it on a CUDA card has
-PyTorch, numpy and scipy but no jax, flax, msgpack, cv2 or matplotlib, and
-the port must not reach into fmvfi_tpu.  Also: its msgpack reader decodes
+PyTorch, numpy and scipy but no jax, flax, msgpack, cv2, PIL or matplotlib,
+and the port must not reach into fmvfi_tpu.  Also: its msgpack reader decodes
 the bundled checkpoints exactly as msgpack + flax do, the bundled AdaCoF
 scores the golden number through it, and the kernel build is keyed by its
 sources.
@@ -28,14 +28,16 @@ CKPTS = [
     os.path.join(ROOT, "checkpoints", "fusion_synth_demo.msgpack"),
 ]
 FORBIDDEN = (
-    "jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "fmvfi_tpu", "cv2", "matplotlib",
+    "jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "fmvfi_tpu", "cv2", "matplotlib", "PIL",
 )
 GOLDEN_DB, GOLDEN_TOL = 42.967, 0.05  # tests/test_golden.py, bundled AdaCoF
-# the video, evaluation, adversarial, VGG and native-loader modules:
-# imported by the isolated run below and held by the static import check
+# the video, evaluation, adversarial, VGG, native-loader, codec and
+# command-line modules: imported by the isolated run below and held by the
+# static import check
 NEW_MODULES = ("pipeline.video", "eval.metrics", "eval.evaluate", "eval.uncertainty",
                "models.discriminator", "models.flax_bn", "train.adversarial", "train.vgg",
-               "native")
+               "native", "cli", "utils.imageio", "utils.config", "models.registry",
+               "eval.datasets")
 
 _ISOLATED = f"""
 import importlib, json, pkgutil, sys
@@ -264,6 +266,44 @@ def test_adversarial_training_and_lpips_run_without_jax_flax_optax_or_fmvfi_tpu(
     # the producer runs up to prefetch batches ahead of the two consumed
     path = "native" if res["native"] else "numpy"
     assert set(res["paths"]) == {path} and res["paths"][path] >= 2
+    assert res["leaked"] == []
+
+
+_CLI_ISOLATED = f"""
+import json, runpy, sys
+for name in {FORBIDDEN!r}:
+    sys.modules[name] = None  # any import of these raises ImportError
+import torch
+torch.set_num_threads(1)
+sys.argv = ["fmvfi_tpu_torch.cli"] + sys.argv[1:]
+try:
+    runpy.run_module("fmvfi_tpu_torch.cli", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    code = e.code
+from fmvfi_tpu_torch.utils import imageio
+out = imageio.imread(sys.argv[sys.argv.index("--output_frame") + 1])
+leaked = sorted(n for n in sys.modules if n.split(".")[0] in {FORBIDDEN!r} and sys.modules[n])
+print(json.dumps(dict(code=code, shape=list(out.shape), leaked=leaked)))
+"""
+
+
+def test_cli_interpolate_runs_without_jax_cv2_pil_or_matplotlib(tmp_path):
+    """`python -m fmvfi_tpu_torch.cli interpolate --device cpu --method
+    adacof` on two 32x32 PNGs, as its own process, with the reference's
+    libraries, cv2, PIL and matplotlib blocked."""
+    import cv2
+
+    rng = np.random.default_rng(0)
+    for name in ("a.png", "b.png"):
+        cv2.imwrite(str(tmp_path / name), rng.integers(0, 256, (32, 32, 3), dtype=np.uint8))
+    args = ["interpolate", "--first_frame", str(tmp_path / "a.png"), "--second_frame",
+            str(tmp_path / "b.png"), "--output_frame", str(tmp_path / "out.png"), "--method",
+            "adacof", "--device", "cpu"]
+    proc = subprocess.run([sys.executable, "-c", _CLI_ISOLATED, *args], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["code"] == 0 and res["shape"] == [32, 32, 3]
     assert res["leaked"] == []
 
 

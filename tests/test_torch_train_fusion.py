@@ -276,5 +276,5 @@ def test_mixed_synth_stream_matches_jax():
         np.testing.assert_array_equal(ours.load_u8(i), ref.load_u8(i))
         for o, r in zip(ours.load(i), ref.load(i)):
             np.testing.assert_array_equal(o, r)
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(NotImplementedError, match="item 18.6"):
         pt_data.MixedSynthStream(n=2, h=16, w=16, photo_frac=0.5)
