@@ -130,6 +130,25 @@ Phases, each printing one JSON line with its seconds:
               4: adacof 3 steps (K1 and K2 once a step), phase and fusion 2
               steps (no K1; K1 [8, 16, 8] a step), finite losses, batches
               through the native loader, a checkpoint and config.json;
+  export    - (after cli) `python3 -m fmvfi_tpu_torch.cli export --method
+              fusion --size 1080x1920 --platforms cuda` as a process of its
+              own (the cli phase's weights), its seconds, the artifact's MB
+              and the filter bank's share; the artifact loaded in a fresh
+              process (load_exported, K1 built from the sources as in the
+              live pipeline) answering the serve phase's first pair, 1
+              warm-up and 3 timed requests: >= 60 dB against the same
+              request live in this process (1 warm-up, 3 timed), K1
+              launched through the registered operator on [2, 4, 2] images
+              via f5c3/ring, no K2, warm ms per request of both (median
+              of 3); a ("cpu",) adacof artifact at 64x64 answering within
+              2e-5 of the live CPU pipeline in a process outside the
+              repository where fmvfi_tpu_torch cannot be imported; 2
+              AdaCoF training steps on the card (K1 and K2 once a step)
+              written with save_msgpack(adacof_to_flax(...)), read back
+              with load_adacof_weights: parameters and one pair's output
+              bit-equal; profiling.timed of one 1080p request beside the
+              serve phase's host-clock ms, and one request's
+              profiling.trace file;
   train_gan - AdaCoF training with the VGG and T_WGAN_GP terms (the default
               loss + 0.01*VGG + 0.005*T_WGAN_GP, the seeded vgg16, a critic
               built for 256x256) from the bundled weights through fit over
@@ -216,6 +235,7 @@ GAN_CPU_TOL = 1e-4
 LPIPS_TOL = 1e-4  # relative, card against CPU
 NATIVE_TOL = 1e-6  # native batches against the numpy path: x * (1/255) against x / 255
 CLI_LSB = 1  # a PNG written by a command against the same frame computed in this process
+EXPORT_CPU_TOL = 2e-5  # a ("cpu",) artifact against the live CPU pipeline
 VGG16_CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M", 512, 512, 512]
 
 
@@ -870,6 +890,319 @@ def _cli(dev, repo, ada_path, fusion_path, pair, clip, work):
           unfilter_oracle_seconds=t_oracle, interpolate=interp, video_batch2_vs_per_pair_lsb=batch_lsb,
           commands=runs, k1_launches=k1 + interp_counts["k1"], k2_launches=k2)
     return k1 + interp_counts["k1"], k2
+
+
+# run in a process of its own: load a `cuda` artifact onto the card, answer
+# one pair (1 warm-up, then 3 timed requests), count K1 through the
+# registered operator (images per launch recorded around its CUDA kernel)
+_EXPORT_CHILD = """
+import json, sys, time
+import numpy as np
+import torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+t0 = time.perf_counter()
+from fmvfi_tpu_torch.ops import adacof_cuda
+from fmvfi_tpu_torch.utils.export import load_exported
+fn = load_exported(sys.argv[1], device="cuda")
+torch.cuda.synchronize()
+load_s = time.perf_counter() - t0
+state = fn.program.state_dict
+state_mb = sum(v.numel() * v.element_size() for v in state.values()) / 1e6
+filter_mb = sum(v.numel() * v.element_size() for k, v in state.items()
+                if k.startswith("filter_")) / 1e6
+nodes = sum(len(m.graph.nodes) for m in fn.program.graph_module.modules()
+            if isinstance(m, torch.fx.GraphModule))
+d = np.load(sys.argv[2])
+f1, f2 = torch.from_numpy(d["f1"]).cuda(), torch.from_numpy(d["f2"]).cuda()
+real, images = adacof_cuda.warp_fwd_cuda, []
+def recording(x, *args):
+    images[-1].append(x.shape[0])
+    return real(x, *args)
+adacof_cuda.warp_fwd_cuda = recording  # the operator's CUDA kernel calls it
+ms = []
+adacof_cuda.launches = adacof_cuda.bwd_launches = 0
+adacof_cuda.paths.clear()
+for i in range(4):
+    images.append([])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn(f1, f2)
+    torch.cuda.synchronize()
+    ms.append(1e3 * (time.perf_counter() - t))
+np.save(sys.argv[3], out.cpu().numpy())
+print(json.dumps(dict(load_seconds=load_s, warmup_ms=ms[0], ms_requests=ms[1:],
+                      ms_per_frame=float(np.median(ms[1:])), meta=fn.meta, state_mb=state_mb,
+                      filter_mb=filter_mb, graph_nodes=nodes, k1=adacof_cuda.launches,
+                      k2=adacof_cuda.bwd_launches, k1_paths=dict(adacof_cuda.paths),
+                      k1_images=images)))
+"""
+
+# run in a process of its own, outside the repository with fmvfi_tpu_torch
+# unimportable: a ("cpu",) artifact with torch.export.load alone
+_BARE_CHILD = """
+import json, sys
+sys.modules["fmvfi_tpu_torch"] = None
+import numpy as np
+import torch
+extra = {"meta.json": ""}
+program = torch.export.load(sys.argv[1], extra_files=extra)
+d = np.load(sys.argv[2])
+with torch.no_grad():
+    out = program.module()(torch.from_numpy(d["f1"]), torch.from_numpy(d["f2"]))
+np.save(sys.argv[3], out.numpy())
+print(json.dumps(dict(meta=json.loads(extra["meta.json"]), cuda_initialized=torch.cuda.is_initialized(),
+                      package=[n for n in sys.modules if n.startswith("fmvfi")
+                               and sys.modules[n] is not None])))
+"""
+
+
+def phase_export(dev, repo, ada_path, fusion_path, pair, serve_ms):
+    """`cli export` of fusion at 1080p for cuda, that artifact answering the
+    pair in a fresh process, a ("cpu",) artifact without the package, a
+    port-trained AdaCoF written out as .msgpack and read back, and the
+    profiling utilities on one request; returns the K1 and K2 launches of
+    its runs."""
+    with _work_dir(repo) as work_dir:
+        return _export(dev, repo, ada_path, fusion_path, pair, serve_ms, work_dir)
+
+
+def _cpu_artifact(work, ada_path):
+    """A ("cpu",) adacof artifact at 64x64 (adacof: its export traces the
+    plain warp's 25 taps once), run by torch alone in a process outside the
+    repository where fmvfi_tpu_torch cannot be imported, against the live
+    CPU pipeline."""
+    from fmvfi_tpu_torch.models.adacof import AdaCoFNet
+    from fmvfi_tpu_torch.pipeline.interpolate import FusionModels, adacof_interpolate
+    from fmvfi_tpu_torch.utils.convert import load_adacof_weights
+    from fmvfi_tpu_torch.utils.export import export_pipeline, save_exported
+
+    ada_cpu = AdaCoFNet().eval()
+    ada_cpu.load_state_dict(load_adacof_weights(ada_path))
+    small = [np.random.default_rng(s).random((1, 64, 64, 3), dtype=np.float32) for s in (1, 2)]
+    t = time.perf_counter()
+    blob = export_pipeline(FusionModels(None, ada_cpu, None), 64, 64, "adacof",
+                           platforms=("cpu",))
+    export_s = time.perf_counter() - t
+    path = os.path.join(work, "adacof_cpu.pt2")
+    save_exported(path, blob)
+    np.savez(os.path.join(work, "small.npz"), f1=small[0], f2=small[1])
+    bare = os.path.join(work, "bare")
+    os.makedirs(bare)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _BARE_CHILD, path,
+                           os.path.join(work, "small.npz"), os.path.join(work, "small.npy")],
+                          cwd=bare, env=env, capture_output=True, text=True, timeout=600)
+    process_s = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise AssertionError(f"the cpu artifact without the package: {proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    got = np.load(os.path.join(work, "small.npy"))
+    diff = float(np.abs(got - adacof_interpolate(ada_cpu, *small, device="cpu").numpy()).max())
+    cpu = dict(export_seconds=export_s, process_seconds=process_s, mb=len(blob) / 1e6,
+               max_abs_diff=diff, finite=bool(np.isfinite(got).all()), **res)
+    if not (cpu["finite"] and diff <= EXPORT_CPU_TOL and not res["package"]):
+        raise AssertionError(f"export: the cpu artifact without the package: {cpu}")
+    return cpu
+
+
+def _export(dev, repo, ada_path, fusion_path, pair, serve_ms, work):
+    import torch
+    from fmvfi_tpu_torch.eval.synth import translation_triplet
+    from fmvfi_tpu_torch.models.adacof import AdaCoFNet
+    from fmvfi_tpu_torch.models.fusion_net import FusionNet, infer_variant
+    from fmvfi_tpu_torch.models.phase_net import PhaseNetCore
+    from fmvfi_tpu_torch.ops import adacof_cuda
+    from fmvfi_tpu_torch.pipeline.interpolate import (
+        FusionModels,
+        adacof_interpolate,
+        fusion_interpolate,
+    )
+    from fmvfi_tpu_torch.train.data import SyntheticTriplets, batch_iterator
+    from fmvfi_tpu_torch.train.trainer import make_adacof_trainer
+    from fmvfi_tpu_torch.utils import profiling
+    from fmvfi_tpu_torch.utils.checkpoint import save_msgpack
+    from fmvfi_tpu_torch.utils.convert import (
+        adacof_to_flax,
+        load_adacof_weights,
+        load_fusion_weights,
+        phase_net_from_torch,
+    )
+
+    t0 = time.perf_counter()
+    k1 = k2 = 0
+    parts = {}  # seconds of each part of the phase
+    phase_pt = _reference_phase_pt(os.path.join(work, "phase_net.pt"))
+    artifact = os.path.join(work, "fusion_1080p.pt2")
+    # cli export, a process of its own: the bundled AdaCoF, the demo
+    # FusionNet and the seeded PhaseNet, as cli interpolate takes them.  It
+    # traces on one host core while this process makes and runs the ("cpu",)
+    # artifact on another
+    t_export = time.perf_counter()
+    exporter = subprocess.Popen(
+        [sys.executable, "-m", "fmvfi_tpu_torch.cli", "export", "--method", "fusion", "--size",
+         f"{H_FULL}x{W_FULL}", "--platforms", "cuda", "--out", artifact, "--phase_checkpoint",
+         phase_pt], cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        cpu = _cpu_artifact(work, ada_path)
+        parts["cpu_artifact"] = time.perf_counter() - t_export
+        out, err = exporter.communicate(timeout=600)
+    finally:
+        if exporter.poll() is None:
+            exporter.kill()
+            exporter.wait()
+    export_process_s = time.perf_counter() - t_export
+    if exporter.returncode != 0:
+        raise AssertionError(f"cli export exited {exporter.returncode}: {err[-3000:]}")
+    export_said = out.strip().splitlines()[-1]
+    artifact_bytes = os.path.getsize(artifact)
+
+    # the live request in this process, on the same weights
+    t = time.perf_counter()
+    ada = AdaCoFNet().to(dev).eval()
+    ada.load_state_dict(load_adacof_weights(ada_path))
+    fusion_sd = load_fusion_weights(fusion_path)
+    fusion = FusionNet(variant=infer_variant(fusion_sd)).to(dev).eval()
+    fusion.load_state_dict(fusion_sd)
+    phase = PhaseNetCore().to(dev).eval()
+    phase.load_state_dict(phase_net_from_torch(phase_pt))
+    models = FusionModels(phase, ada, fusion)
+    f1, f2 = (torch.from_numpy(np.ascontiguousarray(f[None])).to(dev) for f in pair)
+    live_ms = []
+    _reset_counts()
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        live = fusion_interpolate(models, f1, f2, device=dev)
+        torch.cuda.synchronize()
+        live_ms.append(1e3 * (time.perf_counter() - t))
+    live_counts = _counts()
+    k1 += live_counts["k1"]
+    if live_counts["k1_paths"] != {RING_PATH: 12} or live_counts["k2"]:
+        raise AssertionError(f"export: the live requests' launches {live_counts}")
+    live = live[0].cpu().numpy()
+    parts["live"] = time.perf_counter() - t
+
+    # the artifact in a fresh process
+    frames_npz = os.path.join(work, "pair.npz")
+    np.savez(frames_npz, f1=pair[0][None].astype(np.float32), f2=pair[1][None].astype(np.float32))
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _EXPORT_CHILD, artifact, frames_npz,
+                           os.path.join(work, "out.npy")],
+                          cwd=repo, capture_output=True, text=True, timeout=600)
+    child_process_s = parts["child"] = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise AssertionError(f"loading the artifact exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    got = np.load(os.path.join(work, "out.npy"))[0]
+    k1 += child["k1"]  # the child's four requests, counted together
+    artifact_db = _psnr(got, live)
+    served = dict(
+        artifact_ms_per_frame=child["ms_per_frame"], artifact_ms_requests=child["ms_requests"],
+        artifact_warmup_ms=child["warmup_ms"], live_ms_per_frame=float(np.median(live_ms[1:])),
+        live_ms_requests=live_ms[1:], live_warmup_ms=live_ms[0],
+        artifact_vs_live_db=artifact_db, max_abs_diff=float(np.abs(got - live).max()),
+        k1_images=child["k1_images"], k1_paths=child["k1_paths"], k2_launches=child["k2"],
+        load_seconds=child["load_seconds"],
+        child_process_seconds=child_process_s, meta=child["meta"])
+    if not artifact_db >= PLAIN_AGREEMENT_DB or got.shape != (H_FULL, W_FULL, 3):
+        raise AssertionError(f"export: the artifact against the live request: {served}")
+    if (child["k1_images"], child["k1"], child["k1_paths"], child["k2"]) != (
+            [[2, 4, 2]] * 4, 12, {RING_PATH: 12}, 0):
+        raise AssertionError(f"export: the artifact's K1 launches {served}")
+
+    # weights out: 2 AdaCoF training steps on the card, written as .msgpack,
+    # read back, bit-equal on one pair
+    t = time.perf_counter()
+    state, step = make_adacof_trainer(device=dev, h=CROP, w=CROP)
+    batches = batch_iterator(SyntheticTriplets(n=8, h=CROP + 16, w=CROP + 16), 2, crop=CROP)
+    try:
+        _reset_counts()
+        for _ in range(2):
+            state, metrics = step(state, next(batches))
+        torch.cuda.synchronize()
+        train_counts = _counts()
+    finally:
+        batches.close()
+    k1, k2 = k1 + train_counts["k1"], k2 + train_counts["k2"]
+    trained = state.model.eval()
+    ckpt = os.path.join(work, "adacof_trained.msgpack")
+    save_msgpack(ckpt, adacof_to_flax(trained.state_dict()))
+    back = AdaCoFNet().to(dev).eval()
+    back.load_state_dict(load_adacof_weights(ckpt))
+    g1, _, g2 = translation_triplet(CROP, CROP, dx=3.0, dy=1.0, seed=5)
+    _reset_counts()
+    want = adacof_interpolate(trained, g1[None], g2[None], device=dev)
+    got_w = adacof_interpolate(back, g1[None], g2[None], device=dev)
+    k1 += _counts()["k1"]
+    weights_out = dict(steps=2, k1=train_counts["k1"], k2=train_counts["k2"],
+                       loss=float(metrics["loss"]), msgpack_mb=os.path.getsize(ckpt) / 1e6,
+                       params_equal=all(torch.equal(a, b) for a, b in zip(
+                           trained.state_dict().values(), back.state_dict().values())),
+                       output_equal=bool(torch.equal(want, got_w)))
+    del state, trained, back
+    if not (weights_out["params_equal"] and weights_out["output_equal"]
+            and train_counts["k1"] == 2 and train_counts["k2"] == 2):
+        raise AssertionError(f"export: weights out {weights_out}")
+    parts["weights_out"] = time.perf_counter() - t
+
+    # what the registered operator adds per launch: K1 called directly,
+    # through the operator, and through K3 (autograd.Function + operator),
+    # back to back; at 8x8 the launch is all host work
+    t = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dispatch = {}
+    for name, (b, h, w) in (("tiny_8x8", (1, 8, 8)), ("images_4_1080p", (4, 1088, 1920))):
+        x, wgt, a, be = _k1_case(gen, b, 3, h, w, 5, 1, 3.0)
+        inner = 100 if h == 8 else 10
+        dispatch[name] = dict(
+            direct_ms=_cuda_ms(lambda: adacof_cuda.warp_fwd_cuda(x, wgt, a, be, 1, 48), 5, inner),
+            op_ms=_cuda_ms(lambda: adacof_cuda.warp_fwd_op(x, wgt, a, be, 1, 48), 5, inner),
+            k3_ms=_cuda_ms(lambda: adacof_cuda.adacof_warp(x, wgt, a, be, 1, 48), 5, inner))
+        del x, wgt, a, be
+    torch.cuda.empty_cache()
+    parts["op_dispatch"] = time.perf_counter() - t
+
+    # profiling: timed over one request chained through its output, and
+    # the trace of one request (its kernels' device ms beside its wall ms)
+    t = time.perf_counter()
+    _reset_counts()
+    timed_ms = 1e3 * profiling.timed(lambda f: fusion_interpolate(models, f, f2, device=dev),
+                                     f1, iters=3, warmup=1)
+    parts["timed"] = time.perf_counter() - t
+    t = time.perf_counter()
+    with profiling.trace(os.path.join(work, "trace")):
+        t_req = time.perf_counter()
+        fusion_interpolate(models, f1, f2, device=dev)
+        torch.cuda.synchronize()
+        traced_ms = 1e3 * (time.perf_counter() - t_req)
+    parts["trace"] = time.perf_counter() - t
+    k1 += _counts()["k1"]
+    trace_files = os.listdir(os.path.join(work, "trace"))
+    if len(trace_files) != 1 or not timed_ms > 0:
+        raise AssertionError(f"export: profiling wrote {trace_files}, timed {timed_ms} ms")
+    # the traced request's device time, from the trace file (the
+    # profiler's key_averages() takes tens of seconds on ~2e5 events)
+    trace_path = os.path.join(work, "trace", trace_files[0])
+    with open(trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    prof_line = dict(timed_ms_per_request=timed_ms, serve_ms_per_frame=serve_ms,
+                     trace_mb=os.path.getsize(trace_path) / 1e6, traced_request_ms=traced_ms,
+                     traced_device_ms=sum(e.get("dur", 0) for e in events if e.get("cat") in
+                                          ("kernel", "gpu_memcpy", "gpu_memset")) / 1e3,
+                     traced_kernels=sum(e.get("cat") == "kernel" for e in events))
+    del events
+
+    _line(phase="export", seconds=time.perf_counter() - t0, size=[H_FULL, W_FULL],
+          export_process_seconds=export_process_s, export_stdout=export_said,
+          artifact_mb=artifact_bytes / 1e6, state_mb=child["state_mb"],
+          filter_bank_mb=child["filter_mb"], graph_nodes=child["graph_nodes"], served=served,
+          cpu_artifact=cpu, weights_out=weights_out, op_dispatch=dispatch, profiling=prof_line,
+          part_seconds=parts)
+    return k1, k2
 
 
 def main() -> int:
@@ -1798,14 +2131,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     cli_k1, cli_k2 = phase_cli(dev, repo, ada_path, fusion_path,
                                (requests[0][0], requests[0][2]), clip)
-    del clip, requests
+    del clip
+
+    # export: the fused pipeline as a torch.export artifact for the card,
+    # loaded in a fresh process; a port-trained AdaCoF written out; the
+    # profiling utilities on one request
+    torch.cuda.empty_cache()
+    export_k1, export_k2 = phase_export(dev, repo, ada_path, fusion_path,
+                                        (requests[0][0], requests[0][2]),
+                                        float(np.mean(lat_ms[1:])))
+    del requests
 
     # train_gan: AdaCoF training with the VGG and adversarial terms; each
     # adversarial step on the card against the CPU; the native loader
     gan_k1, gan_k2, gan_types_k1, gan_types_k2 = phase_train_gan(dev, repo, ada_path)
     phase_gan_vs_cpu(dev)
     phase_native()
-    regime_k1.update(lpips=lpips_k1, cli=cli_k1, train_gan=gan_k1, train_gan_types=gan_types_k1)
+    regime_k1.update(lpips=lpips_k1, cli=cli_k1, export=export_k1, train_gan=gan_k1,
+                     train_gan_types=gan_types_k1)
 
     k1_1080, k1_1080_8 = timings[2], timings[3]  # the 4-image and the batched 8-image launch
     k2_train = k2_timings[0]  # the training launch
@@ -1825,13 +2168,14 @@ def main() -> int:
                               **regime_k1),
     ), dict(
         name=adacof_cuda.NAME_BWD, route="cuda", source=adacof_cuda.SOURCE_BWD,
-        replaces=adacof_cuda.REPLACES_BWD, launches=train_k2 + gan_k2 + gan_types_k2 + cli_k2,
+        replaces=adacof_cuda.REPLACES_BWD,
+        launches=train_k2 + gan_k2 + gan_types_k2 + cli_k2 + export_k2,
         max_abs_err=k2_max_err,
         ms=k2_train["ms"], plain_ms=k2_train["plain_ms"], bound_ms=k2_train["bound_ms"],
         bound_by=k2_train["bound_by"], library_ms=None, design=DESIGN,
         launch_1080p_ms=k2_timings[1]["ms"],
-        launches_by_path=dict(serve=0, video=0, eval=0, lpips=0, cli=cli_k2, train=train_k2,
-                              train_phase=0, train_fusion=0, train_gan=gan_k2,
+        launches_by_path=dict(serve=0, video=0, eval=0, lpips=0, cli=cli_k2, export=export_k2,
+                              train=train_k2, train_phase=0, train_fusion=0, train_gan=gan_k2,
                               train_gan_types=gan_types_k2),
     )])
     _line(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),

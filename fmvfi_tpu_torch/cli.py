@@ -4,6 +4,7 @@
     python -m fmvfi_tpu_torch.cli video       --input frames/ --output_dir out/
     python -m fmvfi_tpu_torch.cli evaluate    --out_dir results/
     python -m fmvfi_tpu_torch.cli train       --regime adacof --data_dir vimeo_triplet/
+    python -m fmvfi_tpu_torch.cli export      --method fusion --size 1080x1920 --out f.pt2
 
 Flags, defaults and messages are JAX's, plus `--device` (default cuda): a
 command exits with an error when there is no CUDA card, unless it is given
@@ -15,9 +16,9 @@ repository's checkpoints/ directory.  As in JAX, without
 FusionNet in place of a file named fusion_net.pt.
 
 Not ported yet, each raising NotImplementedError with its ROADMAP item
-(Queue 1): `export` (item 18.1), video files as input (18.4), JPEG frames
-(18.5), `--test_sets synthetic+photo` (18.6), `--data_parallel` (19).  The
-results.png chart of `evaluate` (18.6) is skipped with a note on stderr.
+(Queue 1): video files as input (18.4), JPEG frames (18.5), `--test_sets
+synthetic+photo` (18.6), `--data_parallel` (19).  The results.png chart of
+`evaluate` (18.6) is skipped with a note on stderr.
 """
 
 from __future__ import annotations
@@ -433,9 +434,34 @@ def cmd_train(argv):
 
 
 def cmd_export(argv):
-    raise NotImplementedError(
-        "export: a torch.export artifact that calls K1 needs K1 registered as an operator; "
-        "not ported yet (ROADMAP Queue 1, item 18.1)")
+    """AOT-export a pipeline as a serving artifact in one file (a
+    torch.export program with its weights and filter bank, utils/export.py):
+    with --platforms cpu it loads with torch alone, without this package;
+    an artifact for cuda calls K1 through its registered operator."""
+    p = argparse.ArgumentParser(prog="export", description=cmd_export.__doc__)
+    p.add_argument("--size", default="512x512", help="HxW the artifact serves")
+    p.add_argument("--batch", type=int, default=1)
+    p.add_argument("--out", default="pipeline.fmx.pt2")
+    p.add_argument("--platforms", default="",
+                   help="comma list of cpu and cuda (e.g. cpu,cuda) for a multi-platform "
+                        "artifact; empty = the --device's")
+    _common(p)
+    args = p.parse_args(argv)
+    _device_of(p, args)
+    h, w = (int(x) for x in args.size.split("x"))
+
+    from .utils.export import export_pipeline, save_exported
+
+    weights = _load_weights(args)  # resolves fusion_variant/maps >= 0
+    blob = export_pipeline(
+        weights, h, w, args.method, batch=args.batch,
+        kernel_size=args.kernel_size, dilation=args.dilation,
+        variant=args.fusion_variant, uncertainty_maps=args.fusion_maps,
+        platforms=[s for s in args.platforms.split(",") if s] or None,
+    )
+    save_exported(args.out, blob)
+    print(f"exported {args.method} {args.batch}x{h}x{w} -> {args.out} "
+          f"({len(blob)/1e6:.1f} MB)")
 
 
 def main(argv=None):

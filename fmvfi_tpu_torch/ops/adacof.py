@@ -110,11 +110,15 @@ def adacof_warp_field_grads(
     through).  With max_offset=None: unclamped, no mask.
 
     The CPU path of the backward kernel K2 (ops/adacof_cuda.py) and the plain
-    version it is held against."""
-    with torch.enable_grad():
-        fields = [t.detach().requires_grad_(True) for t in (weight, offset_i, offset_j)]
-        out = adacof_warp(x.detach(), *fields, dilation, max_offset)
-        dw, da, db = torch.autograd.grad(out, fields, g)
+    version it is held against.  The vector-Jacobian product is
+    torch.func's, which also runs inside a registered operator's kernel,
+    below autograd."""
+    x = x.detach()
+    _, vjp = torch.func.vjp(
+        lambda *fields: adacof_warp(x, *fields, dilation, max_offset),
+        weight.detach(), offset_i.detach(), offset_j.detach(),
+    )
+    dw, da, db = vjp(g)
     if max_offset is not None:
         r = float(max_offset)
         da = da * (offset_i.abs() < r).to(da.dtype)

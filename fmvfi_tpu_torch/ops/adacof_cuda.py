@@ -19,6 +19,21 @@ and reports it; `paths` / `bwd_paths` count them.  Where the instantiation
 gathers from an RGBX copy of x (3 channels, F 5 or 11), K1 writes the copy
 into a scratch tensor and returns it, and K2 takes it: K3 keeps it from the
 forward for the backward.
+
+PyTorch reaches both kernels through two registered operators, so that
+`torch.export` records the warp as one node and a loaded program launches
+K1 as the live pipeline does:
+  * `fmvfi::adacof_warp_fwd(x, weight, offset_i, offset_j, dilation,
+    max_offset) -> (out, x4)`: K1 on CUDA tensors, the plain warp on CPU
+    tensors.  x4 is the RGBX scratch (`rgbx_scratch`), (B, H_in, W_in, 4)
+    on a CUDA x where the instantiation gathers from one, and (0,) elsewhere
+    (the CPU's plain warp has no use for it): K1 writes it and K2 reads it.
+  * `fmvfi::adacof_warp_bwd(x, x4, weight, offset_i, offset_j, g, dilation,
+    max_offset) -> (dW, dalpha, dbeta)`: K2 on CUDA tensors, the plain
+    field gradients on CPU tensors.
+Each has a fake implementation for tracing.  The counters move where the
+CUDA implementations launch, whatever called the operator: K3, or a loaded
+exported program.
 """
 
 from __future__ import annotations
@@ -55,8 +70,15 @@ PATH_NAMES = tuple(
 RGBX_F = (5, 11)  # with 3 channels, the F whose instantiations gather from RGBX
 
 
-def _on_cpu(tensors) -> bool:
-    return all(t.device.type == "cpu" for t in tensors)
+def _check_device(kernel: str, tensors) -> None:
+    """Raise ValueError unless the tensors lie on the CPU or on one CUDA
+    device: nothing else has an implementation of the warp."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1 or next(iter(devices)).type not in ("cpu", "cuda"):
+        raise ValueError(
+            f"{kernel} takes tensors on the CPU or on one CUDA device, got "
+            f"{[str(t.device) for t in tensors]}"
+        )
 
 
 def _check_cuda(kernel: str, tensors, dilation, max_offset):
@@ -169,19 +191,75 @@ def warp_bwd_cuda(x, weight, offset_i, offset_j, g, dilation, max_offset, x4):
     return dw, da, db
 
 
+def _no_scratch(x: torch.Tensor) -> torch.Tensor:
+    return x.new_empty((0,))
+
+
+def _warp_fwd_plain(x, weight, offset_i, offset_j, dilation, max_offset):
+    check_warp_shapes(x, weight, offset_i, offset_j, dilation)
+    out = adacof_warp_plain(x, weight, offset_i, offset_j, dilation, max_offset)
+    return out, _no_scratch(x)
+
+
+def _warp_fwd_k1(x, weight, offset_i, offset_j, dilation, max_offset):
+    out, x4 = warp_fwd_cuda(x, weight, offset_i, offset_j, dilation, max_offset)
+    return out, _no_scratch(x) if x4 is None else x4
+
+
+def _warp_fwd_fake(x, weight, offset_i, offset_j, dilation, max_offset):
+    k, h, w = check_warp_shapes(x, weight, offset_i, offset_j, dilation)
+    x4 = rgbx_scratch(x, k) if x.device.type == "cuda" else None  # as the real kernels
+    return x.new_empty((x.shape[0], x.shape[1], h, w)), _no_scratch(x) if x4 is None else x4
+
+
+def _warp_bwd_plain(x, x4, weight, offset_i, offset_j, g, dilation, max_offset):
+    return adacof_warp_field_grads(x, weight, offset_i, offset_j, g, dilation, max_offset)
+
+
+def _warp_bwd_k2(x, x4, weight, offset_i, offset_j, g, dilation, max_offset):
+    return warp_bwd_cuda(x, weight, offset_i, offset_j, g, dilation, max_offset,
+                         None if x4.numel() == 0 else x4)
+
+
+def _warp_bwd_fake(x, x4, weight, offset_i, offset_j, g, dilation, max_offset):
+    return tuple(torch.empty_like(weight) for _ in range(3))
+
+
+# The operators, defined through torch.library's low-level API: a kernel
+# registered with torch.library.custom_op runs under torch._disable_dynamo,
+# whose first call imports torch._dynamo, seconds of a process's cold start.
+# Module-level: the registrations live as long as this object.
+_LIB = torch.library.Library("fmvfi", "DEF")
+_LIB.define("adacof_warp_fwd(Tensor x, Tensor weight, Tensor offset_i, Tensor offset_j, "
+            "int dilation, int? max_offset) -> (Tensor, Tensor)")
+_LIB.define("adacof_warp_bwd(Tensor x, Tensor x4, Tensor weight, Tensor offset_i, "
+            "Tensor offset_j, Tensor g, int dilation, int? max_offset) -> (Tensor, Tensor, Tensor)")
+for _name, _cpu, _cuda, _fake in (
+    ("adacof_warp_fwd", _warp_fwd_plain, _warp_fwd_k1, _warp_fwd_fake),
+    ("adacof_warp_bwd", _warp_bwd_plain, _warp_bwd_k2, _warp_bwd_fake),
+):
+    _LIB.impl(_name, _cpu, "CPU")
+    _LIB.impl(_name, _cuda, "CUDA")
+    torch.library.register_fake(f"fmvfi::{_name}", _fake, lib=_LIB)
+
+# (out, x4): the clamped warp and the RGBX scratch (module docstring); on
+# CPU tensors the plain warp
+warp_fwd_op = torch.ops.fmvfi.adacof_warp_fwd
+# (dW, dalpha, dbeta) for the cotangent g, with x4 what warp_fwd_op returned
+# for this x and F; on CPU tensors the plain ones (x4 unread)
+warp_bwd_op = torch.ops.fmvfi.adacof_warp_bwd
+
+
 class AdaCoFWarp(torch.autograd.Function):
     """K3: the clamped warp with the gradient contract of the module
-    docstring; K1 / K2 on CUDA tensors, the plain versions on CPU tensors."""
+    docstring, through the two operators: K1 / K2 on CUDA tensors, the
+    plain versions on CPU tensors."""
 
     @staticmethod
     def forward(ctx, x, weight, offset_i, offset_j, dilation, max_offset):
-        tensors = (x, weight, offset_i, offset_j)
-        if _on_cpu(tensors):
-            out = adacof_warp_plain(x, weight, offset_i, offset_j, dilation, max_offset)
-            ctx.x4 = None
-        else:
-            # K1's RGBX copy of x, for K2
-            out, ctx.x4 = warp_fwd_cuda(x, weight, offset_i, offset_j, dilation, max_offset)
+        _check_device("the AdaCoF warp", (x, weight, offset_i, offset_j))
+        # x4: K1's RGBX copy of x, for K2
+        out, ctx.x4 = warp_fwd_op(x, weight, offset_i, offset_j, dilation, max_offset)
         # the raw (unclamped) offsets: the saturation mask reads them
         ctx.save_for_backward(x, weight, offset_i, offset_j)
         ctx.dilation, ctx.max_offset = dilation, max_offset
@@ -193,12 +271,9 @@ class AdaCoFWarp(torch.autograd.Function):
         x, weight, offset_i, offset_j = ctx.saved_tensors
         # g reaches the warp through slices and a crop: often not contiguous
         g = g.contiguous()
-        args = (x, weight, offset_i, offset_j, g, ctx.dilation, ctx.max_offset)
         x4, ctx.x4 = ctx.x4, None  # a graph may outlive its backward; the copy need not
-        if _on_cpu((x, weight, offset_i, offset_j, g)):
-            dw, da, db = adacof_warp_field_grads(*args)
-        else:
-            dw, da, db = warp_bwd_cuda(*args, x4)
+        dw, da, db = warp_bwd_op(x, x4, weight, offset_i, offset_j, g, ctx.dilation,
+                                 ctx.max_offset)
         dx = torch.zeros_like(x) if ctx.needs_input_grad[0] else None
         return dx, dw, da, db, None, None
 

@@ -70,10 +70,16 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
-def _filters(x: torch.Tensor, dev: torch.device):
-    """The pyramid filter bank for x's size, at the resolution-dependent height."""
+def _filters(x: torch.Tensor, filters=None):
+    """`filters` if given, else the pyramid filter bank for x's size on x's
+    device, at the resolution-dependent height.  Raises if a given bank is
+    for another size."""
     h, w = x.shape[-2:]
-    return make_filters(h, w, max_pyr_height(h, w), device=dev)
+    if filters is None:
+        return make_filters(h, w, max_pyr_height(h, w), device=x.device)
+    if tuple(filters.in_shape) != (h, w):
+        raise ValueError(f"filter bank for {filters.in_shape}, frames of {(h, w)}")
+    return filters
 
 
 def _chan_batch(x: torch.Tensor) -> torch.Tensor:
@@ -113,11 +119,14 @@ def _phase_predict_rgb(phase_net, lab1, lab2, filters) -> torch.Tensor:
 
 
 @torch.no_grad()
-def phase_interpolate(phase_net: PhaseNetCore, frame1, frame2, *, device="cuda") -> torch.Tensor:
-    """PhaseNet-only interpolation: (B, H, W, 3) frames -> (B, H, W, 3)."""
+def phase_interpolate(
+    phase_net: PhaseNetCore, frame1, frame2, *, device="cuda", filters=None
+) -> torch.Tensor:
+    """PhaseNet-only interpolation: (B, H, W, 3) frames -> (B, H, W, 3).
+    `filters`: the frames' pyramid filter bank (None: built, cached)."""
     dev = _device(device, phase_net)
     f1, f2 = _nchw(frame1, dev), _nchw(frame2, dev)
-    filters = _filters(f1, dev)
+    filters = _filters(f1, filters)
     return _nhwc(_phase_predict_rgb(phase_net, rgb_to_lab(f1), rgb_to_lab(f2), filters))
 
 
@@ -240,19 +249,21 @@ class FusionInputs(NamedTuple):
     maps: Optional[torch.Tensor]  # (B, 3, H, W) [ada_unc, phase_unc, flow_var], or None
 
 
-def fusion_inputs(models: FusionModels, frame1, frame2, dev: torch.device, seq_chunk: int = 0):
+def fusion_inputs(models: FusionModels, frame1, frame2, dev: torch.device, seq_chunk: int = 0,
+                  filters=None):
     """Sections 1-4 of the fusion pipeline on (B, H, W, 3) frames: the AdaCoF
     main pass, PhaseNet, the uncertainty maps and the 3-pass baseline.
     Returns (FusionInputs, (H, W), the size to crop FusionNet's output back
     to).  `fusion_interpolate` runs FusionNet on them; the fusion trainer
-    runs this under no_grad and FusionNet with grad."""
+    runs this under no_grad and FusionNet with grad.  `filters`: the filter
+    bank at the /8-padded size (None: built, cached)."""
     f1, f2 = _nchw(frame1, dev), _nchw(frame2, dev)
     b, _, full_h, full_w = f1.shape
     chunked = 0 < seq_chunk < b
     if chunked and b % seq_chunk:
         raise ValueError(f"batch {b} not divisible by seq_chunk {seq_chunk}")
     f1, f2 = _pad8(f1), _pad8(f2)
-    filters = _filters(f1, dev)
+    filters = _filters(f1, filters)
     n_maps = models.fusion_net.uncertainty_maps
 
     # 1. AdaCoF
@@ -286,6 +297,7 @@ def fusion_interpolate(
     compute_dtype=None,
     spatial_mesh=None,
     seq_chunk: int = 0,
+    filters=None,
 ):
     """The fusion pipeline: (B, H, W, 3) frames -> the fused middle frame.
 
@@ -305,14 +317,16 @@ def fusion_interpolate(
     `seq_chunk` (0 = off): with 0 < seq_chunk < B, sections 2-4 run over
     batch chunks of that size, one after another, which bounds their peak
     memory near a chunk's; the AdaCoF main pass and FusionNet stay at the
-    full batch.  B must be divisible by it.  compute_dtype and spatial_mesh
+    full batch.  B must be divisible by it.  `filters`: the pyramid filter
+    bank at the /8-padded size (None: built, cached; utils/export.py passes
+    the program's own).  compute_dtype and spatial_mesh
     of the JAX pipeline are not ported yet and raise."""
     if compute_dtype is not None or spatial_mesh is not None:
         raise NotImplementedError(
             "compute_dtype and spatial_mesh are not ported to fmvfi_tpu_torch yet"
         )
     dev = _device(device, *models)
-    inputs, (full_h, full_w) = fusion_inputs(models, frame1, frame2, dev, seq_chunk)
+    inputs, (full_h, full_w) = fusion_inputs(models, frame1, frame2, dev, seq_chunk, filters)
     # 5. FusionNet blend
     final = models.fusion_net(*inputs)
 
@@ -348,10 +362,6 @@ class FusionStreamCarry(NamedTuple):
     maps: Optional[torch.Tensor]  # (B, 3, H, W), or None without maps
 
 
-def _stream_filters(filters, x: torch.Tensor):
-    return filters if filters is not None else _filters(x, x.device)
-
-
 @torch.no_grad()
 def fusion_stream_init(
     frame0, filters=None, uncertainty_maps: int = 3, *, device="cuda"
@@ -364,7 +374,7 @@ def fusion_stream_init(
     b, _, h, w = f0.shape
     if h % 8 or w % 8:
         raise ValueError(f"stream frames must be on the /8 grid, got {h}x{w}")
-    filters = _stream_filters(filters, f0)
+    filters = _filters(f0, filters)
     lab0 = rgb_to_lab(f0)
     z = torch.zeros_like(f0)
     return FusionStreamCarry(
@@ -441,7 +451,7 @@ def fusion_stream_step(
     two 4B-image warps (K1) instead of 2B, 4B and 2B."""
     dev = _device(device, *models)
     f3 = _nchw(frame_next, dev)
-    carry, fused = _stream_step(models, carry, f3, _stream_filters(filters, f3))
+    carry, fused = _stream_step(models, carry, f3, _filters(f3, filters))
     return carry, _nhwc(fused)
 
 
@@ -458,7 +468,7 @@ def fusion_stream_scan(
     fused = []
     for t in range(len(frames)):
         f3 = _nchw(frames[t], dev)
-        filters = _stream_filters(filters, f3)
+        filters = _filters(f3, filters)
         carry, out = _stream_step(models, carry, f3, filters)
         fused.append(_nhwc(out))
     return carry, torch.stack(fused, 0)

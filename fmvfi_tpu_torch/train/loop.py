@@ -1,12 +1,15 @@
 """The training loop (port of fmvfi_tpu/train/loop.py): epochs,
-checkpoints with resume, a JSONL metrics stream and an optional probe.
+checkpoints with resume, a JSONL metrics stream, a PSNR probe and an image
+probe.
 
 - `MetricsWriter`: one JSON record per logged step.
+- `PsnrProbe`: fixed probe triplets scored after every epoch (the
+  reference's per-epoch Middlebury-other PSNR, adacof/TestModule.py:43-64).
 - `fit()`: the epoch loop gluing a (state, step_fn) pair from train.trainer
   to a batch iterator, resuming from the latest checkpoint, with the
-  hierarchical-m schedule of PhaseNet training.
-Still to be ported (ROADMAP Queue 1, item 17): the loss-curve plot and the
-image probe.
+  hierarchical-m schedule of PhaseNet training and the probes.
+The loss-curve PNG of JAX's MetricsWriter.plot needs matplotlib and is not
+ported (ROADMAP Queue 1, item 18.6).
 """
 
 from __future__ import annotations
@@ -14,8 +17,12 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Union
 
+import numpy as np
+import torch
+
+from ..utils import imageio
 from ..utils.checkpoint import Checkpointer
 
 
@@ -35,6 +42,46 @@ class MetricsWriter:
         self._f.close()
 
 
+class PsnrProbe:
+    """Score fixed triplets with predict_fn(state, f1, f2) -> pred, frames
+    (1, H, W, 3) in [0, 1]; calling the probe returns the mean PSNR in dB
+    (fmvfi_tpu/train/loop.py:73-98)."""
+
+    def __init__(self, triplets, predict_fn: Callable):
+        self.triplets = triplets  # list of (f1, mid, f2) arrays (H, W, 3)
+        self.predict_fn = predict_fn
+
+    @classmethod
+    def from_middlebury(cls, input_dir: str, gt_dir: str, predict_fn: Callable):
+        """The Middlebury-other probe (the reference's training regression
+        gate, adacof/trainer.py:33,60 + TestModule.py:43-64), scenes in
+        sorted order."""
+        from ..eval.datasets import middlebury_other
+
+        scenes = middlebury_other(input_dir, gt_dir)
+        return cls([scenes[k] for k in sorted(scenes)], predict_fn)
+
+    def __call__(self, state) -> float:
+        psnrs = []
+        for f1, mid, f2 in self.triplets:
+            pred = self.predict_fn(state, f1[None], f2[None])
+            pred = pred.detach().cpu().numpy() if torch.is_tensor(pred) else np.asarray(pred)
+            mse = np.mean((pred[0] - mid) ** 2)
+            psnrs.append(-10 * np.log10(max(mse, 1e-12)))
+        return float(np.mean(psnrs))
+
+
+def _write_image_probe(out_dir: str, step: int, img) -> str:
+    """An (H, W, 3) [0, 1] frame as <out_dir>/result/step_<N>.png, quantized
+    as JAX's fit writes it (x 255, clipped, truncated)."""
+    img = img.detach().cpu().numpy() if torch.is_tensor(img) else np.asarray(img)
+    d = os.path.join(out_dir, "result")
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, f"step_{step:06d}.png")
+    imageio.imwrite(path, (img * 255).clip(0, 255).astype(np.uint8))
+    return path
+
+
 def fit(
     state,
     step_fn: Callable,
@@ -44,20 +91,25 @@ def fit(
     steps_per_epoch: Optional[int] = None,
     log_every: int = 50,
     ckpt_every: int = 500,
-    probe: Optional[Callable] = None,
+    probe: Optional[Union[PsnrProbe, Callable]] = None,
     resume: bool = True,
     make_step: Optional[Callable[[Optional[int]], Callable]] = None,
     m_init: Optional[int] = None,
     m_update: int = 500,
     m_max: int = 10,
+    image_probe: Optional[Callable] = None,
+    image_every: int = 100,
 ):
     """Run the loop.  `batches` yields (f1, target, f2) NHWC batches; an
     epoch is `steps_per_epoch` batches (or one pass if the iterator is finite
     and steps_per_epoch is None).  Checkpoints go to <out_dir>/checkpoint
     every `ckpt_every` steps and at the end of each epoch; with `resume`, the
     latest one is restored first and the epoch count picks up where it
-    stopped.  `probe(state) -> float` is scored and logged after each
-    epoch.
+    stopped.  `probe(state) -> float` (a PsnrProbe, or any callable) is
+    scored and logged as probe_psnr after each epoch.  `image_probe(state)
+    -> (H, W, 3) [0, 1] frame` is written to <out_dir>/result/step_<N>.png
+    every `image_every` steps (the reference's fixed sample-frame renders,
+    train/trainer.py:140-142).
 
     Hierarchical-m training (PhaseNet): with `make_step` (from
     make_phase_trainer) and `m_init`, the step is `make_step(m)`, m rising
@@ -104,6 +156,8 @@ def fit(
                     writer.write(step, metrics, epoch=epoch, **({} if m is None else {"m": m}))
                 if step % ckpt_every == 0:
                     ckptr.save(step, state)
+                if image_probe is not None and step % image_every == 0:
+                    _write_image_probe(out_dir, step, image_probe(state))
                 if make_step is not None and m is not None and n % m_update == 0 and m < m_max:
                     m += 1
                     step_fn = make_step(m)

@@ -1,5 +1,13 @@
-"""Train-state checkpoints with resume (port of the `Checkpointer` of
-fmvfi_tpu/utils/checkpoint.py, on torch.save instead of orbax).
+"""Checkpoints (port of fmvfi_tpu/utils/checkpoint.py).
+
+`save_msgpack` / `load_msgpack`: flax-layout weight trees (nested dicts of
+numpy arrays, as utils/convert.py's `*_to_flax` make them) in the repo's
+published-model format, *.msgpack, through utils/msgpack_io.py: a file the
+JAX package, `load_adacof_weights` / `load_fusion_weights` and the command
+line's --adacof_checkpoint / --fusion_checkpoint read.
+
+`Checkpointer`: train-state checkpoints with resume, on torch.save instead
+of orbax.
 
 One file per step, `<directory>/step_%08d`, holding the model's state dict
 ("params"), the optimizer's ("opt_state"), the step and, where the state
@@ -13,9 +21,57 @@ from __future__ import annotations
 
 import os
 import tempfile
-from typing import Optional
+from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
+
+from . import msgpack_io
+
+
+def _write_atomic(path: str, write: Callable) -> None:
+    """write(f) to a private temporary name beside `path`, then rename it
+    into place: a reader never sees half a file."""
+    fd, tmp = tempfile.mkstemp(prefix=".tmp_", dir=os.path.dirname(path))
+    try:
+        with os.fdopen(fd, "wb") as f:
+            write(f)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def save_msgpack(path: str, tree: Dict[str, Any]) -> None:
+    """Write a flax-layout tree as flax.serialization.to_bytes writes it
+    (the parent directory is made if missing)."""
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    data = msgpack_io.dumps(tree)
+    _write_atomic(path, lambda f: f.write(data))
+
+
+def _restore(like, tree, where: str):
+    """`tree` in `like`'s structure: every key of `like` must be in `tree`
+    (flax's rule), and every array of `like` must have its shape."""
+    if isinstance(like, dict):
+        if not isinstance(tree, dict):
+            raise ValueError(f"{where or 'the tree'}: expected a dict, got {type(tree).__name__}")
+        missing = [k for k in like if k not in tree]
+        if missing:
+            raise ValueError(f"{where or 'the tree'}: keys {missing} are not in the file")
+        return {k: _restore(v, tree[k], f"{where}/{k}") for k, v in like.items()}
+    if isinstance(tree, dict) or np.shape(like) != np.shape(tree):
+        held = "a dict" if isinstance(tree, dict) else np.shape(tree)
+        raise ValueError(f"{where}: the file holds {held}, the template {np.shape(like)}")
+    return tree
+
+
+def load_msgpack(path: str, like: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """Read a flax .msgpack file; with `like` (a template tree), the result
+    has its structure and is checked against it (ValueError)."""
+    tree = msgpack_io.load(path)
+    return tree if like is None else _restore(like, tree, "")
 
 
 class Checkpointer:
@@ -36,14 +92,7 @@ class Checkpointer:
         }
         if getattr(state, "extra", None) is not None:
             payload["extra"] = state.extra.state_dict()
-        fd, tmp = tempfile.mkstemp(prefix=".tmp_", dir=self._dir)
-        try:
-            with os.fdopen(fd, "wb") as f:
-                torch.save(payload, f)
-            os.replace(tmp, self._path(step))
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+        _write_atomic(self._path(step), lambda f: torch.save(payload, f))
 
     def latest(self) -> Optional[int]:
         steps = []

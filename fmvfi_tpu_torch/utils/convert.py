@@ -1,5 +1,5 @@
 """Flax variable trees and the reference's PyTorch checkpoints -> state
-dicts of the port's modules.
+dicts of the port's modules, and back to flax trees.
 
 A flax tree here is nested dicts of numpy arrays ({'params': ...} and, for
 PhaseNet, {'batch_stats': ...}), as utils/msgpack_io.py reads it from a
@@ -11,6 +11,14 @@ The reference's .pt files (phase_net.pt, fusion_net*.pt, AdaCoF's
 ckpt.pth) are already in torch's layout: their keys are renamed, nothing
 is transposed.  Every returned state dict loads into its module with
 strict=True.
+
+The inverses `adacof_to_flax`, `fusion_net_to_flax` and `phase_net_to_flax`
+turn a port state dict back into the flax tree, bit for bit (BN running
+statistics into 'batch_stats'; num_batches_tracked, which flax has not, is
+dropped), with keys sorted at every level as flax's init makes them, so
+that utils/checkpoint.py::save_msgpack writes the file the JAX package
+would.  `merge_matching_params` warm-starts one port state dict from
+another (fmvfi_tpu/utils/convert.py:189-210).
 """
 
 from __future__ import annotations
@@ -117,6 +125,93 @@ def vgg_from_flax(tree) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     _convs(out, _params(tree))
     return out
+
+
+def _np(t) -> np.ndarray:
+    return np.ascontiguousarray(t.detach().cpu().numpy(), dtype=np.float32)
+
+
+def _sorted_tree(tree):
+    """Keys sorted at every level, as flax's init orders a variable tree."""
+    if not isinstance(tree, dict):
+        return tree
+    return {k: _sorted_tree(tree[k]) for k in sorted(tree)}
+
+
+def _conv_flax(sd, key: str):
+    """(kernel HWIO, bias) of the conv `key` of a state dict."""
+    return np.ascontiguousarray(np.transpose(_np(sd[f"{key}.weight"]), (2, 3, 1, 0))), _np(
+        sd[f"{key}.bias"])
+
+
+def _convs_to_flax(sd) -> Dict[str, Any]:
+    """The inverse of `_convs`: every conv of a state dict under its dotted
+    path, `final.conv3` as the pair `conv3_kernel` / `conv3_bias` of
+    `final`.  Raises ValueError on a key that is no conv's weight or bias."""
+    params: Dict[str, Any] = {}
+    convs = [k[: -len(".weight")] for k in sd if k.endswith(".weight")]
+    left = set(sd) - {f"{c}.{p}" for c in convs for p in ("weight", "bias")}
+    if left:
+        raise ValueError(f"not conv weights or biases: {sorted(left)}")
+    for conv in convs:
+        *parents, name = conv.split(".")
+        node = params
+        for p in parents:
+            node = node.setdefault(p, {})
+        kernel, bias = _conv_flax(sd, conv)
+        if parents[-1:] == ["final"] and name == "conv3":
+            node["conv3_kernel"], node["conv3_bias"] = kernel, bias
+        else:
+            node[name] = {"kernel": kernel, "bias": bias}
+    return _sorted_tree({"params": params})
+
+
+def adacof_to_flax(sd) -> Dict[str, Any]:
+    """models.adacof.AdaCoFNet state dict -> AdaCoFNet variables
+    ({'params'}), the inverse of adacof_from_flax."""
+    return _convs_to_flax(sd)
+
+
+def fusion_net_to_flax(sd) -> Dict[str, Any]:
+    """models.fusion_net.FusionNet state dict -> FusionNet variables
+    ({'params'}), the inverse of fusion_net_from_flax."""
+    return _convs_to_flax(sd)
+
+
+def phase_net_to_flax(sd) -> Dict[str, Any]:
+    """models.phase_net.PhaseNetCore state dict -> PhaseNetCore variables
+    ({'params', 'batch_stats'}), the inverse of phase_net_from_flax."""
+    n_blocks = 1 + max(int(k.split(".")[1]) for k in sd if k.startswith("blocks."))
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for i in range(n_blocks):
+        key = f"blocks.{i}"
+        block = {}
+        for conv in ("conv1", "conv2", "pred"):
+            kernel, bias = _conv_flax(sd, f"{key}.{conv}")
+            block[conv] = {"kernel": kernel, "bias": bias}
+        block["bn"] = {"scale": _np(sd[f"{key}.bn.weight"]), "bias": _np(sd[f"{key}.bn.bias"])}
+        params[f"block{i}"] = block
+        stats[f"block{i}"] = {"bn": {"mean": _np(sd[f"{key}.bn.running_mean"]),
+                                     "var": _np(sd[f"{key}.bn.running_var"])}}
+    return _sorted_tree({"params": params, "batch_stats": stats})
+
+
+def merge_matching_params(new, old):
+    """Cross-architecture warm start on state dicts: `new` with every tensor
+    whose name and shape `old` shares replaced by `old`'s.  The rest stays
+    fresh, e.g. the widened dec2 1x1 conv of a variant-2 (gated-blend)
+    FusionNet warm-started from a variant-0 one.  Returns (merged, the
+    names of the fresh tensors), in `new`'s order."""
+    merged, fresh = {}, []
+    for k, v in new.items():
+        o = old.get(k)
+        if o is not None and tuple(o.shape) == tuple(v.shape):
+            merged[k] = o
+        else:
+            merged[k] = v
+            fresh.append(k)
+    return merged, fresh
 
 
 def _load_state_dict(path_or_sd) -> Dict[str, torch.Tensor]:

@@ -1,11 +1,15 @@
-"""Reader for the msgpack files flax.serialization writes, in plain Python.
+"""Reader and writer for the msgpack files flax.serialization writes, in
+plain Python.
 
 flax stores a variable tree as nested msgpack maps with str keys whose
 leaves are ndarrays in msgpack ext type 1: the ext payload is itself a
 msgpack array [shape, dtype name, raw C-order bytes]
-(flax.serialization._ndarray_to_bytes).  This module decodes that subset
-(maps, arrays, str, bin, int, float, ext type 1) into nested dicts of numpy
+(flax.serialization._ndarray_to_bytes).  `loads` decodes that subset (maps,
+arrays, str, bin, int, float, ext type 1) into nested dicts of numpy
 arrays, and raises on anything else, so the port needs no `msgpack` package.
+`dumps` writes nested dicts of ndarrays the way flax.serialization.to_bytes
+does, byte for byte: keys in each dict's own order, as flax writes them,
+each msgpack value in its shortest form.
 """
 
 from __future__ import annotations
@@ -120,3 +124,98 @@ def load(path) -> dict:
     """Read a flax .msgpack file into nested dicts of numpy arrays."""
     with open(path, "rb") as f:
         return loads(f.read())
+
+
+# flax splits arrays of 2^30 bytes or more into chunks
+# (flax.serialization.MAX_CHUNK_SIZE); no tree of this repository holds one
+MAX_LEAF_BYTES = 2**30
+
+
+def _sized(out: bytearray, n: int, small: tuple, wide: tuple, what: str) -> None:
+    """Append the header of a value of length n: `small` = (the fix-format
+    base byte, its largest n) or None; `wide` = the (type byte, struct
+    format) of the 8-, 16- and 32-bit length forms, None where the format
+    has none."""
+    if small is not None and n <= small[1]:
+        out.append(small[0] | n)
+        return
+    for (code, fmt), limit in zip(wide, (0xFF, 0xFFFF, 0xFFFFFFFF)):
+        if code is not None and n <= limit:
+            out += struct.pack(">B" + fmt[1:], code, n)
+            return
+    raise MsgpackError(f"{what} of length {n} is too long for msgpack")
+
+
+def _write_uint(out: bytearray, n: int) -> None:
+    if n < 0:
+        raise MsgpackError(f"negative int {n} (array shapes only)")
+    if n <= 0x7F:
+        out.append(n)
+        return
+    for code, fmt, limit in ((0xCC, ">B", 0xFF), (0xCD, ">H", 0xFFFF),
+                             (0xCE, ">I", 0xFFFFFFFF), (0xCF, ">Q", 2**64 - 1)):
+        if n <= limit:
+            out += bytes([code]) + struct.pack(fmt, n)
+            return
+    raise MsgpackError(f"int {n} is too large for msgpack")
+
+
+def _write_str(out: bytearray, s: str) -> None:
+    raw = s.encode("utf-8")
+    _sized(out, len(raw), (0xA0, 31), ((0xD9, ">B"), (0xDA, ">H"), (0xDB, ">I")), "str")
+    out += raw
+
+
+def _ndarray_payload(a: np.ndarray) -> bytes:
+    """[shape, dtype name, raw C-order bytes], as flax packs it."""
+    if a.dtype.kind not in "biuf":
+        raise MsgpackError(f"unsupported ndarray dtype {a.dtype}")
+    raw = a.tobytes("C")
+    if len(raw) >= MAX_LEAF_BYTES:
+        raise MsgpackError(f"array of {len(raw)} bytes: flax would chunk it")
+    out = bytearray([0x93])  # fixarray of 3
+    _sized(out, a.ndim, (0x90, 15), ((None, None), (0xDC, ">H"), (0xDD, ">I")), "shape")
+    for n in a.shape:
+        _write_uint(out, int(n))
+    _write_str(out, a.dtype.name)
+    _sized(out, len(raw), None, ((0xC4, ">B"), (0xC5, ">H"), (0xC6, ">I")), "bin")
+    out += raw
+    return bytes(out)
+
+
+def _write(out: bytearray, obj, path: str) -> None:
+    if isinstance(obj, dict):
+        if not all(isinstance(k, str) for k in obj):
+            raise MsgpackError(f"{path or 'the tree'}: map keys must be str")
+        _sized(out, len(obj), (0x80, 15), ((None, None), (0xDE, ">H"), (0xDF, ">I")), "map")
+        for k in obj:
+            _write_str(out, k)
+            _write(out, obj[k], f"{path}/{k}")
+        return
+    if not isinstance(obj, np.ndarray):
+        raise MsgpackError(f"{path}: leaves must be numpy arrays, got {type(obj).__name__}")
+    payload = _ndarray_payload(obj)
+    n = len(payload)
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if n in fixext:
+        out.append(fixext[n])
+    else:
+        _sized(out, n, None, ((0xC7, ">B"), (0xC8, ">H"), (0xC9, ">I")), "ext")
+    out += struct.pack(">b", _EXT_NDARRAY)
+    out += payload
+
+
+def dumps(tree: dict) -> bytes:
+    """Encode nested dicts (str keys) of numpy arrays (bool, int, uint or
+    float) as flax.serialization.to_bytes encodes the same tree."""
+    out = bytearray()
+    _write(out, tree, "")
+    return bytes(out)
+
+
+def dump(path, tree: dict) -> None:
+    """Write `dumps(tree)` to a file, atomically: utils/checkpoint.py's
+    save_msgpack, the one file writer."""
+    from .checkpoint import save_msgpack
+
+    save_msgpack(path, tree)

@@ -245,6 +245,31 @@ def test_rgbx_scratch_only_for_three_channels(c, f):
         assert x4 is None
 
 
+@pytest.mark.parametrize("c,f", [(3, 5), (5, 3)])
+def test_the_operator_holds_a_scratch_only_for_cuda_tensors(c, f):
+    """fmvfi::adacof_warp_fwd on CPU tensors is the plain warp with an
+    empty x4; its fake gives K1's RGBX scratch shape for a CUDA x (where
+    the instantiation gathers from one) and (0,) for a CPU x, as the real
+    kernels do."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from fmvfi_tpu_torch.ops.adacof import adacof_warp as warp_plain
+
+    g = torch.Generator().manual_seed(f)
+    h, w = 8, 9
+    x = torch.rand((2, c, h + f - 1, w + f - 1), generator=g)
+    wgt, a, be = (torch.randn((2, f * f, h, w), generator=g) for _ in range(3))
+    out, x4 = torch.ops.fmvfi.adacof_warp_fwd(x, wgt, a, be, 1, 48)
+    assert torch.equal(out, warp_plain(x, wgt, a, be, 1, 48)) and x4.shape == (0,)
+    with FakeTensorMode():
+        rgbx = (2, h + f - 1, w + f - 1, 4) if c == 3 else (0,)
+        for dev, want in (("cpu", (0,)), ("cuda", rgbx)):
+            fx = torch.empty(x.shape, device=dev)
+            fw = torch.empty(wgt.shape, device=dev)
+            out, x4 = torch.ops.fmvfi.adacof_warp_fwd(fx, fw, fw, fw, 1, 48)
+            assert out.shape == (2, c, h, w) and x4.shape == want and x4.device == fx.device
+
+
 @pytest.mark.gpu
 def test_k3_hands_k1s_rgbx_copy_to_k2(cuda_device, monkeypatch):
     """On the training path K2 gathers from the RGBX copy of x that K1 wrote
@@ -407,3 +432,107 @@ def test_fusion_train_step_on_the_card_matches_the_cpu(cuda_device):
         torch.backends.cudnn.allow_tf32 = tf32
     for k, (a, b) in enumerate(zip(*grads)):
         assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(b.abs().max()), k
+
+
+# the main paths' instantiation (RGBX gathers, the ring) and one that
+# gathers planar x (F and C at run time): x4 empty
+OP_CASES = [(5, 1, 3, 52, "f5c3/ring"), (3, 2, 5, 52, "any/ring")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f,d,c,w,path", OP_CASES)
+def test_kernels_through_the_registered_operators_equal_the_direct_launches(
+        cuda_device, f, d, c, w, path):
+    """fmvfi::adacof_warp_fwd and fmvfi::adacof_warp_bwd on CUDA tensors are
+    K1 and K2: bit-equal to warp_fwd_cuda / warp_bwd_cuda, each call counted
+    once with its instantiation."""
+    x, wgt, a, be, cot = _case(cuda_device, f, d, c, w, 40 + f)
+    direct, x4 = adacof_cuda.warp_fwd_cuda(x, wgt, a, be, d, 48)
+    before = (adacof_cuda.launches, adacof_cuda.paths[path])
+    out, x4_op = torch.ops.fmvfi.adacof_warp_fwd(x, wgt, a, be, d, 48)
+    torch.cuda.synchronize()
+    assert (adacof_cuda.launches, adacof_cuda.paths[path]) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(out, direct)
+    if x4 is None:
+        assert x4_op.shape == (0,)
+    else:
+        assert torch.equal(x4_op, x4)
+    before = (adacof_cuda.bwd_launches, adacof_cuda.bwd_paths[path])
+    got = torch.ops.fmvfi.adacof_warp_bwd(x, x4_op, wgt, a, be, cot, d, 48)
+    torch.cuda.synchronize()
+    assert (adacof_cuda.bwd_launches, adacof_cuda.bwd_paths[path]) == (before[0] + 1,
+                                                                        before[1] + 1)
+    for g_op, g_direct in zip(got, adacof_cuda.warp_bwd_cuda(x, wgt, a, be, cot, d, 48, x4)):
+        assert torch.equal(g_op, g_direct)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f,d,c,w,path", OP_CASES)
+def test_k3_gradients_are_unchanged_through_the_operators(cuda_device, f, d, c, w, path):
+    """K3 (adacof_warp with autograd) reaches K1 once and K2 once, and its
+    field gradients are K2's called directly on K1's scratch, bit for bit;
+    dx is zero."""
+    x, wgt, a, be, cot = _case(cuda_device, f, d, c, w, 50 + f)
+    xg = x.clone().requires_grad_()
+    fields = [t.clone().requires_grad_() for t in (wgt, a, be)]
+    before = (adacof_cuda.launches, adacof_cuda.bwd_launches)
+    adacof_cuda.adacof_warp(xg, *fields, d, 48).backward(cot)
+    torch.cuda.synchronize()
+    assert (adacof_cuda.launches, adacof_cuda.bwd_launches) == (before[0] + 1, before[1] + 1)
+    x4 = adacof_cuda.warp_fwd_cuda(x, wgt, a, be, d, 48)[1]
+    for got, want in zip((t.grad for t in fields),
+                         adacof_cuda.warp_bwd_cuda(x, wgt, a, be, cot, d, 48, x4)):
+        assert torch.equal(got, want)
+    assert torch.count_nonzero(xg.grad) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("built_on", ["cpu", "cuda"])
+def test_cuda_artifact_launches_k1_and_matches_the_live_pipeline(cuda_device, built_on,
+                                                                 monkeypatch):
+    """A ("cuda",) fusion artifact at 64x64, exported from models on the
+    CPU (no card needed to build it) or on the card, loaded onto the card:
+    K1 three times a request on 2, 4 and 2 images, counted through the
+    operator, and >= 60 dB against the live pipeline on the card."""
+    import numpy as np
+
+    from fmvfi_tpu_torch.eval.synth import translation_triplet
+    from fmvfi_tpu_torch.models.adacof import AdaCoFNet
+    from fmvfi_tpu_torch.models.fusion_net import FusionNet
+    from fmvfi_tpu_torch.models.phase_net import PhaseNetCore
+    from fmvfi_tpu_torch.pipeline.interpolate import FusionModels, fusion_interpolate
+    from fmvfi_tpu_torch.utils.export import export_pipeline, load_exported
+
+    torch.manual_seed(0)
+    cpu = FusionModels(PhaseNetCore().init_params(torch.Generator().manual_seed(1)).eval(),
+                       AdaCoFNet().eval(), FusionNet(variant=2).eval())
+    card = FusionModels(*(m.to(cuda_device) for m in
+                          (PhaseNetCore(), AdaCoFNet(), FusionNet(variant=2))))
+    for dst, src in zip(card, cpu):
+        dst.load_state_dict(src.state_dict())
+        dst.eval()
+    blob = export_pipeline(cpu if built_on == "cpu" else card, 64, 64, "fusion", variant=2,
+                           platforms=("cuda",))
+    fn = load_exported(blob, device=cuda_device)
+    f1, _, f2 = translation_triplet(64, 64, dx=2.0, dy=1.0, seed=0)
+    images, real = [], adacof_cuda.warp_fwd_cuda
+
+    def recording(x, *args):
+        images.append(x.shape[0])
+        return real(x, *args)
+
+    monkeypatch.setattr(adacof_cuda, "warp_fwd_cuda", recording)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        before = dict(adacof_cuda.paths)
+        got = fn(f1[None], f2[None])
+        torch.cuda.synchronize()
+        assert images == [2, 4, 2]
+        assert adacof_cuda.paths["f5c3/ring"] == before.get("f5c3/ring", 0) + 3
+        want = fusion_interpolate(card, f1[None], f2[None], device=cuda_device)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert got.device.type == "cuda" and got.shape == (1, 64, 64, 3)
+    mse = float(torch.mean((got.double() - want.double()) ** 2))
+    assert mse == 0 or -10 * np.log10(mse) >= 60

@@ -31,13 +31,14 @@ FORBIDDEN = (
     "jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "fmvfi_tpu", "cv2", "matplotlib", "PIL",
 )
 GOLDEN_DB, GOLDEN_TOL = 42.967, 0.05  # tests/test_golden.py, bundled AdaCoF
-# the video, evaluation, adversarial, VGG, native-loader, codec and
-# command-line modules: imported by the isolated run below and held by the
-# static import check
+# the video, evaluation, adversarial, VGG, native-loader, codec,
+# command-line, export and profiling modules: imported by the isolated run
+# below and held by the static import check
 NEW_MODULES = ("pipeline.video", "eval.metrics", "eval.evaluate", "eval.uncertainty",
                "models.discriminator", "models.flax_bn", "train.adversarial", "train.vgg",
                "native", "cli", "utils.imageio", "utils.config", "models.registry",
-               "eval.datasets")
+               "eval.datasets", "utils.export", "utils.profiling", "utils.msgpack_io",
+               "utils.checkpoint", "utils.convert", "train.loop")
 
 _ISOLATED = f"""
 import importlib, json, pkgutil, sys
@@ -305,6 +306,70 @@ def test_cli_interpolate_runs_without_jax_cv2_pil_or_matplotlib(tmp_path):
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res["code"] == 0 and res["shape"] == [32, 32, 3]
     assert res["leaked"] == []
+
+
+_EXPORT_ISOLATED = f"""
+import json, sys, tempfile
+for name in {FORBIDDEN!r}:
+    sys.modules[name] = None  # any import of these raises ImportError
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from fmvfi_tpu_torch.models.adacof import AdaCoFNet
+from fmvfi_tpu_torch.pipeline.interpolate import FusionModels, adacof_interpolate
+from fmvfi_tpu_torch.utils import profiling
+from fmvfi_tpu_torch.utils.checkpoint import save_msgpack
+from fmvfi_tpu_torch.utils.convert import adacof_to_flax, load_adacof_weights
+from fmvfi_tpu_torch.utils.export import export_pipeline, load_exported
+ada = AdaCoFNet().eval()
+ada.load_state_dict(load_adacof_weights({CKPTS[0]!r}))
+with tempfile.TemporaryDirectory() as d:
+    save_msgpack(d + "/a.msgpack", adacof_to_flax(ada.state_dict()))
+    same = open(d + "/a.msgpack", "rb").read() == open({CKPTS[0]!r}, "rb").read()
+f = np.random.default_rng(0).random((1, 32, 32, 3), dtype=np.float32)
+fn = load_exported(export_pipeline(FusionModels(None, ada, None), 32, 32, "adacof",
+                                   platforms=("cpu", "cuda")), device="cpu")
+diff = float((profiling.checked(fn)(f, f[:, ::-1].copy())
+              - adacof_interpolate(ada, f, f[:, ::-1].copy(), device="cpu")).abs().max())
+leaked = sorted(n for n in sys.modules if n.split(".")[0] in {FORBIDDEN!r} and sys.modules[n])
+print(json.dumps(dict(same=same, diff=diff, leaked=leaked)))
+"""
+
+
+def test_export_and_weights_out_run_without_jax_flax_or_msgpack():
+    """The bundled AdaCoF written back with save_msgpack is the bundled
+    file, byte for byte, and an adacof artifact (the warp as the registered
+    operator) exports, loads and answers on the CPU, with the reference's
+    libraries blocked."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _EXPORT_ISOLATED], cwd=ROOT, capture_output=True, text=True,
+        timeout=600,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["same"] and res["diff"] == 0.0
+    assert res["leaked"] == []
+
+
+_COLD_WARP = """
+import json, sys
+import torch
+from fmvfi_tpu_torch.models.adacof import AdaCoFNet
+from fmvfi_tpu_torch.pipeline.interpolate import adacof_interpolate
+f = torch.rand(1, 32, 32, 3)
+adacof_interpolate(AdaCoFNet().eval(), f, f, device="cpu")
+print(json.dumps(sorted(n for n in sys.modules if n.startswith(("torch._dynamo", "torch._inductor")))))
+"""
+
+
+def test_the_warp_operator_does_not_import_dynamo():
+    """A process's first warp goes through the registered operator without
+    importing torch._dynamo (a kernel registered with custom_op would, at
+    its first call: seconds of every command's cold start)."""
+    proc = subprocess.run([sys.executable, "-c", _COLD_WARP], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
 def _py_files():
