@@ -37,6 +37,16 @@ Phases, each printing one JSON line with its seconds:
               F5C3 instantiation, the output must be finite and in
               [0, 1], and the output through K1 must agree with the output
               through the plain warp at >= 60 dB PSNR;
+  serve_bf16 - the same pairs and models with compute_dtype=torch.bfloat16,
+              1 warm-up and 3 timed requests (ms and peak memory beside
+              fp32's): K1 exactly 3 launches per request on 2, 4 and 2
+              images through F5C3 with the ring, every frame and field it
+              takes float32, no K2; the output float32, finite, in [0, 1]
+              and >= 35 dB against the fp32 request on the same pair; the
+              bf16 guard of tests/test_golden.py (the 128x128 translation
+              scene: >= 35 dB against fp32, < 0.35 dB lost to the truth);
+              fusion_stream_scan in bf16 on 3 frames of 1080p >= 35 dB
+              against the fp32 stream, pair by pair;
   video     - double_frame_rate on translation_video(5, 1080, 1920) with the
               serve phase's models, each mode after a warm-up on 3 frames:
               per pair, stream (windows 8 and 2), batch 2 with seq_chunk 1
@@ -173,7 +183,30 @@ Phases, each printing one JSON line with its seconds:
   native    - the C++ augmentation library builds (its g++ seconds),
               batch_iterator over a MixedSynthStream takes the native path
               (its path counter), and its batches equal the numpy path's
-              within 1e-6.
+              within 1e-6;
+  dp        - data parallelism: (a) `python -m fmvfi_tpu_torch.cli train
+              --regime adacof --data_parallel` (a 1-process NCCL group),
+              3 steps of batch 4 at 256x256, as a process of its own
+              beside the same command without --data_parallel
+              and the same command once more (deterministic cuDNN in
+              all three): K1 and K2 once a step via F5C3 with the ring,
+              the parameters after the 3 steps within 1e-5 (F.interpolate's
+              bilinear backward adds with atomics on CUDA: no two runs
+              are bit-equal, and torch has no deterministic version; the
+              plain command's gap against itself is printed), the
+              data-parallel run writing one metrics file, one checkpoint
+              directory and config.json; (b) two processes
+              on the one card in a gloo group (NCCL refuses two ranks on
+              one device), each stepping its half of a global batch 4 at
+              256x256 through data_parallel for 2 steps of the adacof and
+              the phase regimes (momentum SGD in place of Adam/Adamax,
+              whose first steps turn float noise at a near-zero gradient
+              into +-lr): the ranks bit-equal, the parameters within 1e-5
+              of the 1-process steps on the global batch here and the
+              losses within 1e-6 relative, or within 3x the largest gap
+              of those steps with the batch's rows rolled by 1, 2 and 3
+              (the same math in other orders), K1/K2 per rank as on one
+              process; the ms of each step, 1 process against 2 ranks.
 Then the nvidia-smi line, the `kernels` JSON line and, last, the result line
 {"ok": true, "device": {...}}.  Any failed check raises (non-zero exit).
 Without CUDA, or without the package beside this file, it exits non-zero
@@ -236,6 +269,20 @@ LPIPS_TOL = 1e-4  # relative, card against CPU
 NATIVE_TOL = 1e-6  # native batches against the numpy path: x * (1/255) against x / 255
 CLI_LSB = 1  # a PNG written by a command against the same frame computed in this process
 EXPORT_CPU_TOL = 2e-5  # a ("cpu",) artifact against the live CPU pipeline
+BF16_DB, BF16_LOSS_DB = 35.0, 0.35  # bf16 against fp32; PSNR to the truth lost (test_golden.py)
+DP_BATCH, DP_STEPS, DP_CLI_STEPS, DP_LR = 4, 2, 3, 1e-2  # global batch at CROP x CROP
+# --data_parallel against the plain command, params abs, and 2 gloo ranks against
+# 1 process, params abs and loss rel.  The backward of F.interpolate's bilinear
+# modes and of reflection padding adds with atomics on CUDA, so no two runs of
+# a step are bit-equal (torch has no deterministic version of them): 1e-5 is
+# a hundredth of one Adamax update at lr 1e-3, far over that spread
+DP_PARAM_TOL, DP_LOSS_TOL = 1e-5, 1e-6
+# ... or, for the 2 ranks, FLOOR_SHARE x the largest gap of the same steps with
+# the batch's rows rolled by 1, 2, 3: the phase regime's float32 gradients
+# move with the summation order (tests/test_torch_parallel.py prints how far),
+# and the ranks' arithmetic differs from one process's in more than the order
+# (BN moments from two halves' sums, the gradient as the mean of two halves')
+FLOOR_SHARE = 3.0
 VGG16_CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M", 512, 512, 512]
 
 
@@ -1205,6 +1252,315 @@ def _export(dev, repo, ada_path, fusion_path, pair, serve_ms, work):
     return k1, k2
 
 
+def phase_serve_bf16(dev, models, requests, fp32_outs, fp32_ms, fp32_peak):
+    """The serve phase's pairs and models with compute_dtype=torch.bfloat16
+    (1 warm-up, 3 timed), the bf16 quality guard of tests/test_golden.py
+    and one bf16 stream on 3 frames of 1080p; returns the path's K1
+    launches."""
+    import torch
+
+    from fmvfi_tpu_torch.eval.synth import translation_triplet, translation_video
+    from fmvfi_tpu_torch.ops import adacof_cuda
+    from fmvfi_tpu_torch.pipeline.interpolate import (
+        fusion_interpolate,
+        fusion_stream_init,
+        fusion_stream_scan,
+    )
+
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    ada = models.adacof
+    images, dtypes = [], set()
+
+    def recording_warp(x, w, a, b, *args):
+        images.append(x.shape[0])
+        dtypes.update((x.dtype, w.dtype, a.dtype, b.dtype))
+        return adacof_cuda.adacof_warp(x, w, a, b, *args)
+
+    clip = translation_video(3, H_FULL, W_FULL, step=2.0, seed=0)
+    f1, mid, f2 = translation_triplet(128, 128, dx=2.0, dy=1.0, seed=0)
+    torch.cuda.synchronize()
+    adacof_cuda.launches = adacof_cuda.bwd_launches = 0  # the bf16 serving path's run
+    adacof_cuda.paths.clear()
+    torch.cuda.reset_peak_memory_stats()
+    ms, vs_fp32, per_request = [], [], []
+    ada.warp = recording_warp
+    try:
+        for i, (r1, _, r2) in enumerate(requests):
+            images.clear()
+            torch.cuda.synchronize()
+            t_req = time.perf_counter()
+            out = fusion_interpolate(models, r1[None], r2[None], device=dev, compute_dtype=bf16)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t_req))
+            per_request.append(list(images))
+            if out.dtype != torch.float32:
+                raise AssertionError(f"bf16 request {i}: output {out.dtype}, expected float32")
+            o = out[0].cpu().numpy()
+            if o.shape != (H_FULL, W_FULL, 3) or not np.isfinite(o).all() or o.min() < 0 or o.max() > 1:
+                raise AssertionError(f"bf16 request {i}: output {o.shape} not finite/in [0, 1]")
+            vs_fp32.append(_psnr(o, fp32_outs[i]))
+        peak = torch.cuda.max_memory_allocated()
+        guard = [fusion_interpolate(models, f1[None], f2[None], device=dev, compute_dtype=dt)[0]
+                 .cpu().numpy() for dt in (None, bf16)]
+        streams = []
+        for dt in (None, bf16):
+            carry = fusion_stream_init(clip[0][None], device=dev)
+            _, fused = fusion_stream_scan(models, carry, np.stack([clip[1], clip[2], clip[2]])[:, None],
+                                          device=dev, compute_dtype=dt)
+            streams.append(fused[1:, 0].cpu().numpy())  # pairs (0, 1) and (1, 2)
+        torch.cuda.synchronize()
+    finally:
+        ada.warp = adacof_cuda.adacof_warp
+    launches, paths, k2 = adacof_cuda.launches, dict(adacof_cuda.paths), adacof_cuda.bwd_launches
+    guard_db, guard_loss = _psnr(guard[1], guard[0]), _psnr(guard[0], mid) - _psnr(guard[1], mid)
+    stream_db = [_psnr(a, b) for a, b in zip(streams[1], streams[0])]
+    _line(phase="serve_bf16", seconds=time.perf_counter() - t0, size=[H_FULL, W_FULL], batch=1,
+          warmup_ms=ms[0], ms_per_frame=float(np.mean(ms[1:])), ms_requests=ms[1:],
+          fp32_ms_per_frame=float(np.mean(fp32_ms[1:])), peak_memory_bytes=peak,
+          fp32_peak_memory_bytes=fp32_peak, psnr_vs_fp32_db=vs_fp32,
+          k1_images_per_request=per_request, k1_launches=launches, k1_paths=paths,
+          k2_launches=k2, warp_dtypes=sorted(str(d) for d in dtypes),
+          guard_vs_fp32_db=guard_db, guard_loss_to_truth_db=guard_loss,
+          guard_fp32_vs_truth_db=_psnr(guard[0], mid), stream_vs_fp32_db=stream_db)
+    if any(r != [2, 4, 2] for r in per_request):
+        raise AssertionError(f"bf16 serving: K1 images per request {per_request}, expected [2, 4, 2]")
+    if dtypes != {torch.float32}:
+        raise AssertionError(f"bf16 serving: the warp took {dtypes}, expected float32 only")
+    if paths != {RING_PATH: launches} or k2 != 0 or launches == 0:
+        raise AssertionError(f"bf16 serving: K1 {launches} by instantiation {paths}, K2 {k2}")
+    if not min(vs_fp32) >= BF16_DB:
+        raise AssertionError(f"bf16 requests against fp32: {vs_fp32} dB < {BF16_DB}")
+    if not (guard_db >= BF16_DB and guard_loss < BF16_LOSS_DB):
+        raise AssertionError(f"bf16 guard: {guard_db:.2f} dB against fp32, {guard_loss:.3f} dB "
+                             f"lost to the truth (>= {BF16_DB}, < {BF16_LOSS_DB})")
+    if not min(stream_db) >= BF16_DB:
+        raise AssertionError(f"bf16 stream against fp32: {stream_db} dB < {BF16_DB}")
+    return launches
+
+
+def _dp_batches():
+    """DP_STEPS seeded global batches of DP_BATCH triplets at CROP x CROP."""
+    from fmvfi_tpu_torch.eval.synth import translation_triplet
+
+    items = [translation_triplet(CROP, CROP, dx=2.0 + i % 4, dy=1.0 + i % 3, seed=i)
+             for i in range(DP_BATCH * DP_STEPS)]
+    return [tuple(np.stack([it[j] for it in items[s * DP_BATCH:(s + 1) * DP_BATCH]])
+                  for j in range(3)) for s in range(DP_STEPS)]
+
+
+def _dp_trainer(regime, dev):
+    """(state, step) of a regime from fixed seeds with momentum SGD: its
+    step is linear in the gradient, where Adam's first steps, lr * sign(g),
+    turn float noise at a near-zero gradient entry (a conv bias before a
+    train-mode BN has a zero one) into a 2 lr difference."""
+    import torch
+
+    from fmvfi_tpu_torch.train.trainer import make_adacof_trainer, make_phase_trainer
+
+    if regime == "adacof":
+        state, step = make_adacof_trainer(device=dev, seed=1)
+    else:
+        state, step, _, _ = make_phase_trainer(CROP, CROP, device=dev, seed=1)
+    opt = torch.optim.SGD(state.model.parameters(), lr=DP_LR, momentum=0.9)
+    opt.param_groups[0]["updates"] = 0  # the AdaCoF trainer's count of applied updates
+    return state._replace(optimizer=opt), step
+
+
+# one rank of phase dp (b): a gloo group of two processes on the one card,
+# each stepping its half of the global batch through data_parallel
+_DP_RANK_CHILD = """
+import json, sys, time
+import numpy as np
+import torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+coord, rank, world, out = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+import chip_smoke as S
+from fmvfi_tpu_torch.ops import adacof_cuda
+from fmvfi_tpu_torch.parallel import distributed
+from fmvfi_tpu_torch.parallel.dp import data_parallel
+from fmvfi_tpu_torch.parallel.mesh import make_mesh, replicate
+distributed.initialize(coord, num_processes=world, process_id=rank, backend="gloo")
+mesh = make_mesh()
+lo, hi = distributed.local_batch_slice(S.DP_BATCH)
+dev = torch.device("cuda", torch.cuda.current_device())
+res, arrays = {}, {}
+for regime in ("adacof", "phase"):
+    state, step = S._dp_trainer(regime, dev)
+    state = replicate(mesh, state)
+    pstep = data_parallel(step, mesh)
+    rec = dict(loss=[], ms=[])
+    adacof_cuda.launches = adacof_cuda.bwd_launches = 0  # this regime's data-parallel run
+    for batch in S._dp_batches():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = pstep(state, tuple(b[lo:hi] for b in batch))
+        torch.cuda.synchronize()
+        rec["ms"].append(1e3 * (time.perf_counter() - t))
+        rec["loss"].append(float(m["loss"]))
+    rec.update(k1=adacof_cuda.launches, k2=adacof_cuda.bwd_launches)
+    res[regime] = rec
+    arrays.update({regime + "/" + k: v.cpu().numpy() for k, v in state.model.state_dict().items()})
+np.savez(out, **arrays)
+print(json.dumps(dict(rank=rank, rows=[lo, hi], regimes=res)))
+"""
+
+# phase dp (a): the command line's train as a process of its own, counting
+# K1 and K2 around it (deterministic cuDNN in both runs of the comparison)
+_DP_CLI_CHILD = """
+import json, sys
+import torch
+torch.backends.cudnn.deterministic = True
+from fmvfi_tpu_torch import cli
+from fmvfi_tpu_torch.ops import adacof_cuda
+adacof_cuda.launches = adacof_cuda.bwd_launches = 0
+adacof_cuda.paths.clear()
+cli.main(sys.argv[1:])
+print(json.dumps(dict(k1=adacof_cuda.launches, k2=adacof_cuda.bwd_launches,
+                      k1_paths=dict(adacof_cuda.paths))))
+"""
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_dp(dev, repo):
+    """(a) `cli train --data_parallel` as a 1-process NCCL group against the
+    same command without it; (b) two gloo ranks on the one card against
+    the 1-process step on the global batch, adacof and phase.  Returns the
+    data-parallel runs' K1 and K2 launches."""
+    with _work_dir(repo) as work_dir:
+        return _dp(dev, repo, work_dir)
+
+
+def _dp(dev, repo, work):
+    import torch
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=repo)
+
+    def spawn(code, *args):
+        return subprocess.Popen([sys.executable, "-c", code, *args], cwd=repo, env=env,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def result(proc, what):
+        out, err = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"dp {what}: exit {proc.returncode}\n{err[-3000:]}")
+        return json.loads(out.strip().splitlines()[-1])
+
+    # (a): the command with --data_parallel and twice without, three processes
+    # at once (the second plain run reads the card's run-to-run spread)
+    argv = ["train", "--regime", "adacof", "--steps_per_epoch", str(DP_CLI_STEPS),
+            "--batch_size", str(DP_BATCH), "--crop", str(CROP)]
+    outs = {k: os.path.join(work, k) for k in ("cli_dp", "cli_plain", "cli_plain_again")}
+    cli_procs = {k: spawn(_DP_CLI_CHILD, *argv, "--out_dir", outs[k],
+                          *(["--data_parallel"] if k == "cli_dp" else [])) for k in outs}
+    cli = {k: result(p, k) for k, p in cli_procs.items()}
+    cli_seconds = time.perf_counter() - t0
+    # (b): the two ranks, alone on the card while their steps are timed
+    t_ranks = time.perf_counter()
+    coord = f"localhost:{_free_port()}"
+    rank_procs = [spawn(_DP_RANK_CHILD, coord, str(r), "2", os.path.join(work, f"rank{r}.npz"))
+                  for r in (0, 1)]
+    ranks = [result(p, f"rank {r}") for r, p in enumerate(rank_procs)]
+    ranks_seconds = time.perf_counter() - t_ranks
+
+    # (b)'s reference: the 1-process steps on the global batch, here, and the
+    # same steps with the batch's rows rolled by 1, 2 and 3 (the same math in
+    # other orders: their largest gap is the float32 floor of the comparison)
+    ref, ref_arrays, floor_arrays, floor_loss = {}, {}, {}, {}
+    for regime in ("adacof", "phase"):
+        for roll in range(DP_BATCH):
+            state, step = _dp_trainer(regime, dev)
+            rec = dict(loss=[], ms=[])
+            _reset_counts()
+            for batch in _dp_batches():
+                batch = tuple(np.roll(b, roll, axis=0) for b in batch)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                rec["ms"].append(1e3 * (time.perf_counter() - t))
+                rec["loss"].append(float(m["loss"]))
+            rec.update({k: v for k, v in _counts().items() if k in ("k1", "k2")})
+            arrays = {k: v.cpu().numpy() for k, v in state.model.state_dict().items()}
+            if roll:
+                floor_arrays.setdefault(regime, []).append(arrays)
+                floor_loss.setdefault(regime, []).append(rec["loss"])
+            else:
+                ref[regime], ref_arrays[regime] = rec, arrays
+    rank_arrays = [dict(np.load(os.path.join(work, f"rank{r}.npz"))) for r in (0, 1)]
+    ranks_equal = all(np.array_equal(rank_arrays[0][k], rank_arrays[1][k]) for k in rank_arrays[0])
+
+    def max_abs(a, b):
+        return max(float(np.abs(a[k].astype(np.float64) - b[k]).max()) for k in b)
+
+    def max_rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    gaps = {}
+    for regime in ref:
+        ours = {k: rank_arrays[0][regime + "/" + k] for k in ref_arrays[regime]}
+        gaps[regime] = dict(
+            param_max_abs_diff=max_abs(ours, ref_arrays[regime]),
+            param_floor=max(max_abs(a, ref_arrays[regime]) for a in floor_arrays[regime]),
+            loss_max_rel_diff=max_rel(ranks[0]["regimes"][regime]["loss"], ref[regime]["loss"]),
+            loss_floor=max(max_rel(f, ref[regime]["loss"]) for f in floor_loss[regime]))
+
+    ckpt = {k: {n: v.numpy() for n, v in torch.load(
+        os.path.join(d, "checkpoint", f"step_{DP_CLI_STEPS:08d}"), map_location="cpu",
+        weights_only=True)["params"].items()} for k, d in outs.items()}
+    cli_gap = max_abs(ckpt["cli_dp"], ckpt["cli_plain"])
+    cli_floor = max_abs(ckpt["cli_plain_again"], ckpt["cli_plain"])
+    written = sorted(os.listdir(outs["cli_dp"]))
+    _line(phase="dp", seconds=time.perf_counter() - t0, cli_seconds=cli_seconds,
+          ranks_seconds=ranks_seconds,
+          cli=dict(steps=DP_CLI_STEPS, batch=DP_BATCH, crop=CROP, group="nccl, 1 process",
+                   param_max_abs_diff=cli_gap, plain_against_itself=cli_floor,
+                   written=written, dp=cli["cli_dp"], plain=cli["cli_plain"]),
+          gloo_2_ranks=dict(steps=DP_STEPS, global_batch=DP_BATCH, crop=CROP,
+                            rows=[r["rows"] for r in ranks], ranks_bit_equal=ranks_equal,
+                            gaps=gaps,
+                            ms_per_step={r["rank"]: {k: v["ms"] for k, v in r["regimes"].items()}
+                                         for r in ranks},
+                            one_process_ms_per_step={k: v["ms"] for k, v in ref.items()},
+                            launches={r["rank"]: {k: [v["k1"], v["k2"]] for k, v in r["regimes"].items()}
+                                      for r in ranks},
+                            one_process_launches={k: [v["k1"], v["k2"]] for k, v in ref.items()}))
+    if not cli_gap <= DP_PARAM_TOL:
+        raise AssertionError(f"dp: cli train --data_parallel on one process {cli_gap:.3g} from the "
+                             f"plain run (> {DP_PARAM_TOL}; the plain run against itself: "
+                             f"{cli_floor:.3g})")
+    if written != ["checkpoint", "config.json", "train_metrics.jsonl"]:
+        raise AssertionError(f"dp: the data-parallel run wrote {written}")
+    for k, c in cli.items():
+        if (c["k1"], c["k2"]) != (DP_CLI_STEPS, DP_CLI_STEPS) or c["k1_paths"] != {RING_PATH: c["k1"]}:
+            raise AssertionError(f"dp {k}: K1/K2 {c}, expected {DP_CLI_STEPS} each via {RING_PATH}")
+    for regime, g in gaps.items():
+        if not (ranks_equal and g["param_max_abs_diff"] <= max(DP_PARAM_TOL, FLOOR_SHARE * g["param_floor"])
+                and g["loss_max_rel_diff"] <= max(DP_LOSS_TOL, FLOOR_SHARE * g["loss_floor"])):
+            raise AssertionError(f"dp {regime}: 2 gloo ranks against 1 process: ranks equal "
+                                 f"{ranks_equal}, {g} (params <= max({DP_PARAM_TOL}, "
+                                 f"{FLOOR_SHARE} x floor), loss <= max({DP_LOSS_TOL}, ...))")
+    for r in ranks:
+        for regime, rec in r["regimes"].items():
+            if (rec["k1"], rec["k2"]) != (ref[regime]["k1"], ref[regime]["k2"]):
+                raise AssertionError(f"dp rank {r['rank']} {regime}: K1/K2 {rec['k1']}/{rec['k2']}, "
+                                     f"one process {ref[regime]['k1']}/{ref[regime]['k2']}")
+    if ref["adacof"]["k1"] != DP_STEPS or ref["adacof"]["k2"] != DP_STEPS:
+        raise AssertionError(f"dp: the adacof reference launched K1/K2 {ref['adacof']}")
+    k1 = cli["cli_dp"]["k1"] + sum(r["regimes"][g]["k1"] for r in ranks for g in r["regimes"])
+    k2 = cli["cli_dp"]["k2"] + sum(r["regimes"][g]["k2"] for r in ranks for g in r["regimes"])
+    return k1, k2
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -1551,6 +1907,7 @@ def main() -> int:
         raise AssertionError(f"K1 and plain pipelines agree at {agree:.2f} dB < {PLAIN_AGREEMENT_DB}")
     if k1_launches == 0:
         raise AssertionError("the main path launched K1 no time")
+    bf16_k1 = phase_serve_bf16(dev, models, requests, outs, lat_ms, peak)
 
     # video: double_frame_rate at 1080p in every mode, on the serve phase's models
     t0 = time.perf_counter()
@@ -2147,8 +2504,9 @@ def main() -> int:
     gan_k1, gan_k2, gan_types_k1, gan_types_k2 = phase_train_gan(dev, repo, ada_path)
     phase_gan_vs_cpu(dev)
     phase_native()
+    dp_k1, dp_k2 = phase_dp(dev, repo)
     regime_k1.update(lpips=lpips_k1, cli=cli_k1, export=export_k1, train_gan=gan_k1,
-                     train_gan_types=gan_types_k1)
+                     train_gan_types=gan_types_k1, serve_bf16=bf16_k1, dp=dp_k1)
 
     k1_1080, k1_1080_8 = timings[2], timings[3]  # the 4-image and the batched 8-image launch
     k2_train = k2_timings[0]  # the training launch
@@ -2169,14 +2527,14 @@ def main() -> int:
     ), dict(
         name=adacof_cuda.NAME_BWD, route="cuda", source=adacof_cuda.SOURCE_BWD,
         replaces=adacof_cuda.REPLACES_BWD,
-        launches=train_k2 + gan_k2 + gan_types_k2 + cli_k2 + export_k2,
+        launches=train_k2 + gan_k2 + gan_types_k2 + cli_k2 + export_k2 + dp_k2,
         max_abs_err=k2_max_err,
         ms=k2_train["ms"], plain_ms=k2_train["plain_ms"], bound_ms=k2_train["bound_ms"],
         bound_by=k2_train["bound_by"], library_ms=None, design=DESIGN,
         launch_1080p_ms=k2_timings[1]["ms"],
-        launches_by_path=dict(serve=0, video=0, eval=0, lpips=0, cli=cli_k2, export=export_k2,
-                              train=train_k2, train_phase=0, train_fusion=0, train_gan=gan_k2,
-                              train_gan_types=gan_types_k2),
+        launches_by_path=dict(serve=0, serve_bf16=0, video=0, eval=0, lpips=0, cli=cli_k2,
+                              export=export_k2, train=train_k2, train_phase=0, train_fusion=0,
+                              train_gan=gan_k2, train_gan_types=gan_types_k2, dp=dp_k2),
     )])
     _line(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),
                                count=torch.cuda.device_count()))

@@ -17,8 +17,9 @@ FusionNet in place of a file named fusion_net.pt.
 
 Not ported yet, each raising NotImplementedError with its ROADMAP item
 (Queue 1): video files as input (18.4), JPEG frames (18.5), `--test_sets
-synthetic+photo` (18.6), `--data_parallel` (19).  The results.png chart of
-`evaluate` (18.6) is skipped with a note on stderr.
+synthetic+photo` (18.6).  The results.png chart of `evaluate` (18.6) is
+skipped with a note on stderr.  `train --data_parallel` runs one process
+per GPU (torchrun), where JAX runs one process over a mesh of devices.
 """
 
 from __future__ import annotations
@@ -358,13 +359,22 @@ def cmd_train(argv):
     p.add_argument("--m_update", type=int, default=500,
                    help="increment m every N batches (train/trainer.py:162)")
     p.add_argument("--data_parallel", action="store_true",
-                   help="shard the batch over all local devices")
+                   help="one step on the global batch over a process group, one process per "
+                        "GPU (run under `torchrun --nproc_per_node=N python -m "
+                        "fmvfi_tpu_torch.cli train ...`; without torchrun a group of this one "
+                        "process): --batch_size is the global batch, each process loads its "
+                        "share, gradients and batch statistics are reduced over the group "
+                        "(NCCL on CUDA, gloo on the CPU) and only rank 0 writes.  JAX's "
+                        "--data_parallel is one process over a mesh of devices")
     _common(p)
     args = p.parse_args(argv)
     dev = _device_of(p, args)
     if args.data_parallel:
-        raise NotImplementedError("--data_parallel: data parallelism is not ported yet "
-                                  "(ROADMAP Queue 1, item 19)")
+        from .parallel import distributed
+
+        # before the trainer's tensors: under torchrun this takes the card of
+        # LOCAL_RANK, so that "cuda" is this process's own
+        distributed.initialize(backend="nccl" if dev.type == "cuda" else "gloo")
 
     from .train import trainer as T
     from .train.data import SyntheticTriplets, Vimeo90kTriplets, batch_iterator
@@ -413,24 +423,42 @@ def cmd_train(argv):
     cfg.train.crop = args.crop
     cfg.train.out_dir = args.out_dir
     cfg.train.data_dir = args.data_dir
-    C.save(cfg, f"{args.out_dir}/config.json")
+    rank0 = True
+    wrap, shard = None, None
+    if args.data_parallel:
+        from .parallel.dp import data_parallel
+        from .parallel.mesh import make_mesh, replicate
+
+        mesh = make_mesh()
+        state = replicate(mesh, state)
+        shard = distributed.local_batch_slice(args.batch_size)
+        rank0 = distributed.process_index() == 0
+
+        def wrap(raw):  # fit applies it to the first step and every m rebuild
+            return data_parallel(raw, mesh)
+
+    if rank0:
+        C.save(cfg, f"{args.out_dir}/config.json")
 
     if args.data_dir:
         ds = Vimeo90kTriplets(args.data_dir)
     else:
         ds = SyntheticTriplets(n=32, h=args.crop + 16, w=args.crop + 16)
-        print("note: no --data_dir, training on synthetic motion", file=sys.stderr)
-    batches = batch_iterator(ds, args.batch_size, crop=args.crop)
+        if rank0:
+            print("note: no --data_dir, training on synthetic motion", file=sys.stderr)
+    batches = batch_iterator(ds, args.batch_size, crop=args.crop, shard=shard)
     try:
         state = fit(
             state, step, batches, args.out_dir,
             epochs=args.epochs, steps_per_epoch=args.steps_per_epoch,
             make_step=make_step if args.m else None,
             m_init=args.m or None, m_update=args.m_update,
+            wrap_step=wrap,
         )
     finally:
         batches.close()
-    print(f"trained {int(state.step)} steps; checkpoints in {args.out_dir}/checkpoint")
+    if rank0:
+        print(f"trained {int(state.step)} steps; checkpoints in {args.out_dir}/checkpoint")
 
 
 def cmd_export(argv):

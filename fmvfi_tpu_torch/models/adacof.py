@@ -28,6 +28,7 @@ from torch import nn
 from ..ops import adacof_cuda
 from ..ops.adacof import flow_stats, pad_replicate
 from ..ops.resize import avg_pool2, upsample2x
+from .conv import Conv2d, TapConv2d, upcast
 
 # fixed RGB mean shift of the reference's module_normalize
 _RGB_MEAN = (0.4631, 0.4352, 0.3990)
@@ -41,7 +42,7 @@ def module_normalize(x: torch.Tensor) -> torch.Tensor:
 
 
 def _conv3(c_in: int, c_out: int) -> nn.Conv2d:
-    return nn.Conv2d(c_in, c_out, 3, padding=1)  # 3x3 'SAME', zero padding
+    return Conv2d(c_in, c_out, 3, padding=1)  # 3x3 'SAME', zero padding
 
 
 class _Basic(nn.Module):
@@ -70,7 +71,7 @@ class _HeadFinal(nn.Module):
     def __init__(self, ks: int):
         super().__init__()
         self.conv2 = _conv3(64, ks)
-        self.conv3 = _conv3(ks, ks)
+        self.conv3 = TapConv2d(ks, ks)
 
     def forward(self, x):
         x = upsample2x(F.relu(self.conv2(x)), align_corners=True)
@@ -103,7 +104,8 @@ class _Occlusion(nn.Module):
     def forward(self, x):
         for conv in (self.conv0, self.conv1, self.conv2):
             x = F.relu(conv(x))
-        return torch.sigmoid(self.conv3(upsample2x(x, align_corners=True)))
+        # the sigmoid in float32
+        return torch.sigmoid(upcast(self.conv3(upsample2x(x, align_corners=True))))
 
 
 class KernelEstimation(nn.Module):
@@ -131,8 +133,14 @@ class KernelEstimation(nn.Module):
         self.beta2 = _Head(ks)
         self.occlusion = _Occlusion()
 
-    def forward(self, f0: torch.Tensor, f2: torch.Tensor):
+    def forward(self, f0: torch.Tensor, f2: torch.Tensor, compute_dtype=None):
+        """Normalized float32 frames -> (w1, a1, b1, w2, a2, b2, occ), float32.
+        With `compute_dtype` (bfloat16) the U-Net and the heads run in that
+        dtype (the parameters cast per call); the heads' outputs are cast to
+        float32 before the softmax and the sigmoid."""
         x = torch.cat([f0, f2], dim=1)
+        if compute_dtype is not None:
+            x = x.to(compute_dtype)
         c1 = self.conv1(x)
         c2 = self.conv2(avg_pool2(c1))
         c3 = self.conv3(avg_pool2(c2))
@@ -148,11 +156,11 @@ class KernelEstimation(nn.Module):
         d2 = self.deconv2(u3)
         u2 = self.upsample2(d2) + c2
 
-        w1 = torch.softmax(self.weight1(u2), dim=1)
-        w2 = torch.softmax(self.weight2(u2), dim=1)
+        w1 = torch.softmax(upcast(self.weight1(u2)), dim=1)
+        w2 = torch.softmax(upcast(self.weight2(u2)), dim=1)
         return (
-            w1, self.alpha1(u2), self.beta1(u2),
-            w2, self.alpha2(u2), self.beta2(u2),
+            w1, upcast(self.alpha1(u2)), upcast(self.beta1(u2)),
+            w2, upcast(self.alpha2(u2)), upcast(self.beta2(u2)),
             self.occlusion(u2),
         )
 
@@ -187,7 +195,9 @@ class AdaCoFNet(nn.Module):
     `max_offset` clamps the warp's offsets (default 48 px, the contract the
     bundled weights were trained with); None runs the unclamped warp.  The
     warp goes through K1 on CUDA tensors and through its plain version on
-    CPU tensors (ops/adacof_cuda.py)."""
+    CPU tensors (ops/adacof_cuda.py).  A call's `compute_dtype` (bfloat16)
+    runs the field estimation in that dtype; the frames, the fields and
+    the warp stay float32."""
 
     def __init__(self, kernel_size: int = 5, dilation: int = 1, max_offset: int | None = 48):
         super().__init__()
@@ -204,6 +214,7 @@ class AdaCoFNet(nn.Module):
         frame2: torch.Tensor,
         with_stats: bool = True,
         stats_batch: int | None = None,
+        compute_dtype=None,
     ):
         """frame0, frame2: (B, 3, H, W).  `with_stats=False` skips the flow
         mean/variance tail (zeros are returned in its place).
@@ -221,7 +232,7 @@ class AdaCoFNet(nn.Module):
             frame2 = F.pad(frame2, (0, pad_w, 0, pad_h), mode="reflect")
 
         w1, a1, b1, w2, a2, b2, occ = self.get_kernel(
-            module_normalize(frame0), module_normalize(frame2)
+            module_normalize(frame0), module_normalize(frame2), compute_dtype
         )
 
         kp = ((self.kernel_size - 1) * self.dilation) // 2

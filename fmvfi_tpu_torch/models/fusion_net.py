@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.resize import max_pool2, upsample2x
+from .conv import Conv2d, upcast
 
 
 def infer_variant(fusion_vars) -> int:
@@ -31,7 +32,7 @@ def infer_variant(fusion_vars) -> int:
     return 2 if p["dec2"]["kernel"].shape[-1] == 6 else 0
 
 
-class _RConv(nn.Conv2d):
+class _RConv(Conv2d):
     """Conv with reflect padding of k//2 ('VALID' conv on the padded input)."""
 
     def __init__(self, c_in: int, c_out: int, k: int):
@@ -66,16 +67,20 @@ class FusionNet(nn.Module):
             nn.init.zeros_(self.dec2.weight)
             nn.init.zeros_(self.dec2.bias)
 
-    def forward(self, base, adacof, phase, other, maps=None):
+    def forward(self, base, adacof, phase, other, maps=None, compute_dtype=None):
         """Images (B, 3, H, W); other (B, 6, H, W) = frame1 || frame2 (Lab);
         maps (B, uncertainty_maps, H, W) ordered [ada_unc, phase_unc,
-        flow_var].  H and W must be divisible by 8."""
+        flow_var].  H and W must be divisible by 8.  `compute_dtype`
+        (bfloat16): the encoder and decoder run in it; the head is cast to
+        float32 before its softmax / tanh and the blend is float32."""
         parts = [base, adacof, phase, other]
         if self.uncertainty_maps:
             if maps is None or maps.shape[1] != self.uncertainty_maps:
                 raise ValueError(f"expected {self.uncertainty_maps} uncertainty maps")
             parts.append(maps)
         x = torch.cat(parts, dim=1)
+        if compute_dtype is not None:
+            x = x.to(compute_dtype)
 
         skips = []
         for conv in (self.enc0, self.enc1, self.enc2):
@@ -86,6 +91,7 @@ class FusionNet(nn.Module):
         for conv, s in zip((self.dec0, self.dec1, self.dec2), skips[::-1]):
             x = conv(upsample2x(F.relu(x), align_corners=False) + s)
 
+        x = upcast(x)
         if self.variant == 2:
             wgt = torch.softmax(x[:, :3], dim=1)
             res = torch.tanh(x[:, 3:]) * (1.0 - torch.amax(wgt, dim=1, keepdim=True))

@@ -32,24 +32,29 @@ from torch import nn
 from ..ops.decomp import Decomp
 from ..ops.resize import resize_bilinear
 from . import flax_bn
+from .conv import Conv2d, upcast
 
 
 class PhaseNetBlock(nn.Module):
     def __init__(self, c_in: int, c_out: int, pred_out: int, kernel: int):
         super().__init__()
         self.pad = kernel // 2
-        self.conv1 = nn.Conv2d(c_in, c_out, kernel)
+        self.conv1 = Conv2d(c_in, c_out, kernel)
         self.bn = nn.BatchNorm2d(c_out, eps=1e-5)
-        self.conv2 = nn.Conv2d(c_out, c_out, kernel)
-        self.pred = nn.Conv2d(c_out, pred_out, 1)
+        self.conv2 = Conv2d(c_out, c_out, kernel)
+        self.pred = Conv2d(c_out, pred_out, 1)
 
     def _rpad(self, x):
         p = self.pad
         return F.pad(x, (p, p, p, p), mode="reflect") if p else x
 
-    def forward(self, x: torch.Tensor, train: bool = False):
+    def forward(self, x: torch.Tensor, train: bool = False, compute_dtype=None):
         # train: the batch moments, moving the running statistics; else the
-        # running statistics, whatever the module's mode
+        # running statistics, whatever the module's mode.  compute_dtype:
+        # the block runs in it (BN included, as flax's BatchNorm(dtype=...))
+        # and returns it
+        if compute_dtype is not None:
+            x = x.to(compute_dtype)
         x = F.elu(flax_bn.normalize(self.conv1(self._rpad(x)), self.bn, train, move=train))
         feat = F.elu(self.conv2(self._rpad(x)))
         return feat, torch.tanh(self.pred(feat))
@@ -117,20 +122,29 @@ class PhaseNetCore(nn.Module):
         amps: Sequence[torch.Tensor],
         m: Optional[int] = None,
         train: bool = False,
+        compute_dtype=None,
     ):
         """Normalized inputs, levels coarse-first (ops.decomp.concat_for_net
         + normalize_inputs).  `m` predicts only the m coarsest levels (all
         by default); `train` normalizes with batch statistics and updates
         the running ones, once per block call (block 7 serves every level
         from the 7th on).  Returns (low_pred (B,1,h,w), phase_preds,
-        amp_preds), per level (B, nbands, h, w), coarse-first."""
+        amp_preds), per level (B, nbands, h, w), coarse-first.
+
+        `compute_dtype` (bfloat16): the blocks run in it and the features and
+        predictions stay in it between levels; each level's phases and
+        amplitudes are cast into its block, while the blends read the
+        float32 inputs and the predictions cast to float32, whose dtype the
+        outputs have."""
         nb = self.nbands
         three = self.num_img == 3
-        feat, pred = self.blocks[0](low, train)
-        alpha = (pred[:, 0:1] + 1.0) / 2.0
+        cdt = compute_dtype
+        feat, pred = self.blocks[0](low, train, cdt)
+        predf = upcast(pred)
+        alpha = (predf[:, 0:1] + 1.0) / 2.0
         low_pred = alpha * low[:, 0:1] + (1.0 - alpha) * low[:, 1:2]
         if three:
-            fusion_alpha = (pred[:, 1:2] + 1.0) / 2.0
+            fusion_alpha = (predf[:, 1:2] + 1.0) / 2.0
             low_pred = fusion_alpha * low_pred + (1.0 - fusion_alpha) * low[:, 2:3]
 
         phase_preds: List[torch.Tensor] = []
@@ -139,15 +153,19 @@ class PhaseNetCore(nn.Module):
             hw = phases[idx].shape[-2:]
             feat_r = resize_bilinear(feat, hw, align_corners=False)
             pred_r = resize_bilinear(pred, hw, align_corners=False)
-            x = torch.cat([feat_r, phases[idx], amps[idx], pred_r], dim=1)
-            feat, pred = self.blocks[min(idx + 1, len(self.blocks) - 1)](x, train)
+            pin, ain = phases[idx], amps[idx]
+            if cdt is not None:
+                pin, ain = pin.to(cdt), ain.to(cdt)
+            x = torch.cat([feat_r, pin, ain, pred_r], dim=1)
+            feat, pred = self.blocks[min(idx + 1, len(self.blocks) - 1)](x, train, cdt)
+            predf = upcast(pred)
             a = amps[idx]
-            beta = (pred[:, nb : 2 * nb] + 1.0) / 2.0
+            beta = (predf[:, nb : 2 * nb] + 1.0) / 2.0
             amp = beta * a[:, nb : 2 * nb] + (1.0 - beta) * a[:, 0:nb]
             if three:
-                fusion_beta = (pred[:, 2 * nb : 3 * nb] + 1.0) / 2.0
+                fusion_beta = (predf[:, 2 * nb : 3 * nb] + 1.0) / 2.0
                 amp = fusion_beta * amp + (1.0 - fusion_beta) * a[:, 2 * nb : 3 * nb]
-            phase_preds.append(pred[:, 0:nb])
+            phase_preds.append(predf[:, 0:nb])
             amp_preds.append(amp)
         return low_pred, phase_preds, amp_preds
 

@@ -7,6 +7,13 @@ Public frames are NHWC RGB float32 in [0, 1], (B, H, W, 3), numpy arrays or
 tensors; results are NHWC tensors on `device`.  Internally everything is
 NCHW.  Entry points run on CUDA unless the caller passes device="cpu"; the
 models must already live on that device.
+
+`compute_dtype` (None or torch.bfloat16) of the fusion entry points runs the
+three networks' convolutions in that dtype, as the JAX package's `dtype=`
+does: the parameters stay float32 and are cast per call, the nets return to
+float32 at fixed points, and the colour conversion, the pyramid, the
+uncertainty maps and the warp (K1 on CUDA: float32 only) stay float32, as do
+the returned frames.
 """
 
 from __future__ import annotations
@@ -60,6 +67,11 @@ def _device(device, *modules: torch.nn.Module) -> torch.device:
     return dev
 
 
+def _check_compute_dtype(compute_dtype) -> None:
+    if compute_dtype is not None and compute_dtype != torch.bfloat16:
+        raise ValueError(f"compute_dtype must be None or torch.bfloat16, got {compute_dtype}")
+
+
 def _nchw(frame, dev: torch.device) -> torch.Tensor:
     """(B, H, W, 3) array or tensor -> contiguous float32 (B, 3, H, W) on dev."""
     x = torch.as_tensor(frame, dtype=torch.float32, device=dev)
@@ -88,7 +100,7 @@ def _chan_batch(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b * c, h, w)
 
 
-def _phase_net_from_vals(phase_net: PhaseNetCore, vals: Decomp) -> Decomp:
+def _phase_net_from_vals(phase_net: PhaseNetCore, vals: Decomp, compute_dtype=None) -> Decomp:
     """PhaseNet on an already-decomposed packed 2-frame batch (2*B*3 leading)
     -> the predicted middle frame's decomposition (B*3 leading).  Separate
     from the decomposition, so that the stream reuses a frame's
@@ -96,14 +108,15 @@ def _phase_net_from_vals(phase_net: PhaseNetCore, vals: Decomp) -> Decomp:
     v1, v2 = dec_ops.split_frames(vals, 2)
     low, phases, amps = dec_ops.concat_for_net([v1, v2])
     lown, pn, an, norm = normalize_inputs(low, phases, amps)
-    lo, pp, ap = phase_net(lown, pn, an)
+    lo, pp, ap = phase_net(lown, pn, an, compute_dtype=compute_dtype)
     return predictions_to_decomp(lo, pp, ap, norm, torch.zeros_like(v1.high))
 
 
-def _phase_net_predict(phase_net: PhaseNetCore, chan_batch: torch.Tensor, filters) -> Decomp:
+def _phase_net_predict(phase_net: PhaseNetCore, chan_batch: torch.Tensor, filters,
+                       compute_dtype=None) -> Decomp:
     """A packed 2-frame channel batch (2*B*3, H, W) -> the predicted middle
     frame's decomposition (B*3 leading)."""
-    return _phase_net_from_vals(phase_net, decompose(chan_batch, filters))
+    return _phase_net_from_vals(phase_net, decompose(chan_batch, filters), compute_dtype)
 
 
 def _lab_dec_to_rgb(dec: Decomp, filters, shape) -> torch.Tensor:
@@ -112,10 +125,11 @@ def _lab_dec_to_rgb(dec: Decomp, filters, shape) -> torch.Tensor:
     return torch.clamp(lab_to_rgb(reconstruct(dec, filters).reshape(shape)), 0.0, 1.0)
 
 
-def _phase_predict_rgb(phase_net, lab1, lab2, filters) -> torch.Tensor:
+def _phase_predict_rgb(phase_net, lab1, lab2, filters, compute_dtype=None) -> torch.Tensor:
     """Lab frames (B, 3, H, W) -> PhaseNet's RGB middle frame (B, 3, H, W)."""
     lab = torch.cat([_chan_batch(lab1), _chan_batch(lab2)], 0)
-    return _lab_dec_to_rgb(_phase_net_predict(phase_net, lab, filters), filters, lab1.shape)
+    dec = _phase_net_predict(phase_net, lab, filters, compute_dtype)
+    return _lab_dec_to_rgb(dec, filters, lab1.shape)
 
 
 @torch.no_grad()
@@ -200,7 +214,7 @@ def _pad8(x: torch.Tensor) -> torch.Tensor:
     return F.pad(x, (0, pad_w, 0, pad_h), mode="reflect") if pad_h or pad_w else x
 
 
-def _mid_sections(models: FusionModels, f1, f2, ada_pred, filters):
+def _mid_sections(models: FusionModels, f1, f2, ada_pred, filters, compute_dtype=None):
     """Sections 2-4 of the fusion pipeline on (B, 3, H, W) tensors: PhaseNet,
     the uncertainty maps (None without maps) and the 3-pass baseline.  They
     are independent per sample, so they run on the whole batch or chunk by
@@ -209,7 +223,7 @@ def _mid_sections(models: FusionModels, f1, f2, ada_pred, filters):
     b = f1.shape[0]
     # 2. PhaseNet (Lab domain)
     lab1, lab2 = rgb_to_lab(f1), rgb_to_lab(f2)
-    phase_pred = _phase_predict_rgb(models.phase_net, lab1, lab2, filters)
+    phase_pred = _phase_predict_rgb(models.phase_net, lab1, lab2, filters, compute_dtype)
     # 3. the pyramid uncertainty maps
     unc = None
     if models.fusion_net.uncertainty_maps:
@@ -217,19 +231,20 @@ def _mid_sections(models: FusionModels, f1, f2, ada_pred, filters):
     # 4. baseline composite; passes 1 and 2 are independent -> one batched call
     lhs = torch.cat([f1, phase_pred], 0)
     rhs = torch.cat([phase_pred, f2], 0)
-    mids = models.adacof(lhs, rhs, with_stats=False).blended
-    base = models.adacof(mids[:b], mids[b:], with_stats=False).blended
+    mids = models.adacof(lhs, rhs, with_stats=False, compute_dtype=compute_dtype).blended
+    base = models.adacof(mids[:b], mids[b:], with_stats=False, compute_dtype=compute_dtype).blended
     return phase_pred, lab1, lab2, base, unc
 
 
-def _chunked_mid_sections(models: FusionModels, f1, f2, ada_pred, filters, seq_chunk: int):
+def _chunked_mid_sections(models: FusionModels, f1, f2, ada_pred, filters, seq_chunk: int,
+                          compute_dtype=None):
     """`_mid_sections` over batch chunks of `seq_chunk`, one after another,
     concatenated (the Python loop in place of JAX's lax.map,
     fmvfi_tpu/pipeline/interpolate.py:431-452): a chunk's activations are
     freed before the next chunk runs."""
     outs = [
         _mid_sections(models, f1[s : s + seq_chunk], f2[s : s + seq_chunk],
-                      ada_pred[s : s + seq_chunk], filters)
+                      ada_pred[s : s + seq_chunk], filters, compute_dtype)
         for s in range(0, f1.shape[0], seq_chunk)
     ]
     phase_pred, lab1, lab2, base = (torch.cat([o[i] for o in outs], 0) for i in range(4))
@@ -250,13 +265,14 @@ class FusionInputs(NamedTuple):
 
 
 def fusion_inputs(models: FusionModels, frame1, frame2, dev: torch.device, seq_chunk: int = 0,
-                  filters=None):
+                  filters=None, compute_dtype=None):
     """Sections 1-4 of the fusion pipeline on (B, H, W, 3) frames: the AdaCoF
     main pass, PhaseNet, the uncertainty maps and the 3-pass baseline.
     Returns (FusionInputs, (H, W), the size to crop FusionNet's output back
     to).  `fusion_interpolate` runs FusionNet on them; the fusion trainer
     runs this under no_grad and FusionNet with grad.  `filters`: the filter
-    bank at the /8-padded size (None: built, cached)."""
+    bank at the /8-padded size (None: built, cached).  `compute_dtype`:
+    the networks' (see the module's docstring)."""
     f1, f2 = _nchw(frame1, dev), _nchw(frame2, dev)
     b, _, full_h, full_w = f1.shape
     chunked = 0 < seq_chunk < b
@@ -267,14 +283,14 @@ def fusion_inputs(models: FusionModels, frame1, frame2, dev: torch.device, seq_c
     n_maps = models.fusion_net.uncertainty_maps
 
     # 1. AdaCoF
-    ada_out = models.adacof(f1, f2, with_stats=n_maps != 0)
+    ada_out = models.adacof(f1, f2, with_stats=n_maps != 0, compute_dtype=compute_dtype)
     ada_pred = ada_out.blended
 
     # 2-4. PhaseNet, uncertainty maps, baseline composite
     if chunked:
-        mid = _chunked_mid_sections(models, f1, f2, ada_pred, filters, seq_chunk)
+        mid = _chunked_mid_sections(models, f1, f2, ada_pred, filters, seq_chunk, compute_dtype)
     else:
-        mid = _mid_sections(models, f1, f2, ada_pred, filters)
+        mid = _mid_sections(models, f1, f2, ada_pred, filters, compute_dtype)
     phase_pred, lab1, lab2, base, unc = mid
 
     # maps ordered [ada_unc, phase_unc, flow_var]
@@ -319,16 +335,18 @@ def fusion_interpolate(
     memory near a chunk's; the AdaCoF main pass and FusionNet stay at the
     full batch.  B must be divisible by it.  `filters`: the pyramid filter
     bank at the /8-padded size (None: built, cached; utils/export.py passes
-    the program's own).  compute_dtype and spatial_mesh
-    of the JAX pipeline are not ported yet and raise."""
-    if compute_dtype is not None or spatial_mesh is not None:
-        raise NotImplementedError(
-            "compute_dtype and spatial_mesh are not ported to fmvfi_tpu_torch yet"
-        )
+    the program's own).  `compute_dtype`: None (float32) or torch.bfloat16,
+    the networks' compute dtype (see the module's docstring); the output
+    is float32 either way.  spatial_mesh of the JAX pipeline is not ported
+    yet and raises."""
+    if spatial_mesh is not None:
+        raise NotImplementedError("spatial_mesh is not ported to fmvfi_tpu_torch yet")
+    _check_compute_dtype(compute_dtype)
     dev = _device(device, *models)
-    inputs, (full_h, full_w) = fusion_inputs(models, frame1, frame2, dev, seq_chunk, filters)
+    inputs, (full_h, full_w) = fusion_inputs(models, frame1, frame2, dev, seq_chunk, filters,
+                                             compute_dtype)
     # 5. FusionNet blend
-    final = models.fusion_net(*inputs)
+    final = models.fusion_net(*inputs, compute_dtype=compute_dtype)
 
     def out(x):
         return _nhwc(x[:, :, :full_h, :full_w])
@@ -389,7 +407,8 @@ def fusion_stream_init(
     )
 
 
-def _stream_step(models: FusionModels, carry: FusionStreamCarry, f3: torch.Tensor, filters):
+def _stream_step(models: FusionModels, carry: FusionStreamCarry, f3: torch.Tensor, filters,
+                 compute_dtype=None):
     """`fusion_stream_step` on an NCHW frame on the carry's device; returns
     (carry, the pending pair's fused frame, NCHW)."""
     f2, lab2, dec2 = carry.frame, carry.lab, carry.dec
@@ -404,11 +423,12 @@ def _stream_step(models: FusionModels, carry: FusionStreamCarry, f3: torch.Tenso
     # pending pair, whose flow-stats tail is not needed
     pm1, pm2 = carry.mids[:b], carry.mids[b:]
     out2 = models.adacof(torch.cat([f2, pm1], 0), torch.cat([f3, pm2], 0),
-                         with_stats=n_maps != 0, stats_batch=b)
+                         with_stats=n_maps != 0, stats_batch=b, compute_dtype=compute_dtype)
     ada_pred, base_prev = out2.blended[:b], out2.blended[b:]
 
     # PhaseNet on the cached decomposition of f2 and the fresh one of f3
-    dec_pred = _phase_net_from_vals(models.phase_net, dec_ops.concat_frames([dec2, dec3]))
+    dec_pred = _phase_net_from_vals(models.phase_net, dec_ops.concat_frames([dec2, dec3]),
+                                    compute_dtype)
     phase_pred = _lab_dec_to_rgb(dec_pred, filters, f3.shape)
 
     maps = None
@@ -418,11 +438,11 @@ def _stream_step(models: FusionModels, carry: FusionStreamCarry, f3: torch.Tenso
 
     # baseline passes 1+2 of the new pair (pass 3 waits for the next step)
     mids = models.adacof(torch.cat([f2, phase_pred], 0), torch.cat([phase_pred, f3], 0),
-                         with_stats=False).blended
+                         with_stats=False, compute_dtype=compute_dtype).blended
 
     # finish the pending pair
     fused_prev = models.fusion_net(base_prev, carry.ada_pred, carry.phase_pred, carry.other,
-                                   carry.maps)
+                                   carry.maps, compute_dtype=compute_dtype)
     new_carry = FusionStreamCarry(
         frame=f3,
         lab=lab3,
@@ -438,7 +458,8 @@ def _stream_step(models: FusionModels, carry: FusionStreamCarry, f3: torch.Tenso
 
 @torch.no_grad()
 def fusion_stream_step(
-    models: FusionModels, carry: FusionStreamCarry, frame_next, filters=None, *, device="cuda"
+    models: FusionModels, carry: FusionStreamCarry, frame_next, filters=None, *, device="cuda",
+    compute_dtype=None,
 ) -> Tuple[FusionStreamCarry, torch.Tensor]:
     """One step of the streaming fusion: take the next frame (B, H, W, 3),
     return (carry, the fused middle frame of the PREVIOUS pair, (B, H, W, 3)),
@@ -448,28 +469,33 @@ def fusion_stream_step(
     frame shared by consecutive pairs is converted to Lab and decomposed
     once (the carry holds it), and the pending pair's baseline pass 3 runs
     in one batch with the new pair's main AdaCoF pass, so a step launches
-    two 4B-image warps (K1) instead of 2B, 4B and 2B."""
+    two 4B-image warps (K1) instead of 2B, 4B and 2B.  `compute_dtype` as
+    `fusion_interpolate`'s."""
+    _check_compute_dtype(compute_dtype)
     dev = _device(device, *models)
     f3 = _nchw(frame_next, dev)
-    carry, fused = _stream_step(models, carry, f3, _filters(f3, filters))
+    carry, fused = _stream_step(models, carry, f3, _filters(f3, filters), compute_dtype)
     return carry, _nhwc(fused)
 
 
 @torch.no_grad()
 def fusion_stream_scan(
-    models: FusionModels, carry: FusionStreamCarry, frames, filters=None, *, device="cuda"
+    models: FusionModels, carry: FusionStreamCarry, frames, filters=None, *, device="cuda",
+    compute_dtype=None,
 ) -> Tuple[FusionStreamCarry, torch.Tensor]:
     """`fusion_stream_step` over a (T, B, H, W, 3) window of frames, in a
     loop that keeps the carry on the device and waits for the card nowhere.
     Returns (carry, the (T, B, H, W, 3) fused outputs), with the step's
     one-step latency: output t finishes the pair pending before frame t
-    (fmvfi_tpu/pipeline/interpolate.py:681-725)."""
+    (fmvfi_tpu/pipeline/interpolate.py:681-725).  `compute_dtype` as
+    `fusion_interpolate`'s."""
+    _check_compute_dtype(compute_dtype)
     dev = _device(device, *models)
     fused = []
     for t in range(len(frames)):
         f3 = _nchw(frames[t], dev)
         filters = _filters(f3, filters)
-        carry, out = _stream_step(models, carry, f3, filters)
+        carry, out = _stream_step(models, carry, f3, filters, compute_dtype)
         fused.append(_nhwc(out))
     return carry, torch.stack(fused, 0)
 

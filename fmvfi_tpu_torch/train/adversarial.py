@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..models.discriminator import Patch, make_critic
+from ..parallel import dp
 from ..pipeline.interpolate import _device
 
 GP_WEIGHT = 10.0  # lambda of the gradient penalty
@@ -45,8 +46,13 @@ class AdvState(NamedTuple):
 
 
 def draw_eps(generator: torch.Generator, like: torch.Tensor) -> torch.Tensor:
-    """The gradient penalty's mixing weights: U(0, 1) of `like`'s shape."""
-    return torch.rand(like.shape, generator=generator, device=like.device, dtype=like.dtype)
+    """The gradient penalty's mixing weights: U(0, 1) of `like`'s shape.  In
+    a data-parallel step every process draws the global batch's from the
+    same generator state and takes its own rows."""
+    n, lo = dp.global_batch(like.shape[0])
+    eps = torch.rand((n,) + tuple(like.shape[1:]), generator=generator, device=like.device,
+                     dtype=like.dtype)
+    return eps[lo : lo + like.shape[0]]
 
 
 def _bce(logits: torch.Tensor, target: float) -> torch.Tensor:
@@ -131,7 +137,8 @@ class Adversarial:
                 d_loss = d_loss + GP_WEIGHT * torch.mean((gnorm - 1.0) ** 2)
 
         params = list(critic.parameters())
-        for p, g in zip(params, torch.autograd.grad(d_loss, params)):
+        # averaged over the processes in a data-parallel step
+        for p, g in zip(params, dp.global_mean_(list(torch.autograd.grad(d_loss, params)))):
             p.grad = g
         state.optimizer.step()
         state.optimizer.zero_grad(set_to_none=True)

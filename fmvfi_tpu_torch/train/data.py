@@ -174,25 +174,27 @@ class MixedSynthStream:
 
 def augment_triplet(frames: Sequence[np.ndarray], rng: np.random.Generator, crop: int = 256):
     """Shared random crop + flips + time reversal (datareader.py:45-69)."""
-    f0, f1, f2 = frames
-    h, w = f0.shape[:2]
-    if h < crop or w < crop:
-        raise ValueError(f"frame {h}x{w} smaller than crop {crop}")
-    y = int(rng.integers(0, h - crop + 1))
-    x = int(rng.integers(0, w - crop + 1))
-    f0, f1, f2 = (f[y : y + crop, x : x + crop] for f in (f0, f1, f2))
-    if rng.random() < 0.5:
+    h, w = frames[0].shape[:2]
+    return _augment_with(frames, _native_params(rng, 1, h, w, crop)[0], crop)
+
+
+def _augment_with(frames: Sequence[np.ndarray], p: np.ndarray, crop: int):
+    """augment_triplet with its draws given: p = (y0, x0, hflip, vflip,
+    tswap), a row of _native_params."""
+    y, x, hflip, vflip, tswap = (int(v) for v in p)
+    f0, f1, f2 = (f[y : y + crop, x : x + crop] for f in frames)
+    if hflip:
         f0, f1, f2 = (f[:, ::-1] for f in (f0, f1, f2))
-    if rng.random() < 0.5:
+    if vflip:
         f0, f1, f2 = (f[::-1] for f in (f0, f1, f2))
-    if rng.random() < 0.5:
+    if tswap:
         f0, f2 = f2, f0
     return np.ascontiguousarray(f0), np.ascontiguousarray(f1), np.ascontiguousarray(f2)
 
 
 def _native_params(rng: np.random.Generator, n: int, h: int, w: int, crop: int) -> np.ndarray:
-    """(n, 5) int32 (y0, x0, hflip, vflip, tswap), drawn per item in
-    augment_triplet's order, so that both paths give the same batches."""
+    """(n, 5) int32 (y0, x0, hflip, vflip, tswap), the draws of n items in
+    the reference's order, for both augmentation paths."""
     if h < crop or w < crop:
         raise ValueError(f"frame {h}x{w} smaller than crop {crop}")
     return np.array([[rng.integers(0, h - crop + 1), rng.integers(0, w - crop + 1),
@@ -209,6 +211,7 @@ def batch_iterator(
     prefetch: int = 2,
     epochs: Optional[int] = None,
     use_native: Optional[bool] = None,
+    shard: Optional[Tuple[int, int]] = None,
 ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
     """Yield (frame1, target, frame2) batches, each (B, crop, crop, 3), in a
     fresh random order each epoch (`shuffle`; else in index order),
@@ -218,7 +221,17 @@ def batch_iterator(
     when it builds (use_native None) or always (True: raises RuntimeError
     when it does not build); False, or a dataset without `load_u8`, takes
     the numpy path.  Each batch counts in `paths`.  An error in the thread
-    is raised here; closing the generator stops the thread."""
+    is raised here; closing the generator stops the thread.
+
+    `shard=(start, stop)` (parallel.distributed.local_batch_slice): yield
+    rows start:stop of each global batch of `batch_size`, loading only
+    their triplets; the order and the augmentation draws are the global
+    batch's (drawn for every row, all triplets being of one size, as
+    Vimeo90k's and the synthetic sets' are), so the processes' shards make
+    up the batches one process would yield."""
+    lo, hi = shard or (0, batch_size)
+    if not 0 <= lo < hi <= batch_size:
+        raise ValueError(f"shard {shard} outside a batch of {batch_size}")
     rng = np.random.default_rng(seed)
     on_native = False
     if use_native is not False and hasattr(dataset, "load_u8"):
@@ -231,11 +244,17 @@ def batch_iterator(
 
     def make_batch(idx):
         if on_native:
-            raw = np.stack([dataset.load_u8(int(i)) for i in idx])
-            params = _native_params(rng, len(idx), raw.shape[2], raw.shape[3], crop)
+            raw = np.stack([dataset.load_u8(int(i)) for i in idx[lo:hi]])
+            params = _native_params(rng, len(idx), raw.shape[2], raw.shape[3], crop)[lo:hi]
             _count("native")
             return native.augment_batch(raw, crop, params)
-        items = [augment_triplet(dataset.load(int(i)), rng, crop=crop) for i in idx]
+        if shard is None:
+            items = [augment_triplet(dataset.load(int(i)), rng, crop=crop) for i in idx]
+        else:
+            frames = [dataset.load(int(i)) for i in idx[lo:hi]]
+            h, w = frames[0][0].shape[:2]
+            params = _native_params(rng, len(idx), h, w, crop)[lo:hi]
+            items = [_augment_with(f, p, crop) for f, p in zip(frames, params)]
         _count("numpy")
         return tuple(np.stack([it[j] for it in items]) for j in range(3))
 

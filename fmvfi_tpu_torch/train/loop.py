@@ -7,7 +7,9 @@ probe.
   reference's per-epoch Middlebury-other PSNR, adacof/TestModule.py:43-64).
 - `fit()`: the epoch loop gluing a (state, step_fn) pair from train.trainer
   to a batch iterator, resuming from the latest checkpoint, with the
-  hierarchical-m schedule of PhaseNet training and the probes.
+  hierarchical-m schedule of PhaseNet training, the probes, and an outer
+  wrapper (`wrap_step`, e.g. parallel.dp.data_parallel) kept across the
+  schedule's rebuilds.
 The loss-curve PNG of JAX's MetricsWriter.plot needs matplotlib and is not
 ported (ROADMAP Queue 1, item 18.6).
 """
@@ -22,6 +24,7 @@ from typing import Callable, Dict, Iterable, Optional, Union
 import numpy as np
 import torch
 
+from ..parallel.distributed import process_index
 from ..utils import imageio
 from ..utils.checkpoint import Checkpointer
 
@@ -99,6 +102,7 @@ def fit(
     m_max: int = 10,
     image_probe: Optional[Callable] = None,
     image_every: int = 100,
+    wrap_step: Optional[Callable[[Callable], Callable]] = None,
 ):
     """Run the loop.  `batches` yields (f1, target, f2) NHWC batches; an
     epoch is `steps_per_epoch` batches (or one pass if the iterator is finite
@@ -116,11 +120,19 @@ def fit(
     by one every `m_update` batches within an epoch (the count restarts
     each epoch, m does not) up to `m_max`, and the step is rebuilt at each
     rise; a resumed run starts at the m an uninterrupted run would have.
-    Each metrics record carries m."""
-    writer = MetricsWriter(out_dir)
+    Each metrics record carries m.
+
+    `wrap_step(step_fn) -> step_fn` wraps the step once and again at every
+    rebuild of the m schedule (JAX's fit once lost its data-parallel
+    wrapper there, fmvfi_tpu/train/loop.py:141-146).  In a group of
+    processes every process restores, steps and scores the probes alike,
+    and only process 0 writes the metrics, checkpoints and images."""
+    writes = process_index() == 0
+    writer = MetricsWriter(out_dir) if writes else None
     ckptr = Checkpointer(os.path.join(out_dir, "checkpoint"))
     if resume and ckptr.latest() is not None:
         state = ckptr.restore(state)
+    wrap = wrap_step or (lambda f: f)
 
     it = iter(batches)
     step = state.step
@@ -140,6 +152,7 @@ def fit(
                 inc = step // m_update  # one continuous pass
             m = min(m_max, m_init + inc)
         step_fn = make_step(m)
+    step_fn = wrap(step_fn)
 
     try:
         for epoch in range(start_epoch, epochs):
@@ -152,18 +165,24 @@ def fit(
                 state, metrics = step_fn(state, batch)
                 step += 1
                 n += 1
-                if step % log_every == 0:
+                if writes and step % log_every == 0:
                     writer.write(step, metrics, epoch=epoch, **({} if m is None else {"m": m}))
-                if step % ckpt_every == 0:
+                if writes and step % ckpt_every == 0:
                     ckptr.save(step, state)
                 if image_probe is not None and step % image_every == 0:
-                    _write_image_probe(out_dir, step, image_probe(state))
+                    img = image_probe(state)
+                    if writes:
+                        _write_image_probe(out_dir, step, img)
                 if make_step is not None and m is not None and n % m_update == 0 and m < m_max:
                     m += 1
-                    step_fn = make_step(m)
+                    step_fn = wrap(make_step(m))
             if probe is not None:
-                writer.write(step, {"probe_psnr": probe(state)}, epoch=epoch)
-            ckptr.save(step, state)
+                score = probe(state)
+                if writes:
+                    writer.write(step, {"probe_psnr": score}, epoch=epoch)
+            if writes:
+                ckptr.save(step, state)
     finally:
-        writer.close()
+        if writes:
+            writer.close()
     return state

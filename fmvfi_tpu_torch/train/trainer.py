@@ -29,6 +29,7 @@ from ..models.phase_net import PhaseNetCore, normalize_inputs, predictions_to_de
 from ..ops import decomp as dec_ops
 from ..ops.color import rgb_to_lab
 from ..ops.pyramid import decompose, make_filters, max_pyr_height, reconstruct
+from ..parallel import dp
 from ..pipeline.interpolate import FusionModels, _chan_batch, _device, _nchw, fusion_inputs
 from .adversarial import Adversarial
 from .losses import (
@@ -79,9 +80,12 @@ _OPTIMIZERS = {
 
 def _grads(loss: torch.Tensor, params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """d loss / d params, zeros for a parameter the loss does not reach (an
-    optax optimizer sees a zero gradient there and still counts the step)."""
+    optax optimizer sees a zero gradient there and still counts the step).
+    Inside a data-parallel step, averaged over the processes: the global
+    batch's gradient (the step takes it with autograd.grad, which no
+    DistributedDataParallel hook sees, so the reduction is here)."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    return dp.global_mean_([torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)])
 
 
 def _apply(opt: torch.optim.Optimizer, params, grads) -> None:
@@ -98,9 +102,13 @@ def clipped_update(opt: torch.optim.Optimizer, params, grads, clip: float, loss=
     and step.  `loss` covers what torch's autograd hides: the gradient of
     |x| at x = NaN is 0 in torch and NaN in JAX, so a NaN target leaves an
     L1 gradient finite.  The finite check is the step's one read of the
-    device; returns whether the update ran."""
+    device; returns whether the update ran.  Inside a data-parallel step
+    `grads` are the global gradient and `loss` is averaged over the
+    processes here, so that every process takes the same decision."""
     norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
-    finite = torch.isfinite(norm if loss is None else norm + loss.detach())
+    if loss is not None:
+        loss = dp.global_mean_([loss.detach().clone()])[0]
+    finite = torch.isfinite(norm if loss is None else norm + loss)
     if not bool(finite):
         return False
     scale = clip / torch.clamp(norm, min=clip)
@@ -344,8 +352,11 @@ def fusion_loss(pred, target, teachers=None, distill: float = 0.0, loss_balance:
       the prediction: L1 in the default mode, log of the MSE floored at
       1e-6 under `loss_psnr` (MSE picks the teacher and gates there);
     - `loss_balance` weights each sample by 1 / (its L1 + 1e-3),
-      renormalized; else the mean over samples.
-    The gates and weights read the prediction without its gradient."""
+      renormalized over the (global, in a data-parallel step) batch; else
+      the mean over samples.
+    The gates and weights read the prediction without its gradient.  In a
+    data-parallel step the returned objective is this process's share,
+    scaled so that the processes' mean is the global batch's objective."""
     per = _per_sample(torch.abs(pred - target))
     plain = per.mean()
     if loss_psnr:
@@ -368,7 +379,7 @@ def fusion_loss(pred, target, teachers=None, distill: float = 0.0, loss_balance:
         total = total + (distill * gate) * dist
     if loss_balance:
         wgt = 1.0 / (per.detach() + 1e-3)
-        return torch.sum(total * wgt / torch.sum(wgt)), plain
+        return torch.sum(total * wgt / dp.global_sum(torch.sum(wgt))) * dp.world_size(), plain
     return torch.mean(total), plain
 
 

@@ -371,8 +371,6 @@ def test_what_is_not_ported_raises(inputs, tmp_path, monkeypatch, capsys):
         pt_cli.main(["interpolate", *pair, "--output_frame", str(tmp_path / "o.png")])
     assert e.value.code == 2 and "--device cpu" in capsys.readouterr().err
     cpu = ["--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 19"):
-        pt_cli.main(["train", "--data_parallel", "--out_dir", str(tmp_path), *cpu])
     with pytest.raises(NotImplementedError, match="item 18.4"):
         pt_cli.main(["video", "--input", str(tmp_path / "clip.mp4"), "--output_dir",
                      str(tmp_path), *cpu])

@@ -536,3 +536,91 @@ def test_cuda_artifact_launches_k1_and_matches_the_live_pipeline(cuda_device, bu
     assert got.device.type == "cuda" and got.shape == (1, 64, 64, 3)
     mse = float(torch.mean((got.double() - want.double()) ** 2))
     assert mse == 0 or -10 * np.log10(mse) >= 60
+
+
+@pytest.mark.gpu
+def test_bf16_request_launches_k1_on_float32_fields(cuda_device, monkeypatch):
+    """A bfloat16 fusion request at 256x256 with random weights: K1 three
+    times on 2, 4 and 2 images via f5c3/ring, every frame and field it gets
+    float32, the output float32 and >= 35 dB against the float32 request."""
+    import numpy as np
+
+    from fmvfi_tpu_torch.eval.synth import translation_triplet
+    from fmvfi_tpu_torch.models.adacof import AdaCoFNet
+    from fmvfi_tpu_torch.models.fusion_net import FusionNet
+    from fmvfi_tpu_torch.models.phase_net import PhaseNetCore
+    from fmvfi_tpu_torch.pipeline.interpolate import FusionModels, fusion_interpolate
+
+    torch.manual_seed(0)
+    models = FusionModels(
+        PhaseNetCore().init_params(torch.Generator().manual_seed(1)).to(cuda_device).eval(),
+        AdaCoFNet().to(cuda_device).eval(), FusionNet(variant=2).to(cuda_device).eval())
+    f1, _, f2 = translation_triplet(256, 256, dx=2.0, dy=1.0, seed=0)
+    seen, real = [], adacof_cuda.warp_fwd_cuda
+
+    def recording(x, w, a, b, *args):
+        seen.append((x.shape[0], {t.dtype for t in (x, w, a, b)}))
+        return real(x, w, a, b, *args)
+
+    monkeypatch.setattr(adacof_cuda, "warp_fwd_cuda", recording)
+    before = adacof_cuda.paths["f5c3/ring"]
+    got = fusion_interpolate(models, f1[None], f2[None], device=cuda_device,
+                             compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert [n for n, _ in seen] == [2, 4, 2] and all(d == {torch.float32} for _, d in seen)
+    assert adacof_cuda.paths["f5c3/ring"] == before + 3
+    fp32 = fusion_interpolate(models, f1[None], f2[None], device=cuda_device)
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    mse = float(torch.mean((got.double() - fp32.double()) ** 2))
+    assert mse > 0 and -10 * np.log10(mse) >= 35
+
+
+@pytest.mark.gpu
+def test_data_parallel_step_on_one_card_matches_the_plain_step(cuda_device):
+    """One AdaCoF step under data_parallel on a 1-process NCCL group: K1 and
+    K2 once, and the parameters within 1e-5 of the plain step's, a
+    hundredth of its Adamax update (lr 1e-3): the backward of
+    F.interpolate's bilinear mode adds with atomics on CUDA, so no two runs
+    of the step are bit-equal (the plain step against itself is printed)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from fmvfi_tpu_torch.eval.synth import translation_triplet
+    from fmvfi_tpu_torch.parallel import distributed
+    from fmvfi_tpu_torch.parallel.dp import data_parallel
+    from fmvfi_tpu_torch.parallel.mesh import make_mesh, replicate
+    from fmvfi_tpu_torch.train.trainer import make_adacof_trainer
+
+    if dist.is_initialized():
+        pytest.skip("a process group already exists in this process")
+    items = [translation_triplet(64, 64, dx=3.0 + i, dy=1.0, seed=i) for i in range(2)]
+    batch = tuple(np.stack([it[j] for it in items]) for j in range(3))
+
+    def params(state):
+        return {k: v.double() for k, v in state.model.state_dict().items()}
+
+    def gap(a, b):
+        return max(float((a[k] - b[k]).abs().max()) for k in b)
+
+    distributed.initialize(backend="nccl")
+    flags = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        mesh = make_mesh()
+        assert mesh.device_type == "cuda" and mesh.size() == 1
+        plain = []
+        for _ in range(2):
+            state, step = make_adacof_trainer(device=cuda_device)
+            plain.append(params(step(state, batch)[0]))
+        state, step = make_adacof_trainer(device=cuda_device)
+        state = replicate(mesh, state)
+        before = (adacof_cuda.launches, adacof_cuda.bwd_launches)
+        state, _ = data_parallel(step, mesh)(state, batch)
+        torch.cuda.synchronize()
+        assert (adacof_cuda.launches, adacof_cuda.bwd_launches) == (before[0] + 1, before[1] + 1)
+        print(f"data_parallel {gap(params(state), plain[0]):.3g} from the plain step, "
+              f"the plain step {gap(plain[1], plain[0]):.3g} from itself")
+        assert gap(params(state), plain[0]) <= 1e-5
+    finally:
+        torch.backends.cudnn.deterministic = flags
+        dist.destroy_process_group()

@@ -32,13 +32,14 @@ FORBIDDEN = (
 )
 GOLDEN_DB, GOLDEN_TOL = 42.967, 0.05  # tests/test_golden.py, bundled AdaCoF
 # the video, evaluation, adversarial, VGG, native-loader, codec,
-# command-line, export and profiling modules: imported by the isolated run
-# below and held by the static import check
+# command-line, export, profiling, compute-dtype and data-parallel modules:
+# imported by the isolated run below and held by the static import check
 NEW_MODULES = ("pipeline.video", "eval.metrics", "eval.evaluate", "eval.uncertainty",
                "models.discriminator", "models.flax_bn", "train.adversarial", "train.vgg",
                "native", "cli", "utils.imageio", "utils.config", "models.registry",
                "eval.datasets", "utils.export", "utils.profiling", "utils.msgpack_io",
-               "utils.checkpoint", "utils.convert", "train.loop")
+               "utils.checkpoint", "utils.convert", "train.loop", "models.conv",
+               "parallel.mesh", "parallel.dp", "parallel.distributed")
 
 _ISOLATED = f"""
 import importlib, json, pkgutil, sys
@@ -348,6 +349,61 @@ def test_export_and_weights_out_run_without_jax_flax_or_msgpack():
     assert proc.returncode == 0, proc.stderr[-4000:]
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res["same"] and res["diff"] == 0.0
+    assert res["leaked"] == []
+
+
+_DP_ISOLATED = f"""
+import json, sys, tempfile
+for name in {FORBIDDEN!r}:
+    sys.modules[name] = None  # any import of these raises ImportError
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from fmvfi_tpu_torch.models.adacof import AdaCoFNet
+from fmvfi_tpu_torch.models.fusion_net import FusionNet, infer_variant
+from fmvfi_tpu_torch.models.phase_net import PhaseNetCore
+from fmvfi_tpu_torch.parallel import distributed
+from fmvfi_tpu_torch.parallel.dp import data_parallel
+from fmvfi_tpu_torch.parallel.mesh import make_mesh, replicate
+from fmvfi_tpu_torch.pipeline.interpolate import FusionModels, fusion_interpolate
+from fmvfi_tpu_torch.train.data import SyntheticTriplets, batch_iterator
+from fmvfi_tpu_torch.train.loop import fit
+from fmvfi_tpu_torch.train.trainer import make_adacof_trainer
+from fmvfi_tpu_torch.utils.convert import load_adacof_weights, load_fusion_weights
+distributed.initialize(backend="gloo")
+mesh = make_mesh()
+state, step = make_adacof_trainer(kernel_size=3, device="cpu")
+state = replicate(mesh, state)
+with tempfile.TemporaryDirectory() as out:
+    batches = batch_iterator(SyntheticTriplets(n=4, h=40, w=40), 2, crop=32,
+                             shard=distributed.local_batch_slice(2))
+    state = fit(state, step, batches, out, epochs=1, steps_per_epoch=2, log_every=1,
+                wrap_step=lambda f: data_parallel(f, mesh))
+ada = AdaCoFNet().eval()
+ada.load_state_dict(load_adacof_weights({CKPTS[0]!r}))
+fsd = load_fusion_weights({CKPTS[1]!r})
+fusion = FusionNet(variant=infer_variant(fsd)).eval()
+fusion.load_state_dict(fsd)
+phase = PhaseNetCore().init_params(torch.Generator().manual_seed(0)).eval()
+f = np.random.default_rng(0).random((1, 32, 32, 3), dtype=np.float32)
+out = fusion_interpolate(FusionModels(phase, ada, fusion), f, f, device="cpu",
+                         compute_dtype=torch.bfloat16)
+leaked = sorted(n for n in sys.modules if n.split(".")[0] in {FORBIDDEN!r} and sys.modules[n])
+print(json.dumps(dict(step=state.step, dtype=str(out.dtype),
+                      finite=bool(torch.isfinite(out).all()), leaked=leaked)))
+"""
+
+
+def test_data_parallel_and_bf16_serving_run_without_jax_flax_or_fmvfi_tpu():
+    """A data-parallel AdaCoF fit on a 1-process gloo group and a bfloat16
+    fusion request run on the CPU with the reference's libraries blocked."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _DP_ISOLATED], cwd=ROOT, capture_output=True, text=True,
+        timeout=600,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["step"] == 2 and res["dtype"] == "torch.float32" and res["finite"]
     assert res["leaked"] == []
 
 
