@@ -12,7 +12,9 @@ Phases, each printing one JSON line with its seconds:
               F and C at run time, here F 7 and F 3 with C 5), each through
               the asynchronous-copy ring (W % 4 == 0) and without it (the
               unaligned 37x53 cases), d in {1, 2}, offsets to +-60 with
-              max_offset 48 and None, the training launch and the main
+              max_offset 48 and None, also at 256x512 and 512x768 (more
+              blocks than the card holds at once: the ring's consumers lag
+              its producer), the training launch and the main
               path's 1080p launches, with the kernel's and the plain
               version's times and the byte bound;
   k2        - K2 against its plain version (autograd of the plain warp plus
@@ -206,7 +208,24 @@ Phases, each printing one JSON line with its seconds:
               losses within 1e-6 relative, or within 3x the largest gap
               of those steps with the batch's rows rolled by 1, 2 and 3
               (the same math in other orders), K1/K2 per rank as on one
-              process; the ms of each step, 1 process against 2 ranks.
+              process; the ms of each step, 1 process against 2 ranks;
+  spatial   - height sharding for serving (last), two gloo ranks on the one
+              card as a ("data", "spatial") mesh of (1, 2), the kernels
+              built here first: (a) adacof_warp_tm_sharded at the serve
+              launch (2 images of 1080x1920, 540-row bands, R = 48): the
+              bands within 1e-5 of the plain warp on the whole frame here
+              and within 1e-6 of K1 there, their field gradients (K2)
+              within 1e-4 of the plain field gradients and of K2's, K1 and
+              K2 once per rank; (b) fusion_spatial_apply on the serve
+              models at 1080x1920, batch 1, 1 warm-up and 2 requests: the
+              ranks' gathered frames equal and >= 60 dB against
+              fusion_interpolate here with the plain warp, K1 [2, 4, 2]
+              images per rank per request via f5c3/ring, no K2; ms per
+              request, peak memory, halo and gather bytes per rank (two
+              ranks share one card and gloo reduces through host memory:
+              the collectives' cost, not a speed-up); (c) on a 1-process
+              NCCL group, (1, 1) mesh, fusion_spatial_apply bit-equal to
+              fusion_interpolate.
 Then the nvidia-smi line, the `kernels` JSON line and, last, the result line
 {"ok": true, "device": {...}}.  Any failed check raises (non-zero exit).
 Without CUDA, or without the package beside this file, it exits non-zero
@@ -230,7 +249,8 @@ FP32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 RING_PATH = "f5c3/ring"  # the instantiation of every launch on the main paths
 DESIGN = (  # of K1 and K2, for the kernels line
     "8x64 tiles; fields through a 4-stage shared-memory ring of bulk async copies "
-    "(cp.async.bulk, mbarriers, L2 evict-first) fed by a producer warp; RGBX corner "
+    "(cp.async.bulk, mbarriers, L2 evict-first) fed by a producer warp, each stage released "
+    "behind a generic-to-async proxy fence; RGBX corner "
     "gathers for C=3 and F 5 or 11 (K2 reuses K1's RGBX copy); tap loop unrolled for F 5 and 11"
 )
 K1_TOL = 1e-5
@@ -1561,6 +1581,275 @@ def _dp(dev, repo, work):
     return k1, k2
 
 
+SPATIAL_R = 48  # the halo warp's clamp at the serve launch
+SPATIAL_WARP_TOL = 1e-6  # the halo warp against K1 on the whole frame (JAX holds it bit-equal)
+SPATIAL_REQUESTS = 2  # timed fusion_spatial_apply requests, after one warm-up
+
+
+def _serve_models(dev, repo):
+    """The serve phase's models: the bundled AdaCoF and FusionNet, a
+    PhaseNet from seed 0."""
+    import torch
+
+    from fmvfi_tpu_torch.models.adacof import AdaCoFNet
+    from fmvfi_tpu_torch.models.fusion_net import FusionNet, infer_variant
+    from fmvfi_tpu_torch.models.phase_net import PhaseNetCore
+    from fmvfi_tpu_torch.pipeline.interpolate import FusionModels
+    from fmvfi_tpu_torch.utils.convert import load_adacof_weights, load_fusion_weights
+
+    ckpt = os.path.join(repo, "checkpoints")
+    ada = AdaCoFNet().to(dev).eval()
+    ada.load_state_dict(load_adacof_weights(os.path.join(ckpt, "adacof_synth_demo.msgpack")))
+    fusion_sd = load_fusion_weights(os.path.join(ckpt, "fusion_synth_demo.msgpack"))
+    fusion = FusionNet(uncertainty_maps=3, variant=infer_variant(fusion_sd)).to(dev).eval()
+    fusion.load_state_dict(fusion_sd)
+    phase = PhaseNetCore().init_params(torch.Generator().manual_seed(0)).to(dev).eval()
+    return FusionModels(phase_net=phase, adacof=ada, fusion_net=fusion)
+
+
+def _spatial_requests():
+    """The spatial phase's warm-up and timed pairs, 1080x1920."""
+    from fmvfi_tpu_torch.eval.synth import translation_triplet
+
+    return [translation_triplet(H_FULL, W_FULL, dx=4.0 + i, dy=2.0, seed=i)[::2]
+            for i in range(1 + SPATIAL_REQUESTS)]
+
+
+def _spatial_warp_case(dev):
+    """The serve launch of K1 from one seeded generator on the card: the
+    unpadded frames x (2, 3, 1080, 1920), softmax weights, offsets to +-60
+    (beyond the clamp) and a cotangent."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shape = (2, 25, H_FULL, W_FULL)
+    x = torch.rand((2, 3, H_FULL, W_FULL), generator=gen, device=dev)
+    wgt = torch.softmax(4.0 * torch.rand(shape, generator=gen, device=dev), dim=1)
+    a, b = ((torch.rand(shape, generator=gen, device=dev) * 2 - 1) * 60 for _ in range(2))
+    return x, wgt, a, b, torch.randn((2, 3, H_FULL, W_FULL), generator=gen, device=dev)
+
+
+def _spatial_rank(mesh, dev, repo, out):
+    """One rank of phase spatial on a (data 1 x spatial 2) mesh: (a) its band
+    of the halo warp at the serve launch and the band's field gradients;
+    (b) fusion_spatial_apply on the serve models, 1 warm-up and
+    SPATIAL_REQUESTS requests.  Writes its warp blocks and the gathered
+    fused frames to `out` (npz); returns its report."""
+    import torch
+
+    from fmvfi_tpu_torch.ops import adacof_cuda
+    from fmvfi_tpu_torch.parallel import spatial
+
+    # (a) the halo warp: 2 bands of 540 rows, K1 forward and K2 backward
+    group = mesh.get_group("spatial")
+    bands = spatial.Bands(group, mesh.get_local_rank("spatial"), (H_FULL // 2,) * 2)
+    rows = slice(bands.lo, bands.hi)
+    x, wgt, a, b, cot = _spatial_warp_case(dev)
+    fields = [t[:, :, rows].contiguous().requires_grad_() for t in (wgt, a, b)]
+    _reset_counts()
+    with spatial.running(bands):
+        warped = spatial.adacof_warp_tm_sharded(x[:, :, rows].contiguous(), *fields, 1,
+                                                max_offset=SPATIAL_R)
+    warped.backward(cot[:, :, rows])
+    torch.cuda.synchronize()
+    warp_counts = _counts()
+    arrays = {"warp": warped.detach().cpu().numpy()}
+    arrays.update({f"grad{i}": f.grad.cpu().numpy() for i, f in enumerate(fields)})
+    del x, wgt, a, b, cot, fields, warped
+    torch.cuda.empty_cache()
+
+    # (b) the fused pipeline, the nets on this rank's band; the model's
+    # warp recorded, which both routes call (the halo warp and the gathered
+    # frame's)
+    models = _serve_models(dev, repo)
+    fn = spatial.fusion_spatial_apply(models, mesh, device=dev)
+    images = []
+
+    def recording(x, *args):
+        images.append(list(x.shape))
+        return adacof_cuda.adacof_warp(x, *args)
+
+    models.adacof.warp = recording
+    ms, per_request = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i, (f1, f2) in enumerate(_spatial_requests()):
+        _reset_counts()
+        images.clear()
+        spatial.exchanged.clear()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn(f1[None], f2[None])
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+        per_request.append(dict(**_counts(), k1_inputs=list(images),
+                                halo_bytes=spatial.exchanged["halo"],
+                                gather_bytes=spatial.exchanged["gather"],
+                                rows=[res.rows.start, res.rows.stop]))
+        arrays[f"fused{i}"] = res.gather()[0].cpu().numpy()
+    np.savez(out, **arrays)
+    return dict(rank=bands.index, rows=[bands.lo, bands.hi], warp=warp_counts, ms=ms,
+                peak_memory_bytes=torch.cuda.max_memory_allocated(), requests=per_request)
+
+
+# one rank of phase spatial: a gloo group of two processes on the one card
+_SPATIAL_RANK_CHILD = """
+import json, sys
+import torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+coord, rank, repo, out = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4]
+import chip_smoke as S
+from fmvfi_tpu_torch.parallel import distributed
+from fmvfi_tpu_torch.parallel.mesh import make_mesh
+distributed.initialize(coord, num_processes=2, process_id=rank, backend="gloo")
+mesh = make_mesh(2, ("data", "spatial"), (1, 2))
+dev = torch.device("cuda", torch.cuda.current_device())
+print(json.dumps(S._spatial_rank(mesh, dev, repo, out)))
+"""
+
+
+def phase_spatial(dev, repo):
+    """(a) the halo warp and (b) fusion_spatial_apply on two gloo ranks
+    sharing the card, against the plain warp and its field gradients (and
+    K1/K2) on the whole frame here and fusion_interpolate with the plain
+    warp; (c) fusion_spatial_apply on a 1-process NCCL group, (1, 1)
+    mesh, bit-equal to fusion_interpolate.  Returns the ranks' K1 and K2
+    launches."""
+    with _work_dir(repo) as work_dir:
+        return _spatial(dev, repo, work_dir)
+
+
+def _spatial(dev, repo, work):
+    import torch
+    import torch.distributed as dist
+
+    from fmvfi_tpu_torch.ops import adacof_cuda
+    from fmvfi_tpu_torch.ops.adacof import adacof_warp as warp_plain
+    from fmvfi_tpu_torch.ops.adacof import adacof_warp_field_grads, pad_replicate
+    from fmvfi_tpu_torch.parallel import distributed, spatial
+    from fmvfi_tpu_torch.parallel.mesh import make_mesh
+    from fmvfi_tpu_torch.pipeline.interpolate import fusion_interpolate
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=repo)
+    coord = f"localhost:{_free_port()}"
+    procs = [subprocess.Popen([sys.executable, "-c", _SPATIAL_RANK_CHILD, coord, str(r), repo,
+                               os.path.join(work, f"rank{r}.npz")], cwd=repo, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in (0, 1)]
+    ranks = []
+    try:
+        for r, p in enumerate(procs):
+            out, err = p.communicate(timeout=600)
+            if p.returncode != 0:
+                raise AssertionError(f"spatial rank {r}: exit {p.returncode}\n{err[-3000:]}")
+            ranks.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            p.kill()
+    ranks_seconds = time.perf_counter() - t0
+    blocks = [dict(np.load(os.path.join(work, f"rank{r}.npz"))) for r in (0, 1)]
+
+    # (a)'s references on the whole frame, here: the plain warp and its
+    # field gradients, and K1 and K2 (the JAX package holds the halo warp
+    # bit-equal to the single-device warp)
+    x, wgt, a, b, cot = _spatial_warp_case(dev)
+    xp = pad_replicate(x, 2)
+    fields = [t.requires_grad_() for t in (wgt, a, b)]
+    whole = adacof_cuda.adacof_warp(xp, *fields, 1, SPATIAL_R)
+    whole.backward(cot)
+    refs = {"k1": [whole.detach()] + [f.grad for f in fields]}
+    del whole, fields
+    with torch.no_grad():
+        refs["plain"] = [warp_plain(xp, wgt, a, b, 1, SPATIAL_R)]
+    refs["plain"] += adacof_warp_field_grads(xp, wgt.detach(), a.detach(), b.detach(), cot, 1,
+                                             SPATIAL_R)
+    warp_diff = {k: 0.0 for k in refs}
+    grad_diff = {k: 0.0 for k in refs}
+    for rec, blk in zip(ranks, blocks):
+        rows = slice(*rec["rows"])
+        got = [torch.from_numpy(blk[k]).to(dev) for k in ("warp", "grad0", "grad1", "grad2")]
+        for k, ref in refs.items():
+            warp_diff[k] = max(warp_diff[k], float((got[0] - ref[0][:, :, rows]).abs().max()))
+            for g, want in zip(got[1:], ref[1:]):
+                grad_diff[k] = max(grad_diff[k], float((g - want[:, :, rows]).abs().max()))
+    del x, xp, wgt, a, b, cot, refs, got
+    torch.cuda.empty_cache()
+
+    # (c): fusion_spatial_apply on a 1-process NCCL group and
+    # fusion_interpolate on the card; (b)'s reference: fusion_interpolate
+    # with the plain warp
+    models = _serve_models(dev, repo)
+    requests = _spatial_requests()
+    if dist.is_initialized():
+        raise AssertionError("spatial: a process group already exists in the smoke's process")
+    distributed.initialize(backend="nccl")
+    try:
+        mesh = make_mesh(1, ("data", "spatial"), (1, 1))
+        one = spatial.fusion_spatial_apply(models, mesh, device=dev)(
+            requests[0][0][None], requests[0][1][None]).gather()
+    finally:
+        dist.destroy_process_group()
+    one_bit_equal = bool(torch.equal(one, fusion_interpolate(models, requests[0][0][None],
+                                                             requests[0][1][None], device=dev)))
+    models.adacof.warp = warp_plain
+    single = [fusion_interpolate(models, f1[None], f2[None], device=dev)[0].cpu().numpy()
+              for f1, f2 in requests]
+    psnr = {rec["rank"]: [_psnr(blk[f"fused{i}"], single[i]) for i in range(len(requests))]
+            for rec, blk in zip(ranks, blocks)}
+    ranks_equal = all(np.array_equal(blocks[0][f"fused{i}"], blocks[1][f"fused{i}"])
+                      for i in range(len(requests)))
+    del models
+    torch.cuda.empty_cache()
+
+    _line(phase="spatial", seconds=time.perf_counter() - t0, ranks_seconds=ranks_seconds,
+          note="2 gloo ranks share one card and reduce through host memory: the collectives' "
+               "cost, not a speed-up",
+          warp=dict(images=2, size=[H_FULL, W_FULL], bands=[r["rows"] for r in ranks],
+                    max_offset=SPATIAL_R, max_abs_diff=warp_diff,
+                    tol=dict(plain=K1_TOL, k1=SPATIAL_WARP_TOL),
+                    grad_max_abs_diff=grad_diff, grad_tol=K2_TOL,
+                    launches={r["rank"]: r["warp"] for r in ranks}),
+          fusion=dict(size=[H_FULL, W_FULL], batch=1, mesh=[1, 2],
+                      ms_per_request={r["rank"]: r["ms"][1:] for r in ranks},
+                      warmup_ms={r["rank"]: r["ms"][0] for r in ranks},
+                      peak_memory_bytes={r["rank"]: r["peak_memory_bytes"] for r in ranks},
+                      per_request={r["rank"]: r["requests"][1:] for r in ranks},
+                      psnr_vs_one_process_plain_db=psnr, ranks_equal=ranks_equal),
+          one_process_nccl=dict(mesh=[1, 1], bit_equal=one_bit_equal))
+    # the halo warp's block: a band of the 1088-row (/32) frame, 51 halo
+    # rows (max_offset 48 + kp 2 + 1) above and below
+    halo_rows = -(-H_FULL // 32) * 32 // 2 + 2 * (48 + 2 + 1)
+    if not (warp_diff["plain"] <= K1_TOL and warp_diff["k1"] <= SPATIAL_WARP_TOL
+            and max(grad_diff.values()) <= K2_TOL):
+        raise AssertionError(f"spatial (a): the halo warp {warp_diff} from the plain warp and "
+                             f"K1 on the whole frame (<= {K1_TOL}, {SPATIAL_WARP_TOL}), its "
+                             f"field gradients {grad_diff} (<= {K2_TOL})")
+    for r in ranks:
+        w = r["warp"]
+        if (w["k1"], w["k2"]) != (1, 1) or w["k1_paths"] != {RING_PATH: 1}:
+            raise AssertionError(f"spatial (a) rank {r['rank']}: K1/K2 {w}")
+        for q in r["requests"]:
+            if (q["k1"], q["k2"]) != (3, 0) or q["k1_paths"] != {RING_PATH: 3}:
+                raise AssertionError(f"spatial (b) rank {r['rank']}: K1/K2 {q}")
+            if [x[0] for x in q["k1_inputs"]] != [2, 4, 2] or q["halo_bytes"] <= 0:
+                raise AssertionError(f"spatial (b) rank {r['rank']}: K1 inputs "
+                                     f"{q['k1_inputs']}, halo bytes {q['halo_bytes']}")
+            if any(x[2] != halo_rows for x in q["k1_inputs"]):
+                raise AssertionError(f"spatial (b) rank {r['rank']}: K1 inputs {q['k1_inputs']}"
+                                     f", not the halo warp's blocks of {halo_rows} rows")
+    if not (ranks_equal and min(min(v) for v in psnr.values()) >= PLAIN_AGREEMENT_DB):
+        raise AssertionError(f"spatial (b): ranks equal {ranks_equal}, {psnr} dB against "
+                             f"one process with the plain warp (>= {PLAIN_AGREEMENT_DB})")
+    if not one_bit_equal:
+        raise AssertionError("spatial (c): fusion_spatial_apply on a (1, 1) mesh is not "
+                             "fusion_interpolate bit for bit")
+    k1 = sum(r["warp"]["k1"] + sum(q["k1"] for q in r["requests"]) for r in ranks)
+    k2 = sum(r["warp"]["k2"] + sum(q["k2"] for q in r["requests"]) for r in ranks)
+    return k1, k2
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -1660,6 +1949,12 @@ def main() -> int:
         (1, 3, 40, 64, 11, 2, 60.0, None),
         (2, 3, 37, 52, 7, 1, 60.0, 48),
         (1, 5, 40, 64, 3, 1, 4.0, 10),
+        # offsets far past the tile with more blocks than the card holds at
+        # once, through the ring: consumers lag the producer (the ring's
+        # proxy fence, csrc/adacof_ring.cuh)
+        (2, 3, 256, 512, 5, 1, 60.0, 48),
+        (1, 3, 512, 768, 11, 1, 60.0, 48),
+        (2, 3, 256, 512, 7, 1, 60.0, None),
     ]
 
     def took(counter, fn):
@@ -2505,8 +2800,10 @@ def main() -> int:
     phase_gan_vs_cpu(dev)
     phase_native()
     dp_k1, dp_k2 = phase_dp(dev, repo)
+    spatial_k1, spatial_k2 = phase_spatial(dev, repo)
     regime_k1.update(lpips=lpips_k1, cli=cli_k1, export=export_k1, train_gan=gan_k1,
-                     train_gan_types=gan_types_k1, serve_bf16=bf16_k1, dp=dp_k1)
+                     train_gan_types=gan_types_k1, serve_bf16=bf16_k1, dp=dp_k1,
+                     spatial=spatial_k1)
 
     k1_1080, k1_1080_8 = timings[2], timings[3]  # the 4-image and the batched 8-image launch
     k2_train = k2_timings[0]  # the training launch
@@ -2527,14 +2824,15 @@ def main() -> int:
     ), dict(
         name=adacof_cuda.NAME_BWD, route="cuda", source=adacof_cuda.SOURCE_BWD,
         replaces=adacof_cuda.REPLACES_BWD,
-        launches=train_k2 + gan_k2 + gan_types_k2 + cli_k2 + export_k2 + dp_k2,
+        launches=train_k2 + gan_k2 + gan_types_k2 + cli_k2 + export_k2 + dp_k2 + spatial_k2,
         max_abs_err=k2_max_err,
         ms=k2_train["ms"], plain_ms=k2_train["plain_ms"], bound_ms=k2_train["bound_ms"],
         bound_by=k2_train["bound_by"], library_ms=None, design=DESIGN,
         launch_1080p_ms=k2_timings[1]["ms"],
         launches_by_path=dict(serve=0, serve_bf16=0, video=0, eval=0, lpips=0, cli=cli_k2,
                               export=export_k2, train=train_k2, train_phase=0, train_fusion=0,
-                              train_gan=gan_k2, train_gan_types=gan_types_k2, dp=dp_k2),
+                              train_gan=gan_k2, train_gan_types=gan_types_k2, dp=dp_k2,
+                              spatial=spatial_k2),
     )])
     _line(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),
                                count=torch.cuda.device_count()))

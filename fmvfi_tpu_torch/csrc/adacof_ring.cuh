@@ -108,6 +108,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// Order this thread's shared-memory accesses through the generic proxy
+// before its later ones through the async proxy (bulk copies).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
 __device__ __forceinline__ uint64_t l2_evict_first_policy() {
   uint64_t policy;
   asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(policy));
@@ -175,7 +181,13 @@ struct Ring {
   }
 
   // A consumer lane's fields for ring position n: W, alpha, beta of its kPix
-  // pixels in row `row`; then the warp releases the stage.
+  // pixels in row `row`; then the warp releases the stage.  Every lane fences
+  // its reads (generic proxy) against the producer's next bulk copy into the
+  // stage (async proxy) before the release: the mbarrier orders the generic
+  // proxy only, and without the fence a copy could land before a read was
+  // performed.  That showed where consumers lag the producer (large
+  // offsets, gathers far from the tile, more blocks than the card holds at
+  // once): K1 and K2 then read later taps' fields, run to run differently.
   __device__ void consume(int n, int row, float (&w)[kPix], float (&a)[kPix],
                           float (&b)[kPix]) const {
     const int lane = threadIdx.x % 32;
@@ -187,6 +199,7 @@ struct Ring {
       a[p] = field(s, 1, row)[lane + 32 * p];
       b[p] = field(s, 2, row)[lane + 32 * p];
     }
+    fence_proxy_async();
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
   }

@@ -14,6 +14,13 @@ in one call, occlusion-blend, then the flow mean/variance maps and the
 (detached) uncertainty mask, cropped back.  `smoothness_penalties` gives the
 g_Spatial / g_Occlusion training terms from the raw heads.
 
+Under active spatial bands (parallel/spatial.py) AdaCoFNet takes a band of
+rows of each frame: the last band builds the /32 reflect tail from its own
+rows, the U-Net's layers exchange halo rows, and the warp routes as the JAX
+model's `spatial_mesh` does (`_sharded_max_offset`): through the
+halo-exchange warp where the bands host its halo, else through the warp of
+the gathered frame.
+
 Layout: NCHW; fields (B, F^2, H, W).
 """
 
@@ -28,6 +35,7 @@ from torch import nn
 from ..ops import adacof_cuda
 from ..ops.adacof import flow_stats, pad_replicate
 from ..ops.resize import avg_pool2, upsample2x
+from ..parallel import spatial
 from .conv import Conv2d, TapConv2d, upcast
 
 # fixed RGB mean shift of the reference's module_normalize
@@ -208,6 +216,36 @@ class AdaCoFNet(nn.Module):
         # the warp function; a check may swap in the plain version on CUDA
         self.warp = adacof_cuda.adacof_warp
 
+    def _sharded_max_offset(self, h: int, b2: int, n_sp: int, n_b: int) -> int:
+        """The offset clamp of the halo-exchange warp for a frame height h
+        (padded to /32) over n_sp spatial bands and a warp batch b2 over n_b
+        batch shares, or 0 where the halo path cannot reproduce the
+        single-device clamped warp (port of the JAX model's
+        `_sharded_max_offset`): 0 sends the warp to the UNCLAMPED warp of
+        the gathered frame, JAX's exact gather warp, never a tightened
+        clamp."""
+        if h % n_sp or b2 % n_b:
+            return 0
+        kp = ((self.kernel_size - 1) * self.dilation) // 2
+        r = self.max_offset  # min(max_offset, fit), None where fit < 24
+        if r is None or h // n_sp - kp - 1 < r:
+            return 0
+        return r
+
+    def _banded_warp(self, bands, xs, w, a, b):
+        """The warp of the frames' bands (unpadded) under `bands`: the
+        halo-exchange warp with the clamp `_sharded_max_offset` gives, where
+        every band hosts its halo; else the warp of the gathered frame,
+        clamped the same (bands of unequal rows can be shorter than JAX's
+        equal shards) or, for 0, unclamped."""
+        kp = ((self.kernel_size - 1) * self.dilation) // 2
+        r = self._sharded_max_offset(bands.height, xs.shape[0] * bands.n_data, bands.n,
+                                     bands.n_data)
+        if r and min(bands.rows) >= r + kp + 1:
+            return spatial.adacof_warp_tm_sharded(xs, w, a, b, self.dilation, max_offset=r,
+                                                  warp=self.warp)
+        return spatial.adacof_warp_gathered(xs, w, a, b, self.dilation, r or None, self.warp)
+
     def forward(
         self,
         frame0: torch.Tensor,
@@ -225,27 +263,33 @@ class AdaCoFNet(nn.Module):
         if frame0.shape != frame2.shape:
             raise ValueError(f"frame sizes do not match: {frame0.shape} vs {frame2.shape}")
         b, _, h0, w0 = frame0.shape
-        pad_h = (32 - h0 % 32) % 32
+        bands = spatial.active()
+        pad_h = (32 - (h0 if bands is None else bands.height) % 32) % 32
         pad_w = (32 - w0 % 32) % 32
+        if bands is not None:  # the /32 tail of the frame is the last band's
+            bands = bands.padded(pad_h)
+            pad_h = pad_h if bands.last else 0
+            if any(r % 32 for r in bands.rows):
+                raise ValueError(f"AdaCoF takes bands of a multiple of 32 rows after the /32 "
+                                 f"pad, got {bands.rows}")
         if pad_h or pad_w:
             frame0 = F.pad(frame0, (0, pad_w, 0, pad_h), mode="reflect")
             frame2 = F.pad(frame2, (0, pad_w, 0, pad_h), mode="reflect")
 
-        w1, a1, b1, w2, a2, b2, occ = self.get_kernel(
-            module_normalize(frame0), module_normalize(frame2), compute_dtype
-        )
+        with spatial.running(bands):
+            w1, a1, b1, w2, a2, b2, occ = self.get_kernel(
+                module_normalize(frame0), module_normalize(frame2), compute_dtype
+            )
 
         kp = ((self.kernel_size - 1) * self.dilation) // 2
         # one warp call for both frames: frames and fields stacked on the batch
-        xs = torch.cat([pad_replicate(frame0, kp), pad_replicate(frame2, kp)], 0)
-        wboth = self.warp(
-            xs,
-            torch.cat([w1, w2], 0),
-            torch.cat([a1, a2], 0),
-            torch.cat([b1, b2], 0),
-            self.dilation,
-            self.max_offset,
-        )
+        fields = (torch.cat([w1, w2], 0), torch.cat([a1, a2], 0), torch.cat([b1, b2], 0))
+        if bands is None:
+            xs = torch.cat([pad_replicate(frame0, kp), pad_replicate(frame2, kp)], 0)
+            wboth = self.warp(xs, *fields, self.dilation, self.max_offset)
+        else:
+            with spatial.running(bands):
+                wboth = self._banded_warp(bands, torch.cat([frame0, frame2], 0), *fields)
         warped0, warped2 = wboth[:b], wboth[b:]
         blended = occ * warped0 + (1.0 - occ) * warped2
 

@@ -8,6 +8,11 @@ rounding, in bfloat16, as flax adds it.  On CUDA that is cuDNN's bfloat16
 convolution; on the CPU, where oneDNN's bfloat16 convolution does not
 round as XLA's does, a float32 convolution of the rounded operands.  A float32 input takes `nn.Conv2d`'s
 fused path unchanged.
+
+Under active spatial bands (parallel/spatial.py) a zero-padded convolution
+takes a band of rows and gives the band's rows of the whole frame's
+output: the rows of its padding come from the neighbouring bands, zero rows
+only at the frame's top and bottom.
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel import spatial
 
 
 def upcast(x: torch.Tensor) -> torch.Tensor:
@@ -32,11 +39,24 @@ def _bf16(conv, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return conv(x, w)
 
 
+def _band_rows(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """x with `pad` halo rows above and below: a band's (zero rows at the
+    frame's top and bottom) under active bands; else the zero rows of
+    the padding itself."""
+    if spatial.active() is not None:
+        return spatial.extend_rows(x, pad, pad, "zeros")[0]
+    return F.pad(x, (0, 0, pad, pad))
+
+
 class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        padding = self.padding
+        if padding[0] and spatial.active() is not None:
+            x, padding = _band_rows(x, padding[0]), (0, padding[1])
+        conv = lambda a, w, b: F.conv2d(a, w, b, self.stride, padding, self.dilation, self.groups)
         if x.dtype == self.weight.dtype:
-            return super().forward(x)
-        y = _bf16(lambda a, w: self._conv_forward(a, w, None), x, self.weight)
+            return conv(x, self.weight, self.bias)
+        y = _bf16(lambda a, w: conv(a, w, None), x, self.weight)
         return y + self.bias.to(x.dtype)[:, None, None]
 
 
@@ -54,7 +74,7 @@ class TapConv2d(Conv2d):
         if x.dtype == self.weight.dtype:
             return super().forward(x)
         h, wd = x.shape[-2:]
-        xp = F.pad(x, (1, 1, 1, 1))
+        xp = F.pad(_band_rows(x, 1), (1, 1, 0, 0))
         out = None
         for dy in range(3):
             for dx in range(3):

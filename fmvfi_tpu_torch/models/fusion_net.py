@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.resize import max_pool2, upsample2x
+from ..parallel import spatial
 from .conv import Conv2d, upcast
 
 
@@ -33,7 +34,9 @@ def infer_variant(fusion_vars) -> int:
 
 
 class _RConv(Conv2d):
-    """Conv with reflect padding of k//2 ('VALID' conv on the padded input)."""
+    """Conv with reflect padding of k//2 ('VALID' conv on the padded input);
+    under active spatial bands the rows of the padding come from the
+    neighbouring bands, reflected rows only at the frame's top and bottom."""
 
     def __init__(self, c_in: int, c_out: int, k: int):
         super().__init__(c_in, c_out, k)
@@ -41,7 +44,9 @@ class _RConv(Conv2d):
 
     def forward(self, x):
         p = self.pad
-        if p:
+        if p and spatial.active() is not None:
+            x = F.pad(spatial.extend_rows(x, p, p, "reflect")[0], (p, p, 0, 0), mode="reflect")
+        elif p:
             x = F.pad(x, (p, p, p, p), mode="reflect")
         return super().forward(x)
 

@@ -14,6 +14,12 @@ does: the parameters stay float32 and are cast per call, the nets return to
 float32 at fixed points, and the colour conversion, the pyramid, the
 uncertainty maps and the warp (K1 on CUDA: float32 only) stay float32, as do
 the returned frames.
+
+`spatial_mesh` (a ("data", "spatial") DeviceMesh, one process per device)
+of `fusion_interpolate` and `phase_interpolate` serves frames split over
+the processes (parallel/spatial.py): every process passes the whole
+frames and gets the whole result; in between each computes its batch
+share, the nets on its band of rows.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from ..ops.pyramid import (
     reconstruct,
     reconstruct_coarse,
 )
+from ..parallel import spatial
 
 
 class FusionModels(NamedTuple):
@@ -134,14 +141,26 @@ def _phase_predict_rgb(phase_net, lab1, lab2, filters, compute_dtype=None) -> to
 
 @torch.no_grad()
 def phase_interpolate(
-    phase_net: PhaseNetCore, frame1, frame2, *, device="cuda", filters=None
+    phase_net: PhaseNetCore, frame1, frame2, *, device="cuda", filters=None, spatial_mesh=None,
+    batch_axis: str = "data",
 ) -> torch.Tensor:
     """PhaseNet-only interpolation: (B, H, W, 3) frames -> (B, H, W, 3).
-    `filters`: the frames' pyramid filter bank (None: built, cached)."""
+    `filters`: the frames' pyramid filter bank (None: built, cached).
+    `spatial_mesh`: a DeviceMesh with a `batch_axis`; every process passes
+    the whole batch and gets the whole result, each computing its share of
+    the batch on whole frames (the JAX package pins this FFT section to
+    batch-only sharding)."""
     dev = _device(device, phase_net)
     f1, f2 = _nchw(frame1, dev), _nchw(frame2, dev)
     filters = _filters(f1, filters)
-    return _nhwc(_phase_predict_rgb(phase_net, rgb_to_lab(f1), rgb_to_lab(f2), filters))
+    if spatial_mesh is None:
+        return _nhwc(_phase_predict_rgb(phase_net, rgb_to_lab(f1), rgb_to_lab(f2), filters))
+    spatial._check_mesh(spatial_mesh, batch_axis)
+    share, group = spatial.batch_share(spatial_mesh, batch_axis, f1.shape[0])
+    out = _nhwc(_phase_predict_rgb(phase_net, rgb_to_lab(f1[share]), rgb_to_lab(f2[share]),
+                                   filters))
+    whole = (f1.shape[0],) + tuple(out.shape[1:])
+    return spatial.Sharded(out, share, slice(None), whole, (None, group)).gather()
 
 
 @torch.no_grad()
@@ -214,25 +233,34 @@ def _pad8(x: torch.Tensor) -> torch.Tensor:
     return F.pad(x, (0, pad_w, 0, pad_h), mode="reflect") if pad_h or pad_w else x
 
 
-def _mid_sections(models: FusionModels, f1, f2, ada_pred, filters, compute_dtype=None):
+def _mid_sections(models: FusionModels, f1, f2, ada_pred, filters, compute_dtype=None,
+                  bands=None):
     """Sections 2-4 of the fusion pipeline on (B, 3, H, W) tensors: PhaseNet,
     the uncertainty maps (None without maps) and the 3-pass baseline.  They
     are independent per sample, so they run on the whole batch or chunk by
-    chunk (fmvfi_tpu/pipeline/interpolate.py:372-429).
+    chunk (fmvfi_tpu/pipeline/interpolate.py:372-429).  With `bands`
+    (parallel/spatial.py) the tensors are bands of rows: PhaseNet and the
+    maps run on the gathered frames, the baseline on the bands.
     Returns (phase_pred, lab1, lab2, base, (ada_unc, phase_unc) or None)."""
     b = f1.shape[0]
+    whole = (lambda t: t) if bands is None else bands.gather
+    band = (lambda t: t) if bands is None else bands.take
     # 2. PhaseNet (Lab domain)
     lab1, lab2 = rgb_to_lab(f1), rgb_to_lab(f2)
-    phase_pred = _phase_predict_rgb(models.phase_net, lab1, lab2, filters, compute_dtype)
+    phase_whole = _phase_predict_rgb(models.phase_net, whole(lab1), whole(lab2), filters,
+                                     compute_dtype)
     # 3. the pyramid uncertainty maps
     unc = None
     if models.fusion_net.uncertainty_maps:
-        unc = fusion_uncertainty(ada_pred, phase_pred, filters)
+        unc = tuple(map(band, fusion_uncertainty(whole(ada_pred), phase_whole, filters)))
+    phase_pred = band(phase_whole)
     # 4. baseline composite; passes 1 and 2 are independent -> one batched call
     lhs = torch.cat([f1, phase_pred], 0)
     rhs = torch.cat([phase_pred, f2], 0)
-    mids = models.adacof(lhs, rhs, with_stats=False, compute_dtype=compute_dtype).blended
-    base = models.adacof(mids[:b], mids[b:], with_stats=False, compute_dtype=compute_dtype).blended
+    with spatial.running(bands):
+        mids = models.adacof(lhs, rhs, with_stats=False, compute_dtype=compute_dtype).blended
+        base = models.adacof(mids[:b], mids[b:], with_stats=False,
+                             compute_dtype=compute_dtype).blended
     return phase_pred, lab1, lab2, base, unc
 
 
@@ -279,18 +307,26 @@ def fusion_inputs(models: FusionModels, frame1, frame2, dev: torch.device, seq_c
     if chunked and b % seq_chunk:
         raise ValueError(f"batch {b} not divisible by seq_chunk {seq_chunk}")
     f1, f2 = _pad8(f1), _pad8(f2)
-    filters = _filters(f1, filters)
+    return (_sections(models, f1, f2, _filters(f1, filters), seq_chunk, compute_dtype),
+            (full_h, full_w))
+
+
+def _sections(models: FusionModels, f1, f2, filters, seq_chunk: int = 0, compute_dtype=None,
+              bands=None) -> "FusionInputs":
+    """Sections 1-4 on (B, 3, H, W) frames on the /8 grid, or on their bands
+    of rows (`bands`, parallel/spatial.py; not with seq_chunk)."""
     n_maps = models.fusion_net.uncertainty_maps
 
     # 1. AdaCoF
-    ada_out = models.adacof(f1, f2, with_stats=n_maps != 0, compute_dtype=compute_dtype)
+    with spatial.running(bands):
+        ada_out = models.adacof(f1, f2, with_stats=n_maps != 0, compute_dtype=compute_dtype)
     ada_pred = ada_out.blended
 
     # 2-4. PhaseNet, uncertainty maps, baseline composite
-    if chunked:
+    if 0 < seq_chunk < f1.shape[0]:
         mid = _chunked_mid_sections(models, f1, f2, ada_pred, filters, seq_chunk, compute_dtype)
     else:
-        mid = _mid_sections(models, f1, f2, ada_pred, filters, compute_dtype)
+        mid = _mid_sections(models, f1, f2, ada_pred, filters, compute_dtype, bands)
     phase_pred, lab1, lab2, base, unc = mid
 
     # maps ordered [ada_unc, phase_unc, flow_var]
@@ -299,7 +335,7 @@ def fusion_inputs(models: FusionModels, frame1, frame2, dev: torch.device, seq_c
         maps = torch.stack([unc[0], unc[1], ada_out.uncertainty[:, 0]], dim=1)
     # other = the Lab frames
     other = torch.cat([lab1, lab2], dim=1)
-    return FusionInputs(base, ada_pred, phase_pred, other, maps), (full_h, full_w)
+    return FusionInputs(base, ada_pred, phase_pred, other, maps)
 
 
 @torch.no_grad()
@@ -312,6 +348,8 @@ def fusion_interpolate(
     device="cuda",
     compute_dtype=None,
     spatial_mesh=None,
+    batch_axis: str = "data",
+    spatial_axis: str = "spatial",
     seq_chunk: int = 0,
     filters=None,
 ):
@@ -337,19 +375,68 @@ def fusion_interpolate(
     bank at the /8-padded size (None: built, cached; utils/export.py passes
     the program's own).  `compute_dtype`: None (float32) or torch.bfloat16,
     the networks' compute dtype (see the module's docstring); the output
-    is float32 either way.  spatial_mesh of the JAX pipeline is not ported
-    yet and raises."""
-    if spatial_mesh is not None:
-        raise NotImplementedError("spatial_mesh is not ported to fmvfi_tpu_torch yet")
+    is float32 either way.
+
+    `spatial_mesh`: a DeviceMesh with the axes `batch_axis` and
+    `spatial_axis` (parallel/mesh.py::make_mesh(n, ("data", "spatial"),
+    shape)), one process per device.  Every process passes the whole frames
+    and gets the whole result; each computes its share of the batch, the
+    nets and the warps on its band of rows (`fusion_sharded`).  Not with
+    seq_chunk."""
+    res = fusion_sharded(models, frame1, frame2, spatial_mesh, batch_axis, spatial_axis,
+                         return_parts, device=device, compute_dtype=compute_dtype,
+                         seq_chunk=seq_chunk, filters=filters)
+    if return_parts:
+        return res[0].gather(), {k: v.gather() for k, v in res[1].items()}
+    return res.gather()
+
+
+def fusion_sharded(models: FusionModels, frame1, frame2, mesh=None, batch_axis: str = "data",
+                   spatial_axis: str = "spatial", return_parts: bool = False, *, device="cuda",
+                   compute_dtype=None, seq_chunk: int = 0, filters=None):
+    """`fusion_interpolate`, this process's block of it: the whole
+    (B, H, W, 3) frames in, the fused frames' entries of this process's
+    batch share and rows of its band out, as a `spatial.Sharded`
+    (`.gather()`: the whole batch); with return_parts, also a dict of the
+    parts as `Sharded`s.  Over a (data x spatial) `mesh` the batch is split
+    over `batch_axis` and the /8-padded height over `spatial_axis`
+    (parallel/spatial.py::data_spatial_sharding); the AdaCoF passes and
+    FusionNet run on the bands under `spatial.running`, PhaseNet and the
+    uncertainty maps on the gathered frames of the batch share.  With no
+    mesh the block is the whole batch (`.gather()` returns it).  Runs
+    under its callers' no_grad: a second no_grad nested in an exported
+    program leaves a grad-mode node that torch.export cannot load back."""
     _check_compute_dtype(compute_dtype)
     dev = _device(device, *models)
-    inputs, (full_h, full_w) = fusion_inputs(models, frame1, frame2, dev, seq_chunk, filters,
-                                             compute_dtype)
+    f1, f2 = _nchw(frame1, dev), _nchw(frame2, dev)
+    b, _, full_h, full_w = f1.shape
+    share, groups, bands = slice(None), (None, None), None
+    if mesh is not None:
+        spatial._check_mesh(mesh, batch_axis, spatial_axis)
+        if 0 < seq_chunk < b:
+            raise ValueError("seq_chunk is incompatible with spatial_mesh")
+        share, batch_group = spatial.batch_share(mesh, batch_axis, b)
+    elif 0 < seq_chunk < b and b % seq_chunk:
+        raise ValueError(f"batch {b} not divisible by seq_chunk {seq_chunk}")
+    f1, f2 = _pad8(f1[share]), _pad8(f2[share])
+    filters = _filters(f1, filters)
+    rows = slice(0, full_h)
+    if mesh is not None:
+        bands = spatial.bands_of(mesh, spatial_axis, f1.shape[-2], b // f1.shape[0])
+        rows = slice(bands.lo, min(bands.hi, full_h))  # the /8 pad is the last band's
+        if bands.n > 1:
+            f1, f2 = bands.take(f1), bands.take(f2)
+        else:
+            bands = None
+        groups = (None if bands is None else bands.group, batch_group)
+    inputs = _sections(models, f1, f2, filters, seq_chunk, compute_dtype, bands)
     # 5. FusionNet blend
-    final = models.fusion_net(*inputs, compute_dtype=compute_dtype)
+    with spatial.running(bands):
+        final = models.fusion_net(*inputs, compute_dtype=compute_dtype)
 
     def out(x):
-        return _nhwc(x[:, :, :full_h, :full_w])
+        x = _nhwc(x[:, :, : rows.stop - rows.start, :full_w])
+        return spatial.Sharded(x, share, rows, (b, full_h, full_w, x.shape[-1]), groups)
 
     if return_parts:
         parts = {"phase": out(inputs.phase), "adacof": out(inputs.adacof),

@@ -32,6 +32,11 @@ is parent, this, this, parent.
 Each time is the median over 10 repetitions of the mean of 10 back-to-back
 launches (CUDA events).  Prints one JSON line per launch shape, per tree,
 and the card's nvidia-smi line.
+
+Each tree's kernels are also held against the plain versions where the
+ring's consumers lag its producer (FAR: offsets to +-60 px, more blocks
+than the card holds at once; the race of ROADMAP Q3-4), three launches of
+K1 and of K2 each; the line reports every launch's max abs error.
 """
 
 import argparse
@@ -76,6 +81,36 @@ def inputs(b, h, w):
     return x, wgt, a, be, g
 
 
+FAR = ((2, 1080, 1920), (8, 256, 256))  # images, rows, columns; F 5, offsets to +-60
+
+
+def far_errors(cuda, plain, tree):
+    """Each of three K1 and K2 launches' max abs error against the plain
+    versions at the FAR launches (one JSON line each); returns the largest
+    of K1's and of K2's."""
+    worst = [0.0, 0.0]
+    for b, h, w in FAR:
+        gen = torch.Generator(device="cuda").manual_seed(b * 7 + h)
+        x = torch.rand((b, 3, h + 4, w + 4), generator=gen, device="cuda")
+        wgt = torch.softmax(4.0 * torch.rand((b, 25, h, w), generator=gen, device="cuda"), 1)
+        a, be = ((torch.rand((b, 25, h, w), generator=gen, device="cuda") * 2 - 1) * 60.0
+                 for _ in range(2))
+        g = torch.randn((b, 3, h, w), generator=gen, device="cuda")
+        want1 = plain.adacof_warp(x, wgt, a, be, 1, 48)
+        want2 = plain.adacof_warp_field_grads(x, wgt, a, be, g, 1, 48)
+        k1, k2 = [], []
+        for _ in range(3):
+            out, x4 = cuda.warp_fwd_cuda(x, wgt, a, be, 1, 48)
+            k1.append(max_err([out], [want1]))
+            k2.append(max_err(cuda.warp_bwd_cuda(x, wgt, a, be, g, 1, 48, x4), want2))
+        print(json.dumps(dict(tree=tree, far=[b, h, w], offsets=60.0, k1_max_abs_err=k1,
+                              k2_max_abs_err=k2)), flush=True)
+        worst = [max(worst[0], *k1), max(worst[1], *k2)]
+        del x, wgt, a, be, g, want1, want2
+        torch.cuda.empty_cache()
+    return worst
+
+
 def unaligned(t):
     """t's values in a tensor whose data starts one float off 16 bytes."""
     out = torch.empty(t.numel() + 1, device=t.device)[1:].view(t.shape)
@@ -100,11 +135,15 @@ def time_parent(cuda):
     for b, h, w in LAUNCHES:
         x, wgt, a, be, g = inputs(b, h, w)
         ms = {"k1": cuda_ms(lambda: cuda.adacof_warp(x, wgt, a, be, 1, 48))}
-        if hasattr(cuda, "warp_bwd_cuda"):
-            ms["k2"] = cuda_ms(lambda: cuda.warp_bwd_cuda(x, wgt, a, be, g, 1, 48))
+        if hasattr(cuda, "warp_bwd_cuda"):  # on the RGBX copy K1 wrote, as time_this
+            x4 = cuda.warp_fwd_cuda(x, wgt, a, be, 1, 48)[1]
+            ms["k2"] = cuda_ms(lambda: cuda.warp_bwd_cuda(x, wgt, a, be, g, 1, 48, x4))
         print(json.dumps(dict(tree="parent", images=b, h=h, w=w, ms=ms)), flush=True)
         del x, wgt, a, be, g
         torch.cuda.empty_cache()
+    from fmvfi_tpu_torch.ops import adacof as plain
+
+    far_errors(cuda, plain, "parent")
 
 
 def time_this():
@@ -174,6 +213,9 @@ def time_this():
             raise SystemExit(f"forms disagree with what they compute: {bad}")
         del x, wgt, a, be, g, fields, x4, tiled, want1, want2, zero
         torch.cuda.empty_cache()
+    k1_err, k2_err = far_errors(cuda, plain, "this")
+    if not (k1_err <= K1_TOL and k2_err <= K2_TOL):
+        raise SystemExit(f"far offsets: K1 {k1_err}, K2 {k2_err} from the plain versions")
 
 
 def main() -> int:

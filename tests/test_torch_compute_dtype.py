@@ -405,5 +405,5 @@ def test_compute_dtype_refuses_other_values(weights, dtype):
         pt_pipe.fusion_stream_step(pt, carry, f, device="cpu", compute_dtype=dtype)
     with pytest.raises(ValueError, match="compute_dtype"):
         pt_pipe.fusion_stream_scan(pt, carry, f[None], device="cpu", compute_dtype=dtype)
-    with pytest.raises(NotImplementedError, match="spatial_mesh"):
+    with pytest.raises(ValueError, match="spatial_mesh must be a DeviceMesh"):
         pt_pipe.fusion_interpolate(pt, f, f, device="cpu", spatial_mesh=object())

@@ -66,6 +66,36 @@ def test_k1_matches_plain_on_the_card(cuda_device, f, d, c, w, path):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("f,w,path", [(5, 512, "f5c3/ring"), (11, 768, "f11c3/ring"),
+                                      (7, 512, "any/ring")])
+def test_ring_with_far_offsets_over_many_blocks(cuda_device, f, w, path):
+    """K1 and K2 through the ring where its consumers lag the producer:
+    offsets to +-60 (gathers far from the tile) and more blocks than the
+    card holds at once (2 images of 256 rows).  Without the ring's proxy
+    fence (csrc/adacof_ring.cuh) both read later taps' fields, differently
+    from run to run; each of three launches within 1e-5 / 1e-4 of the
+    plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(f)
+    b, h = 2, 256
+    x = torch.rand((b, 3, h + f - 1, w + f - 1), generator=g, device=cuda_device)
+    wgt = torch.softmax(4.0 * torch.rand((b, f * f, h, w), generator=g, device=cuda_device), 1)
+    a, be = ((torch.rand((b, f * f, h, w), generator=g, device=cuda_device) * 2 - 1) * 60
+             for _ in range(2))
+    cot = torch.randn((b, 3, h, w), generator=g, device=cuda_device)
+    want = pt_adacof.adacof_warp(x, wgt, a, be, 1, 48)
+    want_grads = pt_adacof.adacof_warp_field_grads(x, wgt, a, be, cot, 1, 48)
+    taken = adacof_cuda.paths[path]
+    for _ in range(3):
+        got, x4 = adacof_cuda.warp_fwd_cuda(x, wgt, a, be, 1, 48)
+        grads = adacof_cuda.warp_bwd_cuda(x, wgt, a, be, cot, 1, 48, x4)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+        for gg, ww in zip(grads, want_grads):
+            torch.testing.assert_close(gg, ww, rtol=0, atol=1e-4)
+    assert adacof_cuda.paths[path] == taken + 3
+
+
+@pytest.mark.gpu
 def test_k1_wrapper_checks_its_inputs(cuda_device):
     x = torch.rand((1, 3, 12, 14), device=cuda_device)
     w, a, b = (torch.rand((1, 25, 8, 10), device=cuda_device) for _ in range(3))
@@ -624,3 +654,80 @@ def test_data_parallel_step_on_one_card_matches_the_plain_step(cuda_device):
     finally:
         torch.backends.cudnn.deterministic = flags
         dist.destroy_process_group()
+
+
+@pytest.fixture
+def nccl_group(cuda_device):
+    """A 1-process NCCL group, destroyed after the test."""
+    import torch.distributed as dist
+
+    from fmvfi_tpu_torch.parallel import distributed
+
+    if dist.is_initialized():
+        pytest.skip("a process group already exists in this process")
+    distributed.initialize(backend="nccl")
+    try:
+        yield cuda_device
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_halo_warp_on_one_nccl_process_matches_the_plain_halo_warp(nccl_group):
+    """adacof_warp_tm_sharded on CUDA tensors (K1 forward, K2 backward, on
+    the halo-padded block with zero field rows) against the same function
+    on the CPU (the plain pair), one band of a (1, 1) mesh: forward within
+    1e-5, field gradients within 1e-4."""
+    from fmvfi_tpu_torch.parallel import spatial
+    from fmvfi_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(1, ("data", "spatial"), (1, 1))
+    bands = spatial.bands_of(mesh, "spatial", 96)
+    g = torch.Generator().manual_seed(0)
+    x = torch.rand((2, 3, 96, 64), generator=g)
+    wgt = torch.softmax(4.0 * torch.rand((2, 25, 96, 64), generator=g), dim=1)
+    a, b = ((torch.rand((2, 25, 96, 64), generator=g) * 2 - 1) * 60 for _ in range(2))
+    cot = torch.randn((2, 3, 96, 64), generator=g)
+
+    def run(device):
+        fields = [t.to(device).requires_grad_() for t in (wgt, a, b)]
+        with spatial.running(bands):
+            out = spatial.adacof_warp_tm_sharded(x.to(device), *fields, 1, max_offset=24)
+        out.backward(cot.to(device))
+        return [t.detach().cpu() for t in [out] + [f.grad for f in fields]]
+
+    before = (adacof_cuda.launches, adacof_cuda.bwd_launches)
+    card = run(nccl_group)
+    torch.cuda.synchronize()
+    assert (adacof_cuda.launches, adacof_cuda.bwd_launches) == (before[0] + 1, before[1] + 1)
+    plain = run("cpu")
+    torch.testing.assert_close(card[0], plain[0], rtol=0, atol=1e-5)
+    for got, want in zip(card[1:], plain[1:]):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_fusion_spatial_apply_on_a_one_process_mesh_is_fusion_interpolate(nccl_group):
+    """fusion_spatial_apply on a (1, 1) NCCL mesh: bit-equal to
+    fusion_interpolate on the card, with K1's 3 launches."""
+    import numpy as np
+
+    from fmvfi_tpu_torch.eval.synth import translation_triplet
+    from fmvfi_tpu_torch.models.adacof import AdaCoFNet
+    from fmvfi_tpu_torch.models.fusion_net import FusionNet
+    from fmvfi_tpu_torch.models.phase_net import PhaseNetCore
+    from fmvfi_tpu_torch.parallel import spatial
+    from fmvfi_tpu_torch.parallel.mesh import make_mesh
+    from fmvfi_tpu_torch.pipeline.interpolate import FusionModels, fusion_interpolate
+
+    torch.manual_seed(0)
+    models = FusionModels(PhaseNetCore().init_params(torch.Generator().manual_seed(0)).eval(),
+                          AdaCoFNet().eval(), FusionNet(variant=2).eval())
+    models = FusionModels(*(m.to(nccl_group) for m in models))
+    f1, _, f2 = translation_triplet(128, 160, dx=3.0, dy=1.0, seed=0)
+    mesh = make_mesh(1, ("data", "spatial"), (1, 1))
+    before = adacof_cuda.launches
+    got = spatial.fusion_spatial_apply(models, mesh, device=nccl_group)(f1[None], f2[None])
+    assert adacof_cuda.launches - before == 3
+    want = fusion_interpolate(models, f1[None], f2[None], device=nccl_group)
+    np.testing.assert_array_equal(got.gather().cpu().numpy(), want.cpu().numpy())

@@ -32,14 +32,14 @@ FORBIDDEN = (
 )
 GOLDEN_DB, GOLDEN_TOL = 42.967, 0.05  # tests/test_golden.py, bundled AdaCoF
 # the video, evaluation, adversarial, VGG, native-loader, codec,
-# command-line, export, profiling, compute-dtype and data-parallel modules:
+# command-line, export, profiling, compute-dtype, data-parallel and spatial modules:
 # imported by the isolated run below and held by the static import check
 NEW_MODULES = ("pipeline.video", "eval.metrics", "eval.evaluate", "eval.uncertainty",
                "models.discriminator", "models.flax_bn", "train.adversarial", "train.vgg",
                "native", "cli", "utils.imageio", "utils.config", "models.registry",
                "eval.datasets", "utils.export", "utils.profiling", "utils.msgpack_io",
                "utils.checkpoint", "utils.convert", "train.loop", "models.conv",
-               "parallel.mesh", "parallel.dp", "parallel.distributed")
+               "parallel.mesh", "parallel.dp", "parallel.distributed", "parallel.spatial")
 
 _ISOLATED = f"""
 import importlib, json, pkgutil, sys

@@ -117,7 +117,7 @@ def test_entry_points_check_device_and_options(weights):
         pt_pipe.adacof_interpolate(pt.adacof, f, f, device="meta")
     with pytest.raises(ValueError, match="compute_dtype"):
         pt_pipe.fusion_interpolate(pt, f, f, compute_dtype=torch.float16, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="spatial_mesh must be a DeviceMesh"):
         pt_pipe.fusion_interpolate(pt, f, f, spatial_mesh=object(), device="cpu")
 
 
