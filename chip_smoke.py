@@ -225,7 +225,34 @@ Phases, each printing one JSON line with its seconds:
               ranks share one card and gloo reduces through host memory:
               the collectives' cost, not a speed-up); (c) on a 1-process
               NCCL group, (1, 1) mesh, fusion_spatial_apply bit-equal to
-              fusion_interpolate.
+              fusion_interpolate;
+  spatial_train - (last) the spatial trainers on two gloo ranks sharing the
+              card, (data 1 x spatial 2), each regime from the bundled
+              weights (and the seeded PhaseNet) on seeded translation
+              batches, against the same steps in this one process: (a)
+              adacof_spatial_trainer, batch 4 of 256x256, 1 warm-up and 5
+              timed steps, K1 and K2 once a step per rank on 8 images of
+              230 x 260 (128-row bands + 51 halo rows each side) via
+              f5c3/ring; (b) fusion_spatial_trainer (variant 2), the same
+              batches' shape, K1 [8, 16, 8] on 230-row blocks, no K2; (c)
+              fusion_spatial_trainer at 1080x1920, batch 1, 1 warm-up and
+              2 steps, K1 [2, 4, 2] on 646-row blocks; (d) AdaCoF with
+              +0.01*VGG+0.005*T_WGAN_GP, the compared step and 2 timed,
+              K1 and K2 once a step, the critic on the trainer's Adam.
+              Gates: every K1 launch of the first step on the bands
+              against the plain warp (1e-5), and K2 on the same inputs with
+              a seeded cotangent against the plain field gradients (1e-4);
+              the first step's loss within 1e-5 relative of one process's
+              ((d): the terms that precede the critic's update, since the
+              loss reads the critic after Adam's lr * sign(g) step), (a)
+              and (d) its clipped gradient (the optimizer's first moment /
+              0.1) within 2e-4 of each tensor's largest, (b) FusionNet's
+              gradient on the ranks' own inputs within 5e-5 and end to end
+              within 1e-3 (ROADMAP Q3-3), (d) d_loss within 1e-5, each or
+              within twice one process's own spread (its first step run
+              twice); the ranks' parameters (and critic) bit-equal; halo
+              bytes forward and backward every step; ms per step, peak
+              memory and bytes exchanged by kind per rank.
 Then the nvidia-smi line, the `kernels` JSON line and, last, the result line
 {"ok": true, "device": {...}}.  Any failed check raises (non-zero exit).
 Without CUDA, or without the package beside this file, it exits non-zero
@@ -1850,6 +1877,413 @@ def _spatial(dev, repo, work):
     return k1, k2
 
 
+SPATIAL_TRAIN_STEPS = 5  # timed steps of regimes (a) and (b), after one warm-up
+SPATIAL_TRAIN_FULL_STEPS = 2  # timed 1080p fusion steps (c), after one warm-up
+SPATIAL_TRAIN_GAN_STEPS = 2  # timed adversarial steps (d), after the compared first one
+SPATIAL_LOSS_TOL = 1e-5  # relative: a first step's loss on 2 ranks against one process
+SPATIAL_GRAD_TOL = 2e-4  # of each tensor's largest: the first step's gradient, the same
+# FusionNet's gradient on the ranks' own inputs to it against one process's
+# on the same inputs (6.8e-6 and 8.6e-6 measured on the card, 2.8e-6 on the
+# CPU); end to end the fusion step is held at ROUTE_GRAD_TOL (ROADMAP Q3-3)
+SPATIAL_SHARED_GRAD_TOL = 5e-5
+# ... or twice the one process's own spread (the same first step run twice),
+# where that is larger: F.interpolate's bilinear backward adds with atomics
+FLOOR_FACTOR = 2.0
+SPATIAL_TRAIN_REGIMES = ("adacof", "fusion", "fusion_1080p", "adacof_gan")
+
+
+def _spatial_train_batches(regime):
+    """The seeded global NHWC batches of a regime of phase spatial_train: 4
+    translation triplets of 256x256 per step (1 + SPATIAL_TRAIN_STEPS), or
+    1 of 1080x1920 (1 + SPATIAL_TRAIN_FULL_STEPS), the same in every
+    process."""
+    from fmvfi_tpu_torch.eval.synth import translation_triplet
+
+    if regime == "fusion_1080p":
+        h, w, b, n = H_FULL, W_FULL, 1, 1 + SPATIAL_TRAIN_FULL_STEPS
+    else:
+        h, w, b = CROP, CROP, FUSION_BATCH
+        n = 1 + (SPATIAL_TRAIN_GAN_STEPS if regime == "adacof_gan" else SPATIAL_TRAIN_STEPS)
+    items = [translation_triplet(h, w, dx=2.0 + i % 4, dy=1.0 - i % 3, seed=100 + i)
+             for i in range(b * n)]
+    return [tuple(np.stack([it[j] for it in items[s * b:(s + 1) * b]]) for j in range(3))
+            for s in range(n)]
+
+
+def _warp_launch_gaps(x, weight, offset_i, offset_j, dilation, max_offset):
+    """K1 at a launch of the main path, and K2 on the same inputs with a
+    seeded cotangent, against their plain versions; these launches leave
+    the counts as they were.  Returns {the K1 input's shape, each max abs
+    error}."""
+    import torch
+
+    from fmvfi_tpu_torch.ops import adacof_cuda
+    from fmvfi_tpu_torch.ops.adacof import adacof_warp as warp_plain
+    from fmvfi_tpu_torch.ops.adacof import adacof_warp_field_grads
+
+    counts = (adacof_cuda.launches, adacof_cuda.bwd_launches, dict(adacof_cuda.paths),
+              dict(adacof_cuda.bwd_paths))
+    args = [t.detach() for t in (x, weight, offset_i, offset_j)]
+    with torch.no_grad():
+        out, x4 = adacof_cuda.warp_fwd_cuda(*args, dilation, max_offset)
+        gen = torch.Generator(device=out.device).manual_seed(0)
+        cot = torch.randn(out.shape, generator=gen, device=out.device)
+        grads = adacof_cuda.warp_bwd_cuda(*args, cot, dilation, max_offset, x4)
+        k1 = float((out - warp_plain(*args, dilation, max_offset)).abs().max())
+        k2 = max(float((g - p).abs().max()) for g, p in zip(
+            grads, adacof_warp_field_grads(*args, cot, dilation, max_offset)))
+    adacof_cuda.launches, adacof_cuda.bwd_launches = counts[:2]
+    for live, saved in zip((adacof_cuda.paths, adacof_cuda.bwd_paths), counts[2:]):
+        live.clear()
+        live.update(saved)
+    return dict(shape=list(x.shape), k1_max_abs_err=k1, k2_max_abs_err=k2)
+
+
+def _spatial_train_run(regime, dev, repo, mesh=None, vgg_path=None, steps=None):
+    """One regime of phase spatial_train from the bundled weights (and the
+    seeded PhaseNet): on the mesh's bands through the spatial trainers, or
+    (mesh None) in this one process through the single-device ones.  On the
+    mesh, every warp of the first step (the warm-up) also holds K1 and K2
+    against their plain versions on its inputs (`_warp_launch_gaps`).
+    Returns (report: per step the metrics, ms, K1/K2 counts, K1's input
+    shapes and the exchanged bytes by kind; those gaps; the timed steps'
+    peak memory; a
+    digest of the parameters after the last step; the first step's clipped
+    gradient (the optimizer's first moment / 0.1) by name, on the CPU; for
+    fusion on the mesh, the first step's FusionNet inputs on this band,
+    else None)."""
+    import hashlib
+
+    import torch
+
+    from fmvfi_tpu_torch.ops import adacof_cuda
+    from fmvfi_tpu_torch.parallel import spatial
+    from fmvfi_tpu_torch.train.losses import parse_loss_spec
+    from fmvfi_tpu_torch.train.trainer import DEFAULT_LOSS, make_adacof_trainer, make_fusion_trainer
+    from fmvfi_tpu_torch.utils.convert import load_adacof_weights
+
+    images, plain = [], []
+
+    def recording(x, *args):
+        images.append(list(x.shape))
+        if mesh is not None and not rec["ms"]:
+            plain.append(_warp_launch_gaps(x, *args))
+        return adacof_cuda.adacof_warp(x, *args)
+
+    torch.cuda.empty_cache()
+    if regime.startswith("adacof"):
+        kw = dict(device=dev)
+        if regime == "adacof_gan":
+            kw.update(loss_spec=parse_loss_spec(DEFAULT_LOSS + GAN_TERMS.format("T_WGAN_GP")),
+                      vgg_checkpoint=vgg_path, h=CROP, w=CROP)
+        state, step = (make_adacof_trainer(**kw) if mesh is None
+                       else spatial.adacof_spatial_trainer(mesh, **kw))
+        state.model.load_state_dict(load_adacof_weights(
+            os.path.join(repo, "checkpoints", "adacof_synth_demo.msgpack")))
+        warped = state.model
+    else:
+        models = _serve_models(dev, repo)
+        args = (models.phase_net, models.adacof) + (() if mesh is None else (mesh,))
+        factory = make_fusion_trainer if mesh is None else spatial.fusion_spatial_trainer
+        state, step = factory(*args, variant=2, device=dev)
+        state.model.load_state_dict(models.fusion_net.state_dict())
+        warped = models.adacof
+    warped.warp = recording
+    rec = dict(loss=[], ms=[], counts=[], k1_inputs=[], exchanged=[], d_loss=[], metrics=[])
+    grads = inputs = None
+    for batch in _spatial_train_batches(regime)[:steps]:
+        _reset_counts()
+        images.clear()
+        spatial.exchanged.clear()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        rec["ms"].append(1e3 * (time.perf_counter() - t))
+        rec["metrics"].append({k: float(v) for k, v in m.items()})
+        rec["loss"].append(float(m["loss"]))
+        rec["d_loss"].append(float(m["d_loss"]) if "d_loss" in m else None)
+        rec["counts"].append(_counts())
+        rec["k1_inputs"].append(list(images))
+        rec["exchanged"].append(dict(spatial.exchanged))
+        if grads is None:
+            opt = state.optimizer
+            grads = {k: (opt.state[p]["exp_avg"] / 0.1).cpu() for k, p in
+                     state.model.named_parameters()}
+            if regime == "fusion" and mesh is not None:
+                # the step's sections, once more (deterministic): its
+                # FusionNet inputs on this band
+                from fmvfi_tpu_torch.pipeline.interpolate import FusionModels, _block_inputs
+
+                warped.warp = adacof_cuda.adacof_warp
+                with torch.no_grad():
+                    block, _, bands, _ = _block_inputs(
+                        FusionModels(models.phase_net, models.adacof, state.model),
+                        batch[0], batch[2], dev, mesh)
+                inputs = {k: v.cpu().numpy() for k, v in block._asdict().items()}
+                inputs["lo"] = np.array(bands.lo)
+                del block
+                warped.warp = recording
+        if len(rec["ms"]) == 1:  # the peak of the timed steps, without the warm-up's checks
+            torch.cuda.reset_peak_memory_stats()
+    rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    rec["plain"] = plain
+    h = hashlib.sha256()
+    for v in state.model.state_dict().values():
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    rec["digest"] = h.hexdigest()
+    if state.extra is not None:
+        h = hashlib.sha256()
+        for v in state.extra.critic.state_dict().values():
+            h.update(v.detach().cpu().contiguous().numpy().tobytes())
+        rec["critic_digest"] = h.hexdigest()
+    warped.warp = adacof_cuda.adacof_warp
+    del state, step
+    torch.cuda.empty_cache()
+    return rec, grads, inputs
+
+
+def _spatial_train_rank(mesh, dev, repo, out, vgg_path):
+    """One rank of phase spatial_train: every regime on its band; writes the
+    first steps' gradients (and the fusion step's inputs) to `out` (npz),
+    returns the reports."""
+    import torch
+
+    reports, arrays = {}, {}
+    for regime in SPATIAL_TRAIN_REGIMES:
+        rec, grads, inputs = _spatial_train_run(regime, dev, repo, mesh, vgg_path)
+        reports[regime] = rec
+        arrays.update({f"{regime}/{k}": v.numpy() for k, v in grads.items()})
+        arrays.update({f"inputs/{k}": v for k, v in (inputs or {}).items()})
+    np.savez(out, **arrays)
+    group = mesh.get_group("spatial")
+    return dict(rank=torch.distributed.get_rank(group), regimes=reports)
+
+
+def _fusion_grads_on(blocks, dev, repo):
+    """The first fusion step's clipped FusionNet gradient in this one
+    process on the ranks' FusionNet inputs (their bands put together), and
+    how far those inputs are from this process's own: (gradient by name,
+    {each input's max abs diff, the maps' pixels over 1e-3, the L1 loss's
+    sign flips between the two inputs' predictions})."""
+    import torch
+
+    from fmvfi_tpu_torch.models.fusion_net import FusionNet
+    from fmvfi_tpu_torch.pipeline.interpolate import FusionInputs, _nchw, fusion_inputs
+    from fmvfi_tpu_torch.train.trainer import fusion_loss
+
+    models = _serve_models(dev, repo)
+    f1, target, f2 = _spatial_train_batches("fusion")[0]
+    rows = [int(b["inputs/lo"]) for b in blocks]
+    whole = FusionInputs(*(torch.from_numpy(np.concatenate(
+        [b[f"inputs/{k}"] for _, b in sorted(zip(rows, blocks), key=lambda t: t[0])], 2)).to(dev)
+        for k in FusionInputs._fields))
+    with torch.no_grad():
+        own, _ = fusion_inputs(models, f1, f2, dev)
+    net = FusionNet(uncertainty_maps=3, variant=2).to(dev)
+    net.load_state_dict(models.fusion_net.state_dict())
+    target = _nchw(target, dev)
+    pred = net(*whole)
+    loss, _ = fusion_loss(pred, target)
+    names, params = zip(*net.named_parameters())
+    grads = torch.autograd.grad(loss, params)
+    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    scale = 1.0 / torch.clamp(norm, min=1.0)
+    with torch.no_grad():
+        flips = int((torch.sign(pred - target) != torch.sign(net(*own) - target)).sum())
+    diff = {k: float((a - b).abs().max()) for k, a, b in zip(own._fields, whole, own)}
+    return ({k: (g * scale).cpu() for k, g in zip(names, grads)},
+            dict(max_abs=diff, maps_px_over_1e3=int(((whole.maps - own.maps).abs() > 1e-3).sum()),
+                 l1_sign_flips=flips))
+
+
+# one rank of phase spatial_train: a gloo group of two processes on the one card
+_SPATIAL_TRAIN_RANK_CHILD = """
+import json, sys
+import torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+coord, rank, repo, out, vgg = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5]
+import chip_smoke as S
+from fmvfi_tpu_torch.parallel import distributed
+from fmvfi_tpu_torch.parallel.mesh import make_mesh
+distributed.initialize(coord, num_processes=2, process_id=rank, backend="gloo")
+mesh = make_mesh(2, ("data", "spatial"), (1, 2))
+dev = torch.device("cuda", torch.cuda.current_device())
+print(json.dumps(S._spatial_train_rank(mesh, dev, repo, out, vgg)))
+"""
+
+
+def phase_spatial_train(dev, repo):
+    """The spatial trainers on two gloo ranks sharing the card, (data 1 x
+    spatial 2): (a) AdaCoF, (b) FusionNet at 256x256, batch 4, (c)
+    FusionNet at 1080x1920, batch 1, (d) AdaCoF with the VGG and T_WGAN_GP
+    terms, each against the same steps in this one process.  Returns the
+    ranks' K1 and K2 launches."""
+    with _work_dir(repo) as work_dir:
+        return _spatial_train(dev, repo, work_dir)
+
+
+def _spatial_train(dev, repo, work):
+    t0 = time.perf_counter()
+    vgg_path = _seeded_vgg16(os.path.join(work, "vgg16.pth"))
+    env = dict(os.environ, PYTHONPATH=repo)
+    coord = f"localhost:{_free_port()}"
+    procs = [subprocess.Popen([sys.executable, "-c", _SPATIAL_TRAIN_RANK_CHILD, coord, str(r),
+                               repo, os.path.join(work, f"rank{r}.npz"), vgg_path], cwd=repo,
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in (0, 1)]
+    ranks = []
+    try:
+        for r, p in enumerate(procs):
+            out, err = p.communicate(timeout=900)
+            if p.returncode != 0:
+                raise AssertionError(f"spatial_train rank {r}: exit {p.returncode}\n{err[-3000:]}")
+            ranks.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            p.kill()
+    ranks_seconds = time.perf_counter() - t0
+    blocks = [dict(np.load(os.path.join(work, f"rank{r}.npz"))) for r in (0, 1)]
+
+    # the one-process references: each regime's steps here, and its first
+    # step once more (the card's own run-to-run spread)
+    one, again, one_grads, again_grads = {}, {}, {}, {}
+    for regime in SPATIAL_TRAIN_REGIMES:
+        one[regime], one_grads[regime], _ = _spatial_train_run(regime, dev, repo,
+                                                               vgg_path=vgg_path)
+        if regime != "fusion_1080p":
+            again[regime], again_grads[regime], _ = _spatial_train_run(
+                regime, dev, repo, vgg_path=vgg_path, steps=1)
+    shared, input_gaps = _fusion_grads_on(blocks, dev, repo)
+
+    def grad_gap(got, want):
+        return max(float((got[k].double() - w.double()).abs().max())
+                   / max(float(w.abs().max()), 1e-30) for k, w in want.items())
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+
+    import torch
+
+    gaps = {}
+    for regime in SPATIAL_TRAIN_REGIMES:
+        ours = {k[len(regime) + 1:]: torch.from_numpy(v) for k, v in blocks[0].items()
+                if k.startswith(regime + "/")}
+        r0 = ranks[0]["regimes"][regime]
+        g = dict(loss_rel=rel(r0["loss"][0], one[regime]["loss"][0]),
+                 grad_rel=grad_gap(ours, one_grads[regime]))
+        if regime in again:
+            g.update(loss_floor=rel(again[regime]["loss"][0], one[regime]["loss"][0]),
+                     grad_floor=grad_gap(again_grads[regime], one_grads[regime]))
+        if r0["d_loss"][0] is not None:
+            g.update(d_loss_rel=rel(r0["d_loss"][0], one[regime]["d_loss"][0]),
+                     d_loss_floor=rel(again[regime]["d_loss"][0], one[regime]["d_loss"][0]))
+        if regime == "fusion":
+            # FusionNet's gradient on the ranks' own inputs to it (ROADMAP
+            # Q3-3: end to end the artifact map's histogram median turns the
+            # bands' float noise into ~1e-2 at a few pixels)
+            g.update(grad_rel_shared_inputs=grad_gap(ours, shared), inputs=input_gaps)
+        g["terms_rel"] = {k: rel(v, one[regime]["metrics"][0][k])
+                          for k, v in r0["metrics"][0].items()}
+        gaps[regime] = g
+
+    def per_rank(key, regime, first=False):
+        """Each rank's `key` of the timed steps (first: of the first step,
+        the warm-up or, for adacof_gan, the compared one)."""
+        return {r["rank"]: (r["regimes"][regime][key][0] if first
+                            else r["regimes"][regime][key][1:]) for r in ranks}
+
+    _line(phase="spatial_train", seconds=time.perf_counter() - t0, ranks_seconds=ranks_seconds,
+          note="2 gloo ranks share one card and reduce through host memory: the collectives' "
+               "cost, not a speed-up", mesh=[1, 2], gaps=gaps,
+          tol=dict(loss_rel=SPATIAL_LOSS_TOL, grad_rel=SPATIAL_GRAD_TOL,
+                   grad_rel_shared_inputs=SPATIAL_SHARED_GRAD_TOL, grad_rel_end_to_end=ROUTE_GRAD_TOL,
+                   floor_factor=FLOOR_FACTOR, k1=K1_TOL, k2=K2_TOL),
+          regimes={regime: dict(
+              ms_per_step=per_rank("ms", regime), first_ms=per_rank("ms", regime, True),
+              one_process_ms_per_step=one[regime]["ms"][1:],
+              peak_memory_bytes={r["rank"]: r["regimes"][regime]["peak_memory_bytes"]
+                                 for r in ranks},
+              one_process_peak_memory_bytes=one[regime]["peak_memory_bytes"],
+              loss={r["rank"]: r["regimes"][regime]["loss"] for r in ranks},
+              one_process_loss=one[regime]["loss"],
+              exchanged_per_step={r["rank"]: r["regimes"][regime]["exchanged"][-1] for r in ranks},
+              k1_inputs_per_step={r["rank"]: r["regimes"][regime]["k1_inputs"][-1] for r in ranks},
+              counts_per_step={r["rank"]: r["regimes"][regime]["counts"][-1] for r in ranks},
+              plain_gaps={r["rank"]: r["regimes"][regime]["plain"] for r in ranks},
+              ranks_equal=len({r["regimes"][regime]["digest"] for r in ranks}) == 1)
+              for regime in SPATIAL_TRAIN_REGIMES})
+
+    # gates: the first step against one process (or twice its own spread).
+    # adacof_gan's loss and its adversarial term read the critic after its
+    # Adam step, lr * sign(g) at first, which turns float noise at a
+    # near-zero critic gradient into 2 lr: there the terms before the
+    # critic's update, d_loss and the generator's gradient are held
+    before_critic = ("loss", "T_WGAN_GP", "d_loss")
+    for regime, g in gaps.items():
+        loss_tol = max(SPATIAL_LOSS_TOL, FLOOR_FACTOR * g.get("loss_floor", 0.0))
+        grad_tol = max(SPATIAL_GRAD_TOL, FLOOR_FACTOR * g.get("grad_floor", 0.0))
+        if regime == "adacof_gan":
+            loss_rel = max(v for k, v in g["terms_rel"].items() if k not in before_critic)
+        else:
+            loss_rel = g["loss_rel"]
+        if not loss_rel <= loss_tol:
+            raise AssertionError(f"spatial_train {regime}: the first step's loss {g} from one "
+                                 f"process (> {loss_tol:.3g})")
+        if regime in ("adacof", "adacof_gan") and not g["grad_rel"] <= grad_tol:
+            raise AssertionError(f"spatial_train {regime}: the first step's gradient {g} from one "
+                                 f"process (> {grad_tol:.3g} of a tensor's largest)")
+        shared_tol = max(SPATIAL_SHARED_GRAD_TOL, FLOOR_FACTOR * g.get("grad_floor", 0.0))
+        if regime == "fusion" and not (g["grad_rel_shared_inputs"] <= shared_tol
+                                       and g["grad_rel"] <= ROUTE_GRAD_TOL):
+            raise AssertionError(f"spatial_train {regime}: the first step's gradient {g} from one "
+                                 f"process on the ranks' inputs (> {shared_tol:.3g} of a tensor's "
+                                 f"largest) or end to end (> {ROUTE_GRAD_TOL})")
+        if "d_loss_rel" in g and not g["d_loss_rel"] <= max(SPATIAL_LOSS_TOL,
+                                                            FLOOR_FACTOR * g["d_loss_floor"]):
+            raise AssertionError(f"spatial_train {regime}: d_loss {g} from one process")
+    # K1 and K2 at every launch shape of the first step on the bands against
+    # their plain versions
+    for r in ranks:
+        for regime, rec in r["regimes"].items():
+            held = [c["shape"] for c in rec["plain"]]
+            bad = [c for c in rec["plain"]
+                   if not (c["k1_max_abs_err"] <= K1_TOL and c["k2_max_abs_err"] <= K2_TOL)]
+            if held != rec["k1_inputs"][0] or bad:
+                raise AssertionError(f"spatial_train {regime} rank {r['rank']}: K1/K2 against "
+                                     f"their plain versions {rec['plain']} (<= {K1_TOL}, {K2_TOL}) "
+                                     f"at the launches {rec['k1_inputs'][0]}")
+    # the ranks hold one model (and one critic), and every step launched K1
+    # (and K2) on the bands' halo blocks through the ring
+    band = CROP // 2 + 2 * (48 + 2 + 1)  # 128-row bands + 51 halo rows above and below
+    full = -(-H_FULL // 32) * 32 // 2 + 2 * (48 + 2 + 1)
+    want = {"adacof": ([[8, 3, band, CROP + 4]], 1),
+            "adacof_gan": ([[8, 3, band, CROP + 4]], 1),
+            "fusion": ([[8, 3, band, CROP + 4], [16, 3, band, CROP + 4], [8, 3, band, CROP + 4]], 0),
+            "fusion_1080p": ([[2, 3, full, W_FULL + 4], [4, 3, full, W_FULL + 4],
+                              [2, 3, full, W_FULL + 4]], 0)}
+    k1 = k2 = 0
+    for regime, (inputs, n_k2) in want.items():
+        recs = [r["regimes"][regime] for r in ranks]
+        if len({rec["digest"] for rec in recs}) != 1 or len(
+                {rec.get("critic_digest") for rec in recs}) != 1:
+            raise AssertionError(f"spatial_train {regime}: the ranks' parameters differ")
+        for rec in recs:
+            for c, seen, ex in zip(rec["counts"], rec["k1_inputs"], rec["exchanged"]):
+                paths = [{RING_PATH: n} if n else {} for n in (len(inputs), n_k2)]
+                if (seen != inputs or [c["k1"], c["k2"]] != [len(inputs), n_k2]
+                        or [c["k1_paths"], c["k2_paths"]] != paths):
+                    raise AssertionError(f"spatial_train {regime}: K1 inputs {seen}, counts {c}; "
+                                         f"expected {inputs} and {n_k2} K2 via {RING_PATH}")
+                if not (ex.get("halo", 0) > 0 and ex.get("halo_bwd", 0) > 0):
+                    raise AssertionError(f"spatial_train {regime}: exchanged {ex}")
+                k1, k2 = k1 + c["k1"], k2 + c["k2"]
+            if not np.isfinite(rec["loss"]).all():
+                raise AssertionError(f"spatial_train {regime}: losses {rec['loss']}")
+    return k1, k2
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -2801,9 +3235,10 @@ def main() -> int:
     phase_native()
     dp_k1, dp_k2 = phase_dp(dev, repo)
     spatial_k1, spatial_k2 = phase_spatial(dev, repo)
+    spatial_train_k1, spatial_train_k2 = phase_spatial_train(dev, repo)
     regime_k1.update(lpips=lpips_k1, cli=cli_k1, export=export_k1, train_gan=gan_k1,
                      train_gan_types=gan_types_k1, serve_bf16=bf16_k1, dp=dp_k1,
-                     spatial=spatial_k1)
+                     spatial=spatial_k1, spatial_train=spatial_train_k1)
 
     k1_1080, k1_1080_8 = timings[2], timings[3]  # the 4-image and the batched 8-image launch
     k2_train = k2_timings[0]  # the training launch
@@ -2824,7 +3259,8 @@ def main() -> int:
     ), dict(
         name=adacof_cuda.NAME_BWD, route="cuda", source=adacof_cuda.SOURCE_BWD,
         replaces=adacof_cuda.REPLACES_BWD,
-        launches=train_k2 + gan_k2 + gan_types_k2 + cli_k2 + export_k2 + dp_k2 + spatial_k2,
+        launches=(train_k2 + gan_k2 + gan_types_k2 + cli_k2 + export_k2 + dp_k2 + spatial_k2
+                  + spatial_train_k2),
         max_abs_err=k2_max_err,
         ms=k2_train["ms"], plain_ms=k2_train["plain_ms"], bound_ms=k2_train["bound_ms"],
         bound_by=k2_train["bound_by"], library_ms=None, design=DESIGN,
@@ -2832,7 +3268,7 @@ def main() -> int:
         launches_by_path=dict(serve=0, serve_bf16=0, video=0, eval=0, lpips=0, cli=cli_k2,
                               export=export_k2, train=train_k2, train_phase=0, train_fusion=0,
                               train_gan=gan_k2, train_gan_types=gan_types_k2, dp=dp_k2,
-                              spatial=spatial_k2),
+                              spatial=spatial_k2, spatial_train=spatial_train_k2),
     )])
     _line(ok=True, device=dict(platform="gpu", kind=torch.cuda.get_device_name(0),
                                count=torch.cuda.device_count()))

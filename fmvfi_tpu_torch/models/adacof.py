@@ -12,7 +12,9 @@ AdaCoFNet: reflect-pad the frames to /32, subtract the fixed RGB mean,
 estimate the fields, replicate-pad the frames by (F-1)*d/2, warp both frames
 in one call, occlusion-blend, then the flow mean/variance maps and the
 (detached) uncertainty mask, cropped back.  `smoothness_penalties` gives the
-g_Spatial / g_Occlusion training terms from the raw heads.
+g_Spatial / g_Occlusion training terms from the raw heads (on bands, under
+`pad32_bands`, their shares, the row differences across the bands' edges
+included).
 
 Under active spatial bands (parallel/spatial.py) AdaCoFNet takes a band of
 rows of each frame: the last band builds the /32 reflect tail from its own
@@ -187,6 +189,12 @@ class AdaCoFOutputs(NamedTuple):
     occ_raw: torch.Tensor
 
 
+def pad32_bands(bands):
+    """Spatial bands of a frame with the /32 reflect tail AdaCoFNet adds on
+    the last band (the rows of its heads); None for None."""
+    return None if bands is None else bands.padded((32 - bands.height % 32) % 32)
+
+
 def warp_max_offset(kernel_size: int, dilation: int, max_offset: int | None = 48):
     """The offset clamp the warp runs with: max_offset reduced to what the
     JAX package's TPU kernel can host, min(max_offset, (126-(F-1)d)//2), and
@@ -267,7 +275,7 @@ class AdaCoFNet(nn.Module):
         pad_h = (32 - (h0 if bands is None else bands.height) % 32) % 32
         pad_w = (32 - w0 % 32) % 32
         if bands is not None:  # the /32 tail of the frame is the last band's
-            bands = bands.padded(pad_h)
+            bands = pad32_bands(bands)
             pad_h = pad_h if bands.last else 0
             if any(r % 32 for r in bands.rows):
                 raise ValueError(f"AdaCoF takes bands of a multiple of 32 rows after the /32 "
@@ -324,13 +332,26 @@ class AdaCoFNet(nn.Module):
 def smoothness_penalties(w1, a1, b1, w2, a2, b2, occ, eps: float = 1e-3):
     """Training regularizers (g_Spatial, g_Occlusion): Charbonnier of the
     finite differences of the tap-mean weighted offset fields and of the
-    occlusion map.  Fields (B, F^2, H, W), occ (B, 1, H, W)."""
+    occlusion map.  Fields (B, F^2, H, W), occ (B, 1, H, W).  Under active
+    spatial bands (`pad32_bands` of the frame's: the heads' rows) the
+    fields are a band of rows: each band's row differences take the first
+    row of the band below through the halo exchange, and the terms are the
+    band's shares, means over the whole frame's counts (H (W-1) and
+    (H-1) W a sample)."""
+    bands = spatial.active()
+    height = None if bands is None else bands.height
 
-    def charb(d):
-        return torch.mean(torch.sqrt(d**2 + eps**2))
+    def charb(d, rows=None):
+        return spatial.band_mean(torch.sqrt(d**2 + eps**2), rows)
+
+    def row_diff(m):
+        if bands is not None:
+            m = spatial.extend_rows(m, 0, 1, None)[0]
+        return m[:, :-1, :] - m[:, 1:, :]
 
     def grad_penalty(m):  # m: (B, H, W)
-        return charb(m[:, :, :-1] - m[:, :, 1:]) + charb(m[:, :-1, :] - m[:, 1:, :])
+        return (charb(m[:, :, :-1] - m[:, :, 1:], height)
+                + charb(row_diff(m), None if bands is None else height - 1))
 
     # mean (not sum) over the taps, as the reference's adacofnet.py:203-206
     g_spatial = (
@@ -340,5 +361,4 @@ def smoothness_penalties(w1, a1, b1, w2, a2, b2, occ, eps: float = 1e-3):
         + grad_penalty(torch.mean(w2 * b2, dim=1))
     )
     o = occ[:, 0]
-    g_occ = charb(o[:, :, :-1] - o[:, :, 1:]) + charb(o[:, :-1, :] - o[:, 1:, :])
-    return g_spatial, g_occ
+    return g_spatial, grad_penalty(o)

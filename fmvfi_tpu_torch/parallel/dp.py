@@ -19,7 +19,15 @@ and the step's cross-sample work is made global by hand while
 - the step's metrics are averaged over the processes.
 
 The processes hold equal shares of the global batch, so that the mean of
-the per-process means is the global mean.  Only all_reduce and broadcast
+the per-process means is the global mean.
+
+Spatial training (parallel/spatial.py's trainers) runs the step over a
+(data x spatial) mesh: each process's objective is then its SHARE of its
+batch share's objective, the shares of the spatial axis summing to it, so
+that `running(mesh, spatial_axis=...)` makes the reductions sum over the
+spatial axis and average over the data axis, in one collective over the
+whole mesh; a value that every process of the spatial axis computes alike
+enters the objective as its `spatial_share`.  Only all_reduce and broadcast
 are used: gloo supports no other collective on CUDA tensors, and NCCL and
 gloo then run the same code.
 """
@@ -34,28 +42,44 @@ import torch.distributed as dist
 
 
 class Context(NamedTuple):
-    """The process group a data-parallel step runs over."""
+    """The process group a data-parallel step runs over: its data axis's
+    (`group`, this process's `rank` in it, its `world`), the group the
+    gradients and metrics are reduced over (None: `group`; the whole
+    mesh's under spatial training) and the processes of the spatial axis."""
 
     group: object
     rank: int
     world: int
+    reduce_group: object = None
+    spatial: int = 1
 
 
 _active: Optional[Context] = None
 
 
-def _group(mesh):
+def _group(mesh, axis: str = "data"):
     """The process group of the mesh's data axis."""
-    return mesh.get_group("data") if mesh.ndim > 1 else mesh.get_group()
+    return mesh.get_group(axis) if mesh.ndim > 1 else mesh.get_group()
 
 
 @contextmanager
-def running(mesh):
-    """Make the mesh's data axis the active context inside the block."""
+def running(mesh, batch_axis: str = "data", spatial_axis: Optional[str] = None):
+    """Make the mesh's data axis the active context inside the block; with
+    `spatial_axis` (spatial training), the reductions also sum over that
+    axis, one all_reduce over the whole mesh, which must span every
+    process of the default group."""
     global _active
-    group = _group(mesh)
+    group = _group(mesh, batch_axis)
+    reduce_group, n_spatial = None, 1
+    if spatial_axis is not None:
+        if mesh.size() != dist.get_world_size():
+            raise ValueError(f"spatial training needs a mesh over every process: the mesh has "
+                             f"{mesh.size()}, the group {dist.get_world_size()}")
+        reduce_group = dist.group.WORLD
+        n_spatial = dist.get_world_size(mesh.get_group(spatial_axis))
     outer = _active
-    _active = Context(group, dist.get_rank(group), dist.get_world_size(group))
+    _active = Context(group, dist.get_rank(group), dist.get_world_size(group), reduce_group,
+                      n_spatial)
     try:
         yield _active
     finally:
@@ -99,14 +123,26 @@ def global_sum(x: torch.Tensor) -> torch.Tensor:
     return _AllReduceSum.apply(x, _active.group)
 
 
+def spatial_share(x: torch.Tensor) -> torch.Tensor:
+    """x, a value that every process of the spatial axis computes alike, as
+    this process's share of the objective: divided by the axis's processes
+    (x itself outside spatial training)."""
+    if _active is None or _active.spatial == 1:
+        return x
+    return x / _active.spatial
+
+
 def global_mean_(tensors):
     """Average the tensors over the active context's processes, in place,
-    in one collective; returns them (untouched outside a context)."""
+    in one collective (under spatial training: summed over the spatial
+    axis, averaged over the data axis); returns them (untouched outside a
+    context)."""
     if _active is None or not tensors:
         return tensors
     with torch.no_grad():
         flat = torch.cat([t.reshape(-1) for t in tensors])
-        dist.all_reduce(flat, group=_active.group)
+        group = _active.group if _active.reduce_group is None else _active.reduce_group
+        dist.all_reduce(flat, group=group)
         flat /= _active.world
         i = 0
         for t in tensors:
@@ -125,12 +161,18 @@ def data_parallel(step_fn: Callable, mesh) -> Callable:
     def step(state, batch):
         with running(mesh):
             state, metrics = step_fn(state, batch)
-            names = list(metrics)
-            values = global_mean_([torch.as_tensor(metrics[k]).detach().float().reshape(1).clone()
-                                   for k in names])
-        return state, {k: v[0] for k, v in zip(names, values)}
+            return state, global_metrics(metrics)
 
     return step
+
+
+def global_metrics(metrics: dict) -> dict:
+    """A step's metrics (scalars) reduced as gradients are inside the active
+    context: the global batch's, the same on every process."""
+    names = list(metrics)
+    values = global_mean_([torch.as_tensor(metrics[k]).detach().float().reshape(1).clone()
+                           for k in names])
+    return {k: v[0] for k, v in zip(names, values)}
 
 
 def _tree_map(fn, tree):

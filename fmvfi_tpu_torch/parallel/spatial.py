@@ -1,4 +1,4 @@
-"""Spatial (height) sharding for serving (port of the serving half of
+"""Spatial (height) sharding for serving and training (port of
 fmvfi_tpu/parallel/spatial.py).
 
 The JAX package shards the image HEIGHT over a mesh axis and lets XLA's SPMD
@@ -30,14 +30,30 @@ a zero buffer, all-reduces it and reads the neighbours' slots; a gather
 all-reduces a zero-filled whole frame that holds each band's rows.  A sum
 with zeros is exact, on gloo and on NCCL.
 
-Serving only: the backward of the exchanges (the spatial trainers, ROADMAP
-item 20b) is not ported, and a band that requires grad raises.  The
-sharded warp's field gradients (K2 on each band) cross no band and are
-ported.
+Training (the spatial trainers, `adacof_spatial_trainer` and
+`fusion_spatial_trainer`): the exchanges carry their backward.
+`extend_rows` on a band that requires grad sends each halo row's cotangent
+back to the band that owns the row, and a reflected edge row's to the row
+it mirrors; `Bands.gather`'s backward all-reduces the whole frame's
+cotangent and takes the band's rows; `spatial_sum` sums the cotangents.
+Each is one all_reduce that every process of the group calls, also where
+its own halo is empty, and each carries the number of its exchange beside
+the cotangents, so that a backward pass that reaches the exchanges in
+another order on another process raises instead of summing the wrong
+buffers.  The loss convention is the SHARE: each process's objective is
+its share of the global one, its band's sums over the global counts
+(`band_mean`), and a value that every process of the spatial group
+computes alike (a term of the gathered frames, or of `spatial_sum`s)
+enters divided by the group's size (parallel/dp.py's `spatial_share`).
+The shares of the spatial group sum to the batch share's objective, so the
+parameter gradients are summed over the spatial axis and averaged over the
+data axis (dp.py's `running(mesh, spatial_axis=)`), and so are the metrics.
+The sharded warp's field gradients (K2 on each band) cross no band.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 from collections import Counter
 from contextlib import contextmanager
@@ -51,9 +67,15 @@ from ..ops import adacof_cuda
 
 BAND_UNIT = 32
 
-# bytes of the buffers all-reduced by halo exchanges ("halo") and gathers
-# ("gather") on this process, since the last clear()
+# bytes of the buffers all-reduced on this process since the last clear(),
+# by kind: halo exchanges ("halo"), gathers ("gather") and spatial sums
+# ("sum"), and their backward ("halo_bwd", "gather_bwd", "sum_bwd")
 exchanged = Counter()
+
+# the number of each exchange made with gradient on this process, which its
+# backward sends beside the cotangents (modulo 2**20: exact in float32)
+_exchanges = itertools.count(1)
+_STAMP_MOD = 1 << 20
 
 
 def spatial_image_sharding(mesh, height: int, axis: str = "data"):
@@ -146,7 +168,8 @@ class Bands(NamedTuple):
 
     def padded(self, extra: int) -> "Bands":
         """These bands with `extra` rows added at the bottom of the last one
-        (a reflect tail built from its own rows)."""
+        (a reflect tail built from its own rows; negative: that many rows
+        cropped from it)."""
         if extra and self.rows[-1] <= extra:
             raise ValueError(f"the last band of {self.rows[-1]} rows is too short for a "
                              f"reflect pad of {extra} rows: it needs more than {extra}")
@@ -158,22 +181,25 @@ class Bands(NamedTuple):
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """The whole frame of a band tensor at the frame's resolution, on
-        every process of the group."""
+        every process of the group; with gradient, its backward is this
+        band's rows of the cotangents summed over the group."""
         if x.shape[-2] != self.rows[self.index]:
             raise ValueError(f"gather takes the band's {self.rows[self.index]} rows, got "
                              f"{x.shape[-2]}")
         if self.n == 1:
             return x
-        buf = x.new_zeros(x.shape[:-2] + (self.height, x.shape[-1]))
-        buf[..., self.lo : self.hi, :] = x
-        _all_reduce(buf, self.group, "gather")
-        return buf
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _Gather.apply(x, self)
+        return _gathered(self, x)
 
     def halo(self, x: torch.Tensor, up: int, down: int):
         """(above, below): the last `up` rows of the band above x's and the
         first `down` rows of the band below, at x's level; None at the
-        frame's top and bottom."""
-        _no_grad_check(x)
+        frame's top and bottom.  Without gradient: `extend_rows` carries
+        the exchange's backward."""
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise ValueError("Bands.halo takes no gradient: exchange the rows of a tensor that "
+                             "requires grad through spatial.extend_rows")
         s = self.scale(x.shape[-2])
         if min(self.rows) // s < max(up, down):
             raise ValueError(f"bands of {[r // s for r in self.rows]} rows at this level are "
@@ -190,15 +216,120 @@ class Bands(NamedTuple):
         return above, below
 
 
-def _no_grad_check(x: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError("the backward of the halo exchange is not ported (spatial "
-                                  "training, ROADMAP item 20b): run the bands under no_grad")
-
-
 def _all_reduce(buf: torch.Tensor, group, kind: str) -> None:
     exchanged[kind] += buf.numel() * buf.element_size()
     dist.all_reduce(buf, group=group)
+
+
+def _gathered(bands: Bands, x: torch.Tensor) -> torch.Tensor:
+    """Bands.gather's all_reduce of a zero whole frame holding x's rows."""
+    buf = x.new_zeros(x.shape[:-2] + (bands.height, x.shape[-1]))
+    buf[..., bands.lo : bands.hi, :] = x
+    _all_reduce(buf, bands.group, "gather")
+    return buf
+
+
+def _summed(bands: Bands, x: torch.Tensor) -> torch.Tensor:
+    """spatial_sum's all_reduce of a copy of x."""
+    y = x.clone()
+    _all_reduce(y, bands.group, "sum")
+    return y
+
+
+def _stamped(like: torch.Tensor, shape, bands: Bands, stamp: int):
+    """(a flat zero buffer of like's dtype and device, its view of `shape`):
+    the bands.n entries after the view hold each process's `stamp`, this
+    process's set."""
+    size = math.prod(shape)
+    flat = like.new_zeros(size + bands.n)
+    flat[size + bands.index] = stamp
+    return flat, flat[:size].view(tuple(shape))
+
+
+def _reduce_stamped(flat: torch.Tensor, bands: Bands, kind: str, stamp: int) -> None:
+    """All-reduce a `_stamped` buffer over the group; raises where another
+    process's backward undid another exchange at this collective."""
+    _all_reduce(flat, bands.group, kind)
+    seen = flat[flat.numel() - bands.n :].tolist()
+    if any(s != stamp for s in seen):
+        raise RuntimeError(
+            f"spatial {kind}: the processes of the spatial group undid the exchanges {seen} "
+            f"in one collective (this one {stamp}): their backward passes reach the exchanges "
+            "in different orders (their autograd graphs differ)")
+
+
+class _HaloRows(torch.autograd.Function):
+    """`extend_rows` with gradient.  Forward: the exchange.  Backward: the
+    cotangents of the rows taken from the band above go back to its last
+    `up` rows, those from the band below to its first `down` rows, in one
+    stamped all_reduce that every process of the group calls, and a
+    reflected edge row's cotangent to the row it mirrors.  One node per
+    exchange on every process, whatever its band's place, so the processes'
+    backward graphs have the same shape."""
+
+    @staticmethod
+    def forward(ctx, x, bands, up, down, edge):
+        ctx.bands, ctx.up, ctx.down, ctx.edge = bands, up, down, edge
+        ctx.stamp = next(_exchanges) % _STAMP_MOD
+        ext, ctx.n_up, ctx.n_down = _extend(bands, x, up, down, edge)
+        return ext
+
+    @staticmethod
+    def backward(ctx, g):
+        bands, up, down = ctx.bands, ctx.up, ctx.down
+        h = g.shape[-2] - ctx.n_up - ctx.n_down
+        gx = g[..., ctx.n_up : ctx.n_up + h, :].clone()
+        g_above, g_below = g[..., : ctx.n_up, :], g[..., ctx.n_up + h :, :]
+        top, bottom = bands.index == 0, bands.last
+        if top and ctx.edge == "reflect":
+            gx[..., 1 : up + 1, :] += g_above.flip(-2)
+        if bottom and ctx.edge == "reflect":
+            gx[..., h - down - 1 : h - 1, :] += g_below.flip(-2)
+        if bands.n > 1:
+            flat, buf = _stamped(g, (bands.n,) + g.shape[:-2] + (down + up, g.shape[-1]), bands,
+                                 ctx.stamp)
+            if not top:
+                buf[bands.index - 1, ..., down:, :] = g_above
+            if not bottom:
+                buf[bands.index + 1, ..., :down, :] = g_below
+            _reduce_stamped(flat, bands, "halo_bwd", ctx.stamp)
+            gx[..., :down, :] += buf[bands.index, ..., :down, :]
+            gx[..., h - up :, :] += buf[bands.index, ..., down:, :]
+        return gx, None, None, None, None
+
+
+class _Gather(torch.autograd.Function):
+    """`Bands.gather` with gradient: the band's rows of the cotangents summed
+    over the group (the whole frame is the same on every process, and each
+    one's objective holds its share of what it computes from it)."""
+
+    @staticmethod
+    def forward(ctx, x, bands):
+        ctx.bands, ctx.stamp = bands, next(_exchanges) % _STAMP_MOD
+        return _gathered(bands, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        flat, buf = _stamped(g, g.shape, ctx.bands, ctx.stamp)
+        buf.copy_(g)
+        _reduce_stamped(flat, ctx.bands, "gather_bwd", ctx.stamp)
+        return ctx.bands.take(buf), None
+
+
+class _SpatialSum(torch.autograd.Function):
+    """`spatial_sum` with gradient: the adjoint of a sum sums the cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, bands):
+        ctx.bands, ctx.stamp = bands, next(_exchanges) % _STAMP_MOD
+        return _summed(bands, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        flat, buf = _stamped(g, g.shape, ctx.bands, ctx.stamp)
+        buf.copy_(g)
+        _reduce_stamped(flat, ctx.bands, "sum_bwd", ctx.stamp)
+        return buf, None
 
 
 _active: Optional[Bands] = None
@@ -227,8 +358,19 @@ def extend_rows(x: torch.Tensor, up: int, down: int, edge: Optional[str]):
     `down` below: the neighbours' rows, and at the frame's top and bottom
     `edge`: "zeros", "reflect" (the band's own rows mirrored, as
     F.pad(mode="reflect")), or None (no rows there).  Returns (the tensor,
-    the rows added above, the rows added below)."""
-    above, below = _active.halo(x, up, down)
+    the rows added above, the rows added below).  Differentiable: the
+    cotangents of the rows go back to the bands they came from."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        bands = _active
+        n_up = up if bands.index > 0 or edge else 0
+        n_down = down if not bands.last or edge else 0
+        return _HaloRows.apply(x, bands, up, down, edge), n_up, n_down
+    return _extend(_active, x, up, down, edge)
+
+
+def _extend(bands: Bands, x: torch.Tensor, up: int, down: int, edge: Optional[str]):
+    """extend_rows without gradient, under `bands`."""
+    above, below = bands.halo(x, up, down)
     h = x.shape[-2]
     if above is None and edge == "zeros":
         above = x.new_zeros(x.shape[:-2] + (up, x.shape[-1]))
@@ -242,6 +384,33 @@ def extend_rows(x: torch.Tensor, up: int, down: int, edge: Optional[str]):
     n_up = 0 if above is None else above.shape[-2]
     n_down = 0 if below is None else below.shape[-2]
     return torch.cat(parts, -2) if len(parts) > 1 else x, n_up, n_down
+
+
+def band_mean(x: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
+    """The mean of x, a tensor whose rows (dim -2) are split over the active
+    bands, `rows` rows in all (default: the bands' height, x then holding
+    this band's rows): this process's share of it, its sum over the whole
+    count, so that the shares of the group sum to the mean.  Without active
+    bands, torch.mean(x)."""
+    if _active is None:
+        return torch.mean(x)
+    if rows is None:
+        if x.shape[-2] != _active.rows[_active.index]:
+            raise ValueError(f"band_mean takes the band's {_active.rows[_active.index]} rows, "
+                             f"got {x.shape[-2]}")
+        rows = _active.height
+    return torch.sum(x) / (x.numel() // x.shape[-2] * rows)
+
+
+def spatial_sum(x: torch.Tensor) -> torch.Tensor:
+    """x summed over the processes of the active bands (x itself without
+    active bands), differentiable; the result is the same on every
+    process."""
+    if _active is None or _active.n == 1:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _SpatialSum.apply(x, _active)
+    return _summed(_active, x)
 
 
 def _require_active() -> Bands:
@@ -422,3 +591,52 @@ def fusion_spatial_apply(models, mesh, batch_axis: str = "data", spatial_axis: s
             return fusion_sharded(models, frame1, frame2, mesh, batch_axis, spatial_axis, **kw)
 
     return fn
+
+
+def block(mesh, batch: int, height: int, batch_axis: str = "data",
+          spatial_axis: str = "spatial"):
+    """(this process's entries of a batch of `batch` frames split over
+    `batch_axis`, its `Bands` of their `height` rows split over
+    `spatial_axis`, or None where one process holds every row): where the
+    spatial trainers place a step's block."""
+    share, _ = batch_share(mesh, batch_axis, batch)
+    bands = bands_of(mesh, spatial_axis, height, batch // len(range(batch)[share]))
+    return share, bands if bands.n > 1 else None
+
+
+def adacof_spatial_trainer(mesh, batch_axis: str = "data", spatial_axis: str = "spatial", **kw):
+    """2-D (data x spatial) AdaCoF training (port of the JAX package's
+    adacof_spatial_trainer): train/trainer.py's make_adacof_trainer(**kw)
+    with `spatial_mesh=mesh`.  Returns (state, step) as that factory does;
+    `step(state, batch)` takes the WHOLE NHWC global batch, which every
+    process holds, and runs on this process's block (`block`: its batch
+    share, its band of the frame's rows, AdaCoF's /32 tail on the last
+    band).  The U-Net exchanges halo rows forward and backward; the warp
+    runs as AdaCoFNet routes it (`_sharded_max_offset`): the halo warp,
+    K1 forward and K2 backward on each band's block on the card, or, for
+    bands too short for its halo, the gathered frame's warp (the JAX
+    package forces its gather warp here).  The gradients are summed over
+    the spatial axis and averaged over the data axis before the optimizer,
+    and the metrics are the global batch's, on every process.  With one
+    process on each axis, the single-device step."""
+    from ..train.trainer import make_adacof_trainer
+
+    return make_adacof_trainer(spatial_mesh=mesh, batch_axis=batch_axis,
+                               spatial_axis=spatial_axis, **kw)
+
+
+def fusion_spatial_trainer(phase_net, adacof, mesh, batch_axis: str = "data",
+                           spatial_axis: str = "spatial", **kw):
+    """2-D (data x spatial) FusionNet training (port of the JAX package's
+    fusion_spatial_trainer): train/trainer.py's make_fusion_trainer(
+    phase_net, adacof, **kw) with `spatial_mesh=mesh`.  `step(state,
+    batch)` takes the whole NHWC global batch, as `adacof_spatial_trainer`'s;
+    sections 1-4 run without gradient on this process's block as
+    `fusion_spatial_apply` runs them (the AdaCoF passes on the bands of the
+    /8-padded rows, PhaseNet and the maps on the gathered frames of the
+    batch share), FusionNet with gradient on the bands, the /8 pad cropped
+    from the last band.  Gradients and metrics as `adacof_spatial_trainer`'s."""
+    from ..train.trainer import make_fusion_trainer
+
+    return make_fusion_trainer(phase_net, adacof, spatial_mesh=mesh, batch_axis=batch_axis,
+                               spatial_axis=spatial_axis, **kw)

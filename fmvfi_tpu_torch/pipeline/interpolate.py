@@ -301,14 +301,9 @@ def fusion_inputs(models: FusionModels, frame1, frame2, dev: torch.device, seq_c
     runs this under no_grad and FusionNet with grad.  `filters`: the filter
     bank at the /8-padded size (None: built, cached).  `compute_dtype`:
     the networks' (see the module's docstring)."""
-    f1, f2 = _nchw(frame1, dev), _nchw(frame2, dev)
-    b, _, full_h, full_w = f1.shape
-    chunked = 0 < seq_chunk < b
-    if chunked and b % seq_chunk:
-        raise ValueError(f"batch {b} not divisible by seq_chunk {seq_chunk}")
-    f1, f2 = _pad8(f1), _pad8(f2)
-    return (_sections(models, f1, f2, _filters(f1, filters), seq_chunk, compute_dtype),
-            (full_h, full_w))
+    inputs, _, _, size = _block_inputs(models, frame1, frame2, dev, compute_dtype=compute_dtype,
+                                       filters=filters, seq_chunk=seq_chunk)
+    return inputs, size
 
 
 def _sections(models: FusionModels, f1, f2, filters, seq_chunk: int = 0, compute_dtype=None,
@@ -391,6 +386,33 @@ def fusion_interpolate(
     return res.gather()
 
 
+def _block_inputs(models: FusionModels, frame1, frame2, dev: torch.device, mesh=None,
+                  batch_axis: str = "data", spatial_axis: str = "spatial", compute_dtype=None,
+                  filters=None, seq_chunk: int = 0):
+    """Sections 1-4 on this process's block of the whole (B, H, W, 3) frames:
+    over a (data x spatial) mesh the batch split over `batch_axis`, the
+    /8-padded height over `spatial_axis` (data_spatial_sharding); with no
+    mesh the whole batch and every row.  Returns (FusionInputs of the batch
+    share on this process's band of rows, the batch share, the `Bands`
+    (None where one process holds every row), (H, W)).  `seq_chunk` (no
+    mesh only): see `fusion_interpolate`."""
+    b, full_h, full_w = frame1.shape[:3]
+    share, bands = slice(None), None
+    if mesh is not None:
+        spatial._check_mesh(mesh, batch_axis, spatial_axis)
+        if 0 < seq_chunk < b:
+            raise ValueError("seq_chunk is incompatible with spatial_mesh")
+        share, bands = spatial.block(mesh, b, full_h + (-full_h) % 8, batch_axis, spatial_axis)
+    elif 0 < seq_chunk < b and b % seq_chunk:
+        raise ValueError(f"batch {b} not divisible by seq_chunk {seq_chunk}")
+    f1, f2 = _pad8(_nchw(frame1[share], dev)), _pad8(_nchw(frame2[share], dev))
+    filters = _filters(f1, filters)
+    if bands is not None:
+        f1, f2 = bands.take(f1), bands.take(f2)
+    return (_sections(models, f1, f2, filters, seq_chunk, compute_dtype, bands), share, bands,
+            (full_h, full_w))
+
+
 def fusion_sharded(models: FusionModels, frame1, frame2, mesh=None, batch_axis: str = "data",
                    spatial_axis: str = "spatial", return_parts: bool = False, *, device="cuda",
                    compute_dtype=None, seq_chunk: int = 0, filters=None):
@@ -408,28 +430,15 @@ def fusion_sharded(models: FusionModels, frame1, frame2, mesh=None, batch_axis: 
     program leaves a grad-mode node that torch.export cannot load back."""
     _check_compute_dtype(compute_dtype)
     dev = _device(device, *models)
-    f1, f2 = _nchw(frame1, dev), _nchw(frame2, dev)
-    b, _, full_h, full_w = f1.shape
-    share, groups, bands = slice(None), (None, None), None
+    b = len(frame1)
+    inputs, share, bands, (full_h, full_w) = _block_inputs(
+        models, frame1, frame2, dev, mesh, batch_axis, spatial_axis, compute_dtype, filters,
+        seq_chunk)
+    groups = (None, None)
     if mesh is not None:
-        spatial._check_mesh(mesh, batch_axis, spatial_axis)
-        if 0 < seq_chunk < b:
-            raise ValueError("seq_chunk is incompatible with spatial_mesh")
-        share, batch_group = spatial.batch_share(mesh, batch_axis, b)
-    elif 0 < seq_chunk < b and b % seq_chunk:
-        raise ValueError(f"batch {b} not divisible by seq_chunk {seq_chunk}")
-    f1, f2 = _pad8(f1[share]), _pad8(f2[share])
-    filters = _filters(f1, filters)
-    rows = slice(0, full_h)
-    if mesh is not None:
-        bands = spatial.bands_of(mesh, spatial_axis, f1.shape[-2], b // f1.shape[0])
-        rows = slice(bands.lo, min(bands.hi, full_h))  # the /8 pad is the last band's
-        if bands.n > 1:
-            f1, f2 = bands.take(f1), bands.take(f2)
-        else:
-            bands = None
-        groups = (None if bands is None else bands.group, batch_group)
-    inputs = _sections(models, f1, f2, filters, seq_chunk, compute_dtype, bands)
+        groups = (None if bands is None else bands.group,
+                  spatial.batch_share(mesh, batch_axis, b)[1])
+    rows = slice(0, full_h) if bands is None else slice(bands.lo, min(bands.hi, full_h))
     # 5. FusionNet blend
     with spatial.running(bands):
         final = models.fusion_net(*inputs, compute_dtype=compute_dtype)

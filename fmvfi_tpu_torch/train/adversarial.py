@@ -48,7 +48,8 @@ class AdvState(NamedTuple):
 def draw_eps(generator: torch.Generator, like: torch.Tensor) -> torch.Tensor:
     """The gradient penalty's mixing weights: U(0, 1) of `like`'s shape.  In
     a data-parallel step every process draws the global batch's from the
-    same generator state and takes its own rows."""
+    same generator state and takes its own rows (the processes of a spatial
+    axis, holding the same batch share, the same rows)."""
     n, lo = dp.global_batch(like.shape[0])
     eps = torch.rand((n,) + tuple(like.shape[1:]), generator=generator, device=like.device,
                      dtype=like.dtype)
@@ -137,8 +138,12 @@ class Adversarial:
                 d_loss = d_loss + GP_WEIGHT * torch.mean((gnorm - 1.0) ** 2)
 
         params = list(critic.parameters())
-        # averaged over the processes in a data-parallel step
-        for p, g in zip(params, dp.global_mean_(list(torch.autograd.grad(d_loss, params)))):
+        # averaged over the processes in a data-parallel step; in a spatial
+        # one every process of the spatial axis computes d_loss alike from
+        # the gathered frames, and its share is reduced over the whole mesh,
+        # so that they keep one critic
+        grads = torch.autograd.grad(dp.spatial_share(d_loss), params)
+        for p, g in zip(params, dp.global_mean_(list(grads))):
             p.grad = g
         state.optimizer.step()
         state.optimizer.zero_grad(set_to_none=True)

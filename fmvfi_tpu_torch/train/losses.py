@@ -5,6 +5,10 @@
   ('1*Charb+0.01*g_Spatial+0.005*g_Occlusion'): weighted terms parsed once,
   evaluated on tensors.  VGG and the GAN family parse here; the AdaCoF
   trainer computes them (train/vgg.py, train/adversarial.py).
+
+Under active spatial bands (spatial training, parallel/spatial.py) the image
+losses take a band of rows and give its share of the whole frame's mean
+(`spatial.band_mean`); the shares of the spatial group sum to the mean.
 """
 
 from __future__ import annotations
@@ -15,18 +19,19 @@ from typing import Dict, List, NamedTuple, Tuple
 import torch
 
 from ..ops.decomp import Decomp
+from ..parallel.spatial import band_mean
 
 
 def l1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.mean(torch.abs(a - b))
+    return band_mean(torch.abs(a - b))
 
 
 def mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.mean((a - b) ** 2)
+    return band_mean((a - b) ** 2)
 
 
 def charbonnier(a: torch.Tensor, b: torch.Tensor, eps: float = 0.001) -> torch.Tensor:
-    return torch.mean(torch.sqrt((a - b) ** 2 + eps**2))
+    return band_mean(torch.sqrt((a - b) ** 2 + eps**2))
 
 
 def circular_phase_loss(pred: Decomp, target: Decomp) -> torch.Tensor:

@@ -14,6 +14,14 @@ Each returns a `TrainState` and a step, and `state, metrics =
 step_fn(state, batch)` takes one optimizer step on an NHWC (frame1, target,
 frame2) batch.  PyTorch updates the model and the optimizer in place; the
 returned state carries the same objects and the step count advanced by one.
+
+With `spatial_mesh` (a ("data", "spatial") DeviceMesh, one process per
+device) the AdaCoF and FusionNet steps take the whole global batch on every
+process and run on the process's block of it, the batch split over the
+data axis and the rows over the spatial axis (parallel/spatial.py, whose
+docstring states the loss convention); the gradients are summed over the
+spatial axis and averaged over the data axis, and the metrics are the
+global batch's.
 """
 
 from __future__ import annotations
@@ -23,14 +31,20 @@ from typing import Any, Callable, List, NamedTuple, Optional, Sequence
 import torch
 from torch import nn
 
-from ..models.adacof import AdaCoFNet, smoothness_penalties
+from ..models.adacof import AdaCoFNet, pad32_bands, smoothness_penalties
 from ..models.fusion_net import FusionNet
 from ..models.phase_net import PhaseNetCore, normalize_inputs, predictions_to_decomp
 from ..ops import decomp as dec_ops
 from ..ops.color import rgb_to_lab
 from ..ops.pyramid import decompose, make_filters, max_pyr_height, reconstruct
-from ..parallel import dp
-from ..pipeline.interpolate import FusionModels, _chan_batch, _device, _nchw, fusion_inputs
+from ..parallel import dp, spatial
+from ..pipeline.interpolate import (
+    FusionModels,
+    _block_inputs,
+    _chan_batch,
+    _device,
+    _nchw,
+)
 from .adversarial import Adversarial
 from .losses import (
     LossSpec,
@@ -81,9 +95,10 @@ _OPTIMIZERS = {
 def _grads(loss: torch.Tensor, params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """d loss / d params, zeros for a parameter the loss does not reach (an
     optax optimizer sees a zero gradient there and still counts the step).
-    Inside a data-parallel step, averaged over the processes: the global
-    batch's gradient (the step takes it with autograd.grad, which no
-    DistributedDataParallel hook sees, so the reduction is here)."""
+    Inside a data-parallel step, averaged over the processes (and summed
+    over a spatial axis): the global batch's gradient (the step takes it
+    with autograd.grad, which no DistributedDataParallel hook sees, so the
+    reduction is here)."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     return dp.global_mean_([torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)])
 
@@ -119,9 +134,11 @@ def clipped_update(opt: torch.optim.Optimizer, params, grads, clip: float, loss=
 def adacof_loss(model: AdaCoFNet, spec: LossSpec, f1, target, f2, terms=None):
     """The AdaCoF training loss of NCHW frames: (total, dict of the terms
     Charb, L1, MSE, g_Spatial and g_Occlusion, and those that
-    `terms(prediction, target, f1, f2)` returns)."""
+    `terms(prediction, target, f1, f2)` returns).  Under active spatial
+    bands the frames are bands of rows and each value is the band's share."""
     out = model(f1, f2)
-    g_spatial, g_occ = smoothness_penalties(*out.heads, out.occ_raw)
+    with spatial.running(pad32_bands(spatial.active())):
+        g_spatial, g_occ = smoothness_penalties(*out.heads, out.occ_raw)
     values = {
         "Charb": charbonnier(out.blended, target),
         "L1": l1(out.blended, target),
@@ -148,6 +165,9 @@ def make_adacof_trainer(
     vgg_checkpoint: Optional[str] = None,
     h: Optional[int] = None,
     w: Optional[int] = None,
+    spatial_mesh=None,
+    batch_axis: str = "data",
+    spatial_axis: str = "spatial",
 ):
     """AdaCoF training: the loss spec (default 1*Charb+0.01*g_Spatial
     +0.005*g_Occlusion) on the blended prediction, Adamax at lr 1e-3.
@@ -167,6 +187,10 @@ def make_adacof_trainer(
       and seeded from `seed`; its state rides in `state.extra` and takes
       one critic step per training step, also when the generator's update
       is skipped.  Its loss and "d_loss" join the metrics.
+    - `spatial_mesh`: the step takes the whole global batch and runs on this
+      process's block (parallel/spatial.py::adacof_spatial_trainer); the
+      VGG and adversarial terms run on the gathered frames of the batch
+      share, the critic the same on every process of the spatial axis.
     The warp runs K1 / K2 on CUDA and the plain versions on the CPU."""
     spec = loss_spec or parse_loss_spec(DEFAULT_LOSS)
     gans = [n for _, n in gan_terms(spec)]
@@ -193,17 +217,31 @@ def make_adacof_trainer(
 
     def step_fn(state: TrainState, batch):
         model, opt = state.model, state.optimizer
+        share, bands = slice(None), None
+        if spatial_mesh is not None:
+            share, bands = spatial.block(spatial_mesh, *batch[0].shape[:2], batch_axis,
+                                         spatial_axis)
+        whole = tuple(_nchw(a[share], dev) for a in batch)
 
         def terms(pred, target, f1, f2):
             values = {}
-            if vgg_loss is not None:
-                values["VGG"] = vgg_loss(pred, target)
-            if adv is not None:
-                values[gans[0]], _, aux = adv.step(state.extra, pred, target, (f1, f2))
-                values["d_loss"] = aux["d_loss"]
+            if bands is not None and (vgg_loss is not None or adv is not None):
+                # whole-image nets, on the gathered frames of the batch share
+                # outside the bands: alike on every process of the spatial
+                # axis, so each term enters as its share
+                pred, (f1, target, f2) = bands.gather(pred), whole
+            with spatial.running(None):
+                if vgg_loss is not None:
+                    values["VGG"] = dp.spatial_share(vgg_loss(pred, target))
+                if adv is not None:
+                    g_loss, _, aux = adv.step(state.extra, pred, target, (f1, f2))
+                    values[gans[0]] = dp.spatial_share(g_loss)
+                    values["d_loss"] = dp.spatial_share(aux["d_loss"])
             return values
 
-        loss, values = adacof_loss(model, spec, *(_nchw(a, dev) for a in batch), terms)
+        frames = whole if bands is None else tuple(map(bands.take, whole))
+        with spatial.running(bands):
+            loss, values = adacof_loss(model, spec, *frames, terms)
         params = list(model.parameters())
         grads = _grads(loss, params)
         metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in values.items()}}
@@ -217,7 +255,24 @@ def make_adacof_trainer(
             group["updates"] += 1
         return state._replace(step=state.step + 1), metrics
 
-    return TrainState(model, opt, 0, adv.init_state() if adv else None), step_fn
+    return (TrainState(model, opt, 0, adv.init_state() if adv else None),
+            _on_mesh(step_fn, spatial_mesh, batch_axis, spatial_axis))
+
+
+def _on_mesh(step_fn: Callable, mesh, batch_axis: str, spatial_axis: str) -> Callable:
+    """step_fn over a (data x spatial) mesh (step_fn itself without one):
+    inside dp's context with the spatial sum, the metrics the global
+    batch's."""
+    if mesh is None:
+        return step_fn
+    spatial._check_mesh(mesh, batch_axis, spatial_axis)
+
+    def step(state: TrainState, batch):
+        with dp.running(mesh, batch_axis, spatial_axis):
+            state, metrics = step_fn(state, batch)
+            return state, dp.global_metrics(metrics)
+
+    return step
 
 
 # ---------------------------------------------------------------- PhaseNet
@@ -337,7 +392,13 @@ def make_phase_trainer(
 
 
 def _per_sample(x: torch.Tensor) -> torch.Tensor:
-    return torch.mean(x, dim=(1, 2, 3))
+    """Each sample's mean over (C, H, W); under active spatial bands the
+    whole frame's, from the bands' sums (the same on every process)."""
+    bands = spatial.active()
+    if bands is None:
+        return torch.mean(x, dim=(1, 2, 3))
+    count = x.shape[1] * bands.height * x.shape[3]
+    return spatial.spatial_sum(torch.sum(x, dim=(1, 2, 3))) / count
 
 
 def fusion_loss(pred, target, teachers=None, distill: float = 0.0, loss_balance: bool = False,
@@ -356,7 +417,10 @@ def fusion_loss(pred, target, teachers=None, distill: float = 0.0, loss_balance:
       the mean over samples.
     The gates and weights read the prediction without its gradient.  In a
     data-parallel step the returned objective is this process's share,
-    scaled so that the processes' mean is the global batch's objective."""
+    scaled so that the processes' mean is the global batch's objective.
+    Under active spatial bands (their rows those of pred) the per-sample
+    means are the whole frames', the same on every process of the spatial
+    axis, and both returned values are `dp.spatial_share`s."""
     per = _per_sample(torch.abs(pred - target))
     plain = per.mean()
     if loss_psnr:
@@ -379,8 +443,10 @@ def fusion_loss(pred, target, teachers=None, distill: float = 0.0, loss_balance:
         total = total + (distill * gate) * dist
     if loss_balance:
         wgt = 1.0 / (per.detach() + 1e-3)
-        return torch.sum(total * wgt / dp.global_sum(torch.sum(wgt))) * dp.world_size(), plain
-    return torch.mean(total), plain
+        total = torch.sum(total * wgt / dp.global_sum(torch.sum(wgt))) * dp.world_size()
+    else:
+        total = torch.mean(total)
+    return dp.spatial_share(total), dp.spatial_share(plain)
 
 
 def make_fusion_trainer(
@@ -395,6 +461,9 @@ def make_fusion_trainer(
     loss_psnr: bool = False,
     seed: int = 0,
     device="cuda",
+    spatial_mesh=None,
+    batch_axis: str = "data",
+    spatial_axis: str = "spatial",
 ):
     """FusionNet training behind the frozen `phase_net` and `adacof` (both on
     `device`): sections 1-4 of the fusion pipeline run under no_grad
@@ -404,7 +473,9 @@ def make_fusion_trainer(
     `fusion_loss` with the three mode flags; the reported "loss" is always
     the plain L1.  `loss_psnr` with `loss_balance` raises: log-MSE balances
     itself, and 1/L1 weights on negative log values would weight the
-    converged samples most.
+    converged samples most.  `spatial_mesh`: the step takes the whole
+    global batch and runs on this process's block
+    (parallel/spatial.py::fusion_spatial_trainer).
 
     Returns (state, step_fn); state.model is the FusionNet, initialised
     from `seed` (load weights into it to start from them)."""
@@ -426,14 +497,21 @@ def make_fusion_trainer(
     def step_fn(state: TrainState, batch):
         model = state.model
         f1, target, f2 = batch
+        models = FusionModels(phase_net, adacof, model)
         with torch.no_grad():
-            inputs, (h, w) = fusion_inputs(FusionModels(phase_net, adacof, model), f1, f2, dev)
-        pred = model(*inputs)[:, :, :h, :w]
-        target = _nchw(target, dev)
-        teachers = (inputs.adacof[:, :, :h, :w], inputs.phase[:, :, :h, :w])
-        total, plain = fusion_loss(pred, target, teachers, distill, loss_balance, loss_psnr)
+            inputs, share, bands, (h, w) = _block_inputs(models, f1, f2, dev, spatial_mesh,
+                                                         batch_axis, spatial_axis)
+        with spatial.running(bands):
+            pred = model(*inputs)
+        # this process's rows of the frame: the /8 pad is the last band's
+        lo, rows = (0, h) if bands is None else (bands.lo, min(bands.hi, h) - bands.lo)
+        pred = pred[:, :, :rows, :w]
+        target = _nchw(target[share], dev)[:, :, lo : lo + rows]
+        teachers = (inputs.adacof[:, :, :rows, :w], inputs.phase[:, :, :rows, :w])
+        with spatial.running(None if bands is None else bands.padded(h - bands.height)):
+            total, plain = fusion_loss(pred, target, teachers, distill, loss_balance, loss_psnr)
         params = list(model.parameters())
         clipped_update(state.optimizer, params, _grads(total, params), 1.0, total)
         return state._replace(step=state.step + 1), {"loss": plain.detach()}
 
-    return TrainState(model, opt, 0), step_fn
+    return TrainState(model, opt, 0), _on_mesh(step_fn, spatial_mesh, batch_axis, spatial_axis)

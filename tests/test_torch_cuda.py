@@ -731,3 +731,77 @@ def test_fusion_spatial_apply_on_a_one_process_mesh_is_fusion_interpolate(nccl_g
     assert adacof_cuda.launches - before == 3
     want = fusion_interpolate(models, f1[None], f2[None], device=nccl_group)
     np.testing.assert_array_equal(got.gather().cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_spatial_adacof_step_on_one_nccl_process_matches_the_cpu(nccl_group):
+    """adacof_spatial_trainer on a (1, 1) NCCL mesh, one SGD step at 64x64,
+    batch 2 (K1 and K2 once, fp32, TF32 off, deterministic cuDNN) against
+    the single-device step on the CPU (the plain warp): metrics within 1e-5
+    relative, parameters within 1e-6 (an SGD step of lr 1e-3 moves them by
+    at most 1e-3)."""
+    import numpy as np
+
+    from fmvfi_tpu_torch.eval.synth import translation_triplet
+    from fmvfi_tpu_torch.parallel import spatial
+    from fmvfi_tpu_torch.parallel.mesh import make_mesh
+    from fmvfi_tpu_torch.train.trainer import make_adacof_trainer
+
+    items = [translation_triplet(64, 64, dx=3.0 + i, dy=1.0, seed=i) for i in range(2)]
+    batch = tuple(np.stack([it[j] for it in items]) for j in range(3))
+    mesh = make_mesh(1, ("data", "spatial"), (1, 1))
+    card_state, card_step = spatial.adacof_spatial_trainer(mesh, optimizer="sgd",
+                                                           device=nccl_group)
+    cpu_state, cpu_step = make_adacof_trainer(optimizer="sgd", device="cpu")
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = False, True
+    try:
+        before = (adacof_cuda.launches, adacof_cuda.bwd_launches)
+        card_state, card_m = card_step(card_state, batch)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = flags
+    assert (adacof_cuda.launches, adacof_cuda.bwd_launches) == (before[0] + 1, before[1] + 1)
+    cpu_state, cpu_m = cpu_step(cpu_state, batch)
+    for k in cpu_m:
+        assert abs(float(card_m[k]) - float(cpu_m[k])) <= 1e-5 * abs(float(cpu_m[k])), k
+    card_sd = card_state.model.state_dict()
+    for k, v in cpu_state.model.state_dict().items():
+        torch.testing.assert_close(card_sd[k].cpu(), v, rtol=0, atol=1e-6, msg=k)
+
+
+@pytest.mark.gpu
+def test_halo_exchange_backward_through_k2_matches_the_whole_frame(nccl_group):
+    """Fields from a convolution on one band of a (1, 1) NCCL mesh (its zero
+    edge rows through the halo exchange's autograd Function), warped by
+    adacof_warp_tm_sharded (K1 forward, K2 backward on the band's block):
+    the gradients of the convolution's input and weight against the same
+    net on the whole frame through K1/K2, within 1e-4 of each one's
+    largest entry."""
+    from fmvfi_tpu_torch.models.conv import Conv2d
+    from fmvfi_tpu_torch.ops.adacof import pad_replicate
+    from fmvfi_tpu_torch.parallel import spatial
+    from fmvfi_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(1, ("data", "spatial"), (1, 1))
+    bands = spatial.bands_of(mesh, "spatial", 96)
+    g = torch.Generator(device=nccl_group).manual_seed(0)
+    torch.manual_seed(0)
+    conv = Conv2d(8, 75, 3, padding=1).to(nccl_group)
+    feat = torch.randn((2, 8, 96, 64), generator=g, device=nccl_group).requires_grad_()
+    x = torch.rand((2, 3, 96, 64), generator=g, device=nccl_group)
+    cot = torch.randn((2, 3, 96, 64), generator=g, device=nccl_group)
+
+    def fields(y):
+        return torch.softmax(y[:, :25], 1), 6 * y[:, 25:50], 6 * y[:, 50:]
+
+    with spatial.running(bands):
+        before = adacof_cuda.bwd_launches
+        out = spatial.adacof_warp_tm_sharded(x, *fields(conv(feat)), 1, max_offset=24)
+        band = torch.autograd.grad(out, [feat, conv.weight], cot)
+        assert adacof_cuda.bwd_launches == before + 1
+    whole = torch.autograd.grad(
+        adacof_cuda.adacof_warp(pad_replicate(x, 2), *fields(conv(feat)), 1, 24),
+        [feat, conv.weight], cot)
+    for got, want in zip(band, whole):
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())

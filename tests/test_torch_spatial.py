@@ -302,7 +302,8 @@ def group():
 
 def test_raises(ranks, weights, group):
     """A band shorter than the warp's halo, seq_chunk, a height that cannot
-    be split, a mesh without the axes: each raises ValueError."""
+    be split, a mesh without the axes: each raises ValueError.  A conv band
+    that requires grad gives the whole frame's gradients."""
     _, reports = ranks
     _, models, _, _, _ = weights
     assert "below the halo of 15 rows" in reports[0]["raised"]["short_band"]
@@ -319,9 +320,15 @@ def test_raises(ranks, weights, group):
         pt_pipe.fusion_interpolate(models, f[:, :16], f[:, :16], device="cpu", spatial_mesh=mesh)
     with pytest.raises(ValueError, match="spatial_mesh"):
         pt_pipe.fusion_interpolate(models, f, f, device="cpu", spatial_mesh=make_mesh())
-    with pytest.raises(NotImplementedError, match="20b"):
-        with spatial.running(spatial.Bands(None, 0, (16, 16))):
-            Conv2d(6, 4, 3, padding=1)(torch.zeros(1, 6, 16, 8, requires_grad=True))
+    # a band that requires grad backpropagates through the halo exchange:
+    # one band of the whole frame, its zero edge rows built by the exchange
+    conv = Conv2d(6, 4, 3, padding=1)
+    xg = torch.rand(1, 6, 16, 8, generator=torch.Generator().manual_seed(0), requires_grad=True)
+    with spatial.running(spatial.Bands(None, 0, (16,))):
+        band = torch.autograd.grad(conv(xg).square().sum(), [xg, conv.weight])
+    whole = torch.autograd.grad(conv(xg).square().sum(), [xg, conv.weight])
+    for got, want in zip(band, whole):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6 * float(want.abs().max()))
 
 
 def test_one_process_mesh_is_the_single_device_pipeline(ranks, weights, group):
