@@ -119,6 +119,27 @@ Phases, each printing one JSON line with its seconds:
               sets (adacof and baseline) with it: every set's lpips_vgg
               finite, K1 once per set and method, through F5C3 with the
               ring;
+  photo     - (after lpips; lines photo_data, photo_eval, photo_train) the
+              JPEG decoder on grace_hopper.jpg, its sha256 equal to the
+              digest of PIL's decode (HOPPER_SHA256, held by the CPU test),
+              and its ms; photo_sources() cold, each source within 1e-6 of
+              JAX's statistics (PHOTO_SOURCE_STATS); evaluate_suite on
+              synthetic_sets(512, 4, include_photo=True)["photo"] with the
+              serve models for adacof and fusion: K1 1 + 3 launches via
+              F5C3 with the ring, no K2, each fused triplet >= 60 dB
+              against the same request through the plain warp; AdaCoF
+              training from the bundled weights, 1 + 5 steps at batch 4 on
+              256x256 crops of MixedSynthStream(n=64, h=288, w=448,
+              photo_frac=0.5): K1 and K2 once a step via F5C3 with the
+              ring, the first step's K1 launch within 1e-5 and K2 (seeded
+              cotangent) within 1e-4 of their plain versions on its
+              inputs, finite losses, the stream's build seconds, ms a step;
+              `cli video --method adacof` on a directory of 3 copies of
+              grace_hopper.jpg (5 PNGs, the originals exact, K1 once a
+              pair) and `cli evaluate --test_sets synthetic+photo --dim
+              128 --max_num 1 --methods adacof` (JAX's 9 set keys, K1 once
+              a set); where ffmpeg and ffprobe are on PATH (nothing is
+              installed);
   cli       - (after train_fusion) the command line on PNG files: the serve phase's
               first pair and the video phase's 5-frame clip written with
               the port's imwrite, read back bit-equal, and the C++ row
@@ -331,6 +352,48 @@ DP_PARAM_TOL, DP_LOSS_TOL = 1e-5, 1e-6
 # (BN moments from two halves' sums, the gradient as the mean of two halves')
 FLOOR_SHARE = 3.0
 VGG16_CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M", 512, 512, 512]
+# photo: grace_hopper.jpg decoded (600, 512, 3) uint8 RGB as PIL decodes it,
+# and JAX's photo_sources() per source (shape, float64 sum, pixels [0, 0],
+# [h // 2, w // 2], [h - 1, w - 1]); tests/test_torch_photo.py holds both
+# against PIL and fmvfi_tpu on the CPU
+HOPPER_SHA256 = "f7f982de68dd296af67ee51b2a95a2e5658f7bf064c6536520b66bae8d01fc34"
+PHOTO_SOURCE_STATS = [
+    ((600, 512, 3), 290742.50440738397,
+     [[0.08235294371843338, 0.0941176488995552, 0.3019607961177826],
+      [0.8470588326454163, 0.5333333611488342, 0.40392157435417175],
+      [0.054901961237192154, 0.05098039284348488, 0.07450980693101883]]),
+    ((300, 256, 3), 72597.84075098624,
+     [[0.08235294371843338, 0.0941176488995552, 0.3019607961177826],
+      [0.027450980618596077, 0.03921568766236305, 0.16078431904315948],
+      [0.7686274647712708, 0.4431372582912445, 0.30980393290519714]]),
+    ((400, 342, 3), 134370.20283807535,
+     [[0.5137255191802979, 0.2980392277240753, 0.18039216101169586],
+      [0.0313725508749485, 0.03529411926865578, 0.05098039284348488],
+      [0.054901961237192154, 0.05098039284348488, 0.07450980693101883]]),
+    ((300, 256, 3), 96145.89218260208,
+     [[0.027450980618596077, 0.03921568766236305, 0.16078431904315948],
+      [0.8470588326454163, 0.5333333611488342, 0.40392157435417175],
+      [0.0313725508749485, 0.0313725508749485, 0.0784313753247261]]),
+    ((344, 403, 3), 174312.78154696524,
+     [[0.22654232382774353, 0.5612523555755615, 0.5385386347770691],
+      [0.3841860592365265, 0.7525913715362549, 0.5043869018554688],
+      [0.04125696048140526, 0.04252732917666435, 0.603724479675293]]),
+    ((91, 120, 3), 15083.768950724043,
+     [[0.00696258619427681, 0.0, 0.27925559878349304],
+      [0.11661694198846817, 0.3970998227596283, 0.0956043154001236],
+      [0.46771299839019775, 0.5060732960700989, 0.1378677934408188]]),
+    ((256, 256, 3), 35345.44185687974,
+     [[0.0, 0.0, 0.0],
+      [0.4372093081474304, 0.4372093081474304, 0.4372093081474304],
+      [0.0, 0.0, 0.0]]),
+]
+PHOTO_TOL = 1e-6  # the sources' sums (relative) and pixels: float shading on another CPU
+PHOTO_DIM, PHOTO_FRAMES = 512, 4  # synthetic_sets(512, 4, include_photo=True)["photo"]
+PHOTO_METHODS = ("adacof", "fusion")
+PHOTO_K1 = dict(adacof=1, fusion=3)  # one dispatch per method, as the eval phase counts
+PHOTO_STEPS = 5  # timed photo_frac training steps, after the compared first one
+PHOTO_STREAM = dict(n=64, h=288, w=448, photo_frac=0.5)
+PHOTO_CLI_FRAMES = 3  # copies of grace_hopper.jpg as a JPEG frame directory
 
 
 def _line(**kw):
@@ -510,6 +573,213 @@ def _lpips(dev, models, sets, vgg_path, work_dir):
         raise AssertionError(f"lpips: K1 {c['k1_paths']}, K2 {c['k2']}; expected one K1 launch "
                              f"per set and method through {RING_PATH}")
     return c["k1"]
+
+
+def phase_photo(dev, repo, models, ada_path):
+    """JPEG frames and the natural-photo sources on the card: the decoder
+    against PIL's digest, photo_sources against JAX's statistics, the photo
+    set's evaluation and photo_frac AdaCoF training through K1/K2, and the
+    command line on JPEG frames; returns the path's K1 and K2 launches."""
+    with _work_dir(repo) as work:
+        return _photo(dev, repo, models, ada_path, work)
+
+
+def _photo(dev, repo, models, ada_path, work):
+    import contextlib
+    import hashlib
+    import io
+
+    import torch
+    from fmvfi_tpu_torch import cli
+    from fmvfi_tpu_torch.eval import synth
+    from fmvfi_tpu_torch.eval.evaluate import evaluate_suite, synthetic_sets
+    from fmvfi_tpu_torch.ops import adacof_cuda
+    from fmvfi_tpu_torch.ops.adacof import adacof_warp as warp_plain
+    from fmvfi_tpu_torch.ops.adacof import adacof_warp_field_grads
+    from fmvfi_tpu_torch.pipeline.interpolate import fusion_interpolate
+    from fmvfi_tpu_torch.train.data import MixedSynthStream, batch_iterator
+    from fmvfi_tpu_torch.train.trainer import make_adacof_trainer
+    from fmvfi_tpu_torch.utils import imageio
+    from fmvfi_tpu_torch.utils.convert import load_adacof_weights
+
+    t0 = time.perf_counter()
+    hopper = os.path.join(synth.SAMPLE_DATA, "grace_hopper.jpg")
+    t = time.perf_counter()
+    img = imageio.read_jpeg(hopper)  # the first call builds the native library
+    first_ms = 1e3 * (time.perf_counter() - t)
+    decode_ms = []
+    for _ in range(5):
+        t = time.perf_counter()
+        imageio.read_jpeg(hopper)
+        decode_ms.append(1e3 * (time.perf_counter() - t))
+    digest = hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+    jpeg = dict(shape=list(img.shape), sha256=digest, expected=HOPPER_SHA256,
+                first_call_ms=first_ms, decode_ms=float(np.median(decode_ms)))
+
+    t = time.perf_counter()
+    sources = synth.photo_sources()
+    sources_seconds = time.perf_counter() - t
+    src_gaps = []
+    for s, (shape, total, pixels) in zip(sources, PHOTO_SOURCE_STATS):
+        h, w = shape[:2]
+        got = [s[0, 0], s[h // 2, w // 2], s[h - 1, w - 1]] if s.shape == shape else []
+        src_gaps.append(dict(
+            shape=list(s.shape),
+            sum_rel=abs(float(np.sum(s, dtype=np.float64)) / total - 1.0),
+            pixel_abs=max((float(np.abs(np.asarray(g, np.float64) - p).max())
+                           for g, p in zip(got, pixels)), default=float("inf"))))
+    tools = {k: shutil.which(k) for k in ("ffmpeg", "ffprobe")}
+    _line(phase="photo_data", seconds=time.perf_counter() - t0, jpeg=jpeg,
+          sources_seconds=sources_seconds, sources=src_gaps, tol=PHOTO_TOL, which=tools)
+    if digest != HOPPER_SHA256 or img.shape != (600, 512, 3):
+        raise AssertionError(f"photo: grace_hopper.jpg decodes to {jpeg}, not PIL's digest")
+    if len(sources) != len(PHOTO_SOURCE_STATS) or not all(
+            g["sum_rel"] <= PHOTO_TOL and g["pixel_abs"] <= PHOTO_TOL for g in src_gaps):
+        raise AssertionError(f"photo: photo_sources against JAX's statistics {src_gaps}")
+
+    # the photo set through evaluate_suite, then each fused prediction
+    # against the same request through the plain warp
+    t0 = time.perf_counter()
+    sets = {"photo": synthetic_sets(PHOTO_DIM, PHOTO_FRAMES, include_photo=True)["photo"]}
+    set_seconds = time.perf_counter() - t0
+    _reset_counts()  # the photo evaluation path's run
+    t_run = time.perf_counter()
+    summary = evaluate_suite(models, os.path.join(work, "eval"), sets=sets,
+                             methods=PHOTO_METHODS, dim=PHOTO_DIM, device=dev)
+    run_seconds = time.perf_counter() - t_run
+    eval_c = _counts()
+    frames = sets["photo"]
+    plain_db = []
+    for i in range(len(frames) - 2):
+        k1_out = fusion_interpolate(models, frames[i][None], frames[i + 2][None], device=dev)
+        models.adacof.warp = warp_plain
+        try:
+            plain_out = fusion_interpolate(models, frames[i][None], frames[i + 2][None],
+                                           device=dev)
+        finally:
+            models.adacof.warp = adacof_cuda.adacof_warp
+        plain_db.append(_psnr(k1_out.cpu().numpy(), plain_out.cpu().numpy()))
+    want_k1 = sum(PHOTO_K1[m] for m in PHOTO_METHODS)
+    _line(phase="photo_eval", seconds=time.perf_counter() - t0, set_seconds=set_seconds,
+          run_seconds=run_seconds, dim=PHOTO_DIM, n_frames=PHOTO_FRAMES,
+          psnr={m: summary["photo"][m]["psnr"] for m in PHOTO_METHODS},
+          ssim={m: summary["photo"][m]["ssim"] for m in PHOTO_METHODS},
+          k1_launches=eval_c["k1"], k1_paths=eval_c["k1_paths"], k2_launches=eval_c["k2"],
+          fusion_vs_plain_warp_db=plain_db)
+    if eval_c["k1"] != want_k1 or eval_c["k1_paths"] != {RING_PATH: want_k1} or eval_c["k2"]:
+        raise AssertionError(f"photo eval: K1 {eval_c['k1_paths']}, K2 {eval_c['k2']}; "
+                             f"expected {want_k1} K1 launches through {RING_PATH}, no K2")
+    means = [v for m in PHOTO_METHODS for v in summary["photo"][m].values()]
+    if not np.isfinite(means).all() or not min(plain_db) >= PLAIN_AGREEMENT_DB:
+        raise AssertionError(f"photo eval: means {summary}, fused against the plain warp "
+                             f"{plain_db} dB")
+
+    # photo_frac training: AdaCoF from the bundled weights on the mixed
+    # stream, K1 and K2 once a step; the first step's launches held against
+    # the plain versions on the same inputs afterwards
+    t0 = time.perf_counter()
+    stream = MixedSynthStream(**PHOTO_STREAM)
+    stream_seconds = time.perf_counter() - t0
+    state, step_fn = make_adacof_trainer(device=dev)
+    state.model.load_state_dict(load_adacof_weights(ada_path))
+    batches = batch_iterator(stream, FUSION_BATCH, crop=CROP)
+    captured = []
+
+    def recording_warp(*args):
+        if not captured:
+            captured.append(tuple(a.detach().clone() if torch.is_tensor(a) else a
+                                  for a in args))
+        return adacof_cuda.adacof_warp(*args)
+
+    state.model.warp = recording_warp
+    step_ms, losses, per_step = [], [], []
+    try:
+        _reset_counts()  # the photo training path's run
+        for _ in range(PHOTO_STEPS + 1):
+            batch = next(batches)
+            before = (adacof_cuda.launches, adacof_cuda.bwd_launches)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step_fn(state, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t))
+            per_step.append([adacof_cuda.launches - before[0],
+                             adacof_cuda.bwd_launches - before[1]])
+        train_c = _counts()  # read just after
+    finally:
+        batches.close()
+        state.model.warp = adacof_cuda.adacof_warp
+    (x, wgt, a, be, d, r), = captured
+    cot = torch.randn((x.shape[0], x.shape[1]) + tuple(wgt.shape[2:]),
+                      generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    k1_out, x4 = adacof_cuda.warp_fwd_cuda(x, wgt, a, be, d, r)
+    k1_err = float((k1_out - warp_plain(x, wgt, a, be, d, r)).abs().max())
+    k2_err = max(float((k - p).abs().max()) for k, p in zip(
+        adacof_cuda.warp_bwd_cuda(x, wgt, a, be, cot, d, r, x4=x4),
+        adacof_warp_field_grads(x, wgt, a, be, cot, d, r)))
+    photo_items = sum(1 for i in range(len(stream))
+                      if np.random.default_rng(1000 + i).random() < PHOTO_STREAM["photo_frac"])
+    del state, captured, x, wgt, a, be, cot, k1_out, x4
+    torch.cuda.empty_cache()
+
+    # the command line on JPEG frames: video over a directory of copies of
+    # grace_hopper.jpg, and evaluate --test_sets synthetic+photo
+    t_cli = time.perf_counter()
+    clip = os.path.join(work, "jpeg_clip")
+    os.makedirs(clip)
+    for i in range(PHOTO_CLI_FRAMES):
+        shutil.copy(hopper, os.path.join(clip, f"{i:05d}.jpg"))
+    _reset_counts()  # the command line's run
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["video", "--input", clip, "--output_dir", os.path.join(work, "video"),
+                  "--method", "adacof", "--device", dev.type])
+    video_c = _counts()
+    written = sorted(os.listdir(os.path.join(work, "video")))
+    originals = all(np.array_equal(imageio.imread(os.path.join(work, "video", written[2 * i])),
+                                   img) for i in range(PHOTO_CLI_FRAMES))
+    _reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):  # the command prints its summary
+        cli.main(["evaluate", "--test_sets", "synthetic+photo", "--out_dir",
+                  os.path.join(work, "cli_eval"), "--dim", "128", "--max_num", "1",
+                  "--methods", "adacof", "--device", dev.type])
+    cli_eval_c = _counts()
+    with open(os.path.join(work, "cli_eval", "summary.json")) as f:
+        cli_keys = list(json.load(f))
+    cli_seconds = time.perf_counter() - t_cli
+    want_keys = list(synthetic_sets(16, 3, include_photo=True))
+    _line(phase="photo_train", seconds=time.perf_counter() - t0, stream=PHOTO_STREAM,
+          stream_build_seconds=stream_seconds, photo_items=photo_items, batch=FUSION_BATCH,
+          crop=CROP, steps=PHOTO_STEPS, first_step_ms=step_ms[0],
+          ms_per_step=float(np.median(step_ms[1:])), ms_steps=step_ms[1:], loss=losses,
+          k1_launches=train_c["k1"], k2_launches=train_c["k2"],
+          k1_k2_paths=[train_c["k1_paths"], train_c["k2_paths"]],
+          first_step_k1_max_abs_err=k1_err, first_step_k2_max_abs_err=k2_err,
+          cli_seconds=cli_seconds, cli_video=dict(frames_written=len(written),
+                                                  originals_exact=originals,
+                                                  k1_launches=video_c["k1"],
+                                                  k1_paths=video_c["k1_paths"]),
+          cli_evaluate=dict(sets=cli_keys, k1_launches=cli_eval_c["k1"],
+                            k1_paths=cli_eval_c["k1_paths"]))
+    n = PHOTO_STEPS + 1
+    if (per_step != [[1, 1]] * n or train_c["k1_paths"] != {RING_PATH: n}
+            or train_c["k2_paths"] != {RING_PATH: n}):
+        raise AssertionError(f"photo training: K1/K2 per step {per_step}, by instantiation "
+                             f"{train_c['k1_paths']} {train_c['k2_paths']}")
+    if not (k1_err <= K1_TOL and k2_err <= K2_TOL) or not np.isfinite(losses).all():
+        raise AssertionError(f"photo training: first step K1 {k1_err:.3g}, K2 {k2_err:.3g} "
+                             f"against the plain versions; losses {losses}")
+    if not 0 < photo_items < len(stream):
+        raise AssertionError(f"photo training: {photo_items} photo scenes of {len(stream)}")
+    if len(written) != 2 * PHOTO_CLI_FRAMES - 1 or not originals or video_c["k1"] != (
+            PHOTO_CLI_FRAMES - 1) or video_c["k1_paths"] != {RING_PATH: video_c["k1"]}:
+        raise AssertionError(f"photo cli video: {written}, originals exact {originals}, "
+                             f"K1 {video_c['k1_paths']}")
+    if cli_keys != want_keys or cli_eval_c["k1"] != len(want_keys) or cli_eval_c["k2"]:
+        raise AssertionError(f"photo cli evaluate: sets {cli_keys} (expected {want_keys}), "
+                             f"K1 {cli_eval_c['k1_paths']}, K2 {cli_eval_c['k2']}")
+    return (eval_c["k1"] + train_c["k1"] + video_c["k1"] + cli_eval_c["k1"],
+            train_c["k2"] + video_c["k2"] + cli_eval_c["k2"])
 
 
 def phase_train_gan(dev, repo, ada_path):
@@ -2808,6 +3078,10 @@ def main() -> int:
     # lpips: the VGG LPIPS on the card, and evaluate_suite filling lpips_vgg
     lpips_k1 = phase_lpips(dev, repo, models, sets)
 
+    # photo: JPEG frames, the natural-photo sources, the photo set's
+    # evaluation and photo_frac training through K1/K2
+    photo_k1, photo_k2 = phase_photo(dev, repo, models, ada_path)
+
     # train: AdaCoF training at 256x256, batch 4, through K1 and K2
     t0 = time.perf_counter()
     del models, fusion, phase
@@ -3236,7 +3510,8 @@ def main() -> int:
     dp_k1, dp_k2 = phase_dp(dev, repo)
     spatial_k1, spatial_k2 = phase_spatial(dev, repo)
     spatial_train_k1, spatial_train_k2 = phase_spatial_train(dev, repo)
-    regime_k1.update(lpips=lpips_k1, cli=cli_k1, export=export_k1, train_gan=gan_k1,
+    regime_k1.update(lpips=lpips_k1, photo=photo_k1, cli=cli_k1, export=export_k1,
+                     train_gan=gan_k1,
                      train_gan_types=gan_types_k1, serve_bf16=bf16_k1, dp=dp_k1,
                      spatial=spatial_k1, spatial_train=spatial_train_k1)
 
@@ -3259,13 +3534,14 @@ def main() -> int:
     ), dict(
         name=adacof_cuda.NAME_BWD, route="cuda", source=adacof_cuda.SOURCE_BWD,
         replaces=adacof_cuda.REPLACES_BWD,
-        launches=(train_k2 + gan_k2 + gan_types_k2 + cli_k2 + export_k2 + dp_k2 + spatial_k2
-                  + spatial_train_k2),
+        launches=(train_k2 + photo_k2 + gan_k2 + gan_types_k2 + cli_k2 + export_k2 + dp_k2
+                  + spatial_k2 + spatial_train_k2),
         max_abs_err=k2_max_err,
         ms=k2_train["ms"], plain_ms=k2_train["plain_ms"], bound_ms=k2_train["bound_ms"],
         bound_by=k2_train["bound_by"], library_ms=None, design=DESIGN,
         launch_1080p_ms=k2_timings[1]["ms"],
-        launches_by_path=dict(serve=0, serve_bf16=0, video=0, eval=0, lpips=0, cli=cli_k2,
+        launches_by_path=dict(serve=0, serve_bf16=0, video=0, eval=0, lpips=0, photo=photo_k2,
+                              cli=cli_k2,
                               export=export_k2, train=train_k2, train_phase=0, train_fusion=0,
                               train_gan=gan_k2, train_gan_types=gan_types_k2, dp=dp_k2,
                               spatial=spatial_k2, spatial_train=spatial_train_k2),

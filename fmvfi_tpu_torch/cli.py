@@ -9,16 +9,16 @@
 Flags, defaults and messages are JAX's, plus `--device` (default cuda): a
 command exits with an error when there is no CUDA card, unless it is given
 `--device cpu`.  Convolutions run in float32 (TF32 off), as the reference
-computes.  Images are PNG files (utils/imageio.py).  The default PhaseNet
+computes.  Images are PNG or baseline JPEG files (utils/imageio.py); output
+frames are written as PNG.  The default PhaseNet
 and FusionNet checkpoints are the reference's file names under the
 repository's checkpoints/ directory.  As in JAX, without
 --adacof_checkpoint the bundled demo AdaCoF is used, and with it the demo
 FusionNet in place of a file named fusion_net.pt.
 
-Not ported yet, each raising NotImplementedError with its ROADMAP item
-(Queue 1): video files as input (18.4), JPEG frames (18.5), `--test_sets
-synthetic+photo` (18.6).  The results.png chart of `evaluate` (18.6) is
-skipped with a note on stderr.  `train --data_parallel` runs one process
+Not ported yet: video files as input raise NotImplementedError (ROADMAP
+Queue 1, item 18.4), and the results.png chart of `evaluate` (item 18.6)
+is skipped with a note on stderr.  `train --data_parallel` runs one process
 per GPU (torchrun), where JAX runs one process over a mesh of devices.
 """
 

@@ -6,8 +6,8 @@ are cached per (set, method, weights) in `result_*.npz` files beside a
 
 Sets are (N, H, W, 3) arrays (float in [0, 1] or uint8), frame iterators,
 or zero-argument callables returning a fresh iterator; `load_set` reads
-them from directories of PNG frames.  The panels of `visualize` need
-matplotlib and are not ported (ROADMAP Queue 1, item 18.6).
+them from directories of PNG or JPEG frames.  The panels of `visualize` are
+not ported (ROADMAP Queue 1, item 18.6).
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from ..pipeline.video import (
 )
 from ..utils import imageio
 from .metrics import all_metrics
-from .synth import benchmark_sets, translation_video
+from .synth import benchmark_sets, photo_video, translation_video
 
 METRIC_NAMES = ("ssim", "lpips_sub", "psnr", "ssd", "l1", "mean_diff", "var_diff")
 
@@ -129,12 +129,10 @@ def synthetic_sets(
     dim: int = 512, n_frames: int = 6, include_photo: bool = False, seeds: Sequence[int] = (0,)
 ) -> Dict[str, np.ndarray]:
     """One set per motion regime of `benchmark_sets` plus the two step-
-    translation sets (fmvfi_tpu/eval/evaluate.py:156-194).  With several
-    `seeds` each set is drawn once per seed under `<name>@s<k>`.  The photo
-    set needs matplotlib and PIL: include_photo=True raises."""
-    if include_photo:
-        raise NotImplementedError("the photo set needs matplotlib and PIL, not ported yet "
-                                  "(ROADMAP Queue 1, item 18.6)")
+    translation sets (fmvfi_tpu/eval/evaluate.py:156-194), and with
+    include_photo the real-photograph set `photo` (photo_video, natural
+    image statistics).  With several `seeds` each set is drawn once per seed
+    under `<name>@s<k>`."""
     multi = len(seeds) > 1
     sets: Dict[str, np.ndarray] = {}
     for k in seeds:
@@ -146,6 +144,8 @@ def synthetic_sets(
             sets[f"synth_step{s}{sfx}"] = translation_video(
                 n_frames, dim, dim, step=float(s), seed=s + off
             )
+        if include_photo:
+            sets[f"photo{sfx}"] = photo_video(n_frames, dim, dim, seed=11 + off)
     return sets
 
 

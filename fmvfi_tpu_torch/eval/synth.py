@@ -1,13 +1,31 @@
 """Synthetic motion sequences with exact ground truth (a copy of the numpy
-generators of fmvfi_tpu/eval/synth.py:83-206,397-411 and their helpers):
-textured scenes under known translation, rotation, zoom, occlusion and
-brightness change, one per motion regime of `benchmark_sets`.  The
-photograph regimes (photo_video, natural_video) need matplotlib and PIL and
-are not copied."""
+generators of fmvfi_tpu/eval/synth.py and their helpers): textured scenes
+under known translation, rotation, zoom, occlusion and brightness change,
+one per motion regime of `benchmark_sets`, and the photograph regimes
+(`photo_video`, `natural_video`) over the natural images of
+`photo_sources`.
+
+The photographs are matplotlib's sample data, carried in
+fmvfi_tpu_torch/data/sample_data/ (see its README): the JPEG is decoded by
+utils.imageio.read_jpeg and resized by utils.resample.resize_u8, bit-equal
+to PIL, and the elevation maps are shaded by eval.shade as matplotlib
+shades them.
+"""
 
 from __future__ import annotations
 
+import gzip
+import os
+import threading
+
 import numpy as np
+
+from ..utils.imageio import read_jpeg
+from ..utils.resample import resize_u8
+from .shade import shade
+
+SAMPLE_DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "data", "sample_data")
 
 
 def _texture(rng: np.random.Generator, h: int, w: int, octaves: int = 5) -> np.ndarray:
@@ -199,6 +217,143 @@ def large_motion_video(
     """Translation far beyond AdaCoF's reach (kernel_size*dilation taps ~ a
     few px): PhaseNet's coarse pyramid levels still lock on."""
     return translation_video(n_frames, h, w, step=step, seed=seed)
+
+
+def photo_video(
+    n_frames: int, h: int = 512, w: int = 512, step: float = 3.0,
+    deg_per_frame: float = 0.3, seed: int = 11,
+):
+    """Real-photograph motion with exact ground truth: the Grace Hopper
+    portrait (natural image statistics: edges, smooth skin, text on books)
+    under a rigid translation + rotation, sampled with the same bilinear
+    warp as the texture regimes (fmvfi_tpu/eval/synth.py:208-245)."""
+    margin = int(np.ceil(abs(step) * n_frames + 0.02 * max(h, w))) + 2
+    src = np.asarray(
+        resize_u8(read_jpeg(os.path.join(SAMPLE_DATA, "grace_hopper.jpg")),
+                  (w + 2 * margin, h + 2 * margin)),
+        dtype=np.float32,
+    ) / 255.0
+    rng = np.random.default_rng(seed)
+    angle0 = rng.uniform(0, 2 * np.pi)
+    dy, dx = np.sin(angle0) * step, np.cos(angle0) * step
+    cy, cx = (h - 1) / 2, (w - 1) / 2
+    yy, xx = _warp_grid(h, w)
+    frames = []
+    for i in range(n_frames):
+        a = np.deg2rad(deg_per_frame * i)
+        ys = cy + (yy - cy) * np.cos(a) - (xx - cx) * np.sin(a) + dy * i
+        xs = cx + (yy - cy) * np.sin(a) + (xx - cx) * np.cos(a) + dx * i
+        frames.append(_sample_bilinear(src, ys + margin, xs + margin).astype(np.float32))
+    return np.stack(frames)
+
+
+_PHOTO_SOURCES = None
+_PHOTO_LOCK = threading.Lock()
+
+
+def photo_sources():
+    """The natural images as float32 RGB in [0, 1], in fmvfi_tpu's order:
+    the Grace Hopper portrait and three crops of it, shaded-relief renders
+    of the two elevation maps, and an MRI slice.  Built on the first call
+    and cached (the list is shared: do not modify it).  A missing or
+    unreadable file raises: the pool never shrinks, so a seed always picks
+    the same photo."""
+    global _PHOTO_SOURCES
+    with _PHOTO_LOCK:
+        if _PHOTO_SOURCES is None:
+            _PHOTO_SOURCES = _load_photo_sources()
+        return _PHOTO_SOURCES
+
+
+def _load_photo_sources():
+    out = []
+    hopper = np.asarray(read_jpeg(os.path.join(SAMPLE_DATA, "grace_hopper.jpg")),
+                        dtype=np.float32) / 255.0
+    out.append(hopper)
+    hh, hw = hopper.shape[:2]
+    out.append(hopper[: hh // 2, : hw // 2])          # face / cap
+    out.append(hopper[hh // 3 :, hw // 3 :])          # books / uniform
+    out.append(hopper[hh // 4 : 3 * hh // 4, hw // 4 : 3 * hw // 4])
+    with np.load(os.path.join(SAMPLE_DATA, "jacksboro_fault_dem.npz")) as dem:
+        out.append(shade(dem["elevation"]))
+    with np.load(os.path.join(SAMPLE_DATA, "topobathy.npz")) as dem:
+        out.append(shade(dem[list(dem.keys())[0]]))
+    with gzip.open(os.path.join(SAMPLE_DATA, "s1045.ima.gz")) as f:
+        mri = np.frombuffer(f.read(), np.uint16).astype(np.float32)
+    mri = mri.reshape(256, 256)
+    mri = (mri - mri.min()) / max(mri.max() - mri.min(), 1e-6)
+    out.append(np.repeat(mri[..., None], 3, axis=-1))
+    return out
+
+
+def _resized_source(img: np.ndarray, h: int, w: int) -> np.ndarray:
+    u8 = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+    return np.asarray(resize_u8(u8, (w, h)), np.float32) / 255.0
+
+
+def natural_video(
+    n_frames: int,
+    h: int,
+    w: int,
+    *,
+    dx: float = 0.0,
+    dy: float = 0.0,
+    deg_per_frame: float = 0.0,
+    scale_per_frame: float = 1.0,
+    gain_per_frame: float = 1.0,
+    fg_step: float = 0.0,
+    seed: int = 0,
+):
+    """Rigid motion over the natural photographs with exact ground truth
+    (fmvfi_tpu/eval/synth.py:320-395): translation (dx/dy px/frame),
+    rotation about the center, zoom, global brightness decay, and, with
+    `fg_step` nonzero, a foreground square cut from a second photo moving
+    over the background.  The photos, their flips and the motion are drawn
+    from `seed`."""
+    rng = np.random.default_rng(seed)
+    pool = photo_sources()
+
+    def _pick():
+        img = pool[int(rng.integers(len(pool)))]
+        if rng.random() < 0.5:
+            img = img[:, ::-1]
+        if rng.random() < 0.5:
+            img = img[::-1]
+        return img
+
+    step_max = max(abs(dx), abs(dy), abs(fg_step))
+    rot_margin = 0.21 * max(h, w) if deg_per_frame else 0.0
+    zoom_margin = (
+        (max(scale_per_frame ** (n_frames - 1), 1.0) - 1.0) * 0.5 * max(h, w)
+        if scale_per_frame != 1.0
+        else 0.0
+    )
+    margin = int(np.ceil(step_max * n_frames + rot_margin + zoom_margin)) + 2
+    src = _resized_source(_pick(), h + 2 * margin, w + 2 * margin)
+    fg = _resized_source(_pick(), h + 2 * margin, w + 2 * margin) if fg_step else None
+
+    cy, cx = (h - 1) / 2, (w - 1) / 2
+    yy, xx = _warp_grid(h, w)
+    sq_y0, sq_y1 = h // 4, 3 * h // 4
+    sq_x0, sq_x1 = w // 4, 3 * w // 4
+    frames = []
+    for i in range(n_frames):
+        a = np.deg2rad(deg_per_frame * i)
+        s = scale_per_frame ** (-i)
+        ys = cy + ((yy - cy) * np.cos(a) - (xx - cx) * np.sin(a)) * s + dy * i
+        xs = cx + ((yy - cy) * np.sin(a) + (xx - cx) * np.cos(a)) * s + dx * i
+        frame = _sample_bilinear(src, ys + margin, xs + margin)
+        if fg is not None:
+            fgs = _sample_bilinear(fg, yy + margin, xx + margin + i * fg_step)
+            fx = xx + i * fg_step
+            mask = (
+                (yy >= sq_y0) & (yy < sq_y1) & (fx >= sq_x0) & (fx < sq_x1)
+            ).astype(np.float32)[..., None]
+            frame = mask * fgs + (1 - mask) * frame
+        if gain_per_frame != 1.0:
+            frame = np.clip(frame * gain_per_frame**i, 0.0, 1.0)
+        frames.append(frame.astype(np.float32))
+    return np.stack(frames)
 
 
 def benchmark_sets(dim: int = 512, n_frames: int = 4, seed_offset: int = 0):

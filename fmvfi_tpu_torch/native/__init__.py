@@ -1,6 +1,7 @@
 """Native host runtime, loaded with ctypes: the C++ triplet augmentation of
-augment.cpp (port of fmvfi_tpu/native, with its own copy of the source) and
-the PNG row filters of png.cpp (for utils/imageio.py).
+augment.cpp (port of fmvfi_tpu/native, with its own copy of the source),
+the PNG row filters of png.cpp and the baseline JPEG decoder of jpeg.cpp
+(both for utils/imageio.py).
 
 The library is built at first use, never at import, with `g++ -O3
 -march=native -fPIC -shared -pthread`, into `build/fmvfi_tpu_torch/` at the
@@ -8,7 +9,8 @@ repository root (git-ignored) under a name keyed by a hash of the source
 and flags; a second run with the same source loads the existing library.
 This is host code: the crop, flips, time reversal, uint8 -> float32 and the
 batch assembly of train.data.batch_iterator run in C++ threads outside the
-interpreter lock, and the PNG codec's row filters in C++ loops.
+interpreter lock, the PNG codec's row filters in C++ loops, and the JPEG
+decoder (a Huffman decoder is a bit-serial recurrence) in C++.
 `available()` says whether the library builds (a g++ is on PATH); the
 functions raise RuntimeError when it does not.
 """
@@ -31,6 +33,7 @@ from .._build import BUILD_DIR
 
 SOURCE = Path(__file__).resolve().parent / "augment.cpp"
 PNG_SOURCE = Path(__file__).resolve().parent / "png.cpp"
+JPEG_SOURCE = Path(__file__).resolve().parent / "jpeg.cpp"
 FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-pthread")
 
 _lock = threading.Lock()
@@ -44,22 +47,26 @@ _I32 = ctypes.c_int32
 _I64 = ctypes.c_int64
 
 
+def _sources() -> Tuple[Path, ...]:
+    return SOURCE, PNG_SOURCE, JPEG_SOURCE
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in (SOURCE, PNG_SOURCE):
+    for src in _sources():
         h.update(src.read_bytes())
     return BUILD_DIR / f"libfmvfi_native_{h.hexdigest()[:16]}.so"
 
 
 def _build(path: Path) -> None:
-    """Compile augment.cpp and png.cpp into `path` through a private
-    temporary name, so a reader never sees half a library."""
+    """Compile the sources into `path` through a private temporary name, so
+    a reader never sees half a library."""
     global build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         out = os.path.join(tmp, path.name)
-        subprocess.run(["g++", *FLAGS, "-o", out, str(SOURCE), str(PNG_SOURCE)], check=True,
+        subprocess.run(["g++", *FLAGS, "-o", out, *map(str, _sources())], check=True,
                        capture_output=True, text=True, timeout=300)
         os.replace(out, path)
     build_seconds = time.perf_counter() - t0
@@ -95,6 +102,9 @@ def library() -> ctypes.CDLL:
                 lib.fmvfi_png_unfilter.restype = _I64
                 lib.fmvfi_png_filter.argtypes = [_U8P, _I64, _I64, _I32, _U8P]
                 lib.fmvfi_png_filter.restype = None
+                for fn in (lib.fmvfi_jpeg_header, lib.fmvfi_jpeg_decode):
+                    fn.argtypes = [_U8P, _I64, ctypes.c_void_p, ctypes.c_char_p, _I32]
+                    fn.restype = _I32
                 _lib = lib
                 return _lib
         raise RuntimeError(f"the native library is unavailable: {_error}")
@@ -172,4 +182,31 @@ def png_filter(image: np.ndarray, bpp: int) -> np.ndarray:
     rows, rowbytes = image.shape
     out = np.empty((rows, rowbytes + 1), np.uint8)
     lib.fmvfi_png_filter(image.ctypes.data_as(_U8P), rows, rowbytes, bpp, out.ctypes.data_as(_U8P))
+    return out
+
+
+_JPEG_ERRORS = {1: NotImplementedError, 2: ValueError}
+MAX_JPEG_PIXELS = 1 << 30  # cv2's limit (CV_IO_MAX_IMAGE_PIXELS)
+
+
+def jpeg_decode(data: bytes) -> np.ndarray:
+    """Decode a baseline JPEG file's bytes into an (H, W, 3) uint8 RGB array
+    (grey repeated to three channels), bit-equal to libjpeg-turbo with its
+    defaults.  Raises NotImplementedError for what jpeg.cpp does not decode
+    (progressive, lossless, arithmetic-coded, 12-bit, CMYK, RGB-coded) and
+    ValueError for a malformed or truncated file, each with the reason."""
+    lib = library()
+    buf = np.frombuffer(data, np.uint8)
+    src = buf.ctypes.data_as(_U8P)
+    msg = ctypes.create_string_buffer(256)
+    info = np.zeros(3, np.int32)
+    code = lib.fmvfi_jpeg_header(src, buf.size, info.ctypes.data, msg, len(msg))
+    if code == 0:
+        w, h, _ = (int(v) for v in info)
+        if w * h > MAX_JPEG_PIXELS:
+            raise ValueError(f"a {w}x{h} JPEG, over the {MAX_JPEG_PIXELS} pixels decoded")
+        out = np.empty((h, w, 3), np.uint8)
+        code = lib.fmvfi_jpeg_decode(src, buf.size, out.ctypes.data, msg, len(msg))
+    if code:
+        raise _JPEG_ERRORS[code](msg.value.decode("ascii", "replace"))
     return out

@@ -1,7 +1,7 @@
 """Frame-rate doubling of a frame sequence (port of
 fmvfi_tpu/pipeline/video.py): per pair, `batch` pairs per dispatch (with
 `seq_chunk`), or the streaming fusion, each with a one-deep prefetch; and
-directories of PNG frames, read and written with utils.imageio.
+directories of PNG or JPEG frames, read with utils.imageio (PNGs written).
 
 Frames are host arrays (N, H, W, 3), float32 in [0, 1]; the frames yielded
 are numpy (H, W, 3).  On the card, frames go up through pinned memory and
@@ -36,13 +36,13 @@ from .interpolate import (
 )
 
 METHODS = ("fusion", "phase", "adacof", "baseline")
-FRAME_SUFFIXES = (".png", ".jpg", ".jpeg")  # JAX's; a JPEG raises in imageio.imread
+FRAME_SUFFIXES = (".png", ".jpg", ".jpeg")  # JAX's
 
 
 def _no_video_decoder(path: str):
     return NotImplementedError(
         f"{path}: reading video files needs a video decoder, which the card's machine lacks "
-        "(ROADMAP Queue 1, item 18.4); pass a directory of PNG frames")
+        "(ROADMAP Queue 1, item 18.4); pass a directory of PNG or JPEG frames")
 
 
 def read_video_frames(path: str, resize=None) -> np.ndarray:

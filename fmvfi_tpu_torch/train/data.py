@@ -1,15 +1,14 @@
 """Host-side input pipeline (port of fmvfi_tpu/train/data.py, its Python
 path and its native one): the Vimeo90k triplet reader, the synthetic
 triplet sets (one regime, or the six mixed), the continuously jittered
-mixed-regime pool, the reference's
+mixed-regime pool (with its natural-photo share), the reference's
 augmentations (shared random crop, h/v flips, time reversal) and a
 thread-prefetched batch iterator, which augments in numpy or, for a
 dataset of uint8 frames, in the C++ library of fmvfi_tpu_torch.native.
 
 Batches are NHWC numpy arrays, as the JAX package yields them, and a seed
 draws the same random numbers in the same order, so it gives the same
-batches.  Still to be ported (ROADMAP Queue 1, item 18.6): the photo
-sources of MixedSynthStream.
+batches.
 """
 
 from __future__ import annotations
@@ -112,12 +111,42 @@ class SyntheticTriplets:
         return self._items[index]
 
 
-def _stream_item(i: int, h: int, w: int, seed0: int) -> np.ndarray:
+def _photo_item(k: int, h: int, w: int, seed: int, rng: np.random.Generator) -> np.ndarray:
+    """A photo scene of regime k: the regime's parameters drawn from `rng`
+    as fmvfi_tpu/train/data.py:129-167 draws them, over synth.natural_video,
+    as (3, h, w, 3) float32."""
+    angle = rng.uniform(0, 2 * np.pi)
+    if k == 0:
+        step = rng.uniform(0.25, 8.0)
+        kw = dict(dx=step * np.cos(angle), dy=step * np.sin(angle))
+    elif k == 1:
+        step = rng.uniform(8.0, 28.0)
+        kw = dict(dx=step * (1.0 if rng.random() < 0.5 else -1.0), dy=rng.uniform(-4, 4))
+    elif k == 2:
+        kw = dict(deg_per_frame=rng.uniform(0.25, 2.5))
+    elif k == 3:
+        kw = dict(scale_per_frame=rng.uniform(1.003, 1.028))
+    elif k == 4:
+        kw = dict(fg_step=rng.uniform(1.0, 8.0) * (1 if rng.random() < 0.5 else -1),
+                  dx=rng.uniform(-4.0, 4.0))
+    else:
+        step = rng.uniform(0.5, 4.0)
+        kw = dict(dx=step * np.cos(angle), dy=step * np.sin(angle),
+                  gain_per_frame=rng.uniform(0.88, 0.97))
+    return synth.natural_video(3, h, w, seed=seed, **kw)
+
+
+def _stream_item(i: int, h: int, w: int, seed0: int, photo_frac: float) -> np.ndarray:
     """Scene i of MixedSynthStream: regime i % 6 with parameters drawn from
-    continuous ranges by default_rng(seed0 + i), as (3, h, w, 3) uint8."""
+    continuous ranges by default_rng(seed0 + i), over the natural photos
+    when the first draw is below `photo_frac`, as (3, h, w, 3) uint8."""
     seed, k = seed0 + i, i % 6
     rng = np.random.default_rng(seed)
-    rng.random()  # the photo-source draw: spent at photo_frac 0 too, so scene i stays put
+    if rng.random() < photo_frac:
+        v = _photo_item(k, h, w, seed, rng)
+        if k == 5:  # the synthetic brightness branch's absolute gain
+            v = v * rng.uniform(0.55, 1.0)
+        return np.clip(v * 255.0 + 0.5, 0, 255).astype(np.uint8)
     angle = rng.uniform(0, 2 * np.pi)
     if k == 0:  # translation, [0.25, 8] px/frame in any direction
         step = rng.uniform(0.25, 8.0)
@@ -149,18 +178,17 @@ class MixedSynthStream:
     0.25-8 px/frame in any direction, large motion 8-28 px/frame, rotation
     0.25-2.5 deg/frame, zoom 1.003-1.028/frame, occlusion, and brightness
     ramps from a random starting gain.  Scene i depends on seed0 + i alone;
-    the scenes are stored as uint8 and drawn on `workers` threads.
-    `photo_frac` > 0 (natural-photo sources) is not ported yet."""
+    the scenes are stored as uint8 and drawn on `workers` threads.  About
+    `photo_frac` of the scenes move the natural photos of synth.photo_sources
+    in place of the textures (synth.natural_video, the same regimes)."""
 
     def __init__(self, n: int = 768, h: int = 288, w: int = 448, seed0: int = 1000,
                  workers: int = 8, photo_frac: float = 0.0):
         if photo_frac > 0.0:
-            raise NotImplementedError(
-                "MixedSynthStream(photo_frac > 0) needs the photo sources of "
-                "eval.synth, not ported yet (ROADMAP Queue 1, item 18.6)"
-            )
+            synth.photo_sources()  # warm the cache before the threads fan out
         with ThreadPoolExecutor(max_workers=max(1, workers)) as ex:
-            self._items = list(ex.map(lambda i: _stream_item(i, h, w, seed0), range(n)))
+            self._items = list(ex.map(lambda i: _stream_item(i, h, w, seed0, photo_frac),
+                                      range(n)))
 
     def __len__(self):
         return len(self._items)

@@ -1,6 +1,6 @@
-"""PNG files as RGB uint8 arrays, without cv2 or PIL: the port's counterpart
-of `cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)` and of
-`cv2.imwrite(path, cv2.cvtColor(img, cv2.COLOR_RGB2BGR))`.
+"""PNG and JPEG files as RGB uint8 arrays, without cv2 or PIL: the port's
+counterpart of `cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)` and of
+`cv2.imwrite(path, cv2.cvtColor(img, cv2.COLOR_RGB2BGR))` (PNG only).
 
 `imread` returns what cv2 (IMREAD_COLOR) returns, in RGB order, for every
 non-interlaced PNG: grey is replicated to three channels (1, 2 and 4-bit
@@ -10,11 +10,20 @@ blending, and 16-bit samples keep their high byte.  `imwrite` writes 8-bit
 RGB or grey, each row with the filter libpng's heuristic picks, at zlib
 level 1 (cv2's default).
 
-The row filters run in the C++ library of fmvfi_tpu_torch.native (built
-with g++ at first use); `imread` and `imwrite` raise RuntimeError when it
-does not build.  `unfilter_numpy` is their plain version, for the tests.
-An interlaced PNG or a JPEG raises NotImplementedError, any other file that
-is not a well-formed PNG ValueError; each names the path.
+A JPEG file (`imread` dispatches on its magic bytes) is decoded by the
+baseline decoder of native/jpeg.cpp, bit-equal to libjpeg-turbo with its
+defaults (ISLOW IDCT, fancy upsampling), as cv2 decodes it: grey becomes
+three equal channels, and the EXIF Orientation tag is applied (flips and
+rotations), as cv2.imread applies it.  `read_jpeg(path, orient=False)`
+leaves the orientation alone, as PIL's Image.open does.
+
+The PNG row filters and the JPEG decoder run in the C++ library of
+fmvfi_tpu_torch.native (built with g++ at first use); `imread` and `imwrite`
+raise RuntimeError when it does not build.  `unfilter_numpy` is the row
+filters' plain version, for the tests.  An interlaced PNG, or a progressive,
+lossless, arithmetic-coded, 12-bit or CMYK JPEG, raises
+NotImplementedError, any other file that is not a well-formed PNG or
+baseline JPEG ValueError; each names the path.
 """
 
 from __future__ import annotations
@@ -104,10 +113,10 @@ def read_raw(path) -> RawPNG:
     path = os.fspath(path)
     with open(path, "rb") as f:
         data = f.read()
-    if data.startswith(_JPEG_MAGIC):
-        raise NotImplementedError(
-            f"{path}: a JPEG file; the port reads PNG only (JPEG decoding: ROADMAP Queue 1, "
-            "item 18.5)")
+    return _read_raw(data, path)
+
+
+def _read_raw(data: bytes, path: str) -> RawPNG:
     if not data.startswith(SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
     (width, height, depth, color, compression, filtering, interlace), palette, z = \
@@ -134,13 +143,92 @@ def read_raw(path) -> RawPNG:
 
 
 def imread(path) -> np.ndarray:
-    """The PNG file at `path` as an (H, W, 3) uint8 RGB array."""
-    raw = read_raw(path)
+    """The PNG or JPEG file at `path` as an (H, W, 3) uint8 RGB array (a
+    JPEG turned upright by its EXIF Orientation tag, as cv2 reads it)."""
+    path = os.fspath(path)
+    with open(path, "rb") as f:
+        data = f.read()
+    if data.startswith(_JPEG_MAGIC):
+        return _decode_jpeg(data, path, orient=True)
+    raw = _read_raw(data, path)
     try:
         rows = native.png_unfilter(raw.rows, raw.height, raw.rows.shape[1] - 1, raw.bpp)
     except ValueError as e:
         raise ValueError(f"{os.fspath(path)}: {e}") from None
     return _to_rgb(rows, raw.width, raw.depth, raw.color, raw.palette)
+
+
+def read_jpeg(path, orient: bool = False) -> np.ndarray:
+    """The JPEG file at `path` as an (H, W, 3) uint8 RGB array, as PIL's
+    Image.open decodes it (the EXIF orientation not applied), or with
+    orient=True as cv2.imread does (`imread`)."""
+    path = os.fspath(path)
+    with open(path, "rb") as f:
+        data = f.read()
+    if not data.startswith(_JPEG_MAGIC):
+        raise ValueError(f"{path}: not a JPEG file")
+    return _decode_jpeg(data, path, orient)
+
+
+def _decode_jpeg(data: bytes, path: str, orient: bool) -> np.ndarray:
+    try:
+        img = native.jpeg_decode(data)
+    except (ValueError, NotImplementedError) as e:
+        raise type(e)(f"{path}: {e}") from None
+    if orient:
+        img = _ORIENT.get(exif_orientation(data), lambda a: a)(img)
+    return np.ascontiguousarray(img)
+
+
+# EXIF Orientation -> the transform that makes the image upright, as cv2
+# applies it (flip(1) mirrors columns, flip(0) rows, transpose swaps axes)
+_ORIENT = {
+    2: lambda a: a[:, ::-1],
+    3: lambda a: a[::-1, ::-1],
+    4: lambda a: a[::-1],
+    5: lambda a: a.transpose(1, 0, 2),
+    6: lambda a: a.transpose(1, 0, 2)[:, ::-1],
+    7: lambda a: a.transpose(1, 0, 2)[::-1, ::-1],
+    8: lambda a: a.transpose(1, 0, 2)[::-1],
+}
+
+
+def exif_orientation(data: bytes) -> int:
+    """The Orientation tag (0x0112) of IFD0 in a JPEG's first APP1 Exif
+    segment, or 1 when there is none or it does not parse."""
+    pos = 2
+    while pos + 4 <= len(data) and data[pos] == 0xFF:
+        marker = data[pos + 1]
+        if marker == 0xFF:  # a fill byte
+            pos += 1
+            continue
+        if marker in (0xD9, 0xDA) or 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xCC):
+            return 1  # EOI, SOS or SOF: the APPn segments come before
+        (length,) = struct.unpack(">H", data[pos + 2 : pos + 4])
+        body = data[pos + 4 : pos + 2 + length]
+        if marker == 0xE1 and body.startswith(b"Exif\0\0"):
+            return _tiff_orientation(body[6:])
+        pos += 2 + length
+    return 1
+
+
+def _tiff_orientation(tiff: bytes) -> int:
+    if len(tiff) < 8 or tiff[:2] not in (b"II", b"MM"):
+        return 1
+    e = "<" if tiff[:2] == b"II" else ">"
+    (ifd,) = struct.unpack(e + "I", tiff[4:8])
+    if ifd + 2 > len(tiff):
+        return 1
+    (count,) = struct.unpack(e + "H", tiff[ifd : ifd + 2])
+    for i in range(count):
+        entry = tiff[ifd + 2 + 12 * i : ifd + 14 + 12 * i]
+        if len(entry) < 12:
+            return 1
+        tag, typ, n = struct.unpack(e + "HHI", entry[:8])
+        if tag == 0x0112 and typ == 3 and n >= 1:
+            value = struct.unpack(e + "H", entry[8:10])[0]
+            return value if 1 <= value <= 8 else 1
+    return 1
 
 
 def _to_rgb(rows: np.ndarray, width: int, depth: int, color: int, palette) -> np.ndarray:

@@ -8,7 +8,8 @@ AdaCoF and FusionNet and a seeded PhaseNet saved in phase_net.pt's layout.
   and the config helpers agree;
 - the registry builds each family and reaches make_model by dotted path;
 - `interpolate` (adacof, phase, fusion with its three side outputs) and
-  `video` (per pair, --batch 2, --stream, --factor 4, all fusion): every
+  `video` (per pair, --batch 2, --stream, --factor 4, all fusion; per pair
+  on a directory of JPEG frames): every
   pixel of every PNG within 1 LSB of JAX's (JAX truncates x * 255, so a
   float gap of ~1e-6 can flip a pixel), with the share that differs
   printed;
@@ -17,8 +18,10 @@ AdaCoF and FusionNet and a seeded PhaseNet saved in phase_net.pt's layout.
 - `train` in each regime, 2 steps on a Vimeo90k layout at --crop 64:
   finite losses, a checkpoint, config.json (trainer parity is held in
   tests/test_torch_train*.py);
-- what the port does not run yet raises, and no card without --device cpu
-  exits with an error.
+- what the port does not run yet raises (video files), what it runs since
+  the JPEG reader and the photo sets (`evaluate --test_sets
+  synthetic+photo`, `interpolate` on JPEG frames) runs, and no card without
+  --device cpu exits with an error.
 
 The JAX commands run once, in one process, so that they share their
 compilations (the per-pair fusion at 1x64x64 serves interpolate, video and
@@ -37,6 +40,7 @@ import pytest
 import torch
 
 from fmvfi_tpu import cli as jx_cli
+from fmvfi_tpu.eval.evaluate import synthetic_sets as jx_synthetic_sets
 from fmvfi_tpu.eval.synth import translation_triplet, translation_video
 from fmvfi_tpu.utils import config as jx_config
 from fmvfi_tpu_torch import cli as pt_cli
@@ -70,7 +74,7 @@ def _write(path, rgb_float):
 
 @pytest.fixture(scope="module")
 def inputs(tmp_path_factory):
-    """A frame pair, a 4-frame clip, a 2-scene middlebury layout, a
+    """A frame pair, a 4-frame clip (as PNGs and as JPEGs), a 2-scene middlebury layout, a
     4-triplet Vimeo90k layout (72x80) and a seeded phase_net.pt."""
     d = tmp_path_factory.mktemp("inputs")
     f1, _, f2 = translation_triplet(SIZE, SIZE, dx=2.0, dy=1.0, seed=0)
@@ -78,6 +82,7 @@ def inputs(tmp_path_factory):
     _write(d / "b.png", f2)
     for i, f in enumerate(translation_video(4, SIZE, SIZE, step=2.0, seed=3)):
         _write(d / "clip" / f"f{i}.png", f)
+        _write(d / "clip_jpg" / f"f{i}.jpg", f)
     for k, scene in enumerate(("Dimetrodon", "Venus")):
         a, mid, b = translation_triplet(SIZE, SIZE, dx=1.0 + k, dy=-1.0, seed=10 + k)
         _write(d / "mb" / "other" / scene / "frame10.png", a)
@@ -110,6 +115,8 @@ def _commands(d, out):
                         ("batch2", ["--batch", "2"]), ("stream", ["--stream"])):
         cmds[f"video_{name}"] = ["video", "--input", str(d / "clip"), "--output_dir",
                                  f"{out}/video_{name}", *ph, *extra]
+    cmds["video_jpeg"] = ["video", "--input", str(d / "clip_jpg"), "--output_dir",
+                          f"{out}/video_jpeg", *ph]
     mb = f"middlebury:{d / 'mb' / 'other'}:{d / 'mb' / 'gt'}"
     for name, sets in (("middlebury", mb), ("synthetic", "synthetic")):
         cmds[f"evaluate_{name}"] = ["evaluate", "--test_sets", sets, "--out_dir",
@@ -252,6 +259,21 @@ def test_video_matches_jax_cli(inputs, jax_out, mode, n_out):
                                       cv2.imread(str(inputs / "clip" / src)))
 
 
+def test_video_on_jpeg_frames_matches_jax_cli(inputs, jax_out):
+    """Per pair on the clip written as JPEGs: the frames decode as cv2
+    decodes them, so every PNG is within 1 LSB of JAX's and the originals
+    come back as cv2 reads the JPEGs."""
+    out = _run_port(inputs, "video_jpeg")
+    names = sorted(os.listdir(jax_out / "video_jpeg"))
+    assert names == [f"{i:05d}.png" for i in range(7)]
+    assert sorted(os.listdir(out / "video_jpeg")) == names
+    for n in names:
+        _within_lsb(out / "video_jpeg" / n, jax_out / "video_jpeg" / n)
+    for i, src in enumerate(sorted(os.listdir(inputs / "clip_jpg"))):
+        np.testing.assert_array_equal(cv2.imread(str(out / "video_jpeg" / names[2 * i])),
+                                      cv2.imread(str(inputs / "clip_jpg" / src)))
+
+
 def test_evaluate_middlebury_matches_jax_cli(inputs, jax_out):
     out = _run_port(inputs, "evaluate_middlebury")
     name = "result_middlebury_fusion.json"
@@ -374,13 +396,24 @@ def test_what_is_not_ported_raises(inputs, tmp_path, monkeypatch, capsys):
     with pytest.raises(NotImplementedError, match="item 18.4"):
         pt_cli.main(["video", "--input", str(tmp_path / "clip.mp4"), "--output_dir",
                      str(tmp_path), *cpu])
-    with pytest.raises(NotImplementedError, match="item 18.6"):
-        pt_cli.main(["evaluate", "--test_sets", "synthetic+photo", "--out_dir", str(tmp_path),
-                     "--methods", "adacof", *cpu])
-    cv2.imwrite(str(tmp_path / "a.jpg"), np.zeros((8, 8, 3), np.uint8))
-    with pytest.raises(SystemExit):
-        pt_cli.main(["interpolate", "--first_frame", str(tmp_path / "a.jpg"), "--second_frame",
-                     str(inputs / "b.png"), *cpu])
+    # since the photo sets and the JPEG reader: the photo set evaluates, under
+    # JAX's set keys, and a pair of JPEG frames interpolates
+    pt_cli.main(["evaluate", "--test_sets", "synthetic+photo", "--out_dir",
+                 str(tmp_path / "eval"), "--dim", str(SIZE), "--max_num", "1", "--methods",
+                 "adacof", *cpu])
+    summary = json.loads((tmp_path / "eval" / "summary.json").read_text())
+    assert list(summary) == list(jx_synthetic_sets(16, 3, include_photo=True))
+    assert np.isfinite(summary["photo"]["adacof"]["psnr"])
+    for name in ("a", "b"):
+        cv2.imwrite(str(tmp_path / f"{name}.jpg"), cv2.imread(str(inputs / f"{name}.png")))
+    pt_cli.main(["interpolate", "--first_frame", str(tmp_path / "a.jpg"), "--second_frame",
+                 str(tmp_path / "b.jpg"), "--output_frame", str(tmp_path / "mid.png"),
+                 "--method", "adacof", *cpu])
+    assert cv2.imread(str(tmp_path / "mid.png")).shape == (SIZE, SIZE, 3)
+    capsys.readouterr()
+    with pytest.raises(SystemExit):  # a file that is no image
+        pt_cli.main(["interpolate", "--first_frame", str(inputs / "phase_net.pt"),
+                     "--second_frame", str(inputs / "b.png"), *cpu])
     assert "cannot read image" in capsys.readouterr().err
     assert pt_cli.main([]) == 1 and pt_cli.main(["bench"]) == 1
     assert sys.modules["fmvfi_tpu_torch.cli"] is pt_cli

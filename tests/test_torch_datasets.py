@@ -222,3 +222,69 @@ def test_generate_uncertainty_maps_writes_what_jax_writes(tmp_path, monkeypatch)
         a, b = _decoded(tmp_path / "ours" / n), _decoded(tmp_path / "jax" / n)
         assert a.shape == b.shape
         np.testing.assert_array_equal(a, b)
+
+
+# utils/datasets.py: the download and bootstrap helpers (no network: file://)
+
+
+def test_dataset_urls_and_download_match_jax(tmp_path):
+    from fmvfi_tpu.utils import datasets as jx_boot
+    from fmvfi_tpu_torch.utils import datasets as pt_boot
+
+    assert pt_boot.DATASET_URLS == jx_boot.DATASET_URLS
+    src = tmp_path / "archive.bin"
+    src.write_bytes(np.random.default_rng(0).bytes(3000))
+    dest = tmp_path / "a" / "b" / "copy.bin"
+    assert pt_boot.download(src.as_uri(), str(dest), chunk=1024) == str(dest)
+    assert dest.read_bytes() == src.read_bytes()
+    missing = (tmp_path / "missing.zip").as_uri()
+    with pytest.raises(ConnectionError) as ours:
+        pt_boot.download(missing, str(tmp_path / "x.zip"))
+    with pytest.raises(ConnectionError) as ref:
+        jx_boot.download(missing, str(tmp_path / "x.zip"))
+    assert str(ours.value) == str(ref.value)
+
+
+def test_extract_writes_what_jax_writes(tmp_path):
+    import zipfile
+
+    from fmvfi_tpu.utils import datasets as jx_boot
+    from fmvfi_tpu_torch.utils import datasets as pt_boot
+
+    archive = tmp_path / "set.zip"
+    with zipfile.ZipFile(archive, "w") as z:
+        z.writestr("seq/0001/im1.png", b"one")
+        z.writestr("seq/0001/im2.png", b"two")
+        z.writestr("list.txt", "0001\n")
+    outs = [tmp_path / "ours", tmp_path / "jax"]
+    assert pt_boot.extract(str(archive), str(outs[0])) == str(outs[0])
+    jx_boot.extract(str(archive), str(outs[1]))
+    trees = [sorted((str(p.relative_to(o)), p.read_bytes()) for p in o.rglob("*") if p.is_file())
+             for o in outs]
+    assert trees[0] == trees[1] and len(trees[0]) == 3
+
+
+def test_bootstrap_refuses_lfs_pointers_and_video_conversion_raises(tmp_path):
+    from fmvfi_tpu.utils import datasets as jx_boot
+    from fmvfi_tpu_torch.utils import datasets as pt_boot
+
+    pointers = tmp_path / "pointers"
+    pointers.mkdir()
+    (pointers / "Clip1.mp4").write_text("version https://git-lfs.github.com/spec/v1\n")
+    with pytest.raises(ValueError, match="git-LFS pointer") as ours:
+        pt_boot.bootstrap_testset(str(pointers), str(tmp_path / "out"))
+    with pytest.raises(ValueError) as ref:
+        jx_boot.bootstrap_testset(str(pointers), str(tmp_path / "out"))
+    assert str(ours.value) == str(ref.value)
+    frames = tmp_path / "frames"
+    frames.mkdir()
+    assert pt_boot.videos_to_images(str(frames), str(tmp_path / "o")) == {}
+    clips = tmp_path / "clips"
+    clips.mkdir()
+    (clips / "Clip1.mp4").write_bytes(bytes(4096))
+    for call in (lambda: pt_boot.bootstrap_testset(str(clips), str(tmp_path / "o")),
+                 lambda: pt_boot.videos_to_images(str(clips), str(tmp_path / "o")),
+                 lambda: pt_boot.video_to_images(str(clips / "Clip1.mp4"), str(tmp_path / "o")),
+                 lambda: pt_boot.images_to_video(str(frames), str(tmp_path / "v.mp4"))):
+        with pytest.raises(NotImplementedError, match="item 18.4"):
+            call()

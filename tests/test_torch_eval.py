@@ -139,8 +139,10 @@ def test_translation_video_and_synthetic_sets_equal_jax():
     assert list(ours) == list(ref) and len(ours) == 16
     for k in ref:
         np.testing.assert_array_equal(ours[k], ref[k])
-    with pytest.raises(NotImplementedError):
-        pt_eval.synthetic_sets(32, 3, include_photo=True)
+    ours = pt_eval.synthetic_sets(32, 3, include_photo=True)
+    ref = jx_eval.synthetic_sets(32, 3, include_photo=True)
+    assert list(ours) == list(ref) and list(ours)[-1] == "photo"
+    np.testing.assert_array_equal(ours["photo"], ref["photo"])
 
 
 def test_evaluate_frames_array_iterator_and_uint8_agree(weights):

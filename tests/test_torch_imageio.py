@@ -198,8 +198,14 @@ def test_broken_and_unsupported_files_raise(toolchain, tmp_path):
     with pytest.raises(NotImplementedError, match="interlaced"):
         imageio.imread(tmp_path / "interlaced.png")
     cv2.imwrite(str(tmp_path / "photo.jpg"), np.zeros((8, 8, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="photo.jpg"):
-        imageio.imread(tmp_path / "photo.jpg")
+    # a JPEG reads (tests/test_torch_jpeg.py holds the decoder against cv2); a
+    # progressive one raises, naming the file
+    np.testing.assert_array_equal(imageio.imread(tmp_path / "photo.jpg"),
+                                  cv2.imread(str(tmp_path / "photo.jpg"))[..., ::-1])
+    cv2.imwrite(str(tmp_path / "progressive.jpg"), np.zeros((8, 8, 3), np.uint8),
+                [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    with pytest.raises(NotImplementedError, match="progressive.jpg"):
+        imageio.imread(tmp_path / "progressive.jpg")
     # a row whose filter byte is not 0-4, behind valid CRCs
     bad = tmp_path / "filter.png"
     raw = bytes([7]) + bytes(3 * 4) + (bytes([0]) + bytes(3 * 4)) * 2

@@ -32,14 +32,16 @@ FORBIDDEN = (
 )
 GOLDEN_DB, GOLDEN_TOL = 42.967, 0.05  # tests/test_golden.py, bundled AdaCoF
 # the video, evaluation, adversarial, VGG, native-loader, codec,
-# command-line, export, profiling, compute-dtype, data-parallel and spatial modules:
+# command-line, export, profiling, compute-dtype, data-parallel, spatial, JPEG,
+# resampling, shading and dataset-bootstrap modules:
 # imported by the isolated run below and held by the static import check
 NEW_MODULES = ("pipeline.video", "eval.metrics", "eval.evaluate", "eval.uncertainty",
                "models.discriminator", "models.flax_bn", "train.adversarial", "train.vgg",
                "native", "cli", "utils.imageio", "utils.config", "models.registry",
                "eval.datasets", "utils.export", "utils.profiling", "utils.msgpack_io",
                "utils.checkpoint", "utils.convert", "train.loop", "models.conv",
-               "parallel.mesh", "parallel.dp", "parallel.distributed", "parallel.spatial")
+               "parallel.mesh", "parallel.dp", "parallel.distributed", "parallel.spatial",
+               "utils.resample", "eval.shade", "utils.datasets")
 
 _ISOLATED = f"""
 import importlib, json, pkgutil, sys
@@ -404,6 +406,46 @@ def test_data_parallel_and_bf16_serving_run_without_jax_flax_or_fmvfi_tpu():
     assert proc.returncode == 0, proc.stderr[-4000:]
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res["step"] == 2 and res["dtype"] == "torch.float32" and res["finite"]
+    assert res["leaked"] == []
+
+
+_PHOTO_ISOLATED = f"""
+import json, sys
+for name in {FORBIDDEN!r}:
+    sys.modules[name] = None  # any import of these raises ImportError
+import numpy as np
+from fmvfi_tpu_torch.eval import synth
+from fmvfi_tpu_torch.eval.evaluate import synthetic_sets
+from fmvfi_tpu_torch.pipeline.video import read_frame_dir
+from fmvfi_tpu_torch.train.data import MixedSynthStream
+frames = read_frame_dir(sys.argv[1])
+sources = synth.photo_sources()
+photo = synthetic_sets(32, 3, include_photo=True)["photo"]
+item = MixedSynthStream(n=1, h=32, w=40, workers=1, photo_frac=1.0).load_u8(0)
+leaked = sorted(n for n in sys.modules if n.split(".")[0] in {FORBIDDEN!r} and sys.modules[n])
+print(json.dumps(dict(frames=list(frames.shape), sources=[list(s.shape) for s in sources],
+                      photo=list(photo.shape), item=[list(item.shape), str(item.dtype)],
+                      data=synth.SAMPLE_DATA, leaked=leaked)))
+"""
+
+
+def test_jpeg_frames_and_photo_sets_run_without_cv2_pil_or_matplotlib(tmp_path):
+    """A directory of JPEG frames reads, the photo sources build from the
+    package's own copies of the sample data, and the photo set and a photo
+    scene of MixedSynthStream draw, with cv2, PIL and matplotlib blocked."""
+    import cv2
+
+    rng = np.random.default_rng(0)
+    for i in range(3):
+        cv2.imwrite(str(tmp_path / f"{i:03d}.jpg"), rng.integers(0, 256, (24, 40, 3), np.uint8))
+    proc = subprocess.run([sys.executable, "-c", _PHOTO_ISOLATED, str(tmp_path)], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["frames"] == [3, 24, 40, 3]
+    assert len(res["sources"]) == 7 and res["sources"][0] == [600, 512, 3]
+    assert res["photo"] == [3, 32, 32, 3] and res["item"] == [[3, 32, 40, 3], "uint8"]
+    assert os.path.commonpath([res["data"], PACKAGE]) == PACKAGE
     assert res["leaked"] == []
 
 

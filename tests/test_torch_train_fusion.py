@@ -267,7 +267,8 @@ def test_mixed_synthetic_triplets_match_jax():
 
 def test_mixed_synth_stream_matches_jax():
     """MixedSynthStream: each scene's uint8 frames and their float view
-    bit-equal to the JAX package's, drawn on 2 threads; photo sources raise."""
+    bit-equal to the JAX package's, drawn on 2 threads; with photo_frac 0.5
+    the photo scenes too (tests/test_torch_photo.py holds more of them)."""
     ours = pt_data.MixedSynthStream(n=12, h=64, w=64, workers=2)
     ref = jx_data.MixedSynthStream(n=12, h=64, w=64, workers=2)
     assert len(ours) == len(ref) == 12
@@ -276,5 +277,7 @@ def test_mixed_synth_stream_matches_jax():
         np.testing.assert_array_equal(ours.load_u8(i), ref.load_u8(i))
         for o, r in zip(ours.load(i), ref.load(i)):
             np.testing.assert_array_equal(o, r)
-    with pytest.raises(NotImplementedError, match="item 18.6"):
-        pt_data.MixedSynthStream(n=2, h=16, w=16, photo_frac=0.5)
+    ours = pt_data.MixedSynthStream(n=2, h=16, w=16, photo_frac=0.5)
+    ref = jx_data.MixedSynthStream(n=2, h=16, w=16, photo_frac=0.5)
+    for i in range(2):
+        np.testing.assert_array_equal(ours.load_u8(i), ref.load_u8(i))
