@@ -72,13 +72,20 @@ Phases, each printing one JSON line with its seconds:
               summary.json, K1 launched 5 times per set (3 + 1 + 0 + 1), a
               rerun served from the cache with the same numbers, and per-set
               fusion PSNR within 0.05 dB of the same suite through the plain
-              warp;
+              warp; the suite draws (visualize=True): 2 panels per set of
+              1650x660 and <set>.avi read back with utils/avi.py (2 MJPG
+              frames at 2 fps, each its panel's JPEG byte for byte and
+              decoded by native/jpeg.cpp >= 18 dB against it: the panels
+              show pixel noise, which 4:2:0 chroma averages), the seconds
+              drawing panels and writing the AVI apart from the seconds
+              scoring and from the native library's g++ build;
   train     - AdaCoF training from the bundled weights: make_adacof_trainer
               and fit over batch_iterator(SyntheticTriplets(n=32, h=272,
               w=272), 4, crop=256), fp32, TF32 off, 1 warm-up and 20 timed
               steps; K1 and K2 must each launch exactly once per step,
               through the asynchronous-copy F5C3 instantiation, every
-              loss must be finite, a checkpoint must be written and a second
+              loss must be finite, fit must draw train_curve.png at
+              800x400, a checkpoint must be written and a second
               fit must resume from it, and one step's parameter gradients
               through K1/K2 must agree with the same step through the plain
               warp and its plain gradients (deterministic cuDNN) within 1e-4
@@ -122,10 +129,14 @@ Phases, each printing one JSON line with its seconds:
   photo     - (after lpips; lines photo_data, photo_eval, photo_train) the
               JPEG decoder on grace_hopper.jpg, its sha256 equal to the
               digest of PIL's decode (HOPPER_SHA256, held by the CPU test),
-              and its ms; photo_sources() cold, each source within 1e-6 of
+              and its ms; the JPEG writer's bytes equal to cv2's (the
+              digests of JPEG_PINS, held by the CPU test) on the photo, its
+              green channel and a pattern at the panel size, at quality 95
+              and 75, and the photo's quality-95 file decoded >= 35 dB
+              against it; photo_sources() cold, each source within 1e-6 of
               JAX's statistics (PHOTO_SOURCE_STATS); evaluate_suite on
               synthetic_sets(512, 4, include_photo=True)["photo"] with the
-              serve models for adacof and fusion: K1 1 + 3 launches via
+              serve models for adacof and fusion (visualize=False): K1 1 + 3 launches via
               F5C3 with the ring, no K2, each fused triplet >= 60 dB
               against the same request through the plain warp; AdaCoF
               training from the bundled weights, 1 + 5 steps at batch 4 on
@@ -158,7 +169,9 @@ Phases, each printing one JSON line with its seconds:
               per pair and [4, 8, 4] per dispatch, batch 2 within 1 LSB of
               per pair), `evaluate` on a 2-scene middlebury layout of
               256x256 PNGs for fusion,adacof (its result JSONs, finite
-              PSNR, K1 [2, 4, 2] and [2] per scene), and `train` on a
+              PSNR, K1 [2, 4, 2] and [2] per scene), `evaluate` on a
+              4-frame 64x64 PNG directory for adacof (K1 [4], results.png
+              1320x440), and `train` on a
               4-triplet Vimeo90k layout of 288x448 PNGs at crop 256, batch
               4: adacof 3 steps (K1 and K2 once a step), phase and fusion 2
               steps (no K1; K1 [8, 16, 8] a step), finite losses, batches
@@ -326,6 +339,14 @@ MODE_AGREEMENT_DB = 60.0  # each video mode against per pair
 EVAL_PLAIN_DB = 0.05  # per-set fusion PSNR, through K1 and through the plain warp
 EVAL_METHODS = ("fusion", "adacof", "phase", "baseline")
 EVAL_K1_PER_SET = 3 + 1 + 0 + 1  # fusion, adacof, phase, baseline: one dispatch each
+EVAL_PANELS = 2  # synthetic_sets(256, 4): 2 triplets a set
+EVAL_PANEL_SHAPE = (660, 330 * (len(EVAL_METHODS) + 1), 3)  # figsize (3 (n + 1), 6) at 110 dpi
+# each MJPG frame, decoded, against its panel: the frames are cv2's JPEG
+# (quality 95, 4:2:0) of panels whose synthetic frames are pixel noise; on
+# the CPU these 16 frames decode at 19.64-23.38 dB (cv2's own encoding of
+# them is the same bytes); that a frame is its panel's JPEG is checked byte
+# for byte
+EVAL_AVI_DB = 18.0
 H_FULL, W_FULL = 1080, 1920
 GAN_TYPES = ("GAN", "WGAN", "WGAN_GP", "FI_GAN", "T_WGAN_GP")
 GAN_TERMS = "+0.01*VGG+0.005*{}"  # added to the default AdaCoF loss
@@ -357,6 +378,21 @@ VGG16_CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M",
 # [h // 2, w // 2], [h - 1, w - 1]); tests/test_torch_photo.py holds both
 # against PIL and fmvfi_tpu on the CPU
 HOPPER_SHA256 = "f7f982de68dd296af67ee51b2a95a2e5658f7bf064c6536520b66bae8d01fc34"
+# the JPEG writer (native/jpeg_enc.cpp, built on the card's host) held to
+# cv2's bytes: the sha256 of cv2.imencode('.jpg') of each of
+# _jpeg_pin_images at IMWRITE_JPEG_QUALITY q, which
+# tests/test_torch_jpeg_write.py computes with cv2 on the CPU; and
+# grace_hopper's quality-95 file, decoded by native/jpeg.cpp, against its
+# pixels (47.35 dB on the CPU)
+JPEG_PINS = {
+    ("hopper", 95): "7778ee6ffa24b97b5e6d68ec5f98cebda3e8be7090b43d21f2b118ddb71d1f47",
+    ("hopper", 75): "2a930f977837adefefc67e5bf86cd46a9d9c3f05d79e2cb4f986440bad197e81",
+    ("hopper_green", 95): "96c7bb91ac19d01d07ee27de32a6d0f0d468887ef56f8acdcdf0eac938ad52e2",
+    ("hopper_green", 75): "319cc1fe5468fc792868850196a7ab80218984f62461e2875bdc77093524f970",
+    ("pattern", 95): "dd56e5f3d433ceaa8bad02b7d7a9d4a4683a9aa4c2ff645c7884430f24f69e65",
+    ("pattern", 75): "521961ef2da86098409a4dc4465890948c135b1a19aa0c0d50687997ec05787b",
+}
+JPEG_HOPPER_DB = 35.0
 PHOTO_SOURCE_STATS = [
     ((600, 512, 3), 290742.50440738397,
      [[0.08235294371843338, 0.0941176488995552, 0.3019607961177826],
@@ -510,6 +546,78 @@ def _seeded_vgg16(path):
     return path
 
 
+def _eval_figures(out_dir, sets):
+    """The eval phase's figures: per set, EVAL_PANELS panels of the panel
+    size, and <set>.avi read back with utils/avi.py: as many MJPG frames,
+    the stream's size and rate, each frame the quality-95 JPEG of its panel
+    (native/jpeg_enc.cpp, byte for byte) and decoded by native/jpeg.cpp at
+    >= EVAL_AVI_DB against it.  Raises on any miss; returns the minimum
+    PSNR and the AVI bytes per set."""
+    from fmvfi_tpu_torch import native
+    from fmvfi_tpu_torch.utils import avi, imageio
+
+    avi_db, avi_bytes = [], {}
+    for name in sets:
+        pdir = os.path.join(out_dir, f"panels_{name}")
+        names = sorted(os.listdir(pdir)) if os.path.isdir(pdir) else []
+        if names != [f"panel_{i:03d}.png" for i in range(EVAL_PANELS)]:
+            raise AssertionError(f"eval: panels of {name}: {names}")
+        panels = [imageio.imread(os.path.join(pdir, n)) for n in names]
+        if any(p.shape != EVAL_PANEL_SHAPE for p in panels):
+            raise AssertionError(f"eval: panel shapes {[p.shape for p in panels]}, "
+                                 f"expected {EVAL_PANEL_SHAPE}")
+        path = os.path.join(out_dir, f"{name}.avi")
+        video = avi.read(path)
+        h, w = EVAL_PANEL_SHAPE[:2]
+        head = (video.avih["total_frames"], video.avih["width"], video.avih["height"],
+                video.strh["handler"], video.strh["rate"] / video.strh["scale"], len(video.frames),
+                len(video.index))
+        if head != (EVAL_PANELS, w, h, b"MJPG", 2.0, EVAL_PANELS, EVAL_PANELS):
+            raise AssertionError(f"eval: {name}.avi (frames, width, height, codec, fps, chunks, "
+                                 f"index) = {head}")
+        for frame, panel in zip(video.frames, panels):
+            if frame != native.jpeg_encode(panel, 95):
+                raise AssertionError(f"eval: a frame of {name}.avi is not its panel's JPEG")
+            db = _psnr(native.jpeg_decode(frame).astype(np.float64) / 255,
+                       panel.astype(np.float64) / 255)
+            avi_db.append(db)
+        avi_bytes[name] = os.path.getsize(path)
+    if not min(avi_db) >= EVAL_AVI_DB:
+        raise AssertionError(f"eval: AVI frames against their panels {min(avi_db)} dB")
+    return dict(panels_per_set=EVAL_PANELS, panel_shape=list(EVAL_PANEL_SHAPE),
+                avi_frame_min_db=min(avi_db), avi_bytes=avi_bytes)
+
+
+def _jpeg_pin_images(hopper):
+    """The images of JPEG_PINS from grace_hopper.jpg's pixels: the photo,
+    its green channel as a grey image, and an integer pattern at the eval
+    panels' size (sides that are no multiple of 16)."""
+    h, w = EVAL_PANEL_SHAPE[:2]
+    y, x = np.mgrid[:h, :w].astype(np.int64)
+    pattern = np.stack([(x * 5 + y * 3) % 256, (x * y // 7) % 256, (x ^ y) & 255], -1)
+    return {"hopper": hopper, "hopper_green": np.ascontiguousarray(hopper[..., 1]),
+            "pattern": pattern.astype(np.uint8)}
+
+
+def _jpeg_pins(hopper):
+    """native.jpeg_encode of each of _jpeg_pin_images against its digest of
+    cv2's bytes, and grace_hopper's quality-95 file decoded by
+    native/jpeg.cpp against its pixels."""
+    import hashlib
+
+    from fmvfi_tpu_torch import native
+
+    images = _jpeg_pin_images(hopper)
+    t = time.perf_counter()
+    equal = {f"{name}_q{q}": hashlib.sha256(native.jpeg_encode(images[name], q)).hexdigest()
+             == digest for (name, q), digest in JPEG_PINS.items()}
+    seconds = time.perf_counter() - t
+    db = _psnr(native.jpeg_decode(native.jpeg_encode(hopper, 95)).astype(np.float64) / 255,
+               hopper.astype(np.float64) / 255)
+    return dict(cv2_bytes_equal=equal, encode_seconds=seconds, hopper_q95_db=float(db),
+                ok=bool(all(equal.values()) and db >= JPEG_HOPPER_DB))
+
+
 def _reset_counts():
     from fmvfi_tpu_torch.ops import adacof_cuda
 
@@ -556,7 +664,7 @@ def _lpips(dev, models, sets, vgg_path, work_dir):
     _reset_counts()  # the lpips evaluation path's run
     t_run = time.perf_counter()
     summary = evaluate_suite(models, os.path.join(work_dir, "lpips"), sets=sets, methods=methods,
-                             dim=CROP, lpips_fn=card_fn, device=dev)
+                             dim=CROP, visualize=False, lpips_fn=card_fn, device=dev)
     run_seconds = time.perf_counter() - t_run
     c = _counts()
     lpips = {k: {m: summary[k][m].get("lpips_vgg") for m in methods} for k in sets}
@@ -605,7 +713,7 @@ def _photo(dev, repo, models, ada_path, work):
     t0 = time.perf_counter()
     hopper = os.path.join(synth.SAMPLE_DATA, "grace_hopper.jpg")
     t = time.perf_counter()
-    img = imageio.read_jpeg(hopper)  # the first call builds the native library
+    img = imageio.read_jpeg(hopper)  # the first decode (phase eval built the library)
     first_ms = 1e3 * (time.perf_counter() - t)
     decode_ms = []
     for _ in range(5):
@@ -629,10 +737,14 @@ def _photo(dev, repo, models, ada_path, work):
             pixel_abs=max((float(np.abs(np.asarray(g, np.float64) - p).max())
                            for g, p in zip(got, pixels)), default=float("inf"))))
     tools = {k: shutil.which(k) for k in ("ffmpeg", "ffprobe")}
+    jpeg_write = _jpeg_pins(img)
     _line(phase="photo_data", seconds=time.perf_counter() - t0, jpeg=jpeg,
-          sources_seconds=sources_seconds, sources=src_gaps, tol=PHOTO_TOL, which=tools)
+          jpeg_write=jpeg_write, sources_seconds=sources_seconds, sources=src_gaps,
+          tol=PHOTO_TOL, which=tools)
     if digest != HOPPER_SHA256 or img.shape != (600, 512, 3):
         raise AssertionError(f"photo: grace_hopper.jpg decodes to {jpeg}, not PIL's digest")
+    if not jpeg_write["ok"]:
+        raise AssertionError(f"photo: the JPEG writer against cv2's bytes: {jpeg_write}")
     if len(sources) != len(PHOTO_SOURCE_STATS) or not all(
             g["sum_rel"] <= PHOTO_TOL and g["pixel_abs"] <= PHOTO_TOL for g in src_gaps):
         raise AssertionError(f"photo: photo_sources against JAX's statistics {src_gaps}")
@@ -645,7 +757,7 @@ def _photo(dev, repo, models, ada_path, work):
     _reset_counts()  # the photo evaluation path's run
     t_run = time.perf_counter()
     summary = evaluate_suite(models, os.path.join(work, "eval"), sets=sets,
-                             methods=PHOTO_METHODS, dim=PHOTO_DIM, device=dev)
+                             methods=PHOTO_METHODS, dim=PHOTO_DIM, device=dev, visualize=False)
     run_seconds = time.perf_counter() - t_run
     eval_c = _counts()
     frames = sets["photo"]
@@ -1017,7 +1129,7 @@ def phase_cli(dev, repo, ada_path, fusion_path, pair, clip):
 def _cli(dev, repo, ada_path, fusion_path, pair, clip, work):
     import torch
     from fmvfi_tpu_torch import cli, native
-    from fmvfi_tpu_torch.eval.synth import translation_triplet
+    from fmvfi_tpu_torch.eval.synth import translation_triplet, translation_video
     from fmvfi_tpu_torch.models.adacof import AdaCoFNet
     from fmvfi_tpu_torch.models.fusion_net import FusionNet, infer_variant
     from fmvfi_tpu_torch.models.phase_net import PhaseNetCore
@@ -1201,6 +1313,20 @@ def _cli(dev, repo, ada_path, fusion_path, pair, clip, work):
                 list(psnr[method].values())).all():
             raise AssertionError(f"cli evaluate {method}: {res}")
     runs["evaluate"]["psnr"] = psnr
+
+    # evaluate on a plain frame directory (streamed: no panels): the
+    # summary and the results.png bar chart of psnr and ssim
+    small = os.path.join(work, "small_clip")
+    os.makedirs(small)
+    for i, f in enumerate(translation_video(4, 64, 64)):
+        imageio.imwrite(os.path.join(small, f"{i:03d}.png"), quantize(f))
+    chart_dir = os.path.join(work, "eval_chart")
+    r = run("evaluate_chart", ["evaluate", "--test_sets", small, "--methods", "adacof", "--dim",
+                               "64", "--out_dir", chart_dir, "--phase_checkpoint", phase_pt], [4])
+    chart = os.path.join(chart_dir, "results.png")
+    r["results_png"] = list(imageio.imread(chart).shape) if os.path.exists(chart) else None
+    if r["results_png"] != [440, 660 * 2, 3]:
+        raise AssertionError(f"cli evaluate: results.png {r['results_png']}, expected 440x1320")
 
     # train: Vimeo90k layout of 288x448 PNGs; fit recorded step by step
     vimeo = os.path.join(work, "vimeo")
@@ -1855,7 +1981,7 @@ def _dp(dev, repo, work):
         raise AssertionError(f"dp: cli train --data_parallel on one process {cli_gap:.3g} from the "
                              f"plain run (> {DP_PARAM_TOL}; the plain run against itself: "
                              f"{cli_floor:.3g})")
-    if written != ["checkpoint", "config.json", "train_metrics.jsonl"]:
+    if written != ["checkpoint", "config.json", "train_curve.png", "train_metrics.jsonl"]:
         raise AssertionError(f"dp: the data-parallel run wrote {written}")
     for k, c in cli.items():
         if (c["k1"], c["k2"]) != (DP_CLI_STEPS, DP_CLI_STEPS) or c["k1_paths"] != {RING_PATH: c["k1"]}:
@@ -2565,7 +2691,10 @@ def main() -> int:
     sys.path.insert(0, repo)
     try:
         from fmvfi_tpu_torch import _build
+        from fmvfi_tpu_torch import native
+        from fmvfi_tpu_torch.eval import visualize
         from fmvfi_tpu_torch.eval.evaluate import evaluate_suite, synthetic_sets
+        from fmvfi_tpu_torch.utils import imageio
         from fmvfi_tpu_torch.eval.synth import translation_triplet, translation_video
         from fmvfi_tpu_torch.models.adacof import AdaCoFNet
         from fmvfi_tpu_torch.models.fusion_net import FusionNet, infer_variant
@@ -3029,13 +3158,31 @@ def main() -> int:
     if video_k1 == 0:
         raise AssertionError("the video path launched K1 no time")
 
-    # eval: evaluate_suite on the synthetic sets, four methods
+    # eval: evaluate_suite on the synthetic sets, four methods, with the
+    # panels and the panel videos (visualize=True, the default)
     t0 = time.perf_counter()
     sets = synthetic_sets(dim=256, n_frames=4)
     t_setup = time.perf_counter() - t0
     os.makedirs(os.path.join(repo, "build"), exist_ok=True)
     eval_dir = tempfile.mkdtemp(prefix="chip_smoke_eval_", dir=os.path.join(repo, "build"))
+    draw = {"prediction_panel": 0.0, "panels_to_video": 0.0}
+    real_draw = {k: getattr(visualize, k) for k in draw}
+
+    def timed_draw(name):
+        def fn(*a, **k):
+            t = time.perf_counter()
+            try:
+                return real_draw[name](*a, **k)
+            finally:
+                draw[name] += time.perf_counter() - t
+        return fn
+
+    t_build = time.perf_counter()
+    native.library()  # the host library's g++ build, kept out of the drawing seconds
+    native_build_seconds = time.perf_counter() - t_build
     try:
+        for k in draw:  # evaluate_suite reads them from the module at each call
+            setattr(visualize, k, timed_draw(k))
         adacof_cuda.launches = adacof_cuda.bwd_launches = 0  # the evaluation path's run
         adacof_cuda.paths.clear()
         t_run = time.perf_counter()
@@ -3044,21 +3191,34 @@ def main() -> int:
         run_seconds = time.perf_counter() - t_run
         eval_k1, eval_k2 = adacof_cuda.launches, adacof_cuda.bwd_launches  # read just after
         eval_paths = dict(adacof_cuda.paths)
+        draw_seconds = dict(draw)
+        for k in draw:
+            setattr(visualize, k, real_draw[k])
         has_summary = os.path.exists(os.path.join(eval_dir, "k1", "summary.json"))
+        figures = _eval_figures(os.path.join(eval_dir, "k1"), sets)
         rerun = evaluate_suite(models, os.path.join(eval_dir, "k1"), sets=sets,
                                methods=EVAL_METHODS, dim=256, device=dev)
         rerun_k1 = adacof_cuda.launches - eval_k1
         ada.warp = warp_plain  # its own directory: the weights digest is the same
         try:
             plain = evaluate_suite(models, os.path.join(eval_dir, "plain"), sets=sets,
-                                   methods=("fusion",), dim=256, device=dev)
+                                   methods=("fusion",), dim=256, visualize=False, device=dev)
         finally:
             ada.warp = adacof_cuda.adacof_warp
     finally:
+        for k in draw:
+            setattr(visualize, k, real_draw[k])
         shutil.rmtree(eval_dir, ignore_errors=True)
     plain_gap = {k: abs(summary[k]["fusion"]["psnr"] - plain[k]["fusion"]["psnr"]) for k in sets}
+    draw_total = sum(draw_seconds.values())
     _line(phase="eval", seconds=time.perf_counter() - t0, setup_seconds=t_setup,
-          run_seconds=run_seconds, dim=256, n_frames=4, sets=len(sets),
+          native_build_seconds=native_build_seconds,
+          run_seconds=run_seconds, score_seconds=run_seconds - draw_total,
+          panel_seconds=draw_seconds["prediction_panel"],
+          avi_seconds=draw_seconds["panels_to_video"],
+          panel_seconds_per_set=draw_seconds["prediction_panel"] / len(sets),
+          avi_seconds_per_set=draw_seconds["panels_to_video"] / len(sets),
+          dim=256, n_frames=4, sets=len(sets), figures=figures,
           psnr={k: {m: summary[k][m]["psnr"] for m in EVAL_METHODS} for k in sets},
           ssim={k: {m: summary[k][m]["ssim"] for m in EVAL_METHODS} for k in sets},
           k1_launches=eval_k1, k1_paths=eval_paths, k2_launches=eval_k2,
@@ -3118,6 +3278,10 @@ def main() -> int:
             raise AssertionError(f"training: K1, K2 launches by instantiation {train_paths}, "
                                  f"expected all through {RING_PATH}")
         train_peak = torch.cuda.max_memory_allocated()
+        curve_path = os.path.join(out_dir, "train_curve.png")
+        curve_shape = list(imageio.imread(curve_path).shape) if os.path.exists(curve_path) else None
+        if curve_shape != [400, 800, 3]:
+            raise AssertionError(f"training: train_curve.png {curve_shape}, expected 400x800 RGB")
         if state.step != TRAIN_STEPS + 1 or any(n != [1, 1] for n in per_step):
             raise AssertionError(f"training: step {state.step}, K1/K2 launches per step {per_step}")
         if not np.isfinite(losses).all():
@@ -3168,6 +3332,7 @@ def main() -> int:
           ms_per_step=float(np.median(step_ms[1:])), ms_steps=step_ms[1:],
           peak_memory_bytes=train_peak, loss_first=losses[0], loss_last=losses[-1],
           k1_launches=train_k1, k2_launches=train_k2, k1_k2_paths=train_paths,
+          train_curve_png=curve_shape,
           checkpoint_resumed=True,
           grad_max_rel_diff=grad_ratio, grad_tol=GRAD_TOL)
     if not grad_ratio <= GRAD_TOL:

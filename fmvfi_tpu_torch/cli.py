@@ -10,16 +10,18 @@ Flags, defaults and messages are JAX's, plus `--device` (default cuda): a
 command exits with an error when there is no CUDA card, unless it is given
 `--device cpu`.  Convolutions run in float32 (TF32 off), as the reference
 computes.  Images are PNG or baseline JPEG files (utils/imageio.py); output
-frames are written as PNG.  The default PhaseNet
+frames are written in the format their extension names, as cv2.imwrite
+writes them (.png, or .jpg/.jpeg/.jpe at quality 95).  The default PhaseNet
 and FusionNet checkpoints are the reference's file names under the
 repository's checkpoints/ directory.  As in JAX, without
 --adacof_checkpoint the bundled demo AdaCoF is used, and with it the demo
 FusionNet in place of a file named fusion_net.pt.
 
-Not ported yet: video files as input raise NotImplementedError (ROADMAP
-Queue 1, item 18.4), and the results.png chart of `evaluate` (item 18.6)
-is skipped with a note on stderr.  `train --data_parallel` runs one process
-per GPU (torchrun), where JAX runs one process over a mesh of devices.
+`evaluate` writes JAX's files: summary.json, each synthetic set's panels
+and <set>.avi, and the results.png bar chart (eval/visualize.py).  Not
+ported yet: video files as input raise NotImplementedError (ROADMAP Queue
+1, item 18.4).  `train --data_parallel` runs one process per GPU
+(torchrun), where JAX runs one process over a mesh of devices.
 """
 
 from __future__ import annotations
@@ -155,8 +157,8 @@ def _common(p):
 
 
 def _write(path: str, img) -> None:
-    """A [0, 1] (H, W, 3) frame (tensor or array) as a PNG, quantized as JAX
-    writes it."""
+    """A [0, 1] (H, W, 3) frame (tensor or array) quantized as JAX writes it,
+    in the format the extension names (cv2.imwrite's choice)."""
     from .pipeline.video import quantize
     from .utils import imageio
 
@@ -273,6 +275,7 @@ def cmd_evaluate(argv):
 
     from .eval.datasets import load_test_set
     from .eval.evaluate import evaluate_suite, evaluate_triplets, load_set, synthetic_sets
+    from .eval.visualize import metric_bars
 
     lpips_fn = None
     if args.vgg_checkpoint:
@@ -309,8 +312,7 @@ def cmd_evaluate(argv):
             lpips_fn=lpips_fn,
             device=dev,
         )
-        print("note: the results.png chart (eval/visualize.py) needs matplotlib and is "
-              "not ported yet (ROADMAP Queue 1, item 18.6)", file=sys.stderr)
+        metric_bars(summary, out_path=f"{args.out_dir}/results.png")
 
     for spec in paired:
         name = spec.split(":")[0]

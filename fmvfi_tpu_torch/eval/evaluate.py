@@ -6,8 +6,10 @@ are cached per (set, method, weights) in `result_*.npz` files beside a
 
 Sets are (N, H, W, 3) arrays (float in [0, 1] or uint8), frame iterators,
 or zero-argument callables returning a fresh iterator; `load_set` reads
-them from directories of PNG or JPEG frames.  The panels of `visualize` are
-not ported (ROADMAP Queue 1, item 18.6).
+them from directories of PNG or JPEG frames.  With visualize=True (the
+default, as in JAX) `evaluate_suite` also draws each set's target /
+prediction / |diff| panels and stitches them into an MJPG AVI
+(eval/visualize.py).
 """
 
 from __future__ import annotations
@@ -188,7 +190,7 @@ def evaluate_suite(
     dim: int = 512,
     max_num: Optional[int] = 10,
     overwrite: bool = False,
-    visualize: bool = False,
+    visualize: bool = True,
     lpips_fn=None,
     cache_token: str = "",
     *,
@@ -198,32 +200,59 @@ def evaluate_suite(
     `<out_dir>/result_<set>_<method>_<digest>.npz`; returns {set: {method:
     {metric: mean}}} and writes it to `summary.json`
     (fmvfi_tpu/eval/evaluate.py:247-345).  A set given as a callable is
-    called once per method for a fresh iterator.  visualize=True (panels
-    and videos) needs matplotlib and cv2 and raises."""
-    if visualize:
-        raise NotImplementedError("visualize needs matplotlib and cv2, not ported")
+    called once per method for a fresh iterator.
+
+    With visualize=True each set that is held whole (an array; a callable or
+    an iterator streams its frames, and is skipped) gets one panel per triplet,
+    <out_dir>/panels_<set>/panel_<i>.png (its target, each method's
+    prediction and |diff| map), and <out_dir>/<set>.avi of the panels at 2
+    fps; the predictions are cached in the npz, and a cached npz without
+    them is scored again."""
+    from .visualize import panels_to_video, prediction_panel
+
     os.makedirs(out_dir, exist_ok=True)
     if sets is None:
         sets = synthetic_sets(dim)
     digests = {m: _method_cache_key(models, m, dim, max_num, cache_token) for m in methods}
     summary: Dict[str, Dict[str, Dict[str, float]]] = {}
     for name, frames_src in sets.items():
+        streamed = callable(frames_src) or not hasattr(frames_src, "__len__")
+        want_preds = visualize and not streamed
         summary[name] = {}
+        preds_by_method: Dict[str, np.ndarray] = {}
         for method in methods:
             cache = os.path.join(out_dir, f"result_{name}_{method}_{digests[method]}.npz")
             data = None
             if os.path.exists(cache) and not overwrite:
                 with np.load(cache) as f:
                     data = dict(f)
-                if lpips_fn is not None and "lpips_vgg" not in data:
+                if (want_preds and "preds" not in data) or (
+                        lpips_fn is not None and "lpips_vgg" not in data):
                     data = None
             if data is None:
                 data = evaluate_frames(
                     frames_src() if callable(frames_src) else frames_src,
-                    models, method, dim, max_num, lpips_fn=lpips_fn, device=device,
+                    models, method, dim, max_num, return_preds=want_preds,
+                    lpips_fn=lpips_fn, device=device,
                 )
                 np.savez(cache, **data)
+            if "preds" in data:
+                preds_by_method[method] = data.pop("preds")
             summary[name][method] = {k: float(v.mean()) for k, v in data.items()}
+        if want_preds and preds_by_method:
+            cropped = crop_center(np.asarray(frames_src), dim)
+            if cropped.dtype == np.uint8:
+                cropped = cropped.astype(np.float32) / 255.0
+            n_panels = min(p.shape[0] for p in preds_by_method.values())
+            panel_paths = []
+            for i in range(n_panels):
+                path = os.path.join(out_dir, f"panels_{name}", f"panel_{i:03d}.png")
+                prediction_panel(cropped[i + 1],
+                                 {m: p[i] / 255.0 for m, p in preds_by_method.items()},
+                                 out_path=path)
+                panel_paths.append(path)
+            if panel_paths:
+                panels_to_video(panel_paths, os.path.join(out_dir, f"{name}.avi"))
     with open(os.path.join(out_dir, "summary.json"), "w") as f:
         json.dump(summary, f, indent=2)
     return summary

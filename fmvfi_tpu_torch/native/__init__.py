@@ -1,7 +1,7 @@
 """Native host runtime, loaded with ctypes: the C++ triplet augmentation of
 augment.cpp (port of fmvfi_tpu/native, with its own copy of the source),
-the PNG row filters of png.cpp and the baseline JPEG decoder of jpeg.cpp
-(both for utils/imageio.py).
+the PNG row filters of png.cpp, the baseline JPEG decoder of jpeg.cpp and
+the baseline JPEG encoder of jpeg_enc.cpp (all three for utils/imageio.py).
 
 The library is built at first use, never at import, with `g++ -O3
 -march=native -fPIC -shared -pthread`, into `build/fmvfi_tpu_torch/` at the
@@ -10,7 +10,7 @@ and flags; a second run with the same source loads the existing library.
 This is host code: the crop, flips, time reversal, uint8 -> float32 and the
 batch assembly of train.data.batch_iterator run in C++ threads outside the
 interpreter lock, the PNG codec's row filters in C++ loops, and the JPEG
-decoder (a Huffman decoder is a bit-serial recurrence) in C++.
+decoder and encoder (Huffman coding is a bit-serial recurrence) in C++.
 `available()` says whether the library builds (a g++ is on PATH); the
 functions raise RuntimeError when it does not.
 """
@@ -34,6 +34,7 @@ from .._build import BUILD_DIR
 SOURCE = Path(__file__).resolve().parent / "augment.cpp"
 PNG_SOURCE = Path(__file__).resolve().parent / "png.cpp"
 JPEG_SOURCE = Path(__file__).resolve().parent / "jpeg.cpp"
+JPEG_ENC_SOURCE = Path(__file__).resolve().parent / "jpeg_enc.cpp"
 FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-pthread")
 
 _lock = threading.Lock()
@@ -48,7 +49,7 @@ _I64 = ctypes.c_int64
 
 
 def _sources() -> Tuple[Path, ...]:
-    return SOURCE, PNG_SOURCE, JPEG_SOURCE
+    return SOURCE, PNG_SOURCE, JPEG_SOURCE, JPEG_ENC_SOURCE
 
 
 def library_path() -> Path:
@@ -105,6 +106,8 @@ def library() -> ctypes.CDLL:
                 for fn in (lib.fmvfi_jpeg_header, lib.fmvfi_jpeg_decode):
                     fn.argtypes = [_U8P, _I64, ctypes.c_void_p, ctypes.c_char_p, _I32]
                     fn.restype = _I32
+                lib.fmvfi_jpeg_encode.argtypes = [_U8P, _I32, _I32, _I32, _I32, _U8P, _I64]
+                lib.fmvfi_jpeg_encode.restype = _I64
                 _lib = lib
                 return _lib
         raise RuntimeError(f"the native library is unavailable: {_error}")
@@ -210,3 +213,34 @@ def jpeg_decode(data: bytes) -> np.ndarray:
     if code:
         raise _JPEG_ERRORS[code](msg.value.decode("ascii", "replace"))
     return out
+
+
+def jpeg_encode(image: np.ndarray, quality: int = 95) -> bytes:
+    """An (H, W, 3) RGB or (H, W) grey uint8 image as the bytes of a
+    baseline JPEG file, byte-equal to what cv2.imencode('.jpg') writes of
+    the same pixels at IMWRITE_JPEG_QUALITY `quality` (1-100; 4:2:0 chroma,
+    the standard Huffman tables)."""
+    lib = library()
+    image = np.ascontiguousarray(image, dtype=np.uint8)
+    if image.ndim not in (2, 3) or (image.ndim == 3 and image.shape[2] != 3):
+        raise ValueError(f"jpeg_encode takes (H, W, 3) or (H, W) uint8, got {image.shape}")
+    h, w = image.shape[:2]
+    if not (0 < h <= 65535 and 0 < w <= 65535):
+        raise ValueError(f"a {w}x{h} image: JPEG sides are 1-65535")
+    channels = 1 if image.ndim == 2 else 3
+    # the most a block can code to: a DC symbol (<= 11 + 11 bits) and 63 AC
+    # symbols (<= 16 + 10 bits each), every byte stuffed, in 8x8 blocks
+    # (grey) or 16x16 MCUs of 6 blocks (4:2:0); 2048 bytes hold the headers
+    if channels == 1:
+        blocks = ((w + 7) // 8) * ((h + 7) // 8)
+    else:
+        blocks = 6 * ((w + 15) // 16) * ((h + 15) // 16)
+    cap = 2 * -(-(22 + 63 * 26) // 8) * blocks + 2048
+    out = np.empty(cap, np.uint8)  # only the file's bytes are touched
+    n = lib.fmvfi_jpeg_encode(image.ctypes.data_as(_U8P), h, w, channels, int(quality),
+                              out.ctypes.data_as(_U8P), cap)
+    if n == 0:
+        raise MemoryError(f"jpeg_encode: out of memory for a {w}x{h} image")
+    if n < 0:
+        raise RuntimeError(f"jpeg_encode: a {w}x{h} file of {-n} bytes, over its bound {cap}")
+    return out[:n].tobytes()

@@ -2,7 +2,8 @@
 checkpoints with resume, a JSONL metrics stream, a PSNR probe and an image
 probe.
 
-- `MetricsWriter`: one JSON record per logged step.
+- `MetricsWriter`: one JSON record per logged step, and the loss-curve PNG
+  (`plot`, drawn by eval/visualize.py without matplotlib).
 - `PsnrProbe`: fixed probe triplets scored after every epoch (the
   reference's per-epoch Middlebury-other PSNR, adacof/TestModule.py:43-64).
 - `fit()`: the epoch loop gluing a (state, step_fn) pair from train.trainer
@@ -10,8 +11,6 @@ probe.
   hierarchical-m schedule of PhaseNet training, the probes, and an outer
   wrapper (`wrap_step`, e.g. parallel.dp.data_parallel) kept across the
   schedule's rebuilds.
-The loss-curve PNG of JAX's MetricsWriter.plot needs matplotlib and is not
-ported (ROADMAP Queue 1, item 18.6).
 """
 
 from __future__ import annotations
@@ -19,7 +18,7 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Callable, Dict, Iterable, Optional, Union
+from typing import Callable, Dict, Iterable, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -30,16 +29,38 @@ from ..utils.checkpoint import Checkpointer
 
 
 class MetricsWriter:
-    def __init__(self, out_dir: str):
+    """Appends one JSON record per `write` to <out_dir>/<name>_metrics.jsonl
+    and keeps each metric's (step, value) history for `plot`."""
+
+    def __init__(self, out_dir: str, name: str = "train"):
         os.makedirs(out_dir, exist_ok=True)
-        self.path = os.path.join(out_dir, "train_metrics.jsonl")
+        self.out_dir = out_dir
+        self.name = name
+        self.path = os.path.join(out_dir, f"{name}_metrics.jsonl")
         self._f = open(self.path, "a")
+        self.history: Dict[str, list] = {}
 
     def write(self, step: int, metrics: Dict[str, float], **extra):
         rec = {"step": int(step), "time": time.time(), **extra}
-        rec.update({k: float(v) for k, v in metrics.items()})
+        for k, v in metrics.items():
+            v = float(v)
+            rec[k] = v
+            self.history.setdefault(k, []).append((step, v))
         self._f.write(json.dumps(rec) + "\n")
         self._f.flush()
+
+    def plot(self, keys: Optional[Sequence[str]] = None) -> str:
+        """<out_dir>/<name>_curve.png, 800 x 400: one line per key (by
+        default those ending in "loss") against step, in tab10 order, with
+        axis labels and a legend, laid out as JAX's matplotlib figure
+        (fmvfi_tpu/train/loop.py:47-67)."""
+        from ..eval.visualize import curve_figure
+
+        keys = keys or [k for k in self.history if k.endswith("loss") or k == "loss"]
+        series = {k: tuple(zip(*self.history[k])) for k in keys if k in self.history}
+        path = os.path.join(self.out_dir, f"{self.name}_curve.png")
+        imageio.imwrite(path, curve_figure(series).render())
+        return path
 
     def close(self):
         self._f.close()
@@ -126,7 +147,9 @@ def fit(
     rebuild of the m schedule (JAX's fit once lost its data-parallel
     wrapper there, fmvfi_tpu/train/loop.py:141-146).  In a group of
     processes every process restores, steps and scores the probes alike,
-    and only process 0 writes the metrics, checkpoints and images."""
+    and only process 0 writes the metrics, checkpoints, images and the
+    loss curve (<out_dir>/train_curve.png, at each checkpoint, as JAX's fit
+    draws it)."""
     writes = process_index() == 0
     writer = MetricsWriter(out_dir) if writes else None
     ckptr = Checkpointer(os.path.join(out_dir, "checkpoint"))
@@ -169,6 +192,7 @@ def fit(
                     writer.write(step, metrics, epoch=epoch, **({} if m is None else {"m": m}))
                 if writes and step % ckpt_every == 0:
                     ckptr.save(step, state)
+                    writer.plot()
                 if image_probe is not None and step % image_every == 0:
                     img = image_probe(state)
                     if writes:
@@ -182,6 +206,7 @@ def fit(
                     writer.write(step, {"probe_psnr": score}, epoch=epoch)
             if writes:
                 ckptr.save(step, state)
+                writer.plot()
     finally:
         if writes:
             writer.close()

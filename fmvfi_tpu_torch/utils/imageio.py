@@ -1,14 +1,17 @@
 """PNG and JPEG files as RGB uint8 arrays, without cv2 or PIL: the port's
 counterpart of `cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)` and of
-`cv2.imwrite(path, cv2.cvtColor(img, cv2.COLOR_RGB2BGR))` (PNG only).
+`cv2.imwrite(path, cv2.cvtColor(img, cv2.COLOR_RGB2BGR))` (PNG and JPEG).
 
 `imread` returns what cv2 (IMREAD_COLOR) returns, in RGB order, for every
 non-interlaced PNG: grey is replicated to three channels (1, 2 and 4-bit
 grey scaled to 0-255 by 255, 85 and 17), palette indices are looked up (an
 index past the palette reads black), alpha and tRNS are dropped without
-blending, and 16-bit samples keep their high byte.  `imwrite` writes 8-bit
+blending, and 16-bit samples keep their high byte.  `imwrite` picks the
+format from the file's extension, as cv2.imwrite does: `.png` writes 8-bit
 RGB or grey, each row with the filter libpng's heuristic picks, at zlib
-level 1 (cv2's default).
+level 1 (cv2's default); `.jpg`, `.jpeg` and `.jpe` write the baseline JPEG
+of native/jpeg_enc.cpp, byte-equal to cv2's at the same quality (default
+95, cv2's); any other extension raises NotImplementedError.
 
 A JPEG file (`imread` dispatches on its magic bytes) is decoded by the
 baseline decoder of native/jpeg.cpp, bit-equal to libjpeg-turbo with its
@@ -17,7 +20,7 @@ three equal channels, and the EXIF Orientation tag is applied (flips and
 rotations), as cv2.imread applies it.  `read_jpeg(path, orient=False)`
 leaves the orientation alone, as PIL's Image.open does.
 
-The PNG row filters and the JPEG decoder run in the C++ library of
+The PNG row filters and the JPEG decoder and encoder run in the C++ library of
 fmvfi_tpu_torch.native (built with g++ at first use); `imread` and `imwrite`
 raise RuntimeError when it does not build.  `unfilter_numpy` is the row
 filters' plain version, for the tests.  An interlaced PNG, or a progressive,
@@ -256,18 +259,35 @@ def _to_rgb(rows: np.ndarray, width: int, depth: int, color: int, palette) -> np
     return np.ascontiguousarray(samples[..., :3])
 
 
-def imwrite(path, image: np.ndarray) -> None:
-    """Write an (H, W, 3) RGB or (H, W) grey uint8 array as an 8-bit PNG."""
+JPEG_EXTENSIONS = (".jpg", ".jpeg", ".jpe")
+JPEG_QUALITY = 95  # cv2's IMWRITE_JPEG_QUALITY default
+
+
+def imwrite(path, image: np.ndarray, quality: int = JPEG_QUALITY) -> None:
+    """Write an (H, W, 3) RGB or (H, W) grey uint8 array in the format its
+    extension names (case-insensitive, as cv2): an 8-bit PNG for `.png`, a
+    baseline JPEG at `quality` (1-100) for `.jpg`, `.jpeg` and `.jpe`.  Any
+    other extension raises NotImplementedError."""
+    path = os.fspath(path)
+    ext = os.path.splitext(path)[1].lower()
+    if ext != ".png" and ext not in JPEG_EXTENSIONS:
+        raise NotImplementedError(f"{path}: imwrite writes .png, .jpg, .jpeg and .jpe files, "
+                                  f"not {ext or 'a file without an extension'}")
     image = np.asarray(image)
     if image.dtype != np.uint8 or not (image.ndim == 2 or (image.ndim == 3
                                                            and image.shape[2] == 3)):
         raise ValueError(f"imwrite takes (H, W, 3) or (H, W) uint8, got {image.shape} "
                          f"{image.dtype}")
+    if ext in JPEG_EXTENSIONS:
+        data = native.jpeg_encode(image, quality)
+        with open(path, "wb") as f:
+            f.write(data)
+        return
     h, w = image.shape[:2]
     spp = 1 if image.ndim == 2 else 3
     filtered = native.png_filter(image.reshape(h, w * spp), spp)
     header = struct.pack(">IIBBBBB", w, h, 8, 0 if spp == 1 else 2, 0, 0, 0)
-    with open(os.fspath(path), "wb") as f:
+    with open(path, "wb") as f:
         f.write(SIGNATURE)
         for ctype, body in ((b"IHDR", header),
                             (b"IDAT", zlib.compress(filtered.tobytes(), ZLIB_LEVEL)),

@@ -12,9 +12,12 @@ AdaCoF and FusionNet and a seeded PhaseNet saved in phase_net.pt's layout.
   on a directory of JPEG frames): every
   pixel of every PNG within 1 LSB of JAX's (JAX truncates x * 255, so a
   float gap of ~1e-6 can flip a pixel), with the share that differs
-  printed;
+  printed; `--output_frame out.jpg` byte-equal to cv2.imwrite of the
+  pixels of the .png output;
 - `evaluate` on a middlebury: layout and on the synthetic sets at --dim 64
-  --max_num 2: per-scene and per-set PSNR within 0.05 dB of JAX's;
+  --max_num 2: per-scene and per-set PSNR within 0.05 dB of JAX's, and
+  results.png (1320x440), the panels and the AVIs written as JAX writes
+  them;
 - `train` in each regime, 2 steps on a Vimeo90k layout at --crop 64:
   finite losses, a checkpoint, config.json (trainer parity is held in
   tests/test_torch_train*.py);
@@ -243,6 +246,19 @@ def test_interpolate_matches_jax_cli(inputs, jax_out, method):
         _within_lsb(out / f"interp_{method}" / n, jax_out / f"interp_{method}" / n)
 
 
+def test_interpolate_writes_the_format_its_extension_names(inputs, tmp_path):
+    """--output_frame out.jpg writes what cv2.imwrite writes of the same
+    pixels (JAX's writer: a JPEG at quality 95), not a PNG."""
+    pair = ["--first_frame", str(inputs / "a.png"), "--second_frame", str(inputs / "b.png"),
+            "--method", "adacof", "--device", "cpu"]
+    for ext in ("png", "jpg"):
+        pt_cli.main(["interpolate", *pair, "--output_frame", str(tmp_path / f"out.{ext}")])
+    assert cv2.imwrite(str(tmp_path / "ref.jpg"), cv2.imread(str(tmp_path / "out.png")))
+    assert (tmp_path / "out.jpg").read_bytes() == (tmp_path / "ref.jpg").read_bytes()
+    with pytest.raises(NotImplementedError, match="bmp"):
+        pt_cli.main(["interpolate", *pair, "--output_frame", str(tmp_path / "out.bmp")])
+
+
 @pytest.mark.parametrize("mode,n_out", [("per_pair", 7), ("factor4", 13), ("batch2", 7),
                                         ("stream", 7)])
 def test_video_matches_jax_cli(inputs, jax_out, mode, n_out):
@@ -287,9 +303,14 @@ def test_evaluate_middlebury_matches_jax_cli(inputs, jax_out):
                     jax_out / "eval_middlebury" / "middlebury_fusion" / scene / "output.png")
 
 
-def test_evaluate_synthetic_matches_jax_cli(inputs, jax_out, capsys):
+def test_evaluate_synthetic_matches_jax_cli(inputs, jax_out):
     out = _run_port(inputs, "evaluate_synthetic")
-    assert "results.png" in capsys.readouterr().err  # the chart's note
+    chart = cv2.imread(str(out / "eval_synthetic" / "results.png"))
+    ref_chart = cv2.imread(str(jax_out / "eval_synthetic" / "results.png"))
+    assert chart.shape == ref_chart.shape == (440, 1320, 3)  # psnr and ssim
+    for d in (out, jax_out):
+        names = os.listdir(d / "eval_synthetic")
+        assert "translation.avi" in names and "panels_translation" in names
     ours = json.loads((out / "eval_synthetic" / "summary.json").read_text())
     ref = json.loads((jax_out / "eval_synthetic" / "summary.json").read_text())
     assert sorted(ours) == sorted(ref) and len(ref) == 8

@@ -35,7 +35,7 @@ from fmvfi_tpu_torch.models.fusion_net import FusionNet, infer_variant
 from fmvfi_tpu_torch.models.phase_net import PhaseNetCore
 from fmvfi_tpu_torch.pipeline import interpolate as pt_pipe
 from fmvfi_tpu_torch.pipeline.interpolate import FusionModels
-from fmvfi_tpu_torch.utils import convert
+from fmvfi_tpu_torch.utils import avi, convert, imageio
 
 PIPE_DB = 60.0
 MAPS_TOL = 1e-3
@@ -291,14 +291,22 @@ def test_generate_uncertainty_maps_matches_jax(weights, monkeypatch):
     np.testing.assert_allclose(ours_med.numpy(), ref_med, rtol=0, atol=1e-6)
 
 
-def test_file_and_plot_options_raise(weights, tmp_path):
-    """The plot option needs matplotlib, which the card's machine lacks, and
-    raises; the options that write PNGs write them with the port's codec
+def test_visualize_writes_panels_and_avi_and_file_options_write_pngs(weights, tmp_path):
+    """visualize=True writes each set's panels and its MJPG AVI without
+    matplotlib or cv2 (tests/test_torch_visualize.py holds them against
+    JAX's); the options that write PNGs write them with the port's codec
     (tests/test_torch_datasets.py holds their bytes against JAX's)."""
     _, pt = weights
     f = np.zeros((32, 32, 3), np.float32)
-    with pytest.raises(NotImplementedError):
-        pt_eval.evaluate_suite(pt, str(tmp_path), sets={}, visualize=True, **CPU)
+    sets = {"fade": np.stack([f, f + 0.5, f + 1.0])}  # one triplet
+    pt_eval.evaluate_suite(pt, str(tmp_path / "s"), sets=sets, methods=("baseline",), dim=32,
+                           visualize=True, **CPU)
+    assert os.listdir(tmp_path / "s" / "panels_fade") == ["panel_000.png"]
+    panel = imageio.imread(tmp_path / "s" / "panels_fade" / "panel_000.png")
+    assert panel.shape == (660, 660, 3)
+    video = avi.read(tmp_path / "s" / "fade.avi")
+    assert (video.avih["total_frames"], video.avih["width"], video.avih["height"]) == (1, 660, 660)
+    assert len(video.frames) == 1 and video.strh["handler"] == b"MJPG"
     pt_eval.evaluate_triplets({"a": (f, f, f)}, pt, output_dir=str(tmp_path / "t"), **CPU)
     assert os.listdir(tmp_path / "t" / "a") == ["output.png"]
     maps = pt_unc.generate_uncertainty_maps(pt, f, f, out_dir=str(tmp_path / "u"), **CPU)

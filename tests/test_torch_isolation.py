@@ -33,7 +33,7 @@ FORBIDDEN = (
 GOLDEN_DB, GOLDEN_TOL = 42.967, 0.05  # tests/test_golden.py, bundled AdaCoF
 # the video, evaluation, adversarial, VGG, native-loader, codec,
 # command-line, export, profiling, compute-dtype, data-parallel, spatial, JPEG,
-# resampling, shading and dataset-bootstrap modules:
+# resampling, shading, dataset-bootstrap and plotting modules:
 # imported by the isolated run below and held by the static import check
 NEW_MODULES = ("pipeline.video", "eval.metrics", "eval.evaluate", "eval.uncertainty",
                "models.discriminator", "models.flax_bn", "train.adversarial", "train.vgg",
@@ -41,7 +41,8 @@ NEW_MODULES = ("pipeline.video", "eval.metrics", "eval.evaluate", "eval.uncertai
                "eval.datasets", "utils.export", "utils.profiling", "utils.msgpack_io",
                "utils.checkpoint", "utils.convert", "train.loop", "models.conv",
                "parallel.mesh", "parallel.dp", "parallel.distributed", "parallel.spatial",
-               "utils.resample", "eval.shade", "utils.datasets")
+               "utils.resample", "eval.shade", "utils.datasets", "eval.visualize",
+               "utils.raster", "utils.avi")
 
 _ISOLATED = f"""
 import importlib, json, pkgutil, sys

@@ -143,8 +143,8 @@ def test_fit_keeps_the_wrapper_across_m_rises(tmp_path):
 
 def test_cli_train_data_parallel_single_process(group, tmp_path):
     """`train --data_parallel` on a 1-process group (what it forms without
-    torchrun): the same parameters as without it, one metrics file, one
-    checkpoint."""
+    torchrun): the same parameters as without it, one metrics file, its
+    loss curve, one checkpoint."""
     from fmvfi_tpu_torch import cli
     from fmvfi_tpu_torch.utils.checkpoint import Checkpointer
 
@@ -160,7 +160,8 @@ def test_cli_train_data_parallel_single_process(group, tmp_path):
 
     written, dp_ckpt = run(tmp_path / "dp", "--data_parallel")
     _, plain_ckpt = run(tmp_path / "plain")
-    assert written == (["checkpoint", "config.json", "train_metrics.jsonl"], ["step_00000002"])
+    assert written == (["checkpoint", "config.json", "train_curve.png", "train_metrics.jsonl"],
+                       ["step_00000002"])
     assert all(torch.equal(dp_ckpt["params"][k], v) for k, v in plain_ckpt["params"].items())
 
 

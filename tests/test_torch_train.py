@@ -12,6 +12,7 @@ tensor, and the params after 3 steps 1e-4 absolute (f32 convolutions summed
 in another order through a deep U-Net, then Adamax).
 """
 
+import json
 import os
 
 import numpy as np
@@ -45,7 +46,7 @@ from fmvfi_tpu_torch.train.trainer import (
     make_adacof_trainer,
     staircase_lr,
 )
-from fmvfi_tpu_torch.utils import convert
+from fmvfi_tpu_torch.utils import convert, imageio
 from fmvfi_tpu_torch.utils.checkpoint import Checkpointer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -445,6 +446,22 @@ def test_fit_resumes_where_it_stopped(bundled, tmp_path):
         assert torch.equal(a, b), k
     lines = (tmp_path / "resumed" / "train_metrics.jsonl").read_text().splitlines()
     assert len(lines) == 4
+
+
+def test_fit_survives_a_non_finite_loss(bundled, tmp_path):
+    """A NaN target at step 2: the step is skipped, its NaN loss is logged,
+    and fit still checkpoints and draws the loss curve after it."""
+    batches = [_batch(1, 32, s) for s in range(4)]
+    batches[1][1][0, 5, 5, 1] = np.nan
+    state, step = _port_trainer(bundled)
+    state = fit(state, step, iter(batches), str(tmp_path), epochs=1, steps_per_epoch=4,
+                log_every=1, ckpt_every=2)
+    assert state.step == 4
+    assert Checkpointer(str(tmp_path / "checkpoint")).latest() == 4
+    losses = [json.loads(l)["loss"] for l in
+              (tmp_path / "train_metrics.jsonl").read_text().splitlines()]
+    assert np.isnan(losses[1]) and np.isfinite(losses[0]) and np.isfinite(losses[2:]).all()
+    assert imageio.imread(str(tmp_path / "train_curve.png")).shape == (400, 800, 3)
 
 
 def test_checkpoint_restore_round_trip(bundled, tmp_path):
