@@ -151,6 +151,26 @@ Phases, each printing one JSON line with its seconds:
               128 --max_num 1 --methods adacof` (JAX's 9 set keys, K1 once
               a set); where ffmpeg and ffprobe are on PATH (nothing is
               installed);
+  inputs    - (after photo; lines inputs_pins, inputs_video, inputs_frames)
+              the inputs JAX reads through cv2, read here without it: the
+              fixtures of tests/data/inputs/ (tools/make_input_fixtures.py:
+              Adam7 PNGs, progressive JPEGs, one cut after its second scan
+              so that block smoothing runs, cv2.VideoWriter's and
+              MjpgWriter's Motion-JPEG AVIs at 4:2:0, 4:2:2 and 4:4:4) each
+              decoded by the port with the sha256 of its pixels equal to
+              that of cv2's or PIL's (INPUT_PINS, held by the CPU tests);
+              the video phase's first 3 frames written as a 1080x1920 MJPG
+              AVI with MjpgWriter and `cli video --input clip.avi --method
+              fusion` on it: 5 PNGs, the originals those read_video_frames
+              returns, K1 exactly [2, 4, 2] images a pair through F5C3 with
+              the ring, no K2, each interpolated frame >= 60 dB against
+              double_frame_rate per pair in this process on the frames
+              read_video_frames returns; the decoded frames finite and >=
+              17.5 dB against the pixels written (quality 95 on the clip's
+              pixel-noise texture decodes at ~18.3 dB), and the ms to
+              decode one 1080p frame beside the card's name and power
+              limit; double_frame_rate per pair on the Adam7 and the
+              progressive-JPEG frame directories through K1;
   cli       - (after train_fusion) the command line on PNG files: the serve phase's
               first pair and the video phase's 5-frame clip written with
               the port's imwrite, read back bit-equal, and the C++ row
@@ -430,6 +450,53 @@ PHOTO_K1 = dict(adacof=1, fusion=3)  # one dispatch per method, as the eval phas
 PHOTO_STEPS = 5  # timed photo_frac training steps, after the compared first one
 PHOTO_STREAM = dict(n=64, h=288, w=448, photo_frac=0.5)
 PHOTO_CLI_FRAMES = 3  # copies of grace_hopper.jpg as a JPEG frame directory
+INPUTS_DIR = os.path.join("tests", "data", "inputs")  # tools/make_input_fixtures.py writes it
+# what cv2 or PIL returns for each fixture, computed by tools/make_input_fixtures.py
+# and held by the CPU tests: the contract ("imread": cv2.imread + BGR2RGB;
+# "read_jpeg": PIL's Image.open; "video": cv2.VideoCapture's frames + BGR2RGB,
+# stacked) and the sha256 of those RGB pixels
+INPUT_PINS = {
+    "adam7_frames/00000.png":
+        ("imread", "fe9f607398a955b1eef6025a827a938ad5064c998dc7547b362e2b1aa808f8c7"),
+    "adam7_frames/00001.png":
+        ("imread", "c65b8b4676150823af415da33537be4e8201ba2d2abfaed385153bf93be10812"),
+    "adam7_frames/00002.png":
+        ("imread", "83a6a14f92f70bb286f014d5c59419b9b00745e61eb54c817cbf83bfcddb9d2e"),
+    "adam7_grey16_5x7.png":
+        ("imread", "d26528b30b977f6c8d2042f8a4bd7d1746a4f73995c40e0f05d33cfcaa6de15d"),
+    "adam7_pal4_9x13.png":
+        ("imread", "930f8a9729766be2bc91687d7a80f6440fef3d16331a3b18282d151ce7ad3932"),
+    "adam7_rgb8_29x37.png":
+        ("imread", "44ba622fc3f3cddba47bc234481aeb502d02797d50369838a423388bf99c820c"),
+    "adam7_rgba16_3x2.png":
+        ("imread", "4323f7c3fb98f03458668c5d9cd224d7883ede628553bf1b40a8c3e74f39096c"),
+    "cv2_writer_48x64.avi":
+        ("video", "3bae71454830e2814ae204db2229ba957b1eeb290d8db6f78cb4de007e43234a"),
+    "mjpg_420_21x37.avi":
+        ("video", "73ffdf421ed72013445327379082416e657edcc6e95a71428e8dfc0b83d68373"),
+    "mjpg_422_45x62.avi":
+        ("video", "b7d9910c4f8a01b2bf114aa90a6b896eb9c9b35a9f75e07e4558e408fe61c42f"),
+    "mjpg_444_21x37.avi":
+        ("video", "5d6ff6b9279f3d6e3beafcc1f5814c77091ebbf2c5ee9ba7babb99cef1ae1718"),
+    "progressive_420_61x77.jpg":
+        ("imread", "285d70bc5250bb7200de08c0b2dcd654476b010ba5bdb4a258c93c4e5476701f"),
+    "progressive_420_61x77_cut2.jpg":
+        ("imread", "8f37944d8833735ced289d8e275728702dad2f8a498cbd81a757c2b300a72437"),
+    "progressive_444_33x40_rst2.jpg":
+        ("imread", "526bd73ee57a14f666c6b711b803df46c0272491f18943ee95aa9fe8f3c9368d"),
+    "progressive_frames/00000.jpg":
+        ("imread", "8233a4cdc077b4b795297af2bef55e942c4738fdd7dcfc4238863a389f4e07d3"),
+    "progressive_frames/00001.jpg":
+        ("imread", "ad056f6c498aafc9f1298f0500bd7bb22437c215011ed57b0217252f7194e023"),
+    "progressive_frames/00002.jpg":
+        ("imread", "4d83a285f4e3c2c34939c17d5c0de73f88ef841da828b2eda8361288c488e049"),
+    "progressive_grey_pil_45x50.jpg":
+        ("read_jpeg", "8415dbcb09e0e3b474b0828189150afa9488c01eb5088537dc76a8aa1da9a3b9"),
+}
+INPUTS_FRAME_DIRS = ("adam7_frames", "progressive_frames")
+INPUTS_CLIP_FRAMES = 3  # of the video phase's clip, written as a 1080p MJPG AVI
+INPUTS_JPEG_DB = 17.5  # the clip's frames decoded against the pixels written
+INPUTS_DECODE_REPS = 5  # timed decodes of one 1080p frame
 
 
 def _line(**kw):
@@ -892,6 +959,161 @@ def _photo(dev, repo, models, ada_path, work):
                              f"K1 {cli_eval_c['k1_paths']}, K2 {cli_eval_c['k2']}")
     return (eval_c["k1"] + train_c["k1"] + video_c["k1"] + cli_eval_c["k1"],
             train_c["k2"] + video_c["k2"] + cli_eval_c["k2"])
+
+
+def phase_inputs(dev, repo, models, ada_path, fusion_path, clip, smi):
+    """The inputs JAX reads through cv2: the committed fixtures against
+    cv2's and PIL's digests, a 1080p MJPG AVI through `cli video --method
+    fusion`, and the Adam7 and progressive-JPEG frame directories through
+    double_frame_rate; returns the path's K1 launches."""
+    with _work_dir(repo) as work:
+        return _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work)
+
+
+def _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work):
+    import contextlib
+    import hashlib
+    import io
+
+    import torch
+    from fmvfi_tpu_torch import cli, native
+    from fmvfi_tpu_torch.models.adacof import AdaCoFNet
+    from fmvfi_tpu_torch.models.fusion_net import FusionNet, infer_variant
+    from fmvfi_tpu_torch.models.phase_net import PhaseNetCore
+    from fmvfi_tpu_torch.ops import adacof_cuda
+    from fmvfi_tpu_torch.pipeline.interpolate import FusionModels
+    from fmvfi_tpu_torch.pipeline.video import (double_frame_rate, iter_video_frames, quantize,
+                                                read_frame_dir, read_video_frames)
+    from fmvfi_tpu_torch.utils import avi, imageio
+    from fmvfi_tpu_torch.utils.convert import (load_adacof_weights, load_fusion_weights,
+                                               phase_net_from_torch)
+
+    # (a) the fixtures, each decoded as its contract says, against the pins
+    t0 = time.perf_counter()
+    readers = dict(imread=imageio.imread, read_jpeg=imageio.read_jpeg,
+                   video=lambda path: np.stack(list(iter_video_frames(path))))
+    pins = {}
+    for name, (contract, digest) in INPUT_PINS.items():
+        t = time.perf_counter()
+        pixels = readers[contract](os.path.join(repo, INPUTS_DIR, name))
+        pins[name] = dict(contract=contract, shape=list(pixels.shape),
+                          ms=1e3 * (time.perf_counter() - t),
+                          equal=hashlib.sha256(np.ascontiguousarray(pixels).tobytes()).hexdigest()
+                          == digest)
+    _line(phase="inputs_pins", seconds=time.perf_counter() - t0, fixtures=pins)
+    if not all(p["equal"] for p in pins.values()):
+        raise AssertionError(f"inputs: decodes unequal to cv2's or PIL's pixels: "
+                             f"{[n for n, p in pins.items() if not p['equal']]}")
+
+    # (b) the full-width path: a 1080p MJPG AVI through `cli video`, K1
+    # counted around the command (the models it builds take the recording warp)
+    t0 = time.perf_counter()
+    written = (np.asarray(clip[:INPUTS_CLIP_FRAMES]) * 255 + 0.5).astype(np.uint8)
+    n, h, w = written.shape[:3]
+    path = os.path.join(work, "clip.avi")
+    t = time.perf_counter()
+    with avi.MjpgWriter(path, w, h, fps=30) as writer:
+        for frame in written:
+            writer.write(frame)
+    write_seconds = time.perf_counter() - t
+    frame_bytes = avi.read(path).frames[0]
+    decode_ms = []
+    for _ in range(INPUTS_DECODE_REPS):
+        t = time.perf_counter()
+        native.mjpeg_decode(frame_bytes)
+        decode_ms.append(1e3 * (time.perf_counter() - t))
+    t = time.perf_counter()
+    frames = read_video_frames(path)
+    read_seconds = time.perf_counter() - t
+    decoded_db = [_psnr(f, g.astype(np.float32) / 255) for f, g in zip(frames, written)]
+    libjpeg_db = _psnr(native.mjpeg_decode(frame_bytes).astype(np.float64) / 255,
+                       native.jpeg_decode(frame_bytes).astype(np.float64) / 255)
+    phase_pt = _reference_phase_pt(os.path.join(work, "phase_net.pt"))
+    images = []
+    real_warp = adacof_cuda.adacof_warp
+
+    def recording_warp(x, *args):
+        images.append(x.shape[0])
+        return real_warp(x, *args)
+
+    out_dir = os.path.join(work, "video")
+    adacof_cuda.adacof_warp = recording_warp
+    try:
+        _reset_counts()  # the command's run
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["video", "--input", path, "--output_dir", out_dir, "--method", "fusion",
+                      "--phase_checkpoint", phase_pt, "--device", dev.type])
+        torch.cuda.synchronize()
+        cli_seconds = time.perf_counter() - t
+        cli_c, cli_images = _counts(), list(images)  # read just after
+    finally:
+        adacof_cuda.adacof_warp = real_warp
+    names = sorted(os.listdir(out_dir))
+    outs = [imageio.imread(os.path.join(out_dir, name)) for name in names]
+    # the same models in this process, per pair, on the frames read back
+    ada = AdaCoFNet().to(dev).eval()
+    ada.load_state_dict(load_adacof_weights(ada_path))
+    fusion_sd = load_fusion_weights(fusion_path)
+    fusion = FusionNet(variant=infer_variant(fusion_sd)).to(dev).eval()
+    fusion.load_state_dict(fusion_sd)
+    phase = PhaseNetCore().to(dev).eval()
+    phase.load_state_dict(phase_net_from_torch(phase_pt))
+    per_pair = [quantize(f) for f in double_frame_rate(frames, FusionModels(phase, ada, fusion),
+                                                       device=dev)]
+    del ada, fusion, phase
+    originals = len(outs) == 2 * n - 1 and all(
+        np.array_equal(outs[2 * i], quantize(frames[i])) for i in range(n))
+    mid_db = [_psnr(outs[2 * i + 1].astype(np.float64) / 255,
+                    per_pair[2 * i + 1].astype(np.float64) / 255) for i in range(n - 1)]
+    want_images = [2, 4, 2] * (n - 1)
+    _line(phase="inputs_video", seconds=time.perf_counter() - t0, size=[h, w], frames=n,
+          write_seconds=write_seconds, read_seconds=read_seconds,
+          frame_bytes=len(frame_bytes), decode_1080p_ms=float(np.median(decode_ms)),
+          decode_ms=decode_ms, card=smi, decoded_vs_written_db=decoded_db,
+          mjpeg_vs_libjpeg_decode_db=libjpeg_db, cli_seconds=cli_seconds,
+          pngs_written=len(names), originals_exact=originals, k1_launches=cli_c["k1"],
+          k1_images=cli_images, k1_paths=cli_c["k1_paths"], k2_launches=cli_c["k2"],
+          interpolated_vs_per_pair_db=mid_db)
+    if frames.shape != (n, h, w, 3) or not np.isfinite(frames).all() or not (
+            min(decoded_db) >= INPUTS_JPEG_DB):
+        raise AssertionError(f"inputs: the 1080p AVI decodes to {frames.shape}, "
+                             f"{decoded_db} dB against the pixels written")
+    if len(names) != 2 * n - 1 or not originals or not min(mid_db) >= PLAIN_AGREEMENT_DB:
+        raise AssertionError(f"inputs: cli video wrote {names}, originals exact {originals}, "
+                             f"interpolated frames against per pair {mid_db} dB")
+    if cli_images != want_images or cli_c["k1_paths"] != {RING_PATH: len(want_images)} or (
+            cli_c["k2"]):
+        raise AssertionError(f"inputs: cli video K1 images {cli_images} "
+                             f"({cli_c['k1_paths']}), K2 {cli_c['k2']}; expected {want_images}")
+
+    # (d) the Adam7 and progressive-JPEG frame directories through K1
+    t0 = time.perf_counter()
+    dirs = {}
+    models.adacof.warp = recording_warp
+    try:
+        for name in INPUTS_FRAME_DIRS:
+            seq = read_frame_dir(os.path.join(repo, INPUTS_DIR, name))
+            _reset_counts()  # this directory's run
+            images.clear()
+            out = list(double_frame_rate(seq, models, device=dev))
+            c = _counts()  # read just after
+            dirs[name] = dict(frames=len(seq), out=len(out), k1_images=list(images),
+                              k1_paths=c["k1_paths"], k2_launches=c["k2"],
+                              finite=bool(all(np.isfinite(f).all() for f in out)),
+                              originals_exact=all(np.array_equal(out[2 * i], seq[i])
+                                                  for i in range(len(seq))))
+    finally:
+        models.adacof.warp = real_warp
+    _line(phase="inputs_frames", seconds=time.perf_counter() - t0, dirs=dirs)
+    for name, d in dirs.items():
+        want = [2, 4, 2] * (d["frames"] - 1)
+        if (d["out"] != 2 * d["frames"] - 1 or not d["finite"] or not d["originals_exact"]
+                or d["k1_images"] != want or d["k1_paths"] != {RING_PATH: len(want)}
+                or d["k2_launches"]):
+            raise AssertionError(f"inputs: {name} through double_frame_rate: {d}")
+    return cli_c["k1"] + sum(len(d["k1_images"]) for d in dirs.values())
 
 
 def phase_train_gan(dev, repo, ada_path):
@@ -3242,6 +3464,11 @@ def main() -> int:
     # evaluation and photo_frac training through K1/K2
     photo_k1, photo_k2 = phase_photo(dev, repo, models, ada_path)
 
+    # inputs: the fixtures JAX reads through cv2, a 1080p MJPG AVI through
+    # `cli video --method fusion`, and the Adam7 and progressive-JPEG frame
+    # directories through K1
+    inputs_k1 = phase_inputs(dev, repo, models, ada_path, fusion_path, clip, smi)
+
     # train: AdaCoF training at 256x256, batch 4, through K1 and K2
     t0 = time.perf_counter()
     del models, fusion, phase
@@ -3675,7 +3902,8 @@ def main() -> int:
     dp_k1, dp_k2 = phase_dp(dev, repo)
     spatial_k1, spatial_k2 = phase_spatial(dev, repo)
     spatial_train_k1, spatial_train_k2 = phase_spatial_train(dev, repo)
-    regime_k1.update(lpips=lpips_k1, photo=photo_k1, cli=cli_k1, export=export_k1,
+    regime_k1.update(lpips=lpips_k1, photo=photo_k1, inputs=inputs_k1, cli=cli_k1,
+                     export=export_k1,
                      train_gan=gan_k1,
                      train_gan_types=gan_types_k1, serve_bf16=bf16_k1, dp=dp_k1,
                      spatial=spatial_k1, spatial_train=spatial_train_k1)
@@ -3706,6 +3934,7 @@ def main() -> int:
         bound_by=k2_train["bound_by"], library_ms=None, design=DESIGN,
         launch_1080p_ms=k2_timings[1]["ms"],
         launches_by_path=dict(serve=0, serve_bf16=0, video=0, eval=0, lpips=0, photo=photo_k2,
+                              inputs=0,
                               cli=cli_k2,
                               export=export_k2, train=train_k2, train_phase=0, train_fusion=0,
                               train_gan=gan_k2, train_gan_types=gan_types_k2, dp=dp_k2,

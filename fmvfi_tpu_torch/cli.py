@@ -9,7 +9,7 @@
 Flags, defaults and messages are JAX's, plus `--device` (default cuda): a
 command exits with an error when there is no CUDA card, unless it is given
 `--device cpu`.  Convolutions run in float32 (TF32 off), as the reference
-computes.  Images are PNG or baseline JPEG files (utils/imageio.py); output
+computes.  Images are PNG or JPEG files (utils/imageio.py); output
 frames are written in the format their extension names, as cv2.imwrite
 writes them (.png, or .jpg/.jpeg/.jpe at quality 95).  The default PhaseNet
 and FusionNet checkpoints are the reference's file names under the
@@ -18,10 +18,12 @@ repository's checkpoints/ directory.  As in JAX, without
 FusionNet in place of a file named fusion_net.pt.
 
 `evaluate` writes JAX's files: summary.json, each synthetic set's panels
-and <set>.avi, and the results.png bar chart (eval/visualize.py).  Not
-ported yet: video files as input raise NotImplementedError (ROADMAP Queue
-1, item 18.4).  `train --data_parallel` runs one process per GPU
-(torchrun), where JAX runs one process over a mesh of devices.
+and <set>.avi, and the results.png bar chart (eval/visualize.py).  `video
+--input` and `evaluate --test_sets` read frame directories and Motion-JPEG
+AVI files (decoded as cv2.VideoCapture decodes them); other video files
+raise NotImplementedError (ROADMAP Queue 1, item 18.4).  `train
+--data_parallel` runs one process per GPU (torchrun), where JAX runs one
+process over a mesh of devices.
 """
 
 from __future__ import annotations

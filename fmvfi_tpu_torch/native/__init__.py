@@ -1,7 +1,10 @@
 """Native host runtime, loaded with ctypes: the C++ triplet augmentation of
 augment.cpp (port of fmvfi_tpu/native, with its own copy of the source),
-the PNG row filters of png.cpp, the baseline JPEG decoder of jpeg.cpp and
-the baseline JPEG encoder of jpeg_enc.cpp (all three for utils/imageio.py).
+the PNG row filters of png.cpp, the JPEG decoder of jpeg.cpp (baseline and
+progressive) and the baseline JPEG encoder of jpeg_enc.cpp (all three for
+utils/imageio.py), and the Motion-JPEG frame decoder of mjpeg.cpp (for
+utils/avi.py), which shares jpeg.cpp's entropy decoder through
+jpeg_common.h.
 
 The library is built at first use, never at import, with `g++ -O3
 -march=native -fPIC -shared -pthread`, into `build/fmvfi_tpu_torch/` at the
@@ -35,6 +38,8 @@ SOURCE = Path(__file__).resolve().parent / "augment.cpp"
 PNG_SOURCE = Path(__file__).resolve().parent / "png.cpp"
 JPEG_SOURCE = Path(__file__).resolve().parent / "jpeg.cpp"
 JPEG_ENC_SOURCE = Path(__file__).resolve().parent / "jpeg_enc.cpp"
+MJPEG_SOURCE = Path(__file__).resolve().parent / "mjpeg.cpp"
+HEADERS = (Path(__file__).resolve().parent / "jpeg_common.h",)
 FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-pthread")
 
 _lock = threading.Lock()
@@ -49,12 +54,12 @@ _I64 = ctypes.c_int64
 
 
 def _sources() -> Tuple[Path, ...]:
-    return SOURCE, PNG_SOURCE, JPEG_SOURCE, JPEG_ENC_SOURCE
+    return SOURCE, PNG_SOURCE, JPEG_SOURCE, JPEG_ENC_SOURCE, MJPEG_SOURCE
 
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + HEADERS:
         h.update(src.read_bytes())
     return BUILD_DIR / f"libfmvfi_native_{h.hexdigest()[:16]}.so"
 
@@ -103,7 +108,7 @@ def library() -> ctypes.CDLL:
                 lib.fmvfi_png_unfilter.restype = _I64
                 lib.fmvfi_png_filter.argtypes = [_U8P, _I64, _I64, _I32, _U8P]
                 lib.fmvfi_png_filter.restype = None
-                for fn in (lib.fmvfi_jpeg_header, lib.fmvfi_jpeg_decode):
+                for fn in (lib.fmvfi_jpeg_header, lib.fmvfi_jpeg_decode, lib.fmvfi_mjpeg_decode):
                     fn.argtypes = [_U8P, _I64, ctypes.c_void_p, ctypes.c_char_p, _I32]
                     fn.restype = _I32
                 lib.fmvfi_jpeg_encode.argtypes = [_U8P, _I32, _I32, _I32, _I32, _U8P, _I64]
@@ -193,11 +198,25 @@ MAX_JPEG_PIXELS = 1 << 30  # cv2's limit (CV_IO_MAX_IMAGE_PIXELS)
 
 
 def jpeg_decode(data: bytes) -> np.ndarray:
-    """Decode a baseline JPEG file's bytes into an (H, W, 3) uint8 RGB array
-    (grey repeated to three channels), bit-equal to libjpeg-turbo with its
-    defaults.  Raises NotImplementedError for what jpeg.cpp does not decode
-    (progressive, lossless, arithmetic-coded, 12-bit, CMYK, RGB-coded) and
-    ValueError for a malformed or truncated file, each with the reason."""
+    """Decode a baseline or progressive JPEG file's bytes into an (H, W, 3)
+    uint8 RGB array (grey repeated to three channels), bit-equal to
+    libjpeg-turbo with its defaults.  Raises NotImplementedError for what
+    jpeg.cpp does not decode (lossless, arithmetic-coded, 12-bit, CMYK,
+    RGB-coded) and ValueError for a malformed or truncated file, each with
+    the reason."""
+    return _decode(data, library().fmvfi_jpeg_decode)
+
+
+def mjpeg_decode(data: bytes) -> np.ndarray:
+    """Decode a Motion-JPEG frame's bytes into an (H, W, 3) uint8 RGB array
+    as cv2.VideoCapture decodes it (FFmpeg's decoder and swscale's
+    conversion, mjpeg.cpp), not as cv2.imdecode does.  Raises as
+    jpeg_decode, and NotImplementedError for a progressive frame or a
+    sampling other than 4:2:0, 4:2:2 and 4:4:4."""
+    return _decode(data, library().fmvfi_mjpeg_decode)
+
+
+def _decode(data: bytes, decode) -> np.ndarray:
     lib = library()
     buf = np.frombuffer(data, np.uint8)
     src = buf.ctypes.data_as(_U8P)
@@ -209,7 +228,7 @@ def jpeg_decode(data: bytes) -> np.ndarray:
         if w * h > MAX_JPEG_PIXELS:
             raise ValueError(f"a {w}x{h} JPEG, over the {MAX_JPEG_PIXELS} pixels decoded")
         out = np.empty((h, w, 3), np.uint8)
-        code = lib.fmvfi_jpeg_decode(src, buf.size, out.ctypes.data, msg, len(msg))
+        code = decode(src, buf.size, out.ctypes.data, msg, len(msg))
     if code:
         raise _JPEG_ERRORS[code](msg.value.decode("ascii", "replace"))
     return out

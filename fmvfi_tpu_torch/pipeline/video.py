@@ -7,8 +7,11 @@ Frames are host arrays (N, H, W, 3), float32 in [0, 1]; the frames yielded
 are numpy (H, W, 3).  On the card, frames go up through pinned memory and
 results come down into pinned memory, both copied asynchronously, so the
 host waits only for a finished result: pair i+1's work is queued on the card
-before the host waits for pair i's.  Video files are not read: the card's
-machine has no video decoder (ROADMAP Queue 1, item 18.4).
+before the host waits for pair i's.  Video files are read when they are
+Motion-JPEG AVIs (utils/avi.py), each frame decoded as cv2.VideoCapture
+decodes it (FFmpeg's decoder and swscale's conversion, native/mjpeg.cpp);
+any other container or codec raises NotImplementedError: the card's machine
+has no video decoder (ROADMAP Queue 1, item 18.4).
 """
 
 from __future__ import annotations
@@ -20,8 +23,10 @@ from typing import Callable, Iterator, List, Sequence
 import numpy as np
 import torch
 
+from .. import native
 from ..ops.pyramid import make_filters, max_pyr_height
-from ..utils import imageio
+from ..utils import avi, imageio
+from ..utils.resample import resize_bilinear_u8
 from .interpolate import (
     FusionModels,
     _device,
@@ -41,24 +46,57 @@ FRAME_SUFFIXES = (".png", ".jpg", ".jpeg")  # JAX's
 
 def _no_video_decoder(path: str):
     return NotImplementedError(
-        f"{path}: reading video files needs a video decoder, which the card's machine lacks "
-        "(ROADMAP Queue 1, item 18.4); pass a directory of PNG or JPEG frames")
-
-
-def read_video_frames(path: str, resize=None) -> np.ndarray:
-    """Not ported: raises NotImplementedError (no video decoder)."""
-    raise _no_video_decoder(path)
+        f"{path}: reading this video file needs a video decoder, which the card's machine "
+        "lacks (ROADMAP Queue 1, item 18.4); pass a Motion-JPEG .avi file or a directory of "
+        "PNG or JPEG frames")
 
 
 def iter_video_frames(path: str, resize=None) -> Iterator[np.ndarray]:
-    """Not ported: raises NotImplementedError (no video decoder)."""
-    raise _no_video_decoder(path)
+    """Decode a Motion-JPEG AVI one frame at a time as (H, W, 3) uint8 RGB,
+    as JAX's iter_video_frames reads it through cv2.VideoCapture
+    (fmvfi_tpu/pipeline/video.py:44-68), each frame resized to resize =
+    (h, w) as cv2.resize does (bilinear) when given.  A path that is not an
+    .avi raises NotImplementedError here (item 18.4); the iterator raises
+    NotImplementedError for a codec other than Motion-JPEG, and ValueError
+    when no frame decodes, at its first next()."""
+    if os.path.splitext(path)[1].lower() != ".avi":
+        raise _no_video_decoder(path)
+    return _iter_avi(path, resize)
+
+
+def _iter_avi(path: str, resize) -> Iterator[np.ndarray]:
+    if not os.path.isfile(path):
+        raise ValueError(f"no frames decoded from {path}")
+    got_any = False
+    for i, data in enumerate(avi.iter_frames(avi.open_video(path))):
+        try:
+            frame = native.mjpeg_decode(data)
+        except (ValueError, NotImplementedError) as e:
+            raise type(e)(f"{path}: frame {i}: {e}") from None
+        if resize is not None:
+            frame = resize_bilinear_u8(frame, (resize[1], resize[0]))
+        got_any = True
+        yield frame
+    if not got_any:
+        raise ValueError(f"no frames decoded from {path}")
+
+
+def read_video_frames(path: str, resize=None) -> np.ndarray:
+    """A Motion-JPEG AVI's frames as (N, H, W, 3) float32 RGB in [0, 1]
+    (x / 255 in float32, as JAX reads them; fmvfi_tpu/pipeline/video.py:
+    26-41), resized to resize = (h, w) when given."""
+    return np.stack(list(iter_video_frames(path, resize))).astype(np.float32) / 255.0
 
 
 def interpolate_video_file(src: str, dst_dir: str, models: FusionModels, method: str = "fusion",
-                           resize=None) -> int:
-    """Not ported: raises NotImplementedError (no video decoder)."""
-    raise _no_video_decoder(src)
+                           resize=None, *, device="cuda") -> int:
+    """Read a Motion-JPEG AVI, double its frame rate and write the frames
+    as PNGs into dst_dir (fmvfi_tpu/pipeline/video.py:370-381); returns
+    the number of frames written."""
+    frames = read_video_frames(src, resize=resize)
+    out = list(double_frame_rate(frames, models, method, device=device))
+    write_frame_dir(dst_dir, out)
+    return len(out)
 
 
 def _frame_names(path: str) -> List[str]:

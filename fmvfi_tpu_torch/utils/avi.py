@@ -1,5 +1,5 @@
 """Motion-JPEG AVI files without cv2: a writer for eval/visualize.py's
-panel videos and a chunk reader.
+panel videos and a reader for pipeline/video.py.
 
 The writer produces a RIFF 1.0 `AVI ` file with one video stream, as
 cv2.VideoWriter(path, fourcc "MJPG", fps, (w, h)) does:
@@ -18,16 +18,26 @@ cv2.VideoWriter(path, fourcc "MJPG", fps, (w, h)) does:
                offset from the 'movi' tag and its length
 
 Sizes and counts are patched in when the writer closes.  A file past RIFF
-1.0's 1 GiB raises ValueError (there is no OpenDML extension).  `read`
-returns the stream's header fields, the index and every frame's bytes.
+1.0's 1 GiB raises ValueError (the writer has no OpenDML extension).
+
+The reader takes what cv2.VideoWriter(..., "MJPG", ...) writes (FFmpeg's
+muxer: JUNK chunks, an INFO list, idx1) and what MjpgWriter writes, and
+also 'rec ' lists, files without an index, '##db' chunks and OpenDML's
+'AVIX' extensions: `open_video` parses the headers and picks the first
+video stream, which must be Motion-JPEG (NotImplementedError otherwise,
+naming the FourCC and ROADMAP item 18.4), `iter_frames` streams its
+frames' bytes from the 'movi' lists in file order, and `read` returns the
+headers, the idx1 index and every frame.  pipeline/video.py decodes the
+frames with native.mjpeg_decode, as cv2.VideoCapture decodes them.
 """
 
 from __future__ import annotations
 
+import io
 import os
 import struct
 from fractions import Fraction
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Tuple
 
 import numpy as np
 
@@ -114,60 +124,140 @@ def _list(kind: bytes, body: bytes) -> bytes:
     return b"LIST" + struct.pack("<I", 4 + len(body)) + kind + body
 
 
-def chunks(data: bytes, start: int = 0, end: int = None):
-    """(tag, list type or None, body offset, body length) of each chunk in
-    data[start:end], descending into LISTs (a LIST's entry comes before
-    its children's)."""
-    end = len(data) if end is None else end
+MJPEG_FOURCCS = (b"MJPG", b"AVI1", b"JPEG")  # FourCCs FFmpeg reads as Motion-JPEG
+
+
+def _unsupported(path: str, what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{path}: {what}; the port decodes Motion-JPEG AVI files only (ROADMAP Queue 1, "
+        "item 18.4: other codecs need a video decoder, which the card's machine lacks)")
+
+
+def _walk(f, start: int, end: int):
+    """(tag, list type or None, body offset, body length) of each chunk of
+    the open file f between start and end, descending into RIFFs and LISTs
+    (a list's entry comes before its children's).  Several top-level RIFFs
+    (OpenDML's 'AVIX' extensions past 1 GiB) are walked in turn."""
     pos = start
     while pos + 8 <= end:
-        tag = data[pos : pos + 4]
-        (size,) = struct.unpack("<I", data[pos + 4 : pos + 8])
+        f.seek(pos)
+        tag, size = struct.unpack("<4sI", f.read(8))
         body = pos + 8
         if body + size > end:
             raise ValueError(f"a {tag!r} chunk of {size} bytes runs past its parent")
         if tag in (b"RIFF", b"LIST"):
-            kind = data[body : body + 4]
+            kind = f.read(4)
             yield tag, kind, body, size
-            yield from chunks(data, body + 4, body + size)
+            yield from _walk(f, body + 4, body + size)
         else:
             yield tag, None, body, size
         pos = body + size + (size & 1)
+
+
+def chunks(data: bytes, start: int = 0, end: int = None):
+    """_walk over bytes in memory: the chunks of data[start:end]."""
+    return _walk(io.BytesIO(data), start, len(data) if end is None else end)
+
+
+def _avih(body: bytes) -> Dict[str, int]:
+    keys = ("usec_per_frame", "max_bytes_per_sec", "padding", "flags", "total_frames",
+            "initial_frames", "streams", "buffer_size", "width", "height")
+    return dict(zip(keys, struct.unpack("<10I", body[:40])))
+
+
+def _strh(body: bytes) -> Dict[str, object]:
+    v = struct.unpack("<4s4sIHHIIIIIIiI4h", body[:56].ljust(56, b"\0"))
+    return dict(type=v[0], handler=v[1], scale=v[6], rate=v[7], length=v[9], frame=v[13:17])
+
+
+def _strf(body: bytes) -> Dict[str, object]:
+    v = struct.unpack("<IiiHH4sI", body[:24].ljust(24, b"\0"))
+    return dict(width=v[1], height=v[2], bit_count=v[4], compression=v[5])
+
+
+class VideoStream(NamedTuple):
+    """An AVI file's first video stream: the file's main header, the
+    stream's headers, and its number (its frames are the '<nn>dc' and
+    '<nn>db' chunks)."""
+
+    path: str
+    avih: Dict[str, int]
+    strh: Dict[str, object]
+    strf: Dict[str, object]
+    number: int
+
+
+def open_video(path) -> VideoStream:
+    """The headers of the AVI file at `path` and its first video stream.
+    ValueError for a file that is not a RIFF AVI or has no video stream;
+    NotImplementedError for a stream that is not Motion-JPEG."""
+    path = os.fspath(path)
+    with open(path, "rb") as f:
+        size = os.fstat(f.fileno()).st_size
+        head = f.read(12)
+        if len(head) < 12 or head[:4] != b"RIFF" or head[8:12] != b"AVI ":
+            raise ValueError(f"{path}: not a RIFF AVI file")
+        avih, streams = None, []
+        for tag, kind, pos, n in _walk(f, 0, size):
+            if kind == b"movi":
+                break
+            if tag in (b"avih", b"strh", b"strf"):
+                f.seek(pos)
+                body = f.read(n)
+                if tag == b"avih":
+                    avih = _avih(body)
+                elif tag == b"strh":
+                    streams.append([_strh(body), None])
+                elif streams:
+                    streams[-1][1] = _strf(body)
+    if avih is None:
+        raise ValueError(f"{path}: no avih header")
+    for number, (strh, strf) in enumerate(streams):
+        if strh["type"] != b"vids":
+            continue
+        if strf is None:
+            raise ValueError(f"{path}: video stream {number} has no strf header")
+        for what, fourcc in (("strf compression", strf["compression"]),
+                             ("strh handler", strh["handler"])):
+            if fourcc.upper() in MJPEG_FOURCCS or (what == "strh handler" and fourcc == bytes(4)):
+                continue  # an empty handler leaves the codec to strf, as FFmpeg reads it
+            raise _unsupported(path, f"a video stream whose {what} is "
+                                     f"{fourcc.decode('latin-1')!r}, not MJPG")
+        return VideoStream(path, avih, strh, strf, number)
+    raise ValueError(f"{path}: no video stream")
+
+
+def iter_frames(stream: VideoStream) -> Iterator[bytes]:
+    """The bytes of each frame of `stream`, in file order: its '<nn>dc' and
+    '<nn>db' chunks in every 'movi' list (inside 'rec ' lists too, and in
+    OpenDML's 'AVIX' extensions), empty chunks (dropped frames) skipped.
+    The indexes (idx1, indx, ix<nn>) are not needed and not read."""
+    tags = (b"%02ddc" % stream.number, b"%02ddb" % stream.number)
+    with open(stream.path, "rb") as f:
+        size = os.fstat(f.fileno()).st_size
+        for tag, _, pos, n in _walk(f, 0, size):
+            if tag in tags and n:
+                f.seek(pos)
+                yield f.read(n)
 
 
 class AviFile(NamedTuple):
     avih: Dict[str, int]
     strh: Dict[str, object]
     strf: Dict[str, object]
-    index: List[Tuple[bytes, int, int, int]]  # (tag, flags, offset, length)
+    index: List[Tuple[bytes, int, int, int]]  # idx1: (tag, flags, offset, length)
     frames: List[bytes]
 
 
 def read(path) -> AviFile:
-    """The headers, the idx1 index and the `00dc` frames of an AVI file."""
-    with open(os.fspath(path), "rb") as f:
-        data = f.read()
-    if data[:4] != b"RIFF" or data[8:12] != b"AVI ":
-        raise ValueError(f"{os.fspath(path)}: not a RIFF AVI file")
-    avih = strh = strf = None
-    index, frames = [], []
-    for tag, kind, pos, size in chunks(data):
-        body = data[pos : pos + size]
-        if tag == b"avih":
-            keys = ("usec_per_frame", "max_bytes_per_sec", "padding", "flags", "total_frames",
-                    "initial_frames", "streams", "buffer_size", "width", "height")
-            avih = dict(zip(keys, struct.unpack("<10I", body[:40])))
-        elif tag == b"strh":
-            v = struct.unpack("<4s4sIHHIIIIIIiI4h", body[:56])
-            strh = dict(type=v[0], handler=v[1], scale=v[6], rate=v[7], length=v[9],
-                        frame=v[13:17])
-        elif tag == b"strf":
-            v = struct.unpack("<IiiHH4sI", body[:24])
-            strf = dict(width=v[1], height=v[2], bit_count=v[4], compression=v[5])
-        elif tag == b"idx1":
-            index = [struct.unpack("<4sIII", body[i : i + 16]) for i in range(0, size, 16)]
-        elif tag == b"00dc":
-            frames.append(body)
-    if avih is None or strh is None or strf is None:
-        raise ValueError(f"{os.fspath(path)}: no avih/strh/strf header")
-    return AviFile(avih, strh, strf, index, frames)
+    """The headers, the idx1 index and every frame's bytes of the first
+    video stream of an AVI file (open_video and iter_frames)."""
+    stream = open_video(path)
+    index = []
+    with open(stream.path, "rb") as f:
+        for tag, _, pos, n in _walk(f, 0, os.fstat(f.fileno()).st_size):
+            if tag == b"idx1":
+                f.seek(pos)
+                body = f.read(n)
+                index = [struct.unpack("<4sIII", body[i : i + 16]) for i in range(0, n - 15, 16)]
+    return AviFile(stream.avih, stream.strh, stream.strf, index, list(iter_frames(stream)))

@@ -2,10 +2,12 @@
 reference's download sources, a streaming download, zip extraction, and the
 Testset bootstrap's check for git-LFS pointers.
 
-Converting between video files and frame directories needs a video codec,
-which the card's machine lacks: `video_to_images` and `images_to_video`
-raise NotImplementedError (ROADMAP Queue 1, item 18.4), and so do
-`videos_to_images` and `bootstrap_testset` at the first video they meet.
+`video_to_images` (and `videos_to_images`, `bootstrap_testset`) extract
+the frames of Motion-JPEG AVI files, decoded as cv2.VideoCapture decodes
+them (pipeline/video.py), resized as cv2.resize resizes them and written
+as cv2.imwrite writes them.  Other video files, and `images_to_video`'s
+mp4v writer, need a video codec, which the card's machine lacks: they raise
+NotImplementedError (ROADMAP Queue 1, item 18.4).
 Downloads need network egress; without it `download` raises
 ConnectionError with JAX's message.
 """
@@ -17,6 +19,9 @@ import urllib.error
 import urllib.request
 import zipfile
 from typing import Optional, Tuple
+
+from .imageio import imwrite
+from .resample import resize_bilinear_u8
 
 DATASET_URLS = {
     # the reference's sources (setup.py:111-132)
@@ -57,20 +62,33 @@ def extract(archive: str, dest_dir: str) -> str:
 
 def _no_video_codec(path: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{path}: converting between video files and frames needs a video codec, which the "
-        "card's machine lacks (ROADMAP Queue 1, item 18.4)")
+        f"{path}: writing a video file needs a video codec, which the card's machine lacks "
+        "(ROADMAP Queue 1, item 18.4)")
 
 
 def video_to_images(video_path: str, out_dir: str,
                     resize: Optional[Tuple[int, int]] = (1280, 720), ext: str = "png") -> int:
-    """Not ported: raises NotImplementedError (no video codec)."""
-    raise _no_video_codec(video_path)
+    """Extract a Motion-JPEG AVI into <out_dir>/00000.<ext>, 00001.<ext>, ...
+    (fmvfi_tpu/utils/datasets.py:52-75), each frame resized to resize =
+    (width, height) unless it is None; returns the number of frames.  A
+    video file of another kind raises NotImplementedError (item 18.4)."""
+    from ..pipeline.video import iter_video_frames
+
+    frames = iter_video_frames(video_path)  # ValueError when no frame decodes, as JAX's
+    os.makedirs(out_dir, exist_ok=True)
+    n = 0
+    for frame in frames:
+        if resize is not None:
+            frame = resize_bilinear_u8(frame, resize)
+        imwrite(os.path.join(out_dir, f"{n:05d}.{ext}"), frame)
+        n += 1
+    return n
 
 
 def videos_to_images(video_dir: str, out_root: str, **kw) -> dict:
-    """Every clip in a directory to <out_root>/<clipname>/ frames: {} for a
-    directory without video files, else NotImplementedError at the first
-    (no video codec)."""
+    """Every clip in a directory to <out_root>/<clipname>/ frames (sorted
+    names; .mp4, .avi and .mov, as JAX): {clipname: frames}.  The first
+    clip that is not a Motion-JPEG AVI raises NotImplementedError."""
     counts = {}
     for name in sorted(os.listdir(video_dir)):
         if not name.lower().endswith(VIDEO_SUFFIXES):
@@ -83,7 +101,8 @@ def videos_to_images(video_dir: str, out_root: str, **kw) -> dict:
 
 
 def images_to_video(frame_dir: str, out_path: str, fps: int = 30) -> str:
-    """Not ported: raises NotImplementedError (no video codec)."""
+    """Not ported: JAX writes an mp4v file, which needs a video codec; raises
+    NotImplementedError (item 18.4)."""
     raise _no_video_codec(out_path)
 
 

@@ -3,8 +3,9 @@ counterpart of `cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)` and of
 `cv2.imwrite(path, cv2.cvtColor(img, cv2.COLOR_RGB2BGR))` (PNG and JPEG).
 
 `imread` returns what cv2 (IMREAD_COLOR) returns, in RGB order, for every
-non-interlaced PNG: grey is replicated to three channels (1, 2 and 4-bit
-grey scaled to 0-255 by 255, 85 and 17), palette indices are looked up (an
+PNG, interlaced (Adam7: each pass unfiltered on its own, its pixels put in
+place) or not: grey is replicated to three channels (1, 2 and 4-bit grey
+scaled to 0-255 by 255, 85 and 17), palette indices are looked up (an
 index past the palette reads black), alpha and tRNS are dropped without
 blending, and 16-bit samples keep their high byte.  `imwrite` picks the
 format from the file's extension, as cv2.imwrite does: `.png` writes 8-bit
@@ -13,20 +14,22 @@ level 1 (cv2's default); `.jpg`, `.jpeg` and `.jpe` write the baseline JPEG
 of native/jpeg_enc.cpp, byte-equal to cv2's at the same quality (default
 95, cv2's); any other extension raises NotImplementedError.
 
-A JPEG file (`imread` dispatches on its magic bytes) is decoded by the
-baseline decoder of native/jpeg.cpp, bit-equal to libjpeg-turbo with its
-defaults (ISLOW IDCT, fancy upsampling), as cv2 decodes it: grey becomes
-three equal channels, and the EXIF Orientation tag is applied (flips and
-rotations), as cv2.imread applies it.  `read_jpeg(path, orient=False)`
-leaves the orientation alone, as PIL's Image.open does.
+A JPEG file (`imread` dispatches on its magic bytes), baseline or
+progressive, is decoded by native/jpeg.cpp, bit-equal to libjpeg-turbo with
+its defaults (ISLOW IDCT, fancy upsampling, block smoothing of a
+progressive file whose scans leave coefficients short), as cv2 decodes it:
+grey becomes three equal channels, and the EXIF Orientation tag is applied
+(flips and rotations), as cv2.imread applies it.  `read_jpeg(path,
+orient=False)` leaves the orientation alone, as PIL's Image.open does.
 
 The PNG row filters and the JPEG decoder and encoder run in the C++ library of
 fmvfi_tpu_torch.native (built with g++ at first use); `imread` and `imwrite`
 raise RuntimeError when it does not build.  `unfilter_numpy` is the row
-filters' plain version, for the tests.  An interlaced PNG, or a progressive,
-lossless, arithmetic-coded, 12-bit or CMYK JPEG, raises
-NotImplementedError, any other file that is not a well-formed PNG or
-baseline JPEG ValueError; each names the path.
+filters' plain version, for the tests.  A lossless, arithmetic-coded,
+hierarchical, 12-bit or CMYK JPEG raises NotImplementedError naming its
+SOF; any other file that is not a well-formed PNG or JPEG raises
+ValueError (a JPEG cut short too, which cv2 would decode in part); each
+names the path.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from __future__ import annotations
 import os
 import struct
 import zlib
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -92,22 +95,47 @@ def _parse(data: bytes, path: str):
     return header, palette, b"".join(idat)
 
 
+# Adam7: each pass's first column and row and its steps across and down
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+
+
+class Pass(NamedTuple):
+    """One pass of a PNG's image data: the pixels (y0 + i dy, x0 + j dx),
+    `width` of them a row, as (rows, 1 + rowbytes) uint8, each row its
+    filter type and its filtered bytes.  A non-interlaced image is one pass
+    (0, 0, 1, 1)."""
+
+    x0: int
+    y0: int
+    dx: int
+    dy: int
+    width: int
+    rows: np.ndarray
+
+
 class RawPNG(NamedTuple):
     """A PNG's header fields, its palette (or None) and its decompressed
-    image data: (height, 1 + rowbytes) uint8, each row its filter type and
-    its filtered bytes."""
+    image data as passes: one, or Adam7's seven less those that hold no
+    pixel (an image narrower or shorter than 8 has empty passes)."""
 
     width: int
     height: int
     depth: int
     color: int
     palette: Optional[np.ndarray]
-    rows: np.ndarray
+    passes: Tuple[Pass, ...]
 
     @property
     def bpp(self) -> int:
         """The filters' byte step: max(1, bits per pixel // 8)."""
         return max(1, _COLOR_TYPES[self.color][0] * self.depth // 8)
+
+    @property
+    def rows(self) -> np.ndarray:
+        """The first pass's filtered rows: the whole image's when it is not
+        interlaced."""
+        return self.passes[0].rows
 
 
 def read_raw(path) -> RawPNG:
@@ -129,20 +157,27 @@ def _read_raw(data: bytes, path: str) -> RawPNG:
     if compression or filtering or interlace > 1 or not (width and height):
         raise ValueError(f"{path}: IHDR {width}x{height}, compression {compression}, "
                          f"filter method {filtering}, interlace {interlace}")
-    if interlace:
-        raise NotImplementedError(f"{path}: an interlaced (Adam7) PNG is not supported")
     if color == 3 and palette is None:
         raise ValueError(f"{path}: a palette image without a PLTE chunk")
-    rowbytes = (width * _COLOR_TYPES[color][0] * depth + 7) // 8
+    spp = _COLOR_TYPES[color][0]
+    layout = []  # (x0, y0, dx, dy, width, height, rowbytes) of each non-empty pass
+    for x0, y0, dx, dy in ADAM7 if interlace else ((0, 0, 1, 1),):
+        pw, ph = max(0, -(-(width - x0) // dx)), max(0, -(-(height - y0) // dy))
+        if pw and ph:
+            layout.append((x0, y0, dx, dy, pw, ph, (pw * spp * depth + 7) // 8))
     try:
         raw = zlib.decompress(z)
     except zlib.error as e:
         raise ValueError(f"{path}: corrupt image data ({e})") from None
-    need = height * (rowbytes + 1)
+    need = sum(ph * (rowbytes + 1) for *_, ph, rowbytes in layout)
     if len(raw) < need:
         raise ValueError(f"{path}: {len(raw)} bytes of image data, {need} needed")
-    rows = np.frombuffer(raw, np.uint8, need).reshape(height, rowbytes + 1)
-    return RawPNG(width, height, depth, color, palette, rows)
+    passes, pos = [], 0
+    for x0, y0, dx, dy, pw, ph, rowbytes in layout:
+        rows = np.frombuffer(raw, np.uint8, ph * (rowbytes + 1), pos).reshape(ph, rowbytes + 1)
+        passes.append(Pass(x0, y0, dx, dy, pw, rows))
+        pos += rows.size
+    return RawPNG(width, height, depth, color, palette, tuple(passes))
 
 
 def imread(path) -> np.ndarray:
@@ -154,11 +189,15 @@ def imread(path) -> np.ndarray:
     if data.startswith(_JPEG_MAGIC):
         return _decode_jpeg(data, path, orient=True)
     raw = _read_raw(data, path)
-    try:
-        rows = native.png_unfilter(raw.rows, raw.height, raw.rows.shape[1] - 1, raw.bpp)
-    except ValueError as e:
-        raise ValueError(f"{os.fspath(path)}: {e}") from None
-    return _to_rgb(rows, raw.width, raw.depth, raw.color, raw.palette)
+    out = np.empty((raw.height, raw.width, 3), np.uint8)
+    for p in raw.passes:  # each pass unfiltered on its own, its pixels put in place
+        try:
+            rows = native.png_unfilter(p.rows, p.rows.shape[0], p.rows.shape[1] - 1, raw.bpp)
+        except ValueError as e:
+            raise ValueError(f"{path}: {e}") from None
+        out[p.y0 :: p.dy, p.x0 :: p.dx] = _to_rgb(rows, p.width, raw.depth, raw.color,
+                                                  raw.palette)
+    return out
 
 
 def read_jpeg(path, orient: bool = False) -> np.ndarray:

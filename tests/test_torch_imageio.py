@@ -7,8 +7,9 @@ image data split over several IDAT chunks, with ancillary chunks (gAMA,
 tRNS) that cv2 ignores; and on PNGs written by cv2 and by PIL.  `imwrite`'s
 files must read back bit-equal through cv2 and PIL.  The C++ row unfilter
 must be bit-equal to its numpy oracle.  Broken and unsupported files must
-raise.  The codec's row filters are C++ (fmvfi_tpu_torch.native): the tests
-skip, inside a fixture, where no g++ is on PATH.  Needs no JAX.
+raise (interlaced PNGs: tests/test_torch_png_adam7.py).  The codec's row
+filters are C++ (fmvfi_tpu_torch.native): the tests skip, inside a
+fixture, where no g++ is on PATH.  Needs no JAX.
 """
 
 import shutil
@@ -194,18 +195,22 @@ def test_broken_and_unsupported_files_raise(toolchain, tmp_path):
         (tmp_path / name).write_bytes(data)
         with pytest.raises(exc, match=name):
             imageio.imread(tmp_path / name)
+    # the interlace flag over image data laid out without Adam7's passes
+    # (tests/test_torch_png_adam7.py holds real Adam7 files against cv2):
+    # too few bytes for the seven passes, as libpng finds a bad filter byte
     _encode(tmp_path / "interlaced.png", 2, 8, interlace=1)
-    with pytest.raises(NotImplementedError, match="interlaced"):
+    assert cv2.imread(str(tmp_path / "interlaced.png")) is None
+    with pytest.raises(ValueError, match="interlaced.png.*bytes of image data"):
         imageio.imread(tmp_path / "interlaced.png")
     cv2.imwrite(str(tmp_path / "photo.jpg"), np.zeros((8, 8, 3), np.uint8))
-    # a JPEG reads (tests/test_torch_jpeg.py holds the decoder against cv2); a
-    # progressive one raises, naming the file
+    # a JPEG reads, baseline or progressive (tests/test_torch_jpeg.py and
+    # tests/test_torch_jpeg_progressive.py hold the decoder against cv2)
     np.testing.assert_array_equal(imageio.imread(tmp_path / "photo.jpg"),
                                   cv2.imread(str(tmp_path / "photo.jpg"))[..., ::-1])
     cv2.imwrite(str(tmp_path / "progressive.jpg"), np.zeros((8, 8, 3), np.uint8),
                 [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    with pytest.raises(NotImplementedError, match="progressive.jpg"):
-        imageio.imread(tmp_path / "progressive.jpg")
+    np.testing.assert_array_equal(imageio.imread(tmp_path / "progressive.jpg"),
+                                  cv2.imread(str(tmp_path / "progressive.jpg"))[..., ::-1])
     # a row whose filter byte is not 0-4, behind valid CRCs
     bad = tmp_path / "filter.png"
     raw = bytes([7]) + bytes(3 * 4) + (bytes([0]) + bytes(3 * 4)) * 2

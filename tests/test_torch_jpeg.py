@@ -6,7 +6,8 @@
   at 1x1, 8x8, 17x9, 37x53 and 64x80 (partial MCUs), quality 10, 75 and
   100, restart intervals 0, 1 and 3; and on grace_hopper.jpg;
 - the eight EXIF orientations of PIL-written files against cv2.imread;
-- progressive and truncated files raising, each naming the file;
+- truncated files raising, each naming the file, and lossless, arithmetic-coded
+  and 12-bit files naming their SOF;
 - a JPEG frame directory read as JAX reads it (pipeline/video.py);
 - utils/resample.resize_u8 bit-equal to PIL's Image.resize(size,
   Image.LANCZOS): up, down, mixed, one axis kept, 1-pixel outputs.
@@ -97,11 +98,20 @@ def test_exif_orientation_matches_cv2(orientation, tmp_path):
 
 def test_unsupported_and_broken_files_raise(tmp_path):
     img = _image(np.random.default_rng(1), 40, 48)
+    # progressive files read (tests/test_torch_jpeg_progressive.py); lossless,
+    # arithmetic-coded and 12-bit ones raise, naming the file and the SOF
     progressive = str(tmp_path / "progressive.jpg")
     cv2.imwrite(progressive, img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    with pytest.raises(NotImplementedError, match="progressive.jpg.*SOF2"):
-        imageio.imread(progressive)
+    np.testing.assert_array_equal(imageio.imread(progressive), cv2.imread(progressive)[..., ::-1])
     data = cv2.imencode(".jpg", img)[1].tobytes()
+    sof = data.index(b"\xff\xc0")
+    for name, patched, match in (
+            ("lossless.jpg", data[:sof + 1] + b"\xc3" + data[sof + 2:], "SOF3 .lossless"),
+            ("arith.jpg", data[:sof + 1] + b"\xca" + data[sof + 2:], "SOF10 .arithmetic"),
+            ("twelve.jpg", data[:sof + 4] + b"\x0c" + data[sof + 5:], "SOF0 .*12-bit")):
+        (tmp_path / name).write_bytes(patched)
+        with pytest.raises(NotImplementedError, match=f"{name}.*{match}"):
+            imageio.imread(tmp_path / name)
     for name, cut in (("half.jpg", len(data) // 2), ("no_eoi.jpg", len(data) - 2),
                       ("header.jpg", 200)):
         (tmp_path / name).write_bytes(data[:cut])
