@@ -151,14 +151,17 @@ Phases, each printing one JSON line with its seconds:
               128 --max_num 1 --methods adacof` (JAX's 9 set keys, K1 once
               a set); where ffmpeg and ffprobe are on PATH (nothing is
               installed);
-  inputs    - (after photo; lines inputs_pins, inputs_video, inputs_frames)
+  inputs    - (after photo; lines inputs_pins, inputs_video, inputs_mp4v, inputs_frames)
               the inputs JAX reads through cv2, read here without it: the
               fixtures of tests/data/inputs/ (tools/make_input_fixtures.py:
               Adam7 PNGs, progressive JPEGs, one cut after its second scan
               so that block smoothing runs, cv2.VideoWriter's and
-              MjpgWriter's Motion-JPEG AVIs at 4:2:0, 4:2:2 and 4:4:4) each
-              decoded by the port with the sha256 of its pixels equal to
-              that of cv2's or PIL's (INPUT_PINS, held by the CPU tests);
+              MjpgWriter's Motion-JPEG AVIs at 4:2:0, 4:2:2 and 4:4:4,
+              cv2.VideoWriter's mp4v .mp4, .mov and FMP4 .avi and two mp4v
+              AVIs of the port's encoder, odd-sized and with 4MV, DQUANT,
+              AC prediction and DC-as-TCOEF) each decoded by the port with
+              the sha256 of its pixels equal to that of cv2's or PIL's
+              (INPUT_PINS, held by the CPU tests);
               the video phase's first 3 frames written as a 1080x1920 MJPG
               AVI with MjpgWriter and `cli video --input clip.avi --method
               fusion` on it: 5 PNGs, the originals those read_video_frames
@@ -169,8 +172,17 @@ Phases, each printing one JSON line with its seconds:
               17.5 dB against the pixels written (quality 95 on the clip's
               pixel-noise texture decodes at ~18.3 dB), and the ms to
               decode one 1080p frame beside the card's name and power
-              limit; double_frame_rate per pair on the Adam7 and the
-              progressive-JPEG frame directories through K1;
+              limit; (line inputs_mp4v) the same 3 frames as PNGs through
+              images_to_video into clip.mp4 (mp4v, quant 3), read back
+              with read_video_frames (>= 18.0 dB against the pixels
+              written: 18.58 dB measured on the CPU), the encoder's own
+              reconstruction and packets equal to the port's decode of the
+              file, ms to decode a 1080p I-VOP and a P-VOP and to encode a
+              frame, the file's bytes, and `cli video --input clip.mp4
+              --method fusion` checked as the AVI's (5 PNGs, originals
+              exact, K1 [2, 4, 2] x 2 via F5C3 with the ring, no K2, >= 60
+              dB against per pair); double_frame_rate per pair on the
+              Adam7 and the progressive-JPEG frame directories through K1;
   cli       - (after train_fusion) the command line on PNG files: the serve phase's
               first pair and the video phase's 5-frame clip written with
               the port's imwrite, read back bit-equal, and the C++ row
@@ -478,6 +490,16 @@ INPUT_PINS = {
         ("video", "b7d9910c4f8a01b2bf114aa90a6b896eb9c9b35a9f75e07e4558e408fe61c42f"),
     "mjpg_444_21x37.avi":
         ("video", "5d6ff6b9279f3d6e3beafcc1f5814c77091ebbf2c5ee9ba7babb99cef1ae1718"),
+    "mp4v_94x70.mov":
+        ("video", "cbc173ff6f73ab4338dc849d127bbf1ed17083c28396d601a6768c77154fafec"),
+    "mp4v_96x72.mp4":
+        ("video", "9ee8076ec9d769027f921ceda40fe1fa1595d7f5901bae5720a40bf62b97e36b"),
+    "mp4v_fmp4_64x46.avi":
+        ("video", "e53f003617163c686b9562590886b3dfae4eb2877bfeb28330d7764a9a9a8c99"),
+    "mp4v_port_95x71.avi":
+        ("video", "f383575216c51bd475c03849bfdfba1f0db59da5fe8587b36fd7db5f8dd40387"),
+    "mp4v_port_paths_45x37.avi":
+        ("video", "8efbc0710af0507fb2f4b1adb735f8402a629db89573bf8a2f7e9d6d046a5864"),
     "progressive_420_61x77.jpg":
         ("imread", "285d70bc5250bb7200de08c0b2dcd654476b010ba5bdb4a258c93c4e5476701f"),
     "progressive_420_61x77_cut2.jpg":
@@ -497,6 +519,8 @@ INPUTS_FRAME_DIRS = ("adam7_frames", "progressive_frames")
 INPUTS_CLIP_FRAMES = 3  # of the video phase's clip, written as a 1080p MJPG AVI
 INPUTS_JPEG_DB = 17.5  # the clip's frames decoded against the pixels written
 INPUTS_DECODE_REPS = 5  # timed decodes of one 1080p frame
+INPUTS_MP4V_DB = 18.0  # the clip's frames through images_to_video (mp4v, quant 3) and back:
+# 18.58 dB on the clip's pixel-noise texture (4:2:0 chroma), measured on the CPU
 
 
 def _line(**kw):
@@ -963,9 +987,10 @@ def _photo(dev, repo, models, ada_path, work):
 
 def phase_inputs(dev, repo, models, ada_path, fusion_path, clip, smi):
     """The inputs JAX reads through cv2: the committed fixtures against
-    cv2's and PIL's digests, a 1080p MJPG AVI through `cli video --method
-    fusion`, and the Adam7 and progressive-JPEG frame directories through
-    double_frame_rate; returns the path's K1 launches."""
+    cv2's and PIL's digests, a 1080p MJPG AVI and a 1080p mp4v .mp4 (from
+    images_to_video) through `cli video --method fusion`, and the Adam7 and
+    progressive-JPEG frame directories through double_frame_rate; returns
+    the path's K1 launches."""
     with _work_dir(repo) as work:
         return _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work)
 
@@ -984,7 +1009,7 @@ def _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work):
     from fmvfi_tpu_torch.pipeline.interpolate import FusionModels
     from fmvfi_tpu_torch.pipeline.video import (double_frame_rate, iter_video_frames, quantize,
                                                 read_frame_dir, read_video_frames)
-    from fmvfi_tpu_torch.utils import avi, imageio
+    from fmvfi_tpu_torch.utils import avi, datasets, imageio, mp4
     from fmvfi_tpu_torch.utils.convert import (load_adacof_weights, load_fusion_weights,
                                                phase_net_from_torch)
 
@@ -1017,11 +1042,11 @@ def _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work):
             writer.write(frame)
     write_seconds = time.perf_counter() - t
     frame_bytes = avi.read(path).frames[0]
-    decode_ms = []
+    decode_ms_mjpg = []
     for _ in range(INPUTS_DECODE_REPS):
         t = time.perf_counter()
         native.mjpeg_decode(frame_bytes)
-        decode_ms.append(1e3 * (time.perf_counter() - t))
+        decode_ms_mjpg.append(1e3 * (time.perf_counter() - t))
     t = time.perf_counter()
     frames = read_video_frames(path)
     read_seconds = time.perf_counter() - t
@@ -1036,22 +1061,67 @@ def _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work):
         images.append(x.shape[0])
         return real_warp(x, *args)
 
-    out_dir = os.path.join(work, "video")
-    adacof_cuda.adacof_warp = recording_warp
-    try:
-        _reset_counts()  # the command's run
-        torch.cuda.synchronize()
+    def cli_video(src, out_dir):
+        """`cli video --method fusion` on src: seconds, counts, K1 images, PNGs."""
+        images.clear()
+        adacof_cuda.adacof_warp = recording_warp
+        try:
+            _reset_counts()  # the command's run
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(["video", "--input", src, "--output_dir", out_dir, "--method",
+                          "fusion", "--phase_checkpoint", phase_pt, "--device", dev.type])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+            c = _counts()  # read just after
+        finally:
+            adacof_cuda.adacof_warp = real_warp
+        names = sorted(os.listdir(out_dir))
+        return seconds, c, list(images), names, [imageio.imread(os.path.join(out_dir, name))
+                                                 for name in names]
+
+    cli_seconds, cli_c, cli_images, names, outs = cli_video(path, os.path.join(work, "video"))
+
+    # (c) the same pixels as PNGs through images_to_video into an mp4v .mp4
+    # (utils/mp4.py, native/mpeg4_enc.cpp), read back (native/mpeg4.cpp) and
+    # through `cli video`; the encoder and decoder timed on their own
+    t0_mp4 = time.perf_counter()
+    png_dir = os.path.join(work, "mp4v_frames")
+    os.makedirs(png_dir)
+    for i, frame in enumerate(written):
+        imageio.imwrite(os.path.join(png_dir, f"{i:05d}.png"), frame)
+    mp4_path = os.path.join(work, "clip.mp4")
+    t = time.perf_counter()
+    datasets.images_to_video(png_dir, mp4_path)
+    stitch_seconds = time.perf_counter() - t
+    track = mp4.open_video(mp4_path)
+    samples = list(mp4.iter_samples(track))
+    encoder = native.Mpeg4Encoder(w, h, 30, mp4.QUANT, mp4.GOP, in_band=False)
+    encode_ms, packets, recon = [], [], []
+    for frame in written:
         t = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()):
-            cli.main(["video", "--input", path, "--output_dir", out_dir, "--method", "fusion",
-                      "--phase_checkpoint", phase_pt, "--device", dev.type])
-        torch.cuda.synchronize()
-        cli_seconds = time.perf_counter() - t
-        cli_c, cli_images = _counts(), list(images)  # read just after
-    finally:
-        adacof_cuda.adacof_warp = real_warp
-    names = sorted(os.listdir(out_dir))
-    outs = [imageio.imread(os.path.join(out_dir, name)) for name in names]
+        packets.append(encoder.encode(frame))
+        encode_ms.append(1e3 * (time.perf_counter() - t))
+        recon.append(encoder.reconstruction())
+    encoder.close()
+    decode_ms = dict(I=[], P=[])
+    for _ in range(INPUTS_DECODE_REPS):
+        decoder = native.Mpeg4Decoder(track.config)
+        decoded = []
+        for sample in samples:
+            t = time.perf_counter()
+            decoded.append(decoder.decode(sample))
+            decode_ms[decoder.vop_type].append(1e3 * (time.perf_counter() - t))
+        decoder.close()
+    recon_equal = packets == samples and all(np.array_equal(a, b) for a, b in zip(recon, decoded))
+    t = time.perf_counter()
+    mp4_frames = read_video_frames(mp4_path)
+    mp4_read_seconds = time.perf_counter() - t
+    mp4_db = [_psnr(f, g.astype(np.float32) / 255) for f, g in zip(mp4_frames, written)]
+    mp4_cli_seconds, mp4_c, mp4_images, mp4_names, mp4_outs = cli_video(
+        mp4_path, os.path.join(work, "video_mp4"))
+
     # the same models in this process, per pair, on the frames read back
     ada = AdaCoFNet().to(dev).eval()
     ada.load_state_dict(load_adacof_weights(ada_path))
@@ -1060,22 +1130,38 @@ def _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work):
     fusion.load_state_dict(fusion_sd)
     phase = PhaseNetCore().to(dev).eval()
     phase.load_state_dict(phase_net_from_torch(phase_pt))
-    per_pair = [quantize(f) for f in double_frame_rate(frames, FusionModels(phase, ada, fusion),
-                                                       device=dev)]
-    del ada, fusion, phase
+    pipe = FusionModels(phase, ada, fusion)
+    per_pair = [quantize(f) for f in double_frame_rate(frames, pipe, device=dev)]
+    mp4_per_pair = [quantize(f) for f in double_frame_rate(mp4_frames, pipe, device=dev)]
+    del ada, fusion, phase, pipe
     originals = len(outs) == 2 * n - 1 and all(
         np.array_equal(outs[2 * i], quantize(frames[i])) for i in range(n))
     mid_db = [_psnr(outs[2 * i + 1].astype(np.float64) / 255,
                     per_pair[2 * i + 1].astype(np.float64) / 255) for i in range(n - 1)]
+    mp4_originals = len(mp4_outs) == 2 * n - 1 and all(
+        np.array_equal(mp4_outs[2 * i], quantize(mp4_frames[i])) for i in range(n))
+    mp4_mid_db = [_psnr(mp4_outs[2 * i + 1].astype(np.float64) / 255,
+                        mp4_per_pair[2 * i + 1].astype(np.float64) / 255) for i in range(n - 1)]
     want_images = [2, 4, 2] * (n - 1)
-    _line(phase="inputs_video", seconds=time.perf_counter() - t0, size=[h, w], frames=n,
+    _line(phase="inputs_video", seconds=t0_mp4 - t0, size=[h, w], frames=n,
           write_seconds=write_seconds, read_seconds=read_seconds,
-          frame_bytes=len(frame_bytes), decode_1080p_ms=float(np.median(decode_ms)),
-          decode_ms=decode_ms, card=smi, decoded_vs_written_db=decoded_db,
+          frame_bytes=len(frame_bytes), decode_1080p_ms=float(np.median(decode_ms_mjpg)),
+          decode_ms=decode_ms_mjpg, card=smi, decoded_vs_written_db=decoded_db,
           mjpeg_vs_libjpeg_decode_db=libjpeg_db, cli_seconds=cli_seconds,
           pngs_written=len(names), originals_exact=originals, k1_launches=cli_c["k1"],
           k1_images=cli_images, k1_paths=cli_c["k1_paths"], k2_launches=cli_c["k2"],
           interpolated_vs_per_pair_db=mid_db)
+    _line(phase="inputs_mp4v", seconds=time.perf_counter() - t0_mp4, size=[h, w], frames=n,
+          images_to_video_seconds=stitch_seconds, file_bytes=os.path.getsize(mp4_path),
+          sample_bytes=track.sizes, quant=mp4.QUANT,
+          encode_ms_per_frame=float(np.median(encode_ms)), encode_ms=encode_ms,
+          decode_1080p_i_vop_ms=float(np.median(decode_ms["I"])),
+          decode_1080p_p_vop_ms=float(np.median(decode_ms["P"])), decode_ms=decode_ms,
+          card=smi, encoder_recon_equals_decode=recon_equal, read_seconds=mp4_read_seconds,
+          decoded_vs_written_db=mp4_db, db_floor=INPUTS_MP4V_DB, cli_seconds=mp4_cli_seconds,
+          pngs_written=len(mp4_names), originals_exact=mp4_originals,
+          k1_launches=mp4_c["k1"], k1_images=mp4_images, k1_paths=mp4_c["k1_paths"],
+          k2_launches=mp4_c["k2"], interpolated_vs_per_pair_db=mp4_mid_db)
     if frames.shape != (n, h, w, 3) or not np.isfinite(frames).all() or not (
             min(decoded_db) >= INPUTS_JPEG_DB):
         raise AssertionError(f"inputs: the 1080p AVI decodes to {frames.shape}, "
@@ -1087,6 +1173,20 @@ def _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work):
             cli_c["k2"]):
         raise AssertionError(f"inputs: cli video K1 images {cli_images} "
                              f"({cli_c['k1_paths']}), K2 {cli_c['k2']}; expected {want_images}")
+    if mp4_frames.shape != (n, h, w, 3) or not np.isfinite(mp4_frames).all() or not (
+            min(mp4_db) >= INPUTS_MP4V_DB) or not recon_equal:
+        raise AssertionError(f"inputs: the 1080p mp4 decodes to {mp4_frames.shape}, {mp4_db} dB "
+                             f"against the pixels written; encoder reconstruction equal to "
+                             f"the decode: {recon_equal}")
+    if len(mp4_names) != 2 * n - 1 or not mp4_originals or not (
+            min(mp4_mid_db) >= PLAIN_AGREEMENT_DB):
+        raise AssertionError(f"inputs: cli video on the mp4 wrote {mp4_names}, originals exact "
+                             f"{mp4_originals}, interpolated frames against per pair "
+                             f"{mp4_mid_db} dB")
+    if mp4_images != want_images or mp4_c["k1_paths"] != {RING_PATH: len(want_images)} or (
+            mp4_c["k2"]):
+        raise AssertionError(f"inputs: cli video on the mp4: K1 images {mp4_images} "
+                             f"({mp4_c['k1_paths']}), K2 {mp4_c['k2']}; expected {want_images}")
 
     # (d) the Adam7 and progressive-JPEG frame directories through K1
     t0 = time.perf_counter()
@@ -1113,7 +1213,7 @@ def _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work):
                 or d["k1_images"] != want or d["k1_paths"] != {RING_PATH: len(want)}
                 or d["k2_launches"]):
             raise AssertionError(f"inputs: {name} through double_frame_rate: {d}")
-    return cli_c["k1"] + sum(len(d["k1_images"]) for d in dirs.values())
+    return cli_c["k1"] + mp4_c["k1"] + sum(len(d["k1_images"]) for d in dirs.values())
 
 
 def phase_train_gan(dev, repo, ada_path):
@@ -3464,9 +3564,9 @@ def main() -> int:
     # evaluation and photo_frac training through K1/K2
     photo_k1, photo_k2 = phase_photo(dev, repo, models, ada_path)
 
-    # inputs: the fixtures JAX reads through cv2, a 1080p MJPG AVI through
-    # `cli video --method fusion`, and the Adam7 and progressive-JPEG frame
-    # directories through K1
+    # inputs: the fixtures JAX reads through cv2, a 1080p MJPG AVI and a 1080p
+    # mp4v .mp4 through `cli video --method fusion`, and the Adam7 and
+    # progressive-JPEG frame directories through K1
     inputs_k1 = phase_inputs(dev, repo, models, ada_path, fusion_path, clip, smi)
 
     # train: AdaCoF training at 256x256, batch 4, through K1 and K2

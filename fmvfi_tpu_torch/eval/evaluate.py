@@ -259,12 +259,14 @@ def evaluate_suite(
 
 
 def load_set(path: str, resize=None, stream: bool = False):
-    """A test set from a directory of frames or a Motion-JPEG AVI
-    (fmvfi_tpu/eval/evaluate.py:332-347): (N, H, W, 3) float32 in [0, 1],
-    or with stream=True a zero-argument callable returning a fresh uint8
-    frame iterator (for evaluate_suite, which calls it once per method).
-    `resize` = (h, w) applies to a video's frames, as in JAX.  Any other
-    video file raises NotImplementedError (item 18.4)."""
+    """A test set from a directory of frames or a video file (Motion-JPEG
+    or MPEG-4 Part 2 in AVI, MPEG-4 Part 2 in MP4 / M4V / MOV;
+    pipeline/video.py) (fmvfi_tpu/eval/evaluate.py:332-347): (N, H, W, 3)
+    float32 in [0, 1], or with stream=True a zero-argument callable
+    returning a fresh uint8 frame iterator (for evaluate_suite, which calls
+    it once per method).  `resize` = (h, w) applies to a video's frames, as
+    in JAX.  A video the port cannot decode as cv2 does raises
+    NotImplementedError (item 18.4)."""
     if stream:
         if os.path.isdir(path):
             return lambda: iter_frame_dir(path)

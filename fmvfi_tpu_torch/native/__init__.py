@@ -2,9 +2,11 @@
 augment.cpp (port of fmvfi_tpu/native, with its own copy of the source),
 the PNG row filters of png.cpp, the JPEG decoder of jpeg.cpp (baseline and
 progressive) and the baseline JPEG encoder of jpeg_enc.cpp (all three for
-utils/imageio.py), and the Motion-JPEG frame decoder of mjpeg.cpp (for
+utils/imageio.py), the Motion-JPEG frame decoder of mjpeg.cpp (for
 utils/avi.py), which shares jpeg.cpp's entropy decoder through
-jpeg_common.h.
+jpeg_common.h, and the MPEG-4 Part 2 decoder of mpeg4.cpp and encoder of
+mpeg4_enc.cpp (for utils/mp4.py and utils/avi.py), which share FFmpeg's
+IDCT and swscale's conversion with mjpeg.cpp through ffmpeg_common.h.
 
 The library is built at first use, never at import, with `g++ -O3
 -march=native -fPIC -shared -pthread`, into `build/fmvfi_tpu_torch/` at the
@@ -22,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import subprocess
 import tempfile
@@ -39,7 +42,9 @@ PNG_SOURCE = Path(__file__).resolve().parent / "png.cpp"
 JPEG_SOURCE = Path(__file__).resolve().parent / "jpeg.cpp"
 JPEG_ENC_SOURCE = Path(__file__).resolve().parent / "jpeg_enc.cpp"
 MJPEG_SOURCE = Path(__file__).resolve().parent / "mjpeg.cpp"
-HEADERS = (Path(__file__).resolve().parent / "jpeg_common.h",)
+MPEG4_SOURCES = tuple(Path(__file__).resolve().parent / f for f in ("mpeg4.cpp", "mpeg4_enc.cpp"))
+HEADERS = tuple(Path(__file__).resolve().parent / h
+                for h in ("jpeg_common.h", "ffmpeg_common.h", "mpeg4.h"))
 FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-pthread")
 
 _lock = threading.Lock()
@@ -54,7 +59,7 @@ _I64 = ctypes.c_int64
 
 
 def _sources() -> Tuple[Path, ...]:
-    return SOURCE, PNG_SOURCE, JPEG_SOURCE, JPEG_ENC_SOURCE, MJPEG_SOURCE
+    return (SOURCE, PNG_SOURCE, JPEG_SOURCE, JPEG_ENC_SOURCE, MJPEG_SOURCE) + MPEG4_SOURCES
 
 
 def library_path() -> Path:
@@ -113,6 +118,7 @@ def library() -> ctypes.CDLL:
                     fn.restype = _I32
                 lib.fmvfi_jpeg_encode.argtypes = [_U8P, _I32, _I32, _I32, _I32, _U8P, _I64]
                 lib.fmvfi_jpeg_encode.restype = _I64
+                _bind_mpeg4(lib)
                 _lib = lib
                 return _lib
         raise RuntimeError(f"the native library is unavailable: {_error}")
@@ -263,3 +269,159 @@ def jpeg_encode(image: np.ndarray, quality: int = 95) -> bytes:
     if n < 0:
         raise RuntimeError(f"jpeg_encode: a {w}x{h} file of {-n} bytes, over its bound {cap}")
     return out[:n].tobytes()
+
+
+_VP = ctypes.c_void_p
+
+
+def _bind_mpeg4(lib: ctypes.CDLL) -> None:
+    lib.fmvfi_mpeg4_open.argtypes = [ctypes.c_uint32, _VP, _I64, ctypes.c_char_p, _I32,
+                                     ctypes.POINTER(_I32)]
+    lib.fmvfi_mpeg4_open.restype = _VP
+    lib.fmvfi_mpeg4_decode.argtypes = [_VP, _VP, _I64, _VP, ctypes.c_char_p, _I32]
+    lib.fmvfi_mpeg4_decode.restype = _I32
+    lib.fmvfi_mpeg4_frame.argtypes = [_VP, _VP]
+    lib.fmvfi_mpeg4_frame.restype = None
+    lib.fmvfi_mpeg4_close.argtypes = [_VP]
+    lib.fmvfi_mpeg4_close.restype = None
+    lib.fmvfi_mpeg4_enc_open.argtypes = [_I32] * 8 + [ctypes.c_char_p, _I32, ctypes.POINTER(_I32)]
+    lib.fmvfi_mpeg4_enc_open.restype = _VP
+    lib.fmvfi_mpeg4_enc_config.argtypes = [_VP, _VP, _I64]
+    lib.fmvfi_mpeg4_enc_config.restype = _I64
+    lib.fmvfi_mpeg4_enc_frame.argtypes = [_VP, _VP, ctypes.c_char_p, _I32]
+    lib.fmvfi_mpeg4_enc_frame.restype = _I64
+    lib.fmvfi_mpeg4_enc_take.argtypes = [_VP, _VP]
+    lib.fmvfi_mpeg4_enc_take.restype = None
+    lib.fmvfi_mpeg4_enc_recon.argtypes = [_VP, _VP]
+    lib.fmvfi_mpeg4_enc_recon.restype = None
+    lib.fmvfi_mpeg4_enc_close.argtypes = [_VP]
+    lib.fmvfi_mpeg4_enc_close.restype = None
+
+
+def _fourcc_int(fourcc: bytes) -> int:
+    return int.from_bytes(fourcc.ljust(4, b"\0")[:4], "little") if fourcc else 0
+
+
+class Mpeg4Decoder:
+    """An MPEG-4 Part 2 video stream decoded as cv2.VideoCapture decodes it
+    (FFmpeg's mpeg4 decoder and swscale's yuv420p -> BGR24 conversion,
+    mpeg4.cpp): `decode(packet)` takes one container sample (headers and at
+    most one VOP) and returns the frame it yields, (H, W, 3) uint8 RGB, or
+    None for a packet of headers alone.  `config` is the out-of-band
+    configuration (an MP4 file's esds DecoderSpecificInfo) and `fourcc`
+    the container's codec tag, upper-cased as FFmpeg reads it (it picks
+    FFmpeg's Xvid / DivX behaviour when no user data names the encoder).
+    Raises NotImplementedError for what FFmpeg decodes differently or with
+    workarounds (mpeg4.cpp lists it) and ValueError for a malformed stream,
+    each with the reason."""
+
+    def __init__(self, config: bytes = b"", fourcc: bytes = b""):
+        lib = library()
+        self._lib = lib
+        self._msg = ctypes.create_string_buffer(256)
+        code = _I32(0)
+        buf = np.frombuffer(config, np.uint8) if config else np.zeros(1, np.uint8)
+        self._h = lib.fmvfi_mpeg4_open(_fourcc_int(fourcc.upper()), buf.ctypes.data, len(config),
+                                       self._msg, len(self._msg), ctypes.byref(code))
+        if not self._h:
+            raise _JPEG_ERRORS[code.value](self._msg.value.decode("ascii", "replace"))
+        self._info = np.zeros(5, np.int32)
+        self.vop_type = ""  # of the last frame: "I" or "P"
+        self.rounding = 0  # its vop_rounding_type
+
+    def decode(self, packet: bytes) -> Optional[np.ndarray]:
+        buf = np.frombuffer(packet, np.uint8)
+        code = self._lib.fmvfi_mpeg4_decode(self._h, buf.ctypes.data, buf.size,
+                                            self._info.ctypes.data, self._msg, len(self._msg))
+        if code:
+            raise _JPEG_ERRORS[code](self._msg.value.decode("ascii", "replace"))
+        w, h, got, vop, self.rounding = (int(v) for v in self._info)
+        if not got:
+            return None
+        self.vop_type = chr(vop)
+        out = np.empty((h, w, 3), np.uint8)
+        self._lib.fmvfi_mpeg4_frame(self._h, out.ctypes.data)
+        return out
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.fmvfi_mpeg4_close(self._h)
+            self._h = None
+
+    def __del__(self):
+        self.close()
+
+
+class Mpeg4Encoder:
+    """An MPEG-4 Part 2 Simple Profile encoder (mpeg4_enc.cpp) for
+    (height, width, 3) uint8 RGB frames: an I-VOP every `gop` frames,
+    P-VOPs between, a fixed `quant` (vop_quant, 1-31).  `fps` becomes the
+    VOL's time resolution and frame increment (resolution / increment).
+    `in_band` repeats the VOS/VO/VOL headers before each I-VOP (AVI), else
+    they are only in `config` (MP4's esds).  `encode(frame)` returns the
+    frame's packet; `reconstruction()` the frame as any decoder of the
+    stream (cv2 included) returns it.  `options` (mpeg4_enc.cpp's FOUR_MV
+    1, DQUANT 2, AC_PRED 4, DC_AS_AC 8) codes with paths the default does
+    not use."""
+
+    def __init__(self, width: int, height: int, fps: float = 30, quant: int = 3, gop: int = 12,
+                 in_band: bool = True, options: int = 0):
+        lib = library()
+        self._lib = lib
+        self._msg = ctypes.create_string_buffer(256)
+        self.width, self.height = int(width), int(height)
+        self.resolution, self.increment = _vol_rate(fps)
+        code = _I32(0)
+        self._h = lib.fmvfi_mpeg4_enc_open(self.width, self.height, self.resolution,
+                                           self.increment, int(quant), int(gop), int(in_band),
+                                           int(options), self._msg, len(self._msg),
+                                           ctypes.byref(code))
+        if not self._h:
+            raise ValueError(self._msg.value.decode("ascii", "replace"))
+        n = lib.fmvfi_mpeg4_enc_config(self._h, None, 0)
+        cfg = np.empty(n, np.uint8)
+        lib.fmvfi_mpeg4_enc_config(self._h, cfg.ctypes.data, n)
+        self.config = cfg.tobytes()
+
+    def encode(self, frame: np.ndarray) -> bytes:
+        frame = np.ascontiguousarray(frame, dtype=np.uint8)
+        if frame.shape != (self.height, self.width, 3):
+            raise ValueError(f"a frame of {frame.shape}, the stream is "
+                             f"({self.height}, {self.width}, 3)")
+        n = self._lib.fmvfi_mpeg4_enc_frame(self._h, frame.ctypes.data, self._msg, len(self._msg))
+        if n < 0:
+            raise ValueError(self._msg.value.decode("ascii", "replace"))
+        out = np.empty(n, np.uint8)
+        self._lib.fmvfi_mpeg4_enc_take(self._h, out.ctypes.data)
+        return out.tobytes()
+
+    def reconstruction(self) -> np.ndarray:
+        out = np.empty((self.height, self.width, 3), np.uint8)
+        self._lib.fmvfi_mpeg4_enc_recon(self._h, out.ctypes.data)
+        return out
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.fmvfi_mpeg4_enc_close(self._h)
+            self._h = None
+
+    def __del__(self):
+        self.close()
+
+
+def _vol_rate(fps: float) -> Tuple[int, int]:
+    """(vop_time_increment_resolution, frame increment) of a frame rate, as
+    OpenCV's writer turns fps into FFmpeg's time base: fps rounded, else
+    scaled by powers of ten until within 1e-3, reduced, the resolution at
+    most 65535."""
+    if not fps > 0:
+        raise ValueError(f"a frame rate of {fps}")
+    rate, base = int(fps + 0.5), 1
+    while abs(rate / base - fps) > 0.001:
+        base *= 10
+        rate = int(fps * base + 0.5)
+    g = math.gcd(rate, base)
+    rate, base = rate // g, base // g
+    if rate > 65535:
+        raise ValueError(f"a frame rate of {fps}: its time resolution {rate} is over 65535")
+    return rate, base

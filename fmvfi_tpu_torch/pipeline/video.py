@@ -7,11 +7,15 @@ Frames are host arrays (N, H, W, 3), float32 in [0, 1]; the frames yielded
 are numpy (H, W, 3).  On the card, frames go up through pinned memory and
 results come down into pinned memory, both copied asynchronously, so the
 host waits only for a finished result: pair i+1's work is queued on the card
-before the host waits for pair i's.  Video files are read when they are
-Motion-JPEG AVIs (utils/avi.py), each frame decoded as cv2.VideoCapture
-decodes it (FFmpeg's decoder and swscale's conversion, native/mjpeg.cpp);
-any other container or codec raises NotImplementedError: the card's machine
-has no video decoder (ROADMAP Queue 1, item 18.4).
+before the host waits for pair i's.  Video files are read when they hold
+Motion-JPEG (AVI, utils/avi.py) or MPEG-4 Part 2 (AVI, or MP4 / M4V / MOV
+through utils/mp4.py), each frame decoded as cv2.VideoCapture decodes it
+(FFmpeg's decoders and swscale's conversion, native/mjpeg.cpp and
+native/mpeg4.cpp, an MP4 track's rotation applied as cv2 applies it); the
+container is told from the file's bytes, as FFmpeg probes it.  Other codecs
+and containers (H.264, HEVC, VP9, AV1; Matroska, ...) raise
+NotImplementedError: the card's machine has no decoder for them (ROADMAP
+Queue 1, item 18.4).
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import torch
 
 from .. import native
 from ..ops.pyramid import make_filters, max_pyr_height
-from ..utils import avi, imageio
+from ..utils import avi, imageio, mp4
 from ..utils.resample import resize_bilinear_u8
 from .interpolate import (
     FusionModels,
@@ -44,35 +48,88 @@ METHODS = ("fusion", "phase", "adacof", "baseline")
 FRAME_SUFFIXES = (".png", ".jpg", ".jpeg")  # JAX's
 
 
-def _no_video_decoder(path: str):
+ISO_BOXES = (b"ftyp", b"moov", b"mdat", b"free", b"skip", b"wide", b"pnot", b"uuid")
+OTHER_CONTAINERS = ((b"\x1aE\xdf\xa3", "a Matroska (or WebM) file"), (b"FLV", "an FLV file"),
+                    (b"OggS", "an Ogg file"), (b"\x00\x00\x01\xba", "an MPEG program stream"),
+                    (b"0&\xb2u", "an ASF (WMV) file"))
+
+
+def _no_decoder(path: str, what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{path}: reading this video file needs a video decoder, which the card's machine "
-        "lacks (ROADMAP Queue 1, item 18.4); pass a Motion-JPEG .avi file or a directory of "
-        "PNG or JPEG frames")
+        f"{path}: {what}; reading it needs a decoder the card's machine lacks (ROADMAP Queue 1, "
+        "item 18.4); pass a Motion-JPEG or MPEG-4 Part 2 (mp4v) AVI, MP4 or MOV file, or a "
+        "directory of PNG or JPEG frames")
+
+
+def _container(path: str) -> str:
+    """"avi" or "mp4" from the file's first bytes, as FFmpeg probes them;
+    NotImplementedError for a container the port does not read, ValueError
+    for a file that is none (cv2 decodes no frames from it)."""
+    try:
+        with open(path, "rb") as f:
+            head = f.read(16)
+    except OSError:
+        raise ValueError(f"no frames decoded from {path}") from None
+    if head[:4] == b"RIFF" and head[8:12] == b"AVI ":
+        return "avi"
+    if head[4:8] in ISO_BOXES:
+        return "mp4"
+    for magic, what in OTHER_CONTAINERS:
+        if head.startswith(magic):
+            raise _no_decoder(path, what)
+    raise ValueError(f"no frames decoded from {path}")
+
+
+def _as_refusal(path: str, where: str, e: Exception) -> Exception:
+    """A decoder's error about `where` in `path`; NotImplementedError names
+    item 18.4."""
+    if isinstance(e, NotImplementedError):
+        return NotImplementedError(f"{path}: {where}{e} (ROADMAP Queue 1, item 18.4: FFmpeg "
+                                   "decodes it otherwise)")
+    return ValueError(f"{path}: {where}{e}")
+
+
+def _iter_decoded(path: str) -> Iterator[np.ndarray]:
+    """A video file's frames as cv2.VideoCapture returns them, (H, W, 3)
+    uint8 RGB: Motion-JPEG or MPEG-4 Part 2 in AVI, MPEG-4 Part 2 in MP4,
+    M4V or MOV (turned by the track's display matrix)."""
+    rotation = 0
+    try:
+        if _container(path) == "avi":
+            stream = avi.open_video(path)
+            samples = avi.iter_frames(stream)
+            if stream.codec == "mjpeg":
+                decode = native.mjpeg_decode
+            else:
+                decode = native.Mpeg4Decoder(fourcc=stream.strf["compression"]).decode
+        else:
+            track = mp4.open_video(path)
+            samples, rotation = mp4.iter_samples(track), track.rotation
+            decode = native.Mpeg4Decoder(track.config).decode
+    except (ValueError, NotImplementedError) as e:
+        if "18.4" in str(e) or str(e).startswith(("no frames decoded", path)):
+            raise
+        raise _as_refusal(path, "", e) from None
+    for i, data in enumerate(samples):
+        try:
+            frame = decode(data)
+        except (ValueError, NotImplementedError) as e:
+            raise _as_refusal(path, f"frame {i}: ", e) from None
+        if frame is not None:  # not for a packet of headers or a not-coded VOP
+            yield mp4.rotate(frame, rotation)
 
 
 def iter_video_frames(path: str, resize=None) -> Iterator[np.ndarray]:
-    """Decode a Motion-JPEG AVI one frame at a time as (H, W, 3) uint8 RGB,
-    as JAX's iter_video_frames reads it through cv2.VideoCapture
+    """Decode a video file one frame at a time as (H, W, 3) uint8 RGB, as
+    JAX's iter_video_frames reads it through cv2.VideoCapture
     (fmvfi_tpu/pipeline/video.py:44-68), each frame resized to resize =
-    (h, w) as cv2.resize does (bilinear) when given.  A path that is not an
-    .avi raises NotImplementedError here (item 18.4); the iterator raises
-    NotImplementedError for a codec other than Motion-JPEG, and ValueError
-    when no frame decodes, at its first next()."""
-    if os.path.splitext(path)[1].lower() != ".avi":
-        raise _no_video_decoder(path)
-    return _iter_avi(path, resize)
-
-
-def _iter_avi(path: str, resize) -> Iterator[np.ndarray]:
-    if not os.path.isfile(path):
-        raise ValueError(f"no frames decoded from {path}")
+    (h, w) as cv2.resize does (bilinear) when given.  Like JAX's, a
+    generator: at its first next() it raises ValueError when no frame
+    decodes (a missing file, or bytes of no container cv2 reads), and
+    NotImplementedError for what the port cannot decode as cv2 does (item
+    18.4)."""
     got_any = False
-    for i, data in enumerate(avi.iter_frames(avi.open_video(path))):
-        try:
-            frame = native.mjpeg_decode(data)
-        except (ValueError, NotImplementedError) as e:
-            raise type(e)(f"{path}: frame {i}: {e}") from None
+    for frame in _iter_decoded(path):
         if resize is not None:
             frame = resize_bilinear_u8(frame, (resize[1], resize[0]))
         got_any = True
@@ -82,16 +139,17 @@ def _iter_avi(path: str, resize) -> Iterator[np.ndarray]:
 
 
 def read_video_frames(path: str, resize=None) -> np.ndarray:
-    """A Motion-JPEG AVI's frames as (N, H, W, 3) float32 RGB in [0, 1]
-    (x / 255 in float32, as JAX reads them; fmvfi_tpu/pipeline/video.py:
-    26-41), resized to resize = (h, w) when given."""
+    """A video file's frames (iter_video_frames) as (N, H, W, 3) float32
+    RGB in [0, 1] (x / 255 in float32, as JAX reads them;
+    fmvfi_tpu/pipeline/video.py:26-41), resized to resize = (h, w) when
+    given."""
     return np.stack(list(iter_video_frames(path, resize))).astype(np.float32) / 255.0
 
 
 def interpolate_video_file(src: str, dst_dir: str, models: FusionModels, method: str = "fusion",
                            resize=None, *, device="cuda") -> int:
-    """Read a Motion-JPEG AVI, double its frame rate and write the frames
-    as PNGs into dst_dir (fmvfi_tpu/pipeline/video.py:370-381); returns
+    """Read a video file, double its frame rate and write the frames as
+    PNGs into dst_dir (fmvfi_tpu/pipeline/video.py:370-381); returns
     the number of frames written."""
     frames = read_video_frames(src, resize=resize)
     out = list(double_frame_rate(frames, models, method, device=device))

@@ -1,8 +1,9 @@
-"""Motion-JPEG AVI files without cv2: a writer for eval/visualize.py's
-panel videos and a reader for pipeline/video.py.
+"""AVI files of Motion-JPEG or MPEG-4 Part 2 video without cv2: writers
+for eval/visualize.py's panel videos (MJPG) and utils/datasets.py's
+images_to_video (mp4v), and a reader for pipeline/video.py.
 
-The writer produces a RIFF 1.0 `AVI ` file with one video stream, as
-cv2.VideoWriter(path, fourcc "MJPG", fps, (w, h)) does:
+The writers produce a RIFF 1.0 `AVI ` file with one video stream, as
+cv2.VideoWriter(path, fourcc, fps, (w, h)) does; for "MJPG":
 
     RIFF 'AVI '
       LIST 'hdrl'
@@ -19,16 +20,22 @@ cv2.VideoWriter(path, fourcc "MJPG", fps, (w, h)) does:
 
 Sizes and counts are patched in when the writer closes.  A file past RIFF
 1.0's 1 GiB raises ValueError (the writer has no OpenDML extension).
+`Mpeg4AviWriter` writes the same layout with handler and compression
+'mp4v', each chunk an MPEG-4 Part 2 VOP (native/mpeg4_enc.cpp; the
+VOS / VO / VOL headers before each I-VOP, as FFmpeg writes them in AVI)
+and only the I-VOPs flagged AVIIF_KEYFRAME.
 
 The reader takes what cv2.VideoWriter(..., "MJPG", ...) writes (FFmpeg's
 muxer: JUNK chunks, an INFO list, idx1) and what MjpgWriter writes, and
 also 'rec ' lists, files without an index, '##db' chunks and OpenDML's
 'AVIX' extensions: `open_video` parses the headers and picks the first
-video stream, which must be Motion-JPEG (NotImplementedError otherwise,
-naming the FourCC and ROADMAP item 18.4), `iter_frames` streams its
-frames' bytes from the 'movi' lists in file order, and `read` returns the
-headers, the idx1 index and every frame.  pipeline/video.py decodes the
-frames with native.mjpeg_decode, as cv2.VideoCapture decodes them.
+video stream, which must be Motion-JPEG or MPEG-4 Part 2 (by the strf
+compression FourCC, as FFmpeg's demuxer picks the codec;
+NotImplementedError otherwise, naming the FourCC and ROADMAP item 18.4),
+`iter_frames` streams its frames' bytes from the 'movi' lists in file
+order, and `read` returns the headers, the idx1 index and every frame.
+pipeline/video.py decodes the frames with native.mjpeg_decode or
+native.Mpeg4Decoder, as cv2.VideoCapture decodes them.
 """
 
 from __future__ import annotations
@@ -53,13 +60,15 @@ class MjpgWriter:
     """Write (H, W, 3) uint8 RGB frames of one size to an MJPG AVI at `fps`
     (a context manager; `close()` finishes the file)."""
 
+    fourcc = b"MJPG"
+
     def __init__(self, path, width: int, height: int, fps: float = 2):
         if width < 1 or height < 1 or fps <= 0:
             raise ValueError(f"an AVI of {width}x{height} at {fps} fps")
         self.path = os.fspath(path)
         self.width, self.height = int(width), int(height)
         self.rate = Fraction(fps).limit_denominator(1_000_000)
-        self._index: List[Tuple[int, int]] = []  # (offset from 'movi', length)
+        self._index: List[Tuple[int, int, int]] = []  # (offset from 'movi', length, flags)
         self._max_chunk = 0
         self._f = open(self.path, "wb")
         self._f.write(self._headers())
@@ -71,14 +80,14 @@ class MjpgWriter:
         usec = int(round(1e6 / float(self.rate)))
         avih = struct.pack("<14I", usec, 0, 0, AVIF_HASINDEX, n, 0, 1, self._max_chunk,
                            self.width, self.height, 0, 0, 0, 0)
-        strh = struct.pack("<4s4sIHHIIIIIIiI4h", b"vids", b"MJPG", 0, 0, 0, 0,
+        strh = struct.pack("<4s4sIHHIIIIIIiI4h", b"vids", self.fourcc, 0, 0, 0, 0,
                            self.rate.denominator, self.rate.numerator, 0, n, self._max_chunk, -1,
                            0, 0, 0, self.width, self.height)
-        strf = struct.pack("<IiiHH4sIiiII", 40, self.width, self.height, 1, 24, b"MJPG",
+        strf = struct.pack("<IiiHH4sIiiII", 40, self.width, self.height, 1, 24, self.fourcc,
                            self.width * self.height * 3, 0, 0, 0, 0)
         strl = _list(b"strl", _chunk(b"strh", strh) + _chunk(b"strf", strf))
         hdrl = _list(b"hdrl", _chunk(b"avih", avih) + strl)
-        movi_size = 4 + sum(8 + length + (length & 1) for _, length in self._index)
+        movi_size = 4 + sum(8 + length + (length & 1) for _, length, _ in self._index)
         riff = 4 + len(hdrl) + 8 + movi_size + 8 + 16 * n
         return (b"RIFF" + struct.pack("<I", riff) + b"AVI " + hdrl
                 + b"LIST" + struct.pack("<I", movi_size) + b"movi")
@@ -89,21 +98,27 @@ class MjpgWriter:
         if frame.shape != (self.height, self.width, 3) or frame.dtype != np.uint8:
             raise ValueError(f"a frame of {frame.shape} {frame.dtype}, the video is "
                              f"({self.height}, {self.width}, 3) uint8")
-        data = native.jpeg_encode(frame, JPEG_QUALITY)
+        self._chunk(*self._encode(frame))
+
+    def _encode(self, frame: np.ndarray) -> Tuple[bytes, int]:
+        """The frame's chunk and its idx1 flags."""
+        return native.jpeg_encode(frame, JPEG_QUALITY), AVIIF_KEYFRAME
+
+    def _chunk(self, data: bytes, flags: int) -> None:
         pos = self._f.tell()
         end = pos + 8 + len(data) + (len(data) & 1) + 8 + 16 * (len(self._index) + 1)
         if end > RIFF_LIMIT:
             raise ValueError(f"{self.path}: {end} bytes is past RIFF 1.0's {RIFF_LIMIT} "
                              "(no OpenDML support)")
         self._f.write(_chunk(b"00dc", data))
-        self._index.append((pos - self._movi_tag_at, len(data)))
+        self._index.append((pos - self._movi_tag_at, len(data), flags))
         self._max_chunk = max(self._max_chunk, len(data))
 
     def close(self) -> None:
         if self._f.closed:
             return
-        idx = b"".join(struct.pack("<4sIII", b"00dc", AVIIF_KEYFRAME, off, length)
-                       for off, length in self._index)
+        idx = b"".join(struct.pack("<4sIII", b"00dc", flags, off, length)
+                       for off, length, flags in self._index)
         self._f.write(_chunk(b"idx1", idx))
         self._f.seek(0)
         self._f.write(self._headers())  # same length, counts and sizes filled in
@@ -116,6 +131,29 @@ class MjpgWriter:
         self.close()
 
 
+class Mpeg4AviWriter(MjpgWriter):
+    """Write (H, W, 3) uint8 RGB frames of one size to an AVI of MPEG-4
+    Part 2 video ("mp4v", as cv2.VideoWriter writes it) at `fps`: an I-VOP
+    every `gop` frames, P-VOPs between, a fixed vop_quant `quant`."""
+
+    fourcc = b"mp4v"
+
+    def __init__(self, path, width: int, height: int, fps: float = 30, quant: int = 3,
+                 gop: int = 12, options: int = 0):
+        self.encoder = native.Mpeg4Encoder(width, height, fps, quant, gop, in_band=True,
+                                           options=options)
+        self.gop = int(gop)
+        super().__init__(path, width, height, fps)
+
+    def _encode(self, frame: np.ndarray) -> Tuple[bytes, int]:
+        key = len(self._index) % self.gop == 0
+        return self.encoder.encode(frame), AVIIF_KEYFRAME if key else 0
+
+    def close(self) -> None:
+        super().close()
+        self.encoder.close()
+
+
 def _chunk(tag: bytes, body: bytes) -> bytes:
     return tag + struct.pack("<I", len(body)) + body + (b"\0" if len(body) & 1 else b"")
 
@@ -125,12 +163,16 @@ def _list(kind: bytes, body: bytes) -> bytes:
 
 
 MJPEG_FOURCCS = (b"MJPG", b"AVI1", b"JPEG")  # FourCCs FFmpeg reads as Motion-JPEG
+# FourCCs FFmpeg reads as MPEG-4 Part 2 (upper-cased, as its decoder reads the tag)
+MPEG4_FOURCCS = (b"MP4V", b"FMP4", b"XVID", b"DIVX", b"DX50")
+CODECS = {**{f: "mjpeg" for f in MJPEG_FOURCCS}, **{f: "mpeg4" for f in MPEG4_FOURCCS}}
 
 
 def _unsupported(path: str, what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{path}: {what}; the port decodes Motion-JPEG AVI files only (ROADMAP Queue 1, "
-        "item 18.4: other codecs need a video decoder, which the card's machine lacks)")
+        f"{path}: {what}; the port decodes Motion-JPEG and MPEG-4 Part 2 AVI files only "
+        "(ROADMAP Queue 1, item 18.4: other codecs need a video decoder, which the card's "
+        "machine lacks)")
 
 
 def _walk(f, start: int, end: int):
@@ -177,20 +219,22 @@ def _strf(body: bytes) -> Dict[str, object]:
 
 class VideoStream(NamedTuple):
     """An AVI file's first video stream: the file's main header, the
-    stream's headers, and its number (its frames are the '<nn>dc' and
-    '<nn>db' chunks)."""
+    stream's headers, its number (its frames are the '<nn>dc' and '<nn>db'
+    chunks) and its codec ("mjpeg" or "mpeg4")."""
 
     path: str
     avih: Dict[str, int]
     strh: Dict[str, object]
     strf: Dict[str, object]
     number: int
+    codec: str = "mjpeg"
 
 
 def open_video(path) -> VideoStream:
     """The headers of the AVI file at `path` and its first video stream.
     ValueError for a file that is not a RIFF AVI or has no video stream;
-    NotImplementedError for a stream that is not Motion-JPEG."""
+    NotImplementedError for a stream that is neither Motion-JPEG nor MPEG-4
+    Part 2."""
     path = os.fspath(path)
     with open(path, "rb") as f:
         size = os.fstat(f.fileno()).st_size
@@ -217,13 +261,12 @@ def open_video(path) -> VideoStream:
             continue
         if strf is None:
             raise ValueError(f"{path}: video stream {number} has no strf header")
-        for what, fourcc in (("strf compression", strf["compression"]),
-                             ("strh handler", strh["handler"])):
-            if fourcc.upper() in MJPEG_FOURCCS or (what == "strh handler" and fourcc == bytes(4)):
-                continue  # an empty handler leaves the codec to strf, as FFmpeg reads it
-            raise _unsupported(path, f"a video stream whose {what} is "
-                                     f"{fourcc.decode('latin-1')!r}, not MJPG")
-        return VideoStream(path, avih, strh, strf, number)
+        codec = CODECS.get(strf["compression"].upper())  # FFmpeg's choice: strh's handler
+        if codec is None:                                  # is not read for it
+            raise _unsupported(path, f"a video stream whose strf compression is "
+                                     f"{strf['compression'].decode('latin-1')!r}, not MJPG or "
+                                     "an MPEG-4 Part 2 FourCC")
+        return VideoStream(path, avih, strh, strf, number, codec)
     raise ValueError(f"{path}: no video stream")
 
 

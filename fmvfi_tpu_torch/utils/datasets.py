@@ -3,10 +3,14 @@ reference's download sources, a streaming download, zip extraction, and the
 Testset bootstrap's check for git-LFS pointers.
 
 `video_to_images` (and `videos_to_images`, `bootstrap_testset`) extract
-the frames of Motion-JPEG AVI files, decoded as cv2.VideoCapture decodes
-them (pipeline/video.py), resized as cv2.resize resizes them and written
-as cv2.imwrite writes them.  Other video files, and `images_to_video`'s
-mp4v writer, need a video codec, which the card's machine lacks: they raise
+the frames of video files (Motion-JPEG or MPEG-4 Part 2 in AVI, MPEG-4
+Part 2 in MP4 / M4V / MOV), decoded as cv2.VideoCapture decodes them
+(pipeline/video.py), resized as cv2.resize resizes them and written as
+cv2.imwrite writes them.  `images_to_video` writes MPEG-4 Part 2 ("mp4v",
+as JAX's cv2.VideoWriter) into the container its extension names (.mp4,
+.m4v, .mov: utils/mp4.py; .avi: utils/avi.py) with the port's encoder
+(native/mpeg4_enc.cpp, a fixed quantiser where cv2's is rate-controlled).
+Other codecs, and Matroska, need what the card's machine lacks: they raise
 NotImplementedError (ROADMAP Queue 1, item 18.4).
 Downloads need network egress; without it `download` raises
 ConnectionError with JAX's message.
@@ -20,7 +24,10 @@ import urllib.request
 import zipfile
 from typing import Optional, Tuple
 
-from .imageio import imwrite
+import numpy as np
+
+from . import avi, mp4
+from .imageio import imread, imwrite
 from .resample import resize_bilinear_u8
 
 DATASET_URLS = {
@@ -30,6 +37,7 @@ DATASET_URLS = {
 }
 
 VIDEO_SUFFIXES = (".mp4", ".avi", ".mov")
+FRAME_SUFFIXES = (".png", ".jpg")  # what JAX's images_to_video stitches
 LFS_POINTER_BYTES = 1024  # a git-LFS pointer file is ~130 bytes; a video is larger
 
 
@@ -60,18 +68,13 @@ def extract(archive: str, dest_dir: str) -> str:
     return dest_dir
 
 
-def _no_video_codec(path: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{path}: writing a video file needs a video codec, which the card's machine lacks "
-        "(ROADMAP Queue 1, item 18.4)")
-
-
 def video_to_images(video_path: str, out_dir: str,
                     resize: Optional[Tuple[int, int]] = (1280, 720), ext: str = "png") -> int:
-    """Extract a Motion-JPEG AVI into <out_dir>/00000.<ext>, 00001.<ext>, ...
+    """Extract a video file into <out_dir>/00000.<ext>, 00001.<ext>, ...
     (fmvfi_tpu/utils/datasets.py:52-75), each frame resized to resize =
     (width, height) unless it is None; returns the number of frames.  A
-    video file of another kind raises NotImplementedError (item 18.4)."""
+    video the port cannot decode as cv2 does raises NotImplementedError
+    (item 18.4)."""
     from ..pipeline.video import iter_video_frames
 
     frames = iter_video_frames(video_path)  # ValueError when no frame decodes, as JAX's
@@ -88,7 +91,7 @@ def video_to_images(video_path: str, out_dir: str,
 def videos_to_images(video_dir: str, out_root: str, **kw) -> dict:
     """Every clip in a directory to <out_root>/<clipname>/ frames (sorted
     names; .mp4, .avi and .mov, as JAX): {clipname: frames}.  The first
-    clip that is not a Motion-JPEG AVI raises NotImplementedError."""
+    clip the port cannot decode raises NotImplementedError."""
     counts = {}
     for name in sorted(os.listdir(video_dir)):
         if not name.lower().endswith(VIDEO_SUFFIXES):
@@ -101,9 +104,39 @@ def videos_to_images(video_dir: str, out_root: str, **kw) -> dict:
 
 
 def images_to_video(frame_dir: str, out_path: str, fps: int = 30) -> str:
-    """Not ported: JAX writes an mp4v file, which needs a video codec; raises
-    NotImplementedError (item 18.4)."""
-    raise _no_video_codec(out_path)
+    """Stitch a frame directory (sorted .png / .jpg names) into an MPEG-4
+    Part 2 video at `fps`, as JAX's cv2.VideoWriter(fourcc "mp4v") does
+    (fmvfi_tpu/utils/datasets.py:92-108): the container by the extension
+    (.mp4, .m4v, .mov or .avi), the frames at the first one's size cropped
+    to even sides as OpenCV's writer crops them (it drops a frame of
+    another size).  The port codes with a
+    fixed quantiser (utils/mp4.py's QUANT), cv2 with FFmpeg's rate
+    control.  Returns out_path."""
+    names = sorted(f for f in os.listdir(frame_dir) if f.lower().endswith(FRAME_SUFFIXES))
+    if not names:
+        raise ValueError(f"no frames in {frame_dir}")
+    ext = os.path.splitext(out_path)[1].lower()
+    if ext == ".mkv":
+        raise NotImplementedError(
+            f"{out_path}: a Matroska file; the port writes MPEG-4 Part 2 into .mp4, .m4v, .mov "
+            "and .avi only (ROADMAP Queue 1, item 18.4)")
+    if ext not in mp4.BRANDS and ext != ".avi":
+        raise ValueError(f"{out_path}: no container for {ext!r}; the port writes .mp4, .m4v, "
+                         ".mov and .avi")
+    first = imread(os.path.join(frame_dir, names[0]))
+    h, w = first.shape[0] & ~1, first.shape[1] & ~1  # OpenCV's writer: width &= -2
+    if not (h and w):
+        raise ValueError(f"{names[0]}: a {first.shape[1]}x{first.shape[0]} frame has no even "
+                         "part to write")
+    writer = (avi.Mpeg4AviWriter(out_path, w, h, fps) if ext == ".avi"
+              else mp4.Mp4Writer(out_path, w, h, fps))
+    with writer:
+        for i, name in enumerate(names):
+            frame = first if i == 0 else imread(os.path.join(frame_dir, name))
+            if (frame.shape[0] & ~1, frame.shape[1] & ~1) != (h, w):
+                continue  # cv2's writer drops a frame of another size
+            writer.write(np.ascontiguousarray(frame[:h, :w]))
+    return out_path
 
 
 def bootstrap_testset(testset_dir: str, out_root: str) -> dict:

@@ -414,9 +414,12 @@ def test_what_is_not_ported_raises(inputs, tmp_path, monkeypatch, capsys):
         pt_cli.main(["interpolate", *pair, "--output_frame", str(tmp_path / "o.png")])
     assert e.value.code == 2 and "--device cpu" in capsys.readouterr().err
     cpu = ["--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 18.4"):
-        pt_cli.main(["video", "--input", str(tmp_path / "clip.mp4"), "--output_dir",
-                     str(tmp_path), *cpu])
+    avc1 = tmp_path / "clip.mp4"  # the mp4v fixture's track renamed avc1 (H.264)
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "inputs",
+                           "mp4v_96x72.mp4"), "rb") as f:
+        avc1.write_bytes(f.read().replace(b"mp4v", b"avc1", 1))
+    with pytest.raises(NotImplementedError, match="'avc1'.*item 18.4"):
+        pt_cli.main(["video", "--input", str(avc1), "--output_dir", str(tmp_path), *cpu])
     # since the photo sets and the JPEG reader: the photo set evaluates, under
     # JAX's set keys, and a pair of JPEG frames interpolates
     pt_cli.main(["evaluate", "--test_sets", "synthetic+photo", "--out_dir",

@@ -144,11 +144,12 @@ def test_frame_dir_readers_and_load_set_match_jax(tmp_path):
         np.testing.assert_array_equal(np.stack(list(ours())), np.stack(list(theirs())))
     with pytest.raises(ValueError, match="no frames"):
         pt_video.read_frame_dir(str(tmp_path))
+    avc1 = _avc1_mp4(tmp_path / "clip.mp4")  # a codec the card's machine has no decoder for
     for fn in (pt_video.read_video_frames, pt_eval.load_set):
-        with pytest.raises(NotImplementedError, match="video decoder"):
-            fn(str(tmp_path / "clip.mp4"))
-    with pytest.raises(NotImplementedError, match="video decoder"):
-        pt_eval.load_set(str(tmp_path / "clip.mp4"), stream=True)()
+        with pytest.raises(NotImplementedError, match="'avc1'.*video decoder"):
+            fn(avc1)
+    with pytest.raises(NotImplementedError, match="'avc1'.*video decoder"):
+        list(pt_eval.load_set(avc1, stream=True)())
 
 
 def test_write_frame_dir_writes_what_jax_writes(tmp_path):
@@ -281,10 +282,22 @@ def test_bootstrap_refuses_lfs_pointers_and_video_conversion_raises(tmp_path):
     assert pt_boot.videos_to_images(str(frames), str(tmp_path / "o")) == {}
     clips = tmp_path / "clips"
     clips.mkdir()
-    (clips / "Clip1.mp4").write_bytes(bytes(4096))
+    _avc1_mp4(clips / "Clip1.mp4")  # an H.264 track: no decoder on the card's machine
+    cv2.imwrite(str(frames / "00000.png"), np.zeros((8, 8, 3), np.uint8))
     for call in (lambda: pt_boot.bootstrap_testset(str(clips), str(tmp_path / "o")),
                  lambda: pt_boot.videos_to_images(str(clips), str(tmp_path / "o")),
                  lambda: pt_boot.video_to_images(str(clips / "Clip1.mp4"), str(tmp_path / "o")),
-                 lambda: pt_boot.images_to_video(str(frames), str(tmp_path / "v.mp4"))):
+                 lambda: pt_boot.images_to_video(str(frames), str(tmp_path / "v.mkv"))):
         with pytest.raises(NotImplementedError, match="item 18.4"):
             call()
+
+
+def _avc1_mp4(path):
+    """The committed cv2 mp4v fixture with its sample entry renamed avc1."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "inputs",
+                       "mp4v_96x72.mp4")
+    with open(src, "rb") as f:
+        data = f.read()
+    with open(path, "wb") as f:
+        f.write(data.replace(b"mp4v", b"avc1", 1))
+    return str(path)

@@ -18,8 +18,8 @@ native/mjpeg.cpp) must return JAX's frames bit for bit:
   AdaCoF offsets far under 48), adacof and fusion, with the bundled AdaCoF,
   a seeded PhaseNet and a seeded variant-0 FusionNet (JAX's default): each
   frame >= 60 dB against JAX's.
-An mp4, or an AVI whose codec is not Motion-JPEG, raises
-NotImplementedError naming item 18.4.  The committed AVI fixtures of
+An H.264 mp4, or an AVI whose codec is neither Motion-JPEG nor MPEG-4
+Part 2, raises NotImplementedError naming item 18.4.  The committed AVI fixtures of
 tests/data/inputs/ (tools/make_input_fixtures.py) must decode to the
 digests chip_smoke.py pins for the card's host (INPUT_PINS), which must be
 those of JAX's frames.
@@ -242,23 +242,34 @@ def test_video_to_images_matches_jax(toolchain, tmp_path):
 
 
 def test_what_is_not_read_raises(toolchain, tmp_path):
-    (tmp_path / "clip.mp4").write_bytes(bytes(4096))
-    for call in (lambda: pt_video.read_video_frames(str(tmp_path / "clip.mp4")),
-                 lambda: pt_video.iter_video_frames(str(tmp_path / "clip.mp4")),
-                 lambda: pt_eval.load_set(str(tmp_path / "clip.mp4"), stream=True)(),
-                 lambda: pt_data.video_to_images(str(tmp_path / "clip.mp4"), str(tmp_path / "o"))):
-        with pytest.raises(NotImplementedError, match="item 18.4"):
+    """An H.264 mp4 (the mp4v fixture's track renamed avc1) and an AVI of
+    another codec raise NotImplementedError naming item 18.4; JPEG bytes
+    under an XVID tag decode to no frame in FFmpeg's mpeg4 decoder, so the
+    port gives JAX's ValueError, as for a missing file."""
+    with open(os.path.join(ROOT, chip_smoke.INPUTS_DIR, "mp4v_96x72.mp4"), "rb") as f:
+        (tmp_path / "clip.mp4").write_bytes(f.read().replace(b"mp4v", b"avc1", 1))
+    clip = str(tmp_path / "clip.mp4")
+    for call in (lambda: pt_video.read_video_frames(clip),
+                 lambda: list(pt_video.iter_video_frames(clip)),
+                 lambda: list(pt_eval.load_set(clip, stream=True)()),
+                 lambda: pt_data.video_to_images(clip, str(tmp_path / "o"))):
+        with pytest.raises(NotImplementedError, match="'avc1'.*item 18.4"):
             call()
     path = write_mjpg(tmp_path / "x.avi", _frames_bytes(np.random.default_rng(1), 8, 8, "420"),
                       8, 8)
     data = bytearray((tmp_path / "x.avi").read_bytes())
     strf = data.index(b"strf") + 8
+    data[strf + 16:strf + 20] = b"H264"
+    (tmp_path / "h264.avi").write_bytes(bytes(data))
+    with pytest.raises(NotImplementedError, match="h264.avi.*H264.*item 18.4"):
+        pt_video.read_video_frames(str(tmp_path / "h264.avi"))
     data[strf + 16:strf + 20] = b"XVID"
     (tmp_path / "xvid.avi").write_bytes(bytes(data))
-    with pytest.raises(NotImplementedError, match="xvid.avi.*XVID.*item 18.4"):
-        pt_video.read_video_frames(str(tmp_path / "xvid.avi"))
-    with pytest.raises(ValueError, match="no frames decoded"):
-        pt_video.read_video_frames(str(tmp_path / "missing.avi"))
+    for fn in (pt_video.read_video_frames, jx_video.read_video_frames):
+        with pytest.raises(ValueError, match="no frames decoded"):
+            fn(str(tmp_path / "xvid.avi"))
+        with pytest.raises(ValueError, match="no frames decoded"):
+            fn(str(tmp_path / "missing.avi"))
     assert len(pt_video.read_video_frames(path)) == 2
 
 
@@ -310,7 +321,8 @@ def test_interpolate_video_file_matches_jax(toolchain, tmp_path, weights, method
 
 
 def test_committed_fixtures_match_the_smokes_pins(toolchain):
-    names = [n for n in chip_smoke.INPUT_PINS if n.endswith(".avi")]
+    names = [n for n in chip_smoke.INPUT_PINS
+             if n.endswith(".avi") and not n.startswith("mp4v_")]  # the MJPG AVIs
     assert len(names) == 4
     for name in names:
         contract, digest = chip_smoke.INPUT_PINS[name]

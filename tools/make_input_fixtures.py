@@ -15,16 +15,26 @@ Each fixture is made from seeded numpy with what JAX's readers are held to:
 - Motion-JPEG AVIs: one cv2.VideoWriter(..., "MJPG", ...) writes, and three
   the port's MjpgWriter writes from cv2.imencode's frames at 4:2:2, 4:4:4
   and 4:2:0 (sizes that take each of swscale's conversion routes when
-  cv2.VideoCapture decodes them).
+  cv2.VideoCapture decodes them);
+- MPEG-4 Part 2 (mp4v) files cv2.VideoWriter writes of a texture sliding
+  past the frame's edges (P-VOPs with vectors across macroblocks and out of
+  the picture, both rounding types): a 96x72 .mp4 of 15 frames, a .mov
+  given 95x71 frames and a FourCC FMP4 .avi given 64x47 ones (OpenCV's
+  writer crops both to even sides: 94x70 and 64x46); and two files the
+  port's encoder writes, which cv2 decodes for the pins: a 95x71 .avi (odd
+  sides: swscale's other yuv420p routes) and a 45x37 .avi coded with 4MV,
+  DQUANT, AC prediction and DC-as-TCOEF (paths cv2's writer never takes).
 
 It prints INPUT_PINS, chip_smoke.py's table: for each fixture the reader
 contract ("imread": cv2.imread + BGR2RGB; "read_jpeg": PIL's Image.open;
 "video": cv2.VideoCapture's frames + BGR2RGB, stacked) and the sha256 of
 those pixels.  The CPU tests (tests/test_torch_png_adam7.py,
-test_torch_jpeg_progressive.py, test_torch_mjpg_video.py) hold the pins
+test_torch_jpeg_progressive.py, test_torch_mjpg_video.py,
+test_torch_mp4v_video.py) hold the pins
 against cv2 and PIL and the port against the pins; chip_smoke.py's phase
 `inputs` holds the port on the card's host, which has neither cv2 nor PIL,
-against them.  Needs cv2, PIL and the port (its MjpgWriter); not JAX.
+against them.  Needs cv2, PIL and the port (its MjpgWriter and MPEG-4
+encoder); not JAX.
 """
 
 from __future__ import annotations
@@ -47,6 +57,8 @@ sys.path.insert(0, ROOT)
 
 from fmvfi_tpu_torch.eval.synth import translation_video  # noqa: E402
 from fmvfi_tpu_torch.utils import avi  # noqa: E402
+
+VIDEO_SUFFIXES = (".avi", ".mp4", ".mov", ".m4v")
 
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
          (0, 1, 1, 2))
@@ -145,6 +157,36 @@ def _texture(rng, h, w, channels=3):
     return cv2.GaussianBlur(img, (0, 0), 1.5).reshape(h, w, channels)
 
 
+def sliding(rng, n: int, h: int, w: int, step=(2.5, -1.5)):
+    """n BGR frames of a textured scene sliding by `step` (x, y) pixels a
+    frame, the window running past the scene's edge (repeated) late on."""
+    scene = cv2.GaussianBlur(rng.integers(0, 256, (h + 24, w + 24, 3), np.uint8), (0, 0), 2.0)
+    scene = cv2.normalize(scene, None, 0, 255, cv2.NORM_MINMAX)
+    out = []
+    for i in range(n):
+        m = np.float32([[1, 0, 12 + step[0] * i], [0, 1, 12 + step[1] * i]])
+        out.append(cv2.warpAffine(scene, m, (w, h), flags=cv2.INTER_LINEAR,
+                                  borderMode=cv2.BORDER_REPLICATE))
+    return out
+
+
+def cv2_video(path: str, fourcc: str, frames, fps: int = 30) -> None:
+    h, w = frames[0].shape[:2]
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*fourcc), fps, (w, h))
+    assert writer.isOpened(), path
+    for frame in frames:
+        writer.write(frame)
+    writer.release()
+
+
+def port_mp4v_avi(path: str, frames, options: int = 0, quant: int = 4) -> None:
+    """An mp4v AVI of BGR frames written by the port's encoder."""
+    h, w = frames[0].shape[:2]
+    with avi.Mpeg4AviWriter(path, w, h, 30, quant=quant, options=options) as writer:
+        for frame in frames:
+            writer.write(np.ascontiguousarray(frame[..., ::-1]))
+
+
 def make(out: str) -> dict:
     """Write every fixture into `out`; returns {name: (contract, sha256)}."""
     os.makedirs(out, exist_ok=True)
@@ -198,6 +240,17 @@ def make(out: str) -> dict:
                                factor])[1].tobytes() for _ in range(2)]
         mjpg_avi(os.path.join(out, name), jpegs, w, h)
         files[name] = None
+
+    for name, fourcc, (h, w), n in (("mp4v_96x72.mp4", "mp4v", (72, 96), 15),
+                                    ("mp4v_94x70.mov", "mp4v", (71, 95), 13),
+                                    ("mp4v_fmp4_64x46.avi", "FMP4", (47, 64), 13)):
+        cv2_video(os.path.join(out, name), fourcc, sliding(rng, n, h, w))
+        files[name] = None
+    port_mp4v_avi(os.path.join(out, "mp4v_port_95x71.avi"), sliding(rng, 13, 71, 95))
+    files["mp4v_port_95x71.avi"] = None
+    port_mp4v_avi(os.path.join(out, "mp4v_port_paths_45x37.avi"),
+                  sliding(rng, 13, 37, 45, step=(4.5, 3.5)), options=15, quant=5)
+    files["mp4v_port_paths_45x37.avi"] = None
     return pins(out, files)
 
 
@@ -221,7 +274,7 @@ def pixels(out: str, name: str, contract: str) -> np.ndarray:
 
 
 def contract_of(name: str) -> str:
-    if name.endswith(".avi"):
+    if name.endswith(VIDEO_SUFFIXES):
         return "video"
     return "read_jpeg" if "_pil_" in name else "imread"
 
