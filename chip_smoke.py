@@ -151,7 +151,8 @@ Phases, each printing one JSON line with its seconds:
               128 --max_num 1 --methods adacof` (JAX's 9 set keys, K1 once
               a set); where ffmpeg and ffprobe are on PATH (nothing is
               installed);
-  inputs    - (after photo; lines inputs_pins, inputs_video, inputs_mp4v, inputs_frames)
+  inputs    - (after photo; lines inputs_pins, inputs_video, inputs_mp4v, inputs_mkv,
+              inputs_frames)
               the inputs JAX reads through cv2, read here without it: the
               fixtures of tests/data/inputs/ (tools/make_input_fixtures.py:
               Adam7 PNGs, progressive JPEGs, one cut after its second scan
@@ -159,9 +160,13 @@ Phases, each printing one JSON line with its seconds:
               MjpgWriter's Motion-JPEG AVIs at 4:2:0, 4:2:2 and 4:4:4,
               cv2.VideoWriter's mp4v .mp4, .mov and FMP4 .avi and two mp4v
               AVIs of the port's encoder, odd-sized and with 4MV, DQUANT,
-              AC prediction and DC-as-TCOEF) each decoded by the port with
-              the sha256 of its pixels equal to that of cv2's or PIL's
-              (INPUT_PINS, held by the CPU tests);
+              AC prediction and DC-as-TCOEF; Matroska and WebM files of
+              VP8, MJPG, mp4v and XVID from cv2.VideoWriter, libvpx VP8
+              clips at odd sides, 8 token partitions, alt-ref, segmentation
+              and versions 1-3, and forged unknown-size, laced,
+              audio-first and Colour / PixelCrop copies) each decoded by
+              the port with the sha256 of its pixels equal to that of cv2's
+              or PIL's (INPUT_PINS, held by the CPU tests);
               the video phase's first 3 frames written as a 1080x1920 MJPG
               AVI with MjpgWriter and `cli video --input clip.avi --method
               fusion` on it: 5 PNGs, the originals those read_video_frames
@@ -181,8 +186,19 @@ Phases, each printing one JSON line with its seconds:
               frame, the file's bytes, and `cli video --input clip.mp4
               --method fusion` checked as the AVI's (5 PNGs, originals
               exact, K1 [2, 4, 2] x 2 via F5C3 with the ring, no K2, >= 60
-              dB against per pair); double_frame_rate per pair on the
-              Adam7 and the progressive-JPEG frame directories through K1;
+              dB against per pair); (line inputs_mkv) the committed
+              1080x1920 WebM of the same 3 frames (cv2.VideoWriter's VP80,
+              tests/data/inputs/vp8_cv2_1080x1920.webm) read with
+              utils/mkv.py and native/vp8.cpp (>= 13.0 dB against the
+              pixels written: 13.43-13.45 dB measured on the CPU), the
+              Matroska parse ms and the ms to decode its VP8 key frame and
+              inter frames (medians of 5, one host thread), and `cli video
+              --input clip.webm --method fusion` checked as the AVI's; the
+              3 PNGs through images_to_video into clip.mkv, its blocks the
+              mp4v encoder's packets and its frames read back equal to the
+              encoder's reconstruction, its bytes; double_frame_rate per
+              pair on the Adam7 and the progressive-JPEG frame directories
+              through K1;
   cli       - (after train_fusion) the command line on PNG files: the serve phase's
               first pair and the video phase's 5-frame clip written with
               the port's imwrite, read back bit-equal, and the C++ row
@@ -490,10 +506,14 @@ INPUT_PINS = {
         ("video", "b7d9910c4f8a01b2bf114aa90a6b896eb9c9b35a9f75e07e4558e408fe61c42f"),
     "mjpg_444_21x37.avi":
         ("video", "5d6ff6b9279f3d6e3beafcc1f5814c77091ebbf2c5ee9ba7babb99cef1ae1718"),
+    "mjpg_cv2_64x48.mkv":
+        ("video", "5253c9fe108a514773115f46be97431a0eb10d640ea202cb8c743dd49bb89f0f"),
     "mp4v_94x70.mov":
         ("video", "cbc173ff6f73ab4338dc849d127bbf1ed17083c28396d601a6768c77154fafec"),
     "mp4v_96x72.mp4":
         ("video", "9ee8076ec9d769027f921ceda40fe1fa1595d7f5901bae5720a40bf62b97e36b"),
+    "mp4v_cv2_96x72.mkv":
+        ("video", "776cab2da490e9273724349824999343d252058e8ffb164bcbbe3f46bf84482e"),
     "mp4v_fmp4_64x46.avi":
         ("video", "e53f003617163c686b9562590886b3dfae4eb2877bfeb28330d7764a9a9a8c99"),
     "mp4v_port_95x71.avi":
@@ -514,6 +534,34 @@ INPUT_PINS = {
         ("imread", "4d83a285f4e3c2c34939c17d5c0de73f88ef841da828b2eda8361288c488e049"),
     "progressive_grey_pil_45x50.jpg":
         ("read_jpeg", "8415dbcb09e0e3b474b0828189150afa9488c01eb5088537dc76a8aa1da9a3b9"),
+    "vp8_altref_45x37.webm":
+        ("video", "5cb2eb8918bb7206530162d1dfda3253063cd132bfdff754e0c32bc9f7d7bccc"),
+    "vp8_audio_first_96x72.webm":
+        ("video", "e89e5e6998a3a82030cd7818f8a071a5021159d05ceabe8b9e5a659ad9c49723"),
+    "vp8_colour_crop_96x72.webm":
+        ("video", "e89e5e6998a3a82030cd7818f8a071a5021159d05ceabe8b9e5a659ad9c49723"),
+    "vp8_cv2_1080x1920.webm":
+        ("video", "94cc636c609360696cccb433d76a562776bd0291190558469fe4231202561ffb"),
+    "vp8_cv2_94x70.mkv":
+        ("video", "a97302ec3a38ccf4d939fe28e3e9b9d28d60998b0b4c2c40e16f049f8b16d3e9"),
+    "vp8_cv2_96x72.webm":
+        ("video", "e89e5e6998a3a82030cd7818f8a071a5021159d05ceabe8b9e5a659ad9c49723"),
+    "vp8_errres_seg_64x48.webm":
+        ("video", "64e57e5317f64be866291ab56b8ed9dd5172c55b47746244bcb84860e5e063e9"),
+    "vp8_laced_96x72.webm":
+        ("video", "e89e5e6998a3a82030cd7818f8a071a5021159d05ceabe8b9e5a659ad9c49723"),
+    "vp8_odd_p8_95x71.webm":
+        ("video", "f28ea8f044973759793b390c8e8bd1f91e04a960b53a0909495d72feb26ef65d"),
+    "vp8_unknown_size_96x72.webm":
+        ("video", "e89e5e6998a3a82030cd7818f8a071a5021159d05ceabe8b9e5a659ad9c49723"),
+    "vp8_v1_33x17.webm":
+        ("video", "a52eb4f4a2ac084460a36955101262422bd59b5a40cd3e425b584c901acaec0e"),
+    "vp8_v2_40x24.webm":
+        ("video", "8a765590ad83d628389f143e8fc741986dd9303aabc0b19a82adab53db601446"),
+    "vp8_v3_31x29.webm":
+        ("video", "475e926eb3b8e038d42d82d89f0b4fa9c2ae4cbbefe8f62852925e1c5e740ae0"),
+    "xvid_cv2_64x46.mkv":
+        ("video", "a1d8371d92bcd8c134c58f6741415d5a4a671c2e8011d4bb2ffe3d1103fbe5e2"),
 }
 INPUTS_FRAME_DIRS = ("adam7_frames", "progressive_frames")
 INPUTS_CLIP_FRAMES = 3  # of the video phase's clip, written as a 1080p MJPG AVI
@@ -521,6 +569,9 @@ INPUTS_JPEG_DB = 17.5  # the clip's frames decoded against the pixels written
 INPUTS_DECODE_REPS = 5  # timed decodes of one 1080p frame
 INPUTS_MP4V_DB = 18.0  # the clip's frames through images_to_video (mp4v, quant 3) and back:
 # 18.58 dB on the clip's pixel-noise texture (4:2:0 chroma), measured on the CPU
+INPUTS_WEBM = "vp8_cv2_1080x1920.webm"  # the clip's 3 frames as cv2's VP80 writer codes them
+INPUTS_VP8_DB = 13.0  # that file decoded against the pixels written: 13.43-13.45 dB measured
+# on the CPU (cv2's default VP8 bitrate on the pixel-noise texture)
 
 
 def _line(**kw):
@@ -987,10 +1038,11 @@ def _photo(dev, repo, models, ada_path, work):
 
 def phase_inputs(dev, repo, models, ada_path, fusion_path, clip, smi):
     """The inputs JAX reads through cv2: the committed fixtures against
-    cv2's and PIL's digests, a 1080p MJPG AVI and a 1080p mp4v .mp4 (from
-    images_to_video) through `cli video --method fusion`, and the Adam7 and
-    progressive-JPEG frame directories through double_frame_rate; returns
-    the path's K1 launches."""
+    cv2's and PIL's digests, a 1080p MJPG AVI, a 1080p mp4v .mp4 (from
+    images_to_video) and the committed 1080p VP8 WebM through `cli video
+    --method fusion`, the frames through images_to_video into a .mkv, and
+    the Adam7 and progressive-JPEG frame directories through
+    double_frame_rate; returns the path's K1 launches."""
     with _work_dir(repo) as work:
         return _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work)
 
@@ -1009,7 +1061,7 @@ def _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work):
     from fmvfi_tpu_torch.pipeline.interpolate import FusionModels
     from fmvfi_tpu_torch.pipeline.video import (double_frame_rate, iter_video_frames, quantize,
                                                 read_frame_dir, read_video_frames)
-    from fmvfi_tpu_torch.utils import avi, datasets, imageio, mp4
+    from fmvfi_tpu_torch.utils import avi, datasets, imageio, mkv, mp4
     from fmvfi_tpu_torch.utils.convert import (load_adacof_weights, load_fusion_weights,
                                                phase_net_from_torch)
 
@@ -1122,6 +1174,40 @@ def _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work):
     mp4_cli_seconds, mp4_c, mp4_images, mp4_names, mp4_outs = cli_video(
         mp4_path, os.path.join(work, "video_mp4"))
 
+    # (e) the committed 1080p WebM (cv2's VP8 of the same 3 frames): the
+    # Matroska parse (utils/mkv.py) and native/vp8.cpp timed on their own,
+    # then `cli video`; the PNGs through images_to_video into a .mkv, read back
+    t0_mkv = time.perf_counter()
+    webm_path = os.path.join(repo, INPUTS_DIR, INPUTS_WEBM)
+    parse_ms = []
+    for _ in range(INPUTS_DECODE_REPS):
+        t = time.perf_counter()
+        webm_track = mkv.open_video(webm_path)
+        parse_ms.append(1e3 * (time.perf_counter() - t))
+    webm_samples = list(mkv.iter_samples(webm_track))
+    vp8_ms = dict(key=[], inter=[])
+    for _ in range(INPUTS_DECODE_REPS):
+        decoder = native.Vp8Decoder()
+        for sample in webm_samples:
+            t = time.perf_counter()
+            decoder.decode(sample)
+            vp8_ms["key" if decoder.info["keyframe"] else "inter"].append(
+                1e3 * (time.perf_counter() - t))
+        decoder.close()
+    t = time.perf_counter()
+    webm_frames = read_video_frames(webm_path)
+    webm_read_seconds = time.perf_counter() - t
+    webm_db = [_psnr(f, g.astype(np.float32) / 255) for f, g in zip(webm_frames, written)]
+    webm_cli_seconds, webm_c, webm_images, webm_names, webm_outs = cli_video(
+        webm_path, os.path.join(work, "video_webm"))
+    mkv_path = os.path.join(work, "clip.mkv")
+    t = time.perf_counter()
+    datasets.images_to_video(png_dir, mkv_path)
+    mkv_seconds = time.perf_counter() - t
+    mkv_decoded = list(iter_video_frames(mkv_path))
+    mkv_equal = list(mkv.iter_samples(mkv.open_video(mkv_path))) == packets and len(
+        mkv_decoded) == n and all(np.array_equal(a, b) for a, b in zip(recon, mkv_decoded))
+
     # the same models in this process, per pair, on the frames read back
     ada = AdaCoFNet().to(dev).eval()
     ada.load_state_dict(load_adacof_weights(ada_path))
@@ -1133,6 +1219,7 @@ def _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work):
     pipe = FusionModels(phase, ada, fusion)
     per_pair = [quantize(f) for f in double_frame_rate(frames, pipe, device=dev)]
     mp4_per_pair = [quantize(f) for f in double_frame_rate(mp4_frames, pipe, device=dev)]
+    webm_per_pair = [quantize(f) for f in double_frame_rate(webm_frames, pipe, device=dev)]
     del ada, fusion, phase, pipe
     originals = len(outs) == 2 * n - 1 and all(
         np.array_equal(outs[2 * i], quantize(frames[i])) for i in range(n))
@@ -1142,6 +1229,10 @@ def _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work):
         np.array_equal(mp4_outs[2 * i], quantize(mp4_frames[i])) for i in range(n))
     mp4_mid_db = [_psnr(mp4_outs[2 * i + 1].astype(np.float64) / 255,
                         mp4_per_pair[2 * i + 1].astype(np.float64) / 255) for i in range(n - 1)]
+    webm_originals = len(webm_outs) == 2 * n - 1 and all(
+        np.array_equal(webm_outs[2 * i], quantize(webm_frames[i])) for i in range(n))
+    webm_mid_db = [_psnr(webm_outs[2 * i + 1].astype(np.float64) / 255,
+                         webm_per_pair[2 * i + 1].astype(np.float64) / 255) for i in range(n - 1)]
     want_images = [2, 4, 2] * (n - 1)
     _line(phase="inputs_video", seconds=t0_mp4 - t0, size=[h, w], frames=n,
           write_seconds=write_seconds, read_seconds=read_seconds,
@@ -1162,6 +1253,17 @@ def _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work):
           pngs_written=len(mp4_names), originals_exact=mp4_originals,
           k1_launches=mp4_c["k1"], k1_images=mp4_images, k1_paths=mp4_c["k1_paths"],
           k2_launches=mp4_c["k2"], interpolated_vs_per_pair_db=mp4_mid_db)
+    _line(phase="inputs_mkv", seconds=time.perf_counter() - t0_mkv, size=[h, w], frames=n,
+          webm=INPUTS_WEBM, webm_bytes=os.path.getsize(webm_path), frame_bytes=webm_track.sizes,
+          matroska_parse_ms=float(np.median(parse_ms)), parse_ms=parse_ms,
+          vp8_decode_1080p_key_ms=float(np.median(vp8_ms["key"])),
+          vp8_decode_1080p_inter_ms=float(np.median(vp8_ms["inter"])), vp8_decode_ms=vp8_ms,
+          card=smi, read_seconds=webm_read_seconds, decoded_vs_written_db=webm_db,
+          db_floor=INPUTS_VP8_DB, cli_seconds=webm_cli_seconds, pngs_written=len(webm_names),
+          originals_exact=webm_originals, k1_launches=webm_c["k1"], k1_images=webm_images,
+          k1_paths=webm_c["k1_paths"], k2_launches=webm_c["k2"],
+          interpolated_vs_per_pair_db=webm_mid_db, images_to_video_mkv_seconds=mkv_seconds,
+          mkv_bytes=os.path.getsize(mkv_path), mkv_recon_equal=mkv_equal)
     if frames.shape != (n, h, w, 3) or not np.isfinite(frames).all() or not (
             min(decoded_db) >= INPUTS_JPEG_DB):
         raise AssertionError(f"inputs: the 1080p AVI decodes to {frames.shape}, "
@@ -1188,6 +1290,22 @@ def _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work):
         raise AssertionError(f"inputs: cli video on the mp4: K1 images {mp4_images} "
                              f"({mp4_c['k1_paths']}), K2 {mp4_c['k2']}; expected {want_images}")
 
+    if webm_frames.shape != (n, h, w, 3) or not np.isfinite(webm_frames).all() or not (
+            min(webm_db) >= INPUTS_VP8_DB) or not mkv_equal:
+        raise AssertionError(f"inputs: the 1080p WebM decodes to {webm_frames.shape}, {webm_db} "
+                             f"dB against the pixels written; the .mkv's samples and frames "
+                             f"equal to the encoder's: {mkv_equal}")
+    if len(webm_names) != 2 * n - 1 or not webm_originals or not (
+            min(webm_mid_db) >= PLAIN_AGREEMENT_DB):
+        raise AssertionError(f"inputs: cli video on the WebM wrote {webm_names}, originals "
+                             f"exact {webm_originals}, interpolated frames against per pair "
+                             f"{webm_mid_db} dB")
+    if webm_images != want_images or webm_c["k1_paths"] != {RING_PATH: len(want_images)} or (
+            webm_c["k2"]):
+        raise AssertionError(f"inputs: cli video on the WebM: K1 images {webm_images} "
+                             f"({webm_c['k1_paths']}), K2 {webm_c['k2']}; expected "
+                             f"{want_images}")
+
     # (d) the Adam7 and progressive-JPEG frame directories through K1
     t0 = time.perf_counter()
     dirs = {}
@@ -1213,7 +1331,8 @@ def _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work):
                 or d["k1_images"] != want or d["k1_paths"] != {RING_PATH: len(want)}
                 or d["k2_launches"]):
             raise AssertionError(f"inputs: {name} through double_frame_rate: {d}")
-    return cli_c["k1"] + mp4_c["k1"] + sum(len(d["k1_images"]) for d in dirs.values())
+    return cli_c["k1"] + mp4_c["k1"] + webm_c["k1"] + sum(len(d["k1_images"])
+                                                         for d in dirs.values())
 
 
 def phase_train_gan(dev, repo, ada_path):

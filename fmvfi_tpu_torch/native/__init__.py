@@ -6,7 +6,8 @@ utils/imageio.py), the Motion-JPEG frame decoder of mjpeg.cpp (for
 utils/avi.py), which shares jpeg.cpp's entropy decoder through
 jpeg_common.h, and the MPEG-4 Part 2 decoder of mpeg4.cpp and encoder of
 mpeg4_enc.cpp (for utils/mp4.py and utils/avi.py), which share FFmpeg's
-IDCT and swscale's conversion with mjpeg.cpp through ffmpeg_common.h.
+IDCT and swscale's conversion with mjpeg.cpp through ffmpeg_common.h, and
+the VP8 decoder of vp8.cpp (for utils/mkv.py), on the same conversion.
 
 The library is built at first use, never at import, with `g++ -O3
 -march=native -fPIC -shared -pthread`, into `build/fmvfi_tpu_torch/` at the
@@ -43,6 +44,7 @@ JPEG_SOURCE = Path(__file__).resolve().parent / "jpeg.cpp"
 JPEG_ENC_SOURCE = Path(__file__).resolve().parent / "jpeg_enc.cpp"
 MJPEG_SOURCE = Path(__file__).resolve().parent / "mjpeg.cpp"
 MPEG4_SOURCES = tuple(Path(__file__).resolve().parent / f for f in ("mpeg4.cpp", "mpeg4_enc.cpp"))
+VP8_SOURCE = Path(__file__).resolve().parent / "vp8.cpp"
 HEADERS = tuple(Path(__file__).resolve().parent / h
                 for h in ("jpeg_common.h", "ffmpeg_common.h", "mpeg4.h"))
 FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-pthread")
@@ -59,7 +61,8 @@ _I64 = ctypes.c_int64
 
 
 def _sources() -> Tuple[Path, ...]:
-    return (SOURCE, PNG_SOURCE, JPEG_SOURCE, JPEG_ENC_SOURCE, MJPEG_SOURCE) + MPEG4_SOURCES
+    return (SOURCE, PNG_SOURCE, JPEG_SOURCE, JPEG_ENC_SOURCE, MJPEG_SOURCE) + MPEG4_SOURCES + (
+        VP8_SOURCE,)
 
 
 def library_path() -> Path:
@@ -119,6 +122,7 @@ def library() -> ctypes.CDLL:
                 lib.fmvfi_jpeg_encode.argtypes = [_U8P, _I32, _I32, _I32, _I32, _U8P, _I64]
                 lib.fmvfi_jpeg_encode.restype = _I64
                 _bind_mpeg4(lib)
+                _bind_vp8(lib)
                 _lib = lib
                 return _lib
         raise RuntimeError(f"the native library is unavailable: {_error}")
@@ -298,6 +302,17 @@ def _bind_mpeg4(lib: ctypes.CDLL) -> None:
     lib.fmvfi_mpeg4_enc_close.restype = None
 
 
+def _bind_vp8(lib: ctypes.CDLL) -> None:
+    lib.fmvfi_vp8_open.argtypes = [ctypes.c_char_p, _I32, ctypes.POINTER(_I32)]
+    lib.fmvfi_vp8_open.restype = _VP
+    lib.fmvfi_vp8_decode.argtypes = [_VP, _VP, _I64, _VP, ctypes.c_char_p, _I32]
+    lib.fmvfi_vp8_decode.restype = _I32
+    for fn in (lib.fmvfi_vp8_frame, lib.fmvfi_vp8_close):
+        fn.restype = None
+    lib.fmvfi_vp8_frame.argtypes = [_VP, _VP]
+    lib.fmvfi_vp8_close.argtypes = [_VP]
+
+
 def _fourcc_int(fourcc: bytes) -> int:
     return int.from_bytes(fourcc.ljust(4, b"\0")[:4], "little") if fourcc else 0
 
@@ -403,6 +418,59 @@ class Mpeg4Encoder:
     def close(self) -> None:
         if self._h:
             self._lib.fmvfi_mpeg4_enc_close(self._h)
+            self._h = None
+
+    def __del__(self):
+        self.close()
+
+
+# vp8.cpp's feature bits (Vp8Decoder.info["features"]): what a frame's
+# header and macroblocks use
+VP8_FEATURES = dict(segmentation=1, segment_map=2, keep_probs=4, golden=8, altref=16,
+                    sign_bias=32, splitmv=64, lf_deltas=128, simple_filter=256,
+                    intra_in_inter=512, bpred_in_inter=1024, golden_altref_refs=2048)
+
+
+class Vp8Decoder:
+    """A VP8 video stream decoded as cv2.VideoCapture decodes it (FFmpeg's
+    vp8 decoder and swscale's yuv420p -> BGR24 conversion, vp8.cpp):
+    `decode(frame)` takes one frame's bytes (a Matroska / WebM block) and
+    returns the picture it shows, (H, W, 3) uint8 RGB, or None for a frame
+    with show_frame 0 (an alt-ref frame, decoded into the references only).
+    After each call `info` holds the frame's header facts (key frame,
+    version, token partitions, vp8.cpp's feature bits: VP8_FEATURES).
+    Raises NotImplementedError for what vp8.cpp refuses and ValueError for
+    malformed data, each with the reason."""
+
+    INFO = ("width", "height", "shown", "keyframe", "version", "partitions", "features")
+
+    def __init__(self):
+        lib = library()
+        self._lib = lib
+        self._msg = ctypes.create_string_buffer(256)
+        code = _I32(0)
+        self._h = lib.fmvfi_vp8_open(self._msg, len(self._msg), ctypes.byref(code))
+        if not self._h:
+            raise _JPEG_ERRORS[code.value](self._msg.value.decode("ascii", "replace"))
+        self._info = np.zeros(len(self.INFO), np.int32)
+        self.info = {}
+
+    def decode(self, frame: bytes) -> Optional[np.ndarray]:
+        buf = np.frombuffer(frame, np.uint8)
+        code = self._lib.fmvfi_vp8_decode(self._h, buf.ctypes.data, buf.size,
+                                          self._info.ctypes.data, self._msg, len(self._msg))
+        if code:
+            raise _JPEG_ERRORS[code](self._msg.value.decode("ascii", "replace"))
+        self.info = dict(zip(self.INFO, (int(v) for v in self._info)))
+        if not self.info["shown"]:
+            return None
+        out = np.empty((self.info["height"], self.info["width"], 3), np.uint8)
+        self._lib.fmvfi_vp8_frame(self._h, out.ctypes.data)
+        return out
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.fmvfi_vp8_close(self._h)
             self._h = None
 
     def __del__(self):

@@ -8,14 +8,15 @@ are numpy (H, W, 3).  On the card, frames go up through pinned memory and
 results come down into pinned memory, both copied asynchronously, so the
 host waits only for a finished result: pair i+1's work is queued on the card
 before the host waits for pair i's.  Video files are read when they hold
-Motion-JPEG (AVI, utils/avi.py) or MPEG-4 Part 2 (AVI, or MP4 / M4V / MOV
-through utils/mp4.py), each frame decoded as cv2.VideoCapture decodes it
-(FFmpeg's decoders and swscale's conversion, native/mjpeg.cpp and
-native/mpeg4.cpp, an MP4 track's rotation applied as cv2 applies it); the
-container is told from the file's bytes, as FFmpeg probes it.  Other codecs
-and containers (H.264, HEVC, VP9, AV1; Matroska, ...) raise
-NotImplementedError: the card's machine has no decoder for them (ROADMAP
-Queue 1, item 18.4).
+Motion-JPEG (AVI, utils/avi.py), MPEG-4 Part 2 (AVI, or MP4 / M4V / MOV
+through utils/mp4.py) or VP8 (utils/mkv.py: Matroska and WebM, which also
+carry Motion-JPEG and MPEG-4 Part 2), each frame decoded as
+cv2.VideoCapture decodes it (FFmpeg's decoders and swscale's conversion,
+native/mjpeg.cpp, native/mpeg4.cpp and native/vp8.cpp, an MP4 track's
+rotation applied as cv2 applies it); the container is told from the file's
+bytes, as FFmpeg probes it.  Other codecs and containers (H.264, HEVC, VP9,
+AV1; FLV, Ogg, ...) raise NotImplementedError: the card's machine has no
+decoder for them (ROADMAP Queue 1, item 18.4).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch
 
 from .. import native
 from ..ops.pyramid import make_filters, max_pyr_height
-from ..utils import avi, imageio, mp4
+from ..utils import avi, imageio, mkv, mp4
 from ..utils.resample import resize_bilinear_u8
 from .interpolate import (
     FusionModels,
@@ -49,20 +50,21 @@ FRAME_SUFFIXES = (".png", ".jpg", ".jpeg")  # JAX's
 
 
 ISO_BOXES = (b"ftyp", b"moov", b"mdat", b"free", b"skip", b"wide", b"pnot", b"uuid")
-OTHER_CONTAINERS = ((b"\x1aE\xdf\xa3", "a Matroska (or WebM) file"), (b"FLV", "an FLV file"),
-                    (b"OggS", "an Ogg file"), (b"\x00\x00\x01\xba", "an MPEG program stream"),
+MATROSKA = b"\x1aE\xdf\xa3"  # the EBML header's id
+OTHER_CONTAINERS = ((b"FLV", "an FLV file"), (b"OggS", "an Ogg file"),
+                    (b"\x00\x00\x01\xba", "an MPEG program stream"),
                     (b"0&\xb2u", "an ASF (WMV) file"))
 
 
 def _no_decoder(path: str, what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{path}: {what}; reading it needs a decoder the card's machine lacks (ROADMAP Queue 1, "
-        "item 18.4); pass a Motion-JPEG or MPEG-4 Part 2 (mp4v) AVI, MP4 or MOV file, or a "
-        "directory of PNG or JPEG frames")
+        "item 18.4); pass a Motion-JPEG or MPEG-4 Part 2 (mp4v) AVI, MP4 or MOV file, an .mkv "
+        "or .webm file of VP8, Motion-JPEG or mp4v video, or a directory of PNG or JPEG frames")
 
 
 def _container(path: str) -> str:
-    """"avi" or "mp4" from the file's first bytes, as FFmpeg probes them;
+    """"avi", "mp4" or "mkv" from the file's first bytes, as FFmpeg probes them;
     NotImplementedError for a container the port does not read, ValueError
     for a file that is none (cv2 decodes no frames from it)."""
     try:
@@ -74,6 +76,8 @@ def _container(path: str) -> str:
         return "avi"
     if head[4:8] in ISO_BOXES:
         return "mp4"
+    if head.startswith(MATROSKA):
+        return "mkv"
     for magic, what in OTHER_CONTAINERS:
         if head.startswith(magic):
             raise _no_decoder(path, what)
@@ -92,10 +96,18 @@ def _as_refusal(path: str, where: str, e: Exception) -> Exception:
 def _iter_decoded(path: str) -> Iterator[np.ndarray]:
     """A video file's frames as cv2.VideoCapture returns them, (H, W, 3)
     uint8 RGB: Motion-JPEG or MPEG-4 Part 2 in AVI, MPEG-4 Part 2 in MP4,
-    M4V or MOV (turned by the track's display matrix)."""
+    M4V or MOV (turned by the track's display matrix), VP8, Motion-JPEG or
+    MPEG-4 Part 2 in Matroska or WebM."""
     rotation = 0
     try:
-        if _container(path) == "avi":
+        container = _container(path)
+        if container == "mkv":
+            try:
+                track = mkv.open_video(path)
+            except ValueError as e:  # cv2 opens no stream in it
+                raise ValueError(f"no frames decoded from {path} ({e})") from None
+            samples, decode = mkv.iter_samples(track), mkv.decoder(track)
+        elif container == "avi":
             stream = avi.open_video(path)
             samples = avi.iter_frames(stream)
             if stream.codec == "mjpeg":

@@ -170,9 +170,9 @@ CODECS = {**{f: "mjpeg" for f in MJPEG_FOURCCS}, **{f: "mpeg4" for f in MPEG4_FO
 
 def _unsupported(path: str, what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{path}: {what}; the port decodes Motion-JPEG and MPEG-4 Part 2 AVI files only "
-        "(ROADMAP Queue 1, item 18.4: other codecs need a video decoder, which the card's "
-        "machine lacks)")
+        f"{path}: {what}; the port reads Motion-JPEG and MPEG-4 Part 2 (mp4v) AVI files, mp4v "
+        "MP4 / MOV files and .mkv / .webm files of VP8, Motion-JPEG or mp4v video (ROADMAP "
+        "Queue 1, item 18.4: other codecs need a video decoder the card's machine lacks)")
 
 
 def _walk(f, start: int, end: int):

@@ -4,13 +4,14 @@ Testset bootstrap's check for git-LFS pointers.
 
 `video_to_images` (and `videos_to_images`, `bootstrap_testset`) extract
 the frames of video files (Motion-JPEG or MPEG-4 Part 2 in AVI, MPEG-4
-Part 2 in MP4 / M4V / MOV), decoded as cv2.VideoCapture decodes them
-(pipeline/video.py), resized as cv2.resize resizes them and written as
-cv2.imwrite writes them.  `images_to_video` writes MPEG-4 Part 2 ("mp4v",
-as JAX's cv2.VideoWriter) into the container its extension names (.mp4,
-.m4v, .mov: utils/mp4.py; .avi: utils/avi.py) with the port's encoder
+Part 2 in MP4 / M4V / MOV, VP8, Motion-JPEG or MPEG-4 Part 2 in Matroska /
+WebM), decoded as cv2.VideoCapture decodes them (pipeline/video.py),
+resized as cv2.resize resizes them and written as cv2.imwrite writes them.
+`images_to_video` writes MPEG-4 Part 2 ("mp4v", as JAX's cv2.VideoWriter)
+into the container its extension names (.mp4, .m4v, .mov: utils/mp4.py;
+.avi: utils/avi.py; .mkv: utils/mkv.py) with the port's encoder
 (native/mpeg4_enc.cpp, a fixed quantiser where cv2's is rate-controlled).
-Other codecs, and Matroska, need what the card's machine lacks: they raise
+Other codecs need what the card's machine lacks: they raise
 NotImplementedError (ROADMAP Queue 1, item 18.4).
 Downloads need network egress; without it `download` raises
 ConnectionError with JAX's message.
@@ -26,7 +27,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from . import avi, mp4
+from . import avi, mkv, mp4
 from .imageio import imread, imwrite
 from .resample import resize_bilinear_u8
 
@@ -107,29 +108,34 @@ def images_to_video(frame_dir: str, out_path: str, fps: int = 30) -> str:
     """Stitch a frame directory (sorted .png / .jpg names) into an MPEG-4
     Part 2 video at `fps`, as JAX's cv2.VideoWriter(fourcc "mp4v") does
     (fmvfi_tpu/utils/datasets.py:92-108): the container by the extension
-    (.mp4, .m4v, .mov or .avi), the frames at the first one's size cropped
-    to even sides as OpenCV's writer crops them (it drops a frame of
-    another size).  The port codes with a
-    fixed quantiser (utils/mp4.py's QUANT), cv2 with FFmpeg's rate
-    control.  Returns out_path."""
+    (.mp4, .m4v, .mov, .avi or .mkv), the frames at the first one's size
+    cropped to even sides as OpenCV's writer crops them (it drops a frame
+    of another size).  The port codes with a fixed quantiser (utils/mp4.py's
+    QUANT), cv2 with FFmpeg's rate control.  WebM holds no mp4v: cv2's
+    writer opens nothing there and JAX's returns the path of no file, the
+    port raises ValueError.  Returns out_path."""
     names = sorted(f for f in os.listdir(frame_dir) if f.lower().endswith(FRAME_SUFFIXES))
     if not names:
         raise ValueError(f"no frames in {frame_dir}")
     ext = os.path.splitext(out_path)[1].lower()
-    if ext == ".mkv":
-        raise NotImplementedError(
-            f"{out_path}: a Matroska file; the port writes MPEG-4 Part 2 into .mp4, .m4v, .mov "
-            "and .avi only (ROADMAP Queue 1, item 18.4)")
-    if ext not in mp4.BRANDS and ext != ".avi":
+    if ext == ".webm":
+        raise ValueError(f"{out_path}: a WebM file holds VP8, VP9 or AV1 video, not the mp4v "
+                         "that images_to_video writes (cv2's writer opens nothing there); use "
+                         ".mkv, .mp4, .m4v, .mov or .avi")
+    if ext not in mp4.BRANDS and ext not in (".avi", ".mkv"):
         raise ValueError(f"{out_path}: no container for {ext!r}; the port writes .mp4, .m4v, "
-                         ".mov and .avi")
+                         ".mov, .avi and .mkv")
     first = imread(os.path.join(frame_dir, names[0]))
     h, w = first.shape[0] & ~1, first.shape[1] & ~1  # OpenCV's writer: width &= -2
     if not (h and w):
         raise ValueError(f"{names[0]}: a {first.shape[1]}x{first.shape[0]} frame has no even "
                          "part to write")
-    writer = (avi.Mpeg4AviWriter(out_path, w, h, fps) if ext == ".avi"
-              else mp4.Mp4Writer(out_path, w, h, fps))
+    if ext == ".avi":
+        writer = avi.Mpeg4AviWriter(out_path, w, h, fps)
+    elif ext == ".mkv":
+        writer = mkv.MkvWriter(out_path, w, h, fps)
+    else:
+        writer = mp4.Mp4Writer(out_path, w, h, fps)
     with writer:
         for i, name in enumerate(names):
             frame = first if i == 0 else imread(os.path.join(frame_dir, name))

@@ -49,9 +49,9 @@ MPEG4_VISUAL = 0x20  # esds objectTypeIndication
 
 def _unsupported(path: str, what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{path}: {what}; the port decodes MPEG-4 Part 2 (mp4v) video in MP4/MOV files only "
-        "(ROADMAP Queue 1, item 18.4: other codecs need a video decoder the card's machine "
-        "lacks)")
+        f"{path}: {what}; the port reads Motion-JPEG and MPEG-4 Part 2 (mp4v) AVI files, mp4v "
+        "MP4 / MOV files and .mkv / .webm files of VP8, Motion-JPEG or mp4v video (ROADMAP "
+        "Queue 1, item 18.4: other codecs need a video decoder the card's machine lacks)")
 
 
 def _boxes(data: bytes, start: int = 0, end: Optional[int] = None) -> Iterator[Tuple[bytes, int, int]]:

@@ -283,13 +283,23 @@ def test_bootstrap_refuses_lfs_pointers_and_video_conversion_raises(tmp_path):
     clips = tmp_path / "clips"
     clips.mkdir()
     _avc1_mp4(clips / "Clip1.mp4")  # an H.264 track: no decoder on the card's machine
-    cv2.imwrite(str(frames / "00000.png"), np.zeros((8, 8, 3), np.uint8))
+    _avc_mkv(tmp_path / "avc.mkv")
     for call in (lambda: pt_boot.bootstrap_testset(str(clips), str(tmp_path / "o")),
                  lambda: pt_boot.videos_to_images(str(clips), str(tmp_path / "o")),
                  lambda: pt_boot.video_to_images(str(clips / "Clip1.mp4"), str(tmp_path / "o")),
-                 lambda: pt_boot.images_to_video(str(frames), str(tmp_path / "v.mkv"))):
+                 lambda: pt_boot.video_to_images(str(tmp_path / "avc.mkv"), str(tmp_path / "o"))):
         with pytest.raises(NotImplementedError, match="item 18.4"):
             call()
+
+
+def _avc_mkv(path):
+    """The committed cv2 mp4v .mkv fixture with its CodecID made V_MPEG4/ISO/AVC."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "inputs",
+                       "mp4v_cv2_96x72.mkv")
+    with open(src, "rb") as f:
+        data = f.read()
+    with open(path, "wb") as f:
+        f.write(data.replace(b"V_MPEG4/ISO/ASP", b"V_MPEG4/ISO/AVC"))
 
 
 def _avc1_mp4(path):

@@ -22,7 +22,8 @@ whose frames cv2 and the port decode alike, equal to the encoder's own
 reconstruction, within 1 dB below JAX's file of the same frames.  What the
 port cannot decode as cv2 does raises NotImplementedError naming it and
 item 18.4: an avc1 track, a B-VOP, an interlaced VOL, a non-trivial edit
-list, Xvid's user data, Matroska.
+list, Xvid's user data, an H.264 track in Matroska; .mkv is written, WebM
+refused.
 """
 
 import hashlib
@@ -267,12 +268,16 @@ def test_images_to_video(toolchain, tmp_path, ext):
 
 
 def test_images_to_video_refuses_what_it_cannot_write(toolchain, tmp_path):
+    """No frames, and WebM (which holds no mp4v: cv2's writer opens nothing
+    there) raise ValueError; a .mkv is written (utils/mkv.py)."""
     (tmp_path / "none").mkdir()
     with pytest.raises(ValueError, match="no frames"):
         pt_data.images_to_video(str(tmp_path / "none"), str(tmp_path / "v.mp4"))
     cv2.imwrite(str(tmp_path / "a.png"), np.zeros((8, 8, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="Matroska.*item 18.4"):
-        pt_data.images_to_video(str(tmp_path), str(tmp_path / "v.mkv"))
+    with pytest.raises(ValueError, match="WebM"):
+        pt_data.images_to_video(str(tmp_path), str(tmp_path / "v.webm"))
+    assert not (tmp_path / "v.webm").exists()
+    assert len(assert_as_cv2(pt_data.images_to_video(str(tmp_path), str(tmp_path / "v.mkv")))) == 1
 
 
 def _forged(tmp_path, name, edit):
@@ -321,15 +326,18 @@ def test_what_the_port_refuses(toolchain, tmp_path, forge, what):
 
 def test_containers_are_told_by_their_bytes(toolchain, tmp_path):
     """A file is read by its bytes, as FFmpeg probes it: an MP4 named .avi
-    decodes; Matroska raises NotImplementedError; bytes of no container and
-    a missing file give JAX's ValueError."""
+    decodes; a Matroska file of an H.264 track raises NotImplementedError;
+    a bare EBML magic (cv2 decodes no frames from it), bytes of no
+    container and a missing file give JAX's ValueError."""
     shutil.copy(os.path.join(INPUTS, "mp4v_96x72.mp4"), tmp_path / "named.avi")
     assert len(assert_as_cv2(str(tmp_path / "named.avi"))) == 15
+    mkv_bytes = open(os.path.join(INPUTS, "mp4v_cv2_96x72.mkv"), "rb").read()
+    (tmp_path / "avc.mkv").write_bytes(mkv_bytes.replace(b"V_MPEG4/ISO/ASP", b"V_MPEG4/ISO/AVC"))
+    with pytest.raises(NotImplementedError, match="V_MPEG4/ISO/AVC.*item 18.4"):
+        pt_video.read_video_frames(str(tmp_path / "avc.mkv"))
     (tmp_path / "m.mkv").write_bytes(b"\x1a\x45\xdf\xa3" + bytes(60))
-    with pytest.raises(NotImplementedError, match="Matroska.*item 18.4"):
-        pt_video.read_video_frames(str(tmp_path / "m.mkv"))
     (tmp_path / "zeros.mp4").write_bytes(bytes(4096))
-    for path in (tmp_path / "zeros.mp4", tmp_path / "missing.mp4"):
+    for path in (tmp_path / "m.mkv", tmp_path / "zeros.mp4", tmp_path / "missing.mp4"):
         with pytest.raises(ValueError, match="no frames decoded"):
             pt_video.read_video_frames(str(path))
         with pytest.raises(ValueError, match="no frames decoded"):

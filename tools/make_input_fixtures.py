@@ -23,7 +23,22 @@ Each fixture is made from seeded numpy with what JAX's readers are held to:
   writer crops both to even sides: 94x70 and 64x46); and two files the
   port's encoder writes, which cv2 decodes for the pins: a 95x71 .avi (odd
   sides: swscale's other yuv420p routes) and a 45x37 .avi coded with 4MV,
-  DQUANT, AC prediction and DC-as-TCOEF (paths cv2's writer never takes).
+  DQUANT, AC prediction and DC-as-TCOEF (paths cv2's writer never takes);
+- Matroska and WebM files: cv2.VideoWriter's VP80 in a 96x72 .webm and
+  a .mkv given 95x71 frames (94x70), MJPG, mp4v and XVID in .mkv, all of a
+  texture sliding past the frame's edges; VP8 clips coded with cv2's own
+  libvpx through ctypes (`vp8_encode`) in settings cv2's writer never
+  takes, muxed by the port's MkvMuxer: odd sides with 8 token partitions,
+  two-pass auto-alt-ref (hidden frames, golden / alt-ref sign bias),
+  error-resilient real-time screen coding (segmentation and its map,
+  probabilities kept per frame) and versions 1, 2 and 3 (bilinear filters,
+  full-pixel chroma, the simple loop filter); copies of the cv2 .webm
+  forged with an unknown-size Segment and Clusters, with laced blocks
+  (Xiph, EBML, fixed) and BlockGroups, with an audio track before the
+  video one and its blocks interleaved, and with a Colour element and a
+  PixelCrop (which cv2 ignores in a VP8 track); and the video phase's
+  first three 1080x1920 frames as cv2.VideoWriter's VP80 .webm, which
+  chip_smoke.py runs `cli video` on.
 
 It prints INPUT_PINS, chip_smoke.py's table: for each fixture the reader
 contract ("imread": cv2.imread + BGR2RGB; "read_jpeg": PIL's Image.open;
@@ -56,9 +71,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from fmvfi_tpu_torch.eval.synth import translation_video  # noqa: E402
-from fmvfi_tpu_torch.utils import avi  # noqa: E402
+from fmvfi_tpu_torch.utils import avi, mkv  # noqa: E402
 
-VIDEO_SUFFIXES = (".avi", ".mp4", ".mov", ".m4v")
+VIDEO_SUFFIXES = (".avi", ".mp4", ".mov", ".m4v", ".mkv", ".webm")
 
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
          (0, 1, 1, 2))
@@ -251,7 +266,326 @@ def make(out: str) -> dict:
     port_mp4v_avi(os.path.join(out, "mp4v_port_paths_45x37.avi"),
                   sliding(rng, 13, 37, 45, step=(4.5, 3.5)), options=15, quant=5)
     files["mp4v_port_paths_45x37.avi"] = None
+    for name in make_matroska(out):
+        files[name] = None
     return pins(out, files)
+
+
+# --- Matroska / WebM -------------------------------------------------------
+
+EBML_MASTERS = {0x1A45DFA3, 0x18538067, 0x114D9B74, 0x4DBB, 0x1549A966, 0x1654AE6B, 0xAE, 0xE0,
+                0xE1, 0x1F43B675, 0xA0, 0x1C53BB6B, 0xBB, 0xB7, 0x55B0, 0x6D80, 0x6240, 0x5035,
+                0x1254C367, 0x7373, 0x63C0, 0x67C8}
+SEGMENT, CLUSTER, TRACKS, CUES, SEEK_HEAD, CRC32 = (0x18538067, 0x1F43B675, 0x1654AE6B,
+                                                    0x1C53BB6B, 0x114D9B74, 0xBF)
+
+
+def ebml_parse(data: bytes, pos: int = 0, end=None) -> list:
+    """An EBML file as a tree: [[id, children or bytes], ...] (an element of
+    unknown size runs to its parent's end)."""
+    end = len(data) if end is None else end
+    out = []
+    while pos < end:
+        eid, n, _ = mkv._vint(data, pos, end, keep_marker=True)
+        size, m, unknown = mkv._vint(data, pos + n, end)
+        body = pos + n + m
+        stop = end if unknown else body + size
+        out.append([eid, ebml_parse(data, body, stop) if eid in EBML_MASTERS else data[body:stop]])
+        pos = stop
+    return out
+
+
+def ebml_dump(tree: list, unknown=()) -> bytes:
+    """The bytes of a tree; the ids in `unknown` written with unknown size."""
+    out = b""
+    for eid, body in tree:
+        raw = ebml_dump(body, unknown) if isinstance(body, list) else bytes(body)
+        out += mkv._id_bytes(eid) + (b"\x01" + b"\xff" * 7 if eid in unknown
+                                     else mkv._size(len(raw))) + raw
+    return out
+
+
+def ebml_find(tree: list, *path):
+    for eid, body in tree:
+        if eid == path[0]:
+            return body if len(path) == 1 else ebml_find(body, *path[1:])
+    return None
+
+
+def ebml_strip(tree: list) -> list:
+    """The tree without CRC-32s, SeekHead and Cues (whose offsets a rewrite
+    would make wrong)."""
+    return [[eid, ebml_strip(body) if isinstance(body, list) else body]
+            for eid, body in tree if eid not in (CRC32, SEEK_HEAD, CUES)]
+
+
+def _uint(eid: int, v: int) -> list:
+    return [eid, v.to_bytes(max(1, (v.bit_length() + 7) // 8), "big")]
+
+
+def forge_unknown_sizes(data: bytes) -> bytes:
+    """A MediaRecorder-like file: the Segment and every Cluster of unknown size."""
+    return ebml_dump(ebml_strip(ebml_parse(data)), unknown={SEGMENT, CLUSTER})
+
+
+def forge_laced(data: bytes) -> bytes:
+    """Key blocks kept; the following inter frames three (the last two) to a
+    block, laced in turn Xiph, EBML and fixed (frames padded with zeros to one size,
+    which a VP8 decoder reads as past the last partition's end anyway), or
+    as three BlockGroups with a ReferenceBlock."""
+    tree = ebml_strip(ebml_parse(data))
+    mode = 0
+    for eid, cluster in ebml_find(tree, SEGMENT):
+        if eid != CLUSTER:
+            continue
+        blocks = [bytes(b) for i, b in cluster if i == 0xA3]
+        out = [[i, b] for i, b in cluster if i != 0xA3]
+        k = 0
+        while k < len(blocks):
+            if blocks[k][3] & 0x80 or k + 2 > len(blocks):
+                out.append([0xA3, blocks[k]])
+                k += 1
+                continue
+            group = blocks[k:k + 3]
+            head, frames = group[0][:4], [b[4:] for b in group]
+            kind, mode = mode % 4, mode + 1
+            k += len(group)
+            if kind == 3:
+                out += [[0xA0, [[0xA1, b], [0xFB, b"\xdf"]]] for b in group]
+                continue
+            if kind == 0:  # Xiph
+                lace = b"".join(b"\xff" * (len(f) // 255) + bytes([len(f) % 255])
+                                for f in frames[:-1])
+            elif kind == 1:  # EBML: the first size, then signed differences
+                lace = mkv._size(len(frames[0]))
+                for a, b in zip(frames[:-2], frames[1:-1]):
+                    d, n = len(b) - len(a), 1
+                    while not -(2 ** (7 * n - 1) - 1) <= d <= 2 ** (7 * n - 1) - 2:
+                        n += 1
+                    lace += mkv._size(d + 2 ** (7 * n - 1) - 1, n)
+            else:  # fixed
+                size = max(map(len, frames))
+                frames = [f + bytes(size - len(f)) for f in frames]
+                lace = b""
+            flag = (0x02, 0x06, 0x04)[kind]
+            out.append([0xA3, head[:3] + bytes([head[3] | flag, len(frames) - 1]) + lace
+                        + b"".join(frames)])
+        cluster[:] = out
+    return ebml_dump(tree)
+
+
+def forge_audio_first(data: bytes, rng) -> bytes:
+    """An audio track (PCM, number 1) before the video one (renumbered 2),
+    a 160-byte audio block before each video block."""
+    tree = ebml_strip(ebml_parse(data))
+    segment = ebml_find(tree, SEGMENT)
+    tracks = ebml_find(segment, TRACKS)
+    for e in tracks[0][1]:
+        if e[0] == 0xD7:
+            e[1] = b"\x02"
+    tracks.insert(0, [0xAE, [_uint(0xD7, 1), _uint(0x73C5, 7), _uint(0x83, 2),
+                             [0x86, b"A_PCM/INT/LIT"],
+                             [0xE1, [[0xB5, struct.pack(">d", 8000.0)], _uint(0x9F, 1),
+                                     _uint(0x6264, 16)]]]])
+    for eid, cluster in segment:
+        if eid != CLUSTER:
+            continue
+        out = []
+        for e in cluster:
+            if e[0] == 0xA3:
+                b = bytes(e[1])
+                out.append([0xA3, b"\x81" + b[1:3] + b"\x80" +
+                            rng.integers(0, 256, 160, np.uint8).tobytes()])
+                e = [0xA3, b"\x82" + b[1:]]
+            out.append(e)
+        cluster[:] = out
+    return ebml_dump(tree)
+
+
+def forge_video_elements(data: bytes, elements) -> bytes:
+    """The video track's Video element with `elements` ([id, bytes or
+    children]) appended."""
+    tree = ebml_strip(ebml_parse(data))
+    ebml_find(tree, SEGMENT, TRACKS, 0xAE, 0xE0).extend(elements)
+    return ebml_dump(tree)
+
+
+_VPX = None
+
+
+def _libvpx():
+    """cv2's bundled libvpx (opencv_python.libs), loaded with ctypes."""
+    global _VPX
+    if _VPX is None:
+        import ctypes
+        import glob
+        libs = os.path.join(os.path.dirname(os.path.dirname(cv2.__file__)), "opencv_python.libs")
+        lib = ctypes.CDLL(glob.glob(os.path.join(libs, "libvpx-*.so*"))[0])
+        vp = ctypes.c_void_p
+        lib.vpx_codec_vp8_cx.restype = vp
+        lib.vpx_codec_enc_config_default.argtypes = [vp, vp, ctypes.c_uint]
+        lib.vpx_codec_enc_init_ver.argtypes = [vp, vp, vp, ctypes.c_long, ctypes.c_int]
+        lib.vpx_codec_encode.argtypes = [vp, vp, ctypes.c_int64, ctypes.c_ulong, ctypes.c_long,
+                                         ctypes.c_ulong]
+        lib.vpx_codec_get_cx_data.argtypes = [vp, vp]
+        lib.vpx_codec_get_cx_data.restype = vp
+        lib.vpx_img_wrap.argtypes = [vp, ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
+                                     ctypes.c_uint, vp]
+        lib.vpx_img_wrap.restype = vp
+        lib.vpx_codec_control_.argtypes = [vp, ctypes.c_int, ctypes.c_int]
+        lib.vpx_codec_destroy.argtypes = [vp]
+        _VPX = lib
+    return _VPX
+
+
+def _i420(bgr: np.ndarray) -> np.ndarray:
+    """A BGR frame as I420 planes (odd sides: chroma of the edge-repeated
+    even-sided frame)."""
+    h, w = bgr.shape[:2]
+    big = cv2.copyMakeBorder(bgr, 0, h & 1, 0, w & 1, cv2.BORDER_REPLICATE)
+    hh, ww = big.shape[:2]
+    yuv = cv2.cvtColor(big, cv2.COLOR_BGR2YUV_I420).reshape(-1)
+    q = (hh // 2) * (ww // 2)
+    return np.concatenate([yuv[:hh * ww].reshape(hh, ww)[:h, :w].reshape(-1),
+                           yuv[hh * ww:hh * ww + 2 * q]])
+
+
+def vp8_encode(frames, version: int = 0, partitions: int = 0, bitrate: int = 200,
+               error_resilient: bool = False, realtime: bool = False, screen: bool = False,
+               alt_ref: bool = False, kf_max_dist=None, sharpness=None) -> list:
+    """VP8 frames (bytes) of BGR frames, coded by cv2's libvpx: `version`
+    (g_profile) 0-3, 2**partitions token partitions, error-resilient,
+    real-time (with `screen` content: cyclic refresh through segmentation),
+    or two-pass with lag 16 and auto-alt-ref (hidden alt-ref frames)."""
+    lib = _libvpx()
+    if alt_ref:
+        stats = _vp8_pass(lib, frames, 1, None, version, partitions, bitrate, error_resilient,
+                          False, False, True, kf_max_dist, sharpness)
+        return _vp8_pass(lib, frames, 2, b"".join(stats), version, partitions, bitrate,
+                         error_resilient, False, False, True, kf_max_dist, sharpness)
+    return _vp8_pass(lib, frames, 0, None, version, partitions, bitrate, error_resilient,
+                     realtime, screen, False, kf_max_dist, sharpness)
+
+
+def _vp8_pass(lib, frames, npass, stats, version, partitions, bitrate, error_resilient,
+              realtime, screen, alt_ref, kf_max_dist, sharpness) -> list:
+    import ctypes
+    h, w = frames[0].shape[:2]
+    # vpx_codec_enc_cfg_t as 32-bit words: the fields set here lead the
+    # struct (g_profile 2, g_w 3, g_h 4, g_error_resilient 9, g_pass 10,
+    # g_lag_in_frames 11, rc_end_usage 18, rc_twopass_stats_in at byte 80,
+    # rc_target_bitrate 28, kf_max_dist 42)
+    cfg = ctypes.create_string_buffer(4096)
+    assert lib.vpx_codec_enc_config_default(lib.vpx_codec_vp8_cx(), cfg, 0) == 0
+    words = (ctypes.c_uint32 * 64).from_buffer(cfg)
+    assert (words[3], words[4], words[28]) == (320, 240, 256), "unexpected vpx_codec_enc_cfg_t"
+    words[2], words[3], words[4], words[9], words[28] = version, w, h, int(error_resilient), bitrate
+    if realtime:
+        words[18] = 1  # VPX_CBR
+    if kf_max_dist is not None:
+        words[42] = kf_max_dist
+    keep = None
+    if alt_ref:
+        words[10], words[11] = npass, 16
+        if npass == 2:
+            keep = ctypes.create_string_buffer(stats, len(stats))
+            ctypes.c_void_p.from_buffer(cfg, 80).value = ctypes.addressof(keep)
+            ctypes.c_size_t.from_buffer(cfg, 88).value = len(stats)
+    ctx = ctypes.create_string_buffer(1024)
+    for abi in range(64):  # VPX_ENCODER_ABI_VERSION of this build
+        err = lib.vpx_codec_enc_init_ver(ctx, lib.vpx_codec_vp8_cx(), cfg, 0, abi)
+        if err != 3:  # VPX_CODEC_ABI_MISMATCH
+            break
+    assert err == 0, f"vpx_codec_enc_init_ver: {err}"
+    lib.vpx_codec_control_(ctx, 18, partitions)  # VP8E_SET_TOKEN_PARTITIONS
+    if alt_ref:
+        lib.vpx_codec_control_(ctx, 14, 1)  # VP8E_SET_ENABLEAUTOALTREF
+    if screen:
+        lib.vpx_codec_control_(ctx, 39, 1)  # VP8E_SET_SCREEN_CONTENT_MODE
+    if sharpness is not None:
+        lib.vpx_codec_control_(ctx, 16, sharpness)  # VP8E_SET_SHARPNESS
+    deadline = 1 if realtime or not alt_ref else 0  # VPX_DL_REALTIME or best quality
+    out, img = [], ctypes.create_string_buffer(256)
+
+    def drain():
+        it = ctypes.c_void_p(0)
+        while True:
+            pkt = lib.vpx_codec_get_cx_data(ctx, ctypes.byref(it))
+            if not pkt:
+                return
+            kind = ctypes.c_int.from_address(pkt).value  # 0: a frame, 1: first-pass stats
+            if kind == (1 if npass == 1 else 0):
+                buf = ctypes.c_void_p.from_address(pkt + 8).value
+                out.append(ctypes.string_at(buf, ctypes.c_size_t.from_address(pkt + 16).value))
+
+    for i, f in enumerate(frames):
+        planes = _i420(f)
+        lib.vpx_img_wrap(img, 0x102, w, h, 1, planes.ctypes.data)  # VPX_IMG_FMT_I420
+        assert lib.vpx_codec_encode(ctx, img, i, 1, 0, deadline) == 0
+        drain()
+    while True:  # flush the lagged frames
+        n = len(out)
+        lib.vpx_codec_encode(ctx, None, -1, 1, 0, deadline)
+        drain()
+        if len(out) == n:
+            break
+    lib.vpx_codec_destroy(ctx)
+    return out
+
+
+def vp8_webm(path: str, packets, w: int, h: int, fps: int = 30) -> None:
+    """VP8 frames in a WebM file, muxed by the port's MkvMuxer."""
+    with mkv.MkvMuxer(path, "V_VP8", w, h, fps, doc_type="webm") as mux:
+        for p in packets:
+            mux.write_frame(p, not p[0] & 1)
+
+
+def make_matroska(out: str):
+    """Write the Matroska / WebM fixtures; yields their names."""
+    rng = np.random.default_rng(2027)
+
+    def cv2_file(name, fourcc, frames):
+        cv2_video(os.path.join(out, name), fourcc, frames)
+        return name
+
+    base = cv2_file("vp8_cv2_96x72.webm", "VP80", sliding(rng, 15, 72, 96))
+    yield base
+    yield cv2_file("vp8_cv2_94x70.mkv", "VP80", sliding(rng, 13, 71, 95, step=(-3.5, 2.5)))
+    yield cv2_file("mjpg_cv2_64x48.mkv", "MJPG", sliding(rng, 5, 48, 64))
+    yield cv2_file("mp4v_cv2_96x72.mkv", "mp4v", sliding(rng, 15, 72, 96))
+    yield cv2_file("xvid_cv2_64x46.mkv", "XVID", sliding(rng, 13, 47, 64))
+    for name, (h, w), n, kw in (
+            ("vp8_odd_p8_95x71.webm", (71, 95), 12, dict(partitions=3, bitrate=300)),
+            ("vp8_altref_45x37.webm", (37, 45), 30, dict(alt_ref=True, partitions=1,
+                                                         bitrate=100)),
+            ("vp8_errres_seg_64x48.webm", (48, 64), 16, dict(error_resilient=True,
+                                                             realtime=True, screen=True)),
+            ("vp8_v1_33x17.webm", (17, 33), 10, dict(version=1, kf_max_dist=6)),
+            ("vp8_v2_40x24.webm", (24, 40), 10, dict(version=2, sharpness=5)),
+            ("vp8_v3_31x29.webm", (29, 31), 10, dict(version=3, partitions=2))):
+        frames = sliding(rng, n, h, w, step=(float(rng.uniform(-4, 4)), float(rng.uniform(-4, 4))))
+        vp8_webm(os.path.join(out, name), vp8_encode(frames, **kw), w, h)
+        yield name
+    with open(os.path.join(out, base), "rb") as f:
+        data = f.read()
+    forged = {
+        "vp8_unknown_size_96x72.webm": forge_unknown_sizes(data),
+        "vp8_laced_96x72.webm": forge_laced(data),
+        "vp8_audio_first_96x72.webm": forge_audio_first(data, rng),
+        "vp8_colour_crop_96x72.webm": forge_video_elements(data, [
+            [0x55B0, [_uint(0x55B1, 1), _uint(0x55B9, 2), _uint(0x55B7, 1), _uint(0x55B8, 2)]],
+            _uint(0x54BB, 2), _uint(0x54CC, 3)]),
+    }
+    for name, blob in forged.items():
+        with open(os.path.join(out, name), "wb") as f:
+            f.write(blob)
+        yield name
+    # the smoke's clip: translation_video(5, 1080, 1920, step=2.0, seed=0)[:3]
+    clip = (translation_video(3, 1080, 1920, step=2.0, seed=0) * 255 + 0.5).astype(np.uint8)
+    yield cv2_file(SMOKE_WEBM, "VP80", [np.ascontiguousarray(f[..., ::-1]) for f in clip])
+
+
+SMOKE_WEBM = "vp8_cv2_1080x1920.webm"
 
 
 def pixels(out: str, name: str, contract: str) -> np.ndarray:
