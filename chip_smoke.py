@@ -152,7 +152,7 @@ Phases, each printing one JSON line with its seconds:
               a set); where ffmpeg and ffprobe are on PATH (nothing is
               installed);
   inputs    - (after photo; lines inputs_pins, inputs_video, inputs_mp4v, inputs_mkv,
-              inputs_frames)
+              inputs_vp9, inputs_frames)
               the inputs JAX reads through cv2, read here without it: the
               fixtures of tests/data/inputs/ (tools/make_input_fixtures.py:
               Adam7 PNGs, progressive JPEGs, one cut after its second scan
@@ -164,7 +164,13 @@ Phases, each printing one JSON line with its seconds:
               VP8, MJPG, mp4v and XVID from cv2.VideoWriter, libvpx VP8
               clips at odd sides, 8 token partitions, alt-ref, segmentation
               and versions 1-3, and forged unknown-size, laced,
-              audio-first and Colour / PixelCrop copies) each decoded by
+              audio-first and Colour / PixelCrop copies; VP9 from
+              cv2.VideoWriter in .webm, .mkv, .mp4 and .avi, libvpx clips
+              with superframes and hidden frames, tiles, lossless, AQ
+              segmentation, error resilience, cpu-used 0 / 5 / 8, profile
+              1 at 4:4:4, 4:2:2 and 4:4:0, BT.709 full range, BT.2020,
+              SMPTE 240M, and forged sharpness, bilinear, show_existing,
+              Colour and vpcC copies) each decoded by
               the port with the sha256 of its pixels equal to that of cv2's
               or PIL's (INPUT_PINS, held by the CPU tests);
               the video phase's first 3 frames written as a 1080x1920 MJPG
@@ -196,9 +202,17 @@ Phases, each printing one JSON line with its seconds:
               --input clip.webm --method fusion` checked as the AVI's; the
               3 PNGs through images_to_video into clip.mkv, its blocks the
               mp4v encoder's packets and its frames read back equal to the
-              encoder's reconstruction, its bytes; double_frame_rate per
-              pair on the Adam7 and the progressive-JPEG frame directories
-              through K1;
+              encoder's reconstruction, its bytes; (line inputs_vp9) each
+              VP9 pin, the committed 1080x1920 WebM of the same 3 frames
+              (cv2.VideoWriter's VP90, tests/data/inputs/
+              vp9_cv2_1080x1920.webm, 4 tile columns) read with
+              utils/mkv.py and native/vp9.cpp (>= 18.0 dB against the
+              pixels written: 18.29 dB measured on the CPU), the Matroska
+              parse ms and the ms to decode its VP9 key frame and inter
+              frames (medians of 5, one host thread), and `cli video
+              --input clip.webm --method fusion` checked as the AVI's;
+              double_frame_rate per pair on the Adam7 and the
+              progressive-JPEG frame directories through K1;
   cli       - (after train_fusion) the command line on PNG files: the serve phase's
               first pair and the video phase's 5-frame clip written with
               the port's imwrite, read back bit-equal, and the C++ row
@@ -405,6 +419,7 @@ GAN_CPU_TOL = 1e-4
 LPIPS_TOL = 1e-4  # relative, card against CPU
 NATIVE_TOL = 1e-6  # native batches against the numpy path: x * (1/255) against x / 255
 CLI_LSB = 1  # a PNG written by a command against the same frame computed in this process
+CLI_ORACLE_FILES = 3  # the pair and the clip's first frame: the C++ unfilter against numpy
 EXPORT_CPU_TOL = 2e-5  # a ("cpu",) artifact against the live CPU pipeline
 BF16_DB, BF16_LOSS_DB = 35.0, 0.35  # bf16 against fp32; PSNR to the truth lost (test_golden.py)
 DP_BATCH, DP_STEPS, DP_CLI_STEPS, DP_LR = 4, 2, 3, 1e-2  # global batch at CROP x CROP
@@ -562,6 +577,60 @@ INPUT_PINS = {
         ("video", "475e926eb3b8e038d42d82d89f0b4fa9c2ae4cbbefe8f62852925e1c5e740ae0"),
     "xvid_cv2_64x46.mkv":
         ("video", "a1d8371d92bcd8c134c58f6741415d5a4a671c2e8011d4bb2ffe3d1103fbe5e2"),
+    "vp9_altref_45x37.webm":
+        ("video", "ec17fc2b4206cdc2f308733b8fddfec36e2bb08ef80e9608911f5c2f4a495c4e"),
+    "vp9_aq1_47x35.webm":
+        ("video", "e9609812d90746f5675b95d15e82a4f473d5a0f63a98e96f153900a4f3d68d1c"),
+    "vp9_aq2_56x40.webm":
+        ("video", "642f0759573d385832e009a25659a66cd401a130fa84d9974e46693a5a6fb142"),
+    "vp9_aq3_64x48.webm":
+        ("video", "d026276f19576777b5931946ad31cf2f8ede0797e81683c03a5075c8777d4e3d"),
+    "vp9_bilinear_44x36.webm":
+        ("video", "f5a98f97e51675999e111cd3a37b4482482c9d471bf7f4339f8f09c0cf3b40b3"),
+    "vp9_bt2020_40x30.webm":
+        ("video", "5345756e823027994f07933fb4658b9881dba8109bf86af102fe98ca5372b9de"),
+    "vp9_bt709_full_47x35.webm":
+        ("video", "59f39c74b4e6eb71a6bef7acf0bb3d8c4e3abfddf295416bb2c0139779c123d5"),
+    "vp9_colour_96x72.webm":
+        ("video", "bad9fb5a999f126d0274b9023ed3b3a911bb34df3ea327301ea4c1aa20ea7739"),
+    "vp9_cpu0_29x31.webm":
+        ("video", "e385fb2eb05d57f92e56151a1eb39e7ac7fe67c69499b1b378253a5298c527c3"),
+    "vp9_cpu5_50x26.webm":
+        ("video", "062c9a59c79af74e25f69f9b4d684a590aa3806cc722e38fa77c9e5462d6f0d8"),
+    "vp9_cpu8_41x33.webm":
+        ("video", "fc77d88f1916d9dc9f664b6b1a1bd2fb70094b5fc56d76dc2d01d9c40a95d654"),
+    "vp9_cv2_1080x1920.webm":
+        ("video", "71da7a0b755496a9a844d4880f8cf2db825b9d1e31fad7e3b4ced5bab5081fb1"),
+    "vp9_cv2_30x28.avi":
+        ("video", "50daa30adff1e869dcc52597325045c52e5ac7ef9673c244a71446ce7f47b98a"),
+    "vp9_cv2_44x36.mkv":
+        ("video", "043f1cb7e43748fbde7e6dee76f038715b2f88298c4ea80dc2f1072b984e3c45"),
+    "vp9_cv2_96x72.mp4":
+        ("video", "8e9f5622467acc13f9626459b627229af9b1b9ca74d3794c391d245b9c5ade27"),
+    "vp9_cv2_96x72.webm":
+        ("video", "bad9fb5a999f126d0274b9023ed3b3a911bb34df3ea327301ea4c1aa20ea7739"),
+    "vp9_errres_40x24.webm":
+        ("video", "5cceab631723280bc8bc4b61cab3420d3aa7411b8336924e1a706a496dffd871"),
+    "vp9_lossless_33x17.webm":
+        ("video", "f3409dc68cc47f94d2f8ddd4596173f1dac59f979e3024e3af0dd0f5950ceeec"),
+    "vp9_p1_422_46x31.webm":
+        ("video", "b2527df6dadae4ff610dde79fec38544e9b7a8a22edbfad519e3db4b34e744d6"),
+    "vp9_p1_440_29x38.webm":
+        ("video", "72ec87c6e94299827dd7589ac30e83dbe0321b88027653f82c8b4ef76b30d5bf"),
+    "vp9_p1_444_45x37.webm":
+        ("video", "ff17fe2bfea12ec2a4209ed38eec2fc120d322efb721a36c6a0c1bd09d322588"),
+    "vp9_sharpness5_48x40.webm":
+        ("video", "d0f9ce9bb3a1798ffcaf5ffac12c6eabdea1e8211349eb5baefcd7d2711d7b17"),
+    "vp9_show_existing_42x30.webm":
+        ("video", "7b73f7f70d8bd850e947a9cff12e5984d57116c9d3fcd612e12c7f42e883dcd1"),
+    "vp9_smpte240_444_23x19.webm":
+        ("video", "5dcce2323274eb35304087a3a1e5c7014481e250f769113456edcc6ad57544a9"),
+    "vp9_tilecols_520x40.webm":
+        ("video", "402723d536c36bda4c9b376df022e20e8fefe236a1fb9501b3ce53448576b03c"),
+    "vp9_tilerows_48x200.webm":
+        ("video", "fd38271bc655a55a38cccf9b3b045b1edd5f101efb53b29d2ea5b4ea690b0d7c"),
+    "vp9_vpcc_96x72.mp4":
+        ("video", "8e9f5622467acc13f9626459b627229af9b1b9ca74d3794c391d245b9c5ade27"),
 }
 INPUTS_FRAME_DIRS = ("adam7_frames", "progressive_frames")
 INPUTS_CLIP_FRAMES = 3  # of the video phase's clip, written as a 1080p MJPG AVI
@@ -572,6 +641,9 @@ INPUTS_MP4V_DB = 18.0  # the clip's frames through images_to_video (mp4v, quant 
 INPUTS_WEBM = "vp8_cv2_1080x1920.webm"  # the clip's 3 frames as cv2's VP80 writer codes them
 INPUTS_VP8_DB = 13.0  # that file decoded against the pixels written: 13.43-13.45 dB measured
 # on the CPU (cv2's default VP8 bitrate on the pixel-noise texture)
+INPUTS_VP9_WEBM = "vp9_cv2_1080x1920.webm"  # the same 3 frames as cv2's VP90 writer codes them
+INPUTS_VP9_DB = 18.0  # that file decoded against the pixels written: 18.29 dB measured on the
+# CPU (cv2's default VP9 bitrate on the pixel-noise texture)
 
 
 def _line(**kw):
@@ -1208,6 +1280,34 @@ def _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work):
     mkv_equal = list(mkv.iter_samples(mkv.open_video(mkv_path))) == packets and len(
         mkv_decoded) == n and all(np.array_equal(a, b) for a, b in zip(recon, mkv_decoded))
 
+    # (f) the committed 1080p VP9 WebM (cv2's VP90 of the same 3 frames): the
+    # Matroska parse and native/vp9.cpp timed on their own, then `cli video`
+    t0_vp9 = time.perf_counter()
+    vp9_path = os.path.join(repo, INPUTS_DIR, INPUTS_VP9_WEBM)
+    vp9_parse_ms = []
+    for _ in range(INPUTS_DECODE_REPS):
+        t = time.perf_counter()
+        vp9_track = mkv.open_video(vp9_path)
+        vp9_parse_ms.append(1e3 * (time.perf_counter() - t))
+    vp9_samples = list(mkv.iter_samples(vp9_track))
+    vp9_ms = dict(key=[], inter=[])
+    vp9_info = []
+    for _ in range(INPUTS_DECODE_REPS):
+        decoder = native.Vp9Decoder()
+        for sample in vp9_samples:
+            t = time.perf_counter()
+            decoder.decode(sample)
+            vp9_ms["key" if decoder.info["keyframe"] else "inter"].append(
+                1e3 * (time.perf_counter() - t))
+            vp9_info.append(decoder.info)
+        decoder.close()
+    t = time.perf_counter()
+    vp9_frames = read_video_frames(vp9_path)
+    vp9_read_seconds = time.perf_counter() - t
+    vp9_db = [_psnr(f, g.astype(np.float32) / 255) for f, g in zip(vp9_frames, written)]
+    vp9_cli_seconds, vp9_c, vp9_images, vp9_names, vp9_outs = cli_video(
+        vp9_path, os.path.join(work, "video_vp9"))
+
     # the same models in this process, per pair, on the frames read back
     ada = AdaCoFNet().to(dev).eval()
     ada.load_state_dict(load_adacof_weights(ada_path))
@@ -1220,6 +1320,7 @@ def _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work):
     per_pair = [quantize(f) for f in double_frame_rate(frames, pipe, device=dev)]
     mp4_per_pair = [quantize(f) for f in double_frame_rate(mp4_frames, pipe, device=dev)]
     webm_per_pair = [quantize(f) for f in double_frame_rate(webm_frames, pipe, device=dev)]
+    vp9_per_pair = [quantize(f) for f in double_frame_rate(vp9_frames, pipe, device=dev)]
     del ada, fusion, phase, pipe
     originals = len(outs) == 2 * n - 1 and all(
         np.array_equal(outs[2 * i], quantize(frames[i])) for i in range(n))
@@ -1233,6 +1334,10 @@ def _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work):
         np.array_equal(webm_outs[2 * i], quantize(webm_frames[i])) for i in range(n))
     webm_mid_db = [_psnr(webm_outs[2 * i + 1].astype(np.float64) / 255,
                          webm_per_pair[2 * i + 1].astype(np.float64) / 255) for i in range(n - 1)]
+    vp9_originals = len(vp9_outs) == 2 * n - 1 and all(
+        np.array_equal(vp9_outs[2 * i], quantize(vp9_frames[i])) for i in range(n))
+    vp9_mid_db = [_psnr(vp9_outs[2 * i + 1].astype(np.float64) / 255,
+                        vp9_per_pair[2 * i + 1].astype(np.float64) / 255) for i in range(n - 1)]
     want_images = [2, 4, 2] * (n - 1)
     _line(phase="inputs_video", seconds=t0_mp4 - t0, size=[h, w], frames=n,
           write_seconds=write_seconds, read_seconds=read_seconds,
@@ -1264,6 +1369,18 @@ def _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work):
           k1_paths=webm_c["k1_paths"], k2_launches=webm_c["k2"],
           interpolated_vs_per_pair_db=webm_mid_db, images_to_video_mkv_seconds=mkv_seconds,
           mkv_bytes=os.path.getsize(mkv_path), mkv_recon_equal=mkv_equal)
+    _line(phase="inputs_vp9", seconds=time.perf_counter() - t0_vp9, size=[h, w], frames=n,
+          pins={k: v["equal"] for k, v in pins.items() if k.startswith("vp9_")},
+          webm=INPUTS_VP9_WEBM, webm_bytes=os.path.getsize(vp9_path),
+          frame_bytes=vp9_track.sizes, matroska_parse_ms=float(np.median(vp9_parse_ms)),
+          parse_ms=vp9_parse_ms, vp9_decode_1080p_key_ms=float(np.median(vp9_ms["key"])),
+          vp9_decode_1080p_inter_ms=float(np.median(vp9_ms["inter"])), vp9_decode_ms=vp9_ms,
+          tile_cols_log2=vp9_info[0]["tile_cols_log2"], card=smi,
+          read_seconds=vp9_read_seconds, decoded_vs_written_db=vp9_db, db_floor=INPUTS_VP9_DB,
+          cli_seconds=vp9_cli_seconds, pngs_written=len(vp9_names),
+          originals_exact=vp9_originals, k1_launches=vp9_c["k1"], k1_images=vp9_images,
+          k1_paths=vp9_c["k1_paths"], k2_launches=vp9_c["k2"],
+          interpolated_vs_per_pair_db=vp9_mid_db)
     if frames.shape != (n, h, w, 3) or not np.isfinite(frames).all() or not (
             min(decoded_db) >= INPUTS_JPEG_DB):
         raise AssertionError(f"inputs: the 1080p AVI decodes to {frames.shape}, "
@@ -1306,6 +1423,21 @@ def _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work):
                              f"({webm_c['k1_paths']}), K2 {webm_c['k2']}; expected "
                              f"{want_images}")
 
+    if vp9_frames.shape != (n, h, w, 3) or not np.isfinite(vp9_frames).all() or not (
+            min(vp9_db) >= INPUTS_VP9_DB):
+        raise AssertionError(f"inputs: the 1080p VP9 WebM decodes to {vp9_frames.shape}, "
+                             f"{vp9_db} dB against the pixels written")
+    if len(vp9_names) != 2 * n - 1 or not vp9_originals or not (
+            min(vp9_mid_db) >= PLAIN_AGREEMENT_DB):
+        raise AssertionError(f"inputs: cli video on the VP9 WebM wrote {vp9_names}, originals "
+                             f"exact {vp9_originals}, interpolated frames against per pair "
+                             f"{vp9_mid_db} dB")
+    if vp9_images != want_images or vp9_c["k1_paths"] != {RING_PATH: len(want_images)} or (
+            vp9_c["k2"]):
+        raise AssertionError(f"inputs: cli video on the VP9 WebM: K1 images {vp9_images} "
+                             f"({vp9_c['k1_paths']}), K2 {vp9_c['k2']}; expected "
+                             f"{want_images}")
+
     # (d) the Adam7 and progressive-JPEG frame directories through K1
     t0 = time.perf_counter()
     dirs = {}
@@ -1331,8 +1463,8 @@ def _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work):
                 or d["k1_images"] != want or d["k1_paths"] != {RING_PATH: len(want)}
                 or d["k2_launches"]):
             raise AssertionError(f"inputs: {name} through double_frame_rate: {d}")
-    return cli_c["k1"] + mp4_c["k1"] + webm_c["k1"] + sum(len(d["k1_images"])
-                                                         for d in dirs.values())
+    return cli_c["k1"] + mp4_c["k1"] + webm_c["k1"] + vp9_c["k1"] + sum(
+        len(d["k1_images"]) for d in dirs.values())
 
 
 def phase_train_gan(dev, repo, ada_path):
@@ -1600,12 +1732,14 @@ def _cli(dev, repo, ada_path, fusion_path, pair, clip, work):
         t = time.perf_counter()
         imageio.imwrite(path, u8)
         write_ms.append(1e3 * (time.perf_counter() - t))
-    for path, u8 in frames.items():
+    for i, (path, u8) in enumerate(frames.items()):
         t = time.perf_counter()
         back = imageio.imread(path)
         read_ms.append(1e3 * (time.perf_counter() - t))
         if not np.array_equal(back, u8):
             raise AssertionError(f"cli: {path} does not read back as written")
+        if i >= CLI_ORACLE_FILES:
+            continue
         raw = imageio.read_raw(path)
         t = time.perf_counter()
         oracle = imageio.unfilter_numpy(raw.rows, raw.height, raw.rows.shape[1] - 1, raw.bpp)
@@ -1888,14 +2022,32 @@ print(json.dumps(dict(meta=json.loads(extra["meta.json"]), cuda_initialized=torc
 """
 
 
-def phase_export(dev, repo, ada_path, fusion_path, pair, serve_ms):
-    """`cli export` of fusion at 1080p for cuda, that artifact answering the
-    pair in a fresh process, a ("cpu",) artifact without the package, a
-    port-trained AdaCoF written out as .msgpack and read back, and the
-    profiling utilities on one request; returns the K1 and K2 launches of
-    its runs."""
-    with _work_dir(repo) as work_dir:
-        return _export(dev, repo, ada_path, fusion_path, pair, serve_ms, work_dir)
+def start_export(repo):
+    """`cli export` of fusion at 1080p for cuda, a process of its own started
+    ahead of phase export (it traces on one host core while train_gan and
+    gan_vs_cpu run): the bundled AdaCoF, the demo FusionNet and the seeded
+    PhaseNet, as cli interpolate takes them."""
+    work = _work_dir(repo)
+    phase_pt = _reference_phase_pt(os.path.join(work.name, "phase_net.pt"))
+    artifact = os.path.join(work.name, "fusion_1080p.pt2")
+    t_wall = time.time()
+    proc = _spawn_children([[sys.executable, "-m", "fmvfi_tpu_torch.cli", "export", "--method",
+                             "fusion", "--size", f"{H_FULL}x{W_FULL}", "--platforms", "cuda",
+                             "--out", artifact, "--phase_checkpoint", phase_pt]],
+                           repo, None, work.name, "export")
+    return dict(work=work, proc=proc, t_wall=t_wall, artifact=artifact, phase_pt=phase_pt)
+
+
+def phase_export(dev, repo, ada_path, fusion_path, pair, serve_ms, exporter):
+    """The artifact of `cli export` (start_export) answering the pair in a
+    fresh process, a ("cpu",) artifact without the package, a port-trained
+    AdaCoF written out as .msgpack and read back, and the profiling
+    utilities on one request; returns the K1 and K2 launches of its runs."""
+    try:
+        return _export(dev, repo, ada_path, fusion_path, pair, serve_ms, exporter)
+    finally:
+        _stop_children(exporter["proc"])
+        exporter["work"].cleanup()
 
 
 def _cpu_artifact(work, ada_path):
@@ -1938,7 +2090,7 @@ def _cpu_artifact(work, ada_path):
     return cpu
 
 
-def _export(dev, repo, ada_path, fusion_path, pair, serve_ms, work):
+def _export(dev, repo, ada_path, fusion_path, pair, serve_ms, exporter):
     import torch
     from fmvfi_tpu_torch.eval.synth import translation_triplet
     from fmvfi_tpu_torch.models.adacof import AdaCoFNet
@@ -1964,29 +2116,19 @@ def _export(dev, repo, ada_path, fusion_path, pair, serve_ms, work):
     t0 = time.perf_counter()
     k1 = k2 = 0
     parts = {}  # seconds of each part of the phase
-    phase_pt = _reference_phase_pt(os.path.join(work, "phase_net.pt"))
-    artifact = os.path.join(work, "fusion_1080p.pt2")
-    # cli export, a process of its own: the bundled AdaCoF, the demo
-    # FusionNet and the seeded PhaseNet, as cli interpolate takes them.  It
-    # traces on one host core while this process makes and runs the ("cpu",)
-    # artifact on another
-    t_export = time.perf_counter()
-    exporter = subprocess.Popen(
-        [sys.executable, "-m", "fmvfi_tpu_torch.cli", "export", "--method", "fusion", "--size",
-         f"{H_FULL}x{W_FULL}", "--platforms", "cuda", "--out", artifact, "--phase_checkpoint",
-         phase_pt], cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    try:
-        cpu = _cpu_artifact(work, ada_path)
-        parts["cpu_artifact"] = time.perf_counter() - t_export
-        out, err = exporter.communicate(timeout=600)
-    finally:
-        if exporter.poll() is None:
-            exporter.kill()
-            exporter.wait()
-    export_process_s = time.perf_counter() - t_export
-    if exporter.returncode != 0:
-        raise AssertionError(f"cli export exited {exporter.returncode}: {err[-3000:]}")
-    export_said = out.strip().splitlines()[-1]
+    work, phase_pt, artifact = exporter["work"].name, exporter["phase_pt"], exporter["artifact"]
+    (proc, out, err), = exporter["proc"]
+    proc.wait(timeout=600)
+    out.close()
+    err.close()
+    with open(err.name) as f:
+        if proc.returncode != 0:
+            raise AssertionError(f"cli export exited {proc.returncode}: {f.read()[-3000:]}")
+    with open(out.name) as f:
+        export_said = f.read().strip().splitlines()[-1]
+    # from its start to the artifact written
+    export_process_s = os.path.getmtime(artifact) - exporter["t_wall"]
+    parts["export_wait"] = time.perf_counter() - t0
     artifact_bytes = os.path.getsize(artifact)
 
     # the live request in this process, on the same weights
@@ -2015,19 +2157,21 @@ def _export(dev, repo, ada_path, fusion_path, pair, serve_ms, work):
     live = live[0].cpu().numpy()
     parts["live"] = time.perf_counter() - t
 
-    # the artifact in a fresh process
+    # the artifact in a fresh process, while this process makes and runs the
+    # ("cpu",) artifact
     frames_npz = os.path.join(work, "pair.npz")
     np.savez(frames_npz, f1=pair[0][None].astype(np.float32), f2=pair[1][None].astype(np.float32))
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", _EXPORT_CHILD, artifact, frames_npz,
-                           os.path.join(work, "out.npy")],
-                          cwd=repo, capture_output=True, text=True, timeout=600)
+    loader = _spawn_children([[sys.executable, "-c", _EXPORT_CHILD, artifact, frames_npz,
+                               os.path.join(work, "out.npy")]], repo, None, work, "child")
+    try:
+        cpu = _cpu_artifact(work, ada_path)
+        parts["cpu_artifact"] = time.perf_counter() - t
+        child, = _child_results(loader, "loading the artifact", 600)
+    finally:
+        _stop_children(loader)
     child_process_s = parts["child"] = time.perf_counter() - t
-    if proc.returncode != 0:
-        raise AssertionError(f"loading the artifact exited {proc.returncode}: "
-                             f"{proc.stderr[-3000:]}")
-    child = json.loads(proc.stdout.strip().splitlines()[-1])
     got = np.load(os.path.join(work, "out.npy"))[0]
     k1 += child["k1"]  # the child's four requests, counted together
     artifact_db = _psnr(got, live)
@@ -2314,6 +2458,43 @@ def _free_port():
         return s.getsockname()[1]
 
 
+def _spawn_children(argvs, cwd, env, work, name):
+    """Child processes whose stdout and stderr go to files in `work`, so that
+    this process works on while they run and no pipe fills."""
+    procs = []
+    for i, argv in enumerate(argvs):
+        out = open(os.path.join(work, f"{name}{i}.out"), "w")
+        err = open(os.path.join(work, f"{name}{i}.err"), "w")
+        procs.append((subprocess.Popen(argv, cwd=cwd, env=env, stdout=out, stderr=err), out, err))
+    return procs
+
+
+def _child_results(procs, what, timeout):
+    """Each child's last line of stdout as JSON, once all have exited;
+    AssertionError, with the child's stderr, for one that failed."""
+    deadline = time.monotonic() + timeout
+    results = []
+    for i, (p, out, err) in enumerate(procs):
+        p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+        out.close()
+        err.close()
+        if p.returncode != 0:
+            with open(err.name) as f:
+                raise AssertionError(f"{what} {i}: exit {p.returncode}\n{f.read()[-3000:]}")
+        with open(out.name) as f:
+            results.append(json.loads(f.read().strip().splitlines()[-1]))
+    return results
+
+
+def _stop_children(procs):
+    for p, out, err in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        out.close()
+        err.close()
+
+
 def phase_dp(dev, repo):
     """(a) `cli train --data_parallel` as a 1-process NCCL group against the
     same command without it; (b) two gloo ranks on the one card against
@@ -2329,32 +2510,26 @@ def _dp(dev, repo, work):
     t0 = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=repo)
 
-    def spawn(code, *args):
-        return subprocess.Popen([sys.executable, "-c", code, *args], cwd=repo, env=env,
-                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-
-    def result(proc, what):
-        out, err = proc.communicate(timeout=600)
-        if proc.returncode != 0:
-            raise AssertionError(f"dp {what}: exit {proc.returncode}\n{err[-3000:]}")
-        return json.loads(out.strip().splitlines()[-1])
-
-    # (a): the command with --data_parallel and twice without, three processes
-    # at once (the second plain run reads the card's run-to-run spread)
+    # (a): the command with --data_parallel and twice without (the second
+    # plain run reads the card's run-to-run spread), and (b): the two ranks,
+    # five processes at once
     argv = ["train", "--regime", "adacof", "--steps_per_epoch", str(DP_CLI_STEPS),
             "--batch_size", str(DP_BATCH), "--crop", str(CROP)]
     outs = {k: os.path.join(work, k) for k in ("cli_dp", "cli_plain", "cli_plain_again")}
-    cli_procs = {k: spawn(_DP_CLI_CHILD, *argv, "--out_dir", outs[k],
-                          *(["--data_parallel"] if k == "cli_dp" else [])) for k in outs}
-    cli = {k: result(p, k) for k, p in cli_procs.items()}
-    cli_seconds = time.perf_counter() - t0
-    # (b): the two ranks, alone on the card while their steps are timed
-    t_ranks = time.perf_counter()
     coord = f"localhost:{_free_port()}"
-    rank_procs = [spawn(_DP_RANK_CHILD, coord, str(r), "2", os.path.join(work, f"rank{r}.npz"))
-                  for r in (0, 1)]
-    ranks = [result(p, f"rank {r}") for r, p in enumerate(rank_procs)]
-    ranks_seconds = time.perf_counter() - t_ranks
+    children = [[sys.executable, "-c", _DP_CLI_CHILD, *argv, "--out_dir", outs[k],
+                 *(["--data_parallel"] if k == "cli_dp" else [])] for k in outs]
+    children += [[sys.executable, "-c", _DP_RANK_CHILD, coord, str(r), "2",
+                  os.path.join(work, f"rank{r}.npz")] for r in (0, 1)]
+    procs = _spawn_children(children, repo, env, work, "child")
+    try:
+        results = _child_results(procs[:3], "dp command", 600)
+        cli_seconds = time.perf_counter() - t0
+        ranks = _child_results(procs[3:], "dp rank", 600)
+        ranks_seconds = time.perf_counter() - t0
+    finally:
+        _stop_children(procs)
+    cli = dict(zip(outs, results))
 
     # (b)'s reference: the 1-process steps on the global batch, here, and the
     # same steps with the batch's rows rolled by 1, 2 and 3 (the same math in
@@ -2447,7 +2622,7 @@ def _dp(dev, repo, work):
 
 SPATIAL_R = 48  # the halo warp's clamp at the serve launch
 SPATIAL_WARP_TOL = 1e-6  # the halo warp against K1 on the whole frame (JAX holds it bit-equal)
-SPATIAL_REQUESTS = 2  # timed fusion_spatial_apply requests, after one warm-up
+SPATIAL_REQUESTS = 1  # timed fusion_spatial_apply requests, after one warm-up
 
 
 def _serve_models(dev, repo):
@@ -2598,26 +2773,19 @@ def _spatial(dev, repo, work):
     torch.cuda.empty_cache()
     env = dict(os.environ, PYTHONPATH=repo)
     coord = f"localhost:{_free_port()}"
-    procs = [subprocess.Popen([sys.executable, "-c", _SPATIAL_RANK_CHILD, coord, str(r), repo,
-                               os.path.join(work, f"rank{r}.npz")], cwd=repo, env=env,
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for r in (0, 1)]
-    ranks = []
+    procs = _spawn_children([[sys.executable, "-c", _SPATIAL_RANK_CHILD, coord, str(r), repo,
+                              os.path.join(work, f"rank{r}.npz")] for r in (0, 1)],
+                            repo, env, work, "rank")
     try:
-        for r, p in enumerate(procs):
-            out, err = p.communicate(timeout=600)
-            if p.returncode != 0:
-                raise AssertionError(f"spatial rank {r}: exit {p.returncode}\n{err[-3000:]}")
-            ranks.append(json.loads(out.strip().splitlines()[-1]))
+        # the ranks alone on the card (beside them, the references below
+        # ran out of its memory)
+        ranks = _child_results(procs, "spatial rank", 600)
     finally:
-        for p in procs:
-            p.kill()
+        _stop_children(procs)
     ranks_seconds = time.perf_counter() - t0
-    blocks = [dict(np.load(os.path.join(work, f"rank{r}.npz"))) for r in (0, 1)]
-
     # (a)'s references on the whole frame, here: the plain warp and its
-    # field gradients, and K1 and K2 (the JAX package holds the halo warp
-    # bit-equal to the single-device warp)
+    # field gradients, and K1 and K2 (the JAX package holds the halo
+    # warp bit-equal to the single-device warp)
     x, wgt, a, b, cot = _spatial_warp_case(dev)
     xp = pad_replicate(x, 2)
     fields = [t.requires_grad_() for t in (wgt, a, b)]
@@ -2627,8 +2795,32 @@ def _spatial(dev, repo, work):
     del whole, fields
     with torch.no_grad():
         refs["plain"] = [warp_plain(xp, wgt, a, b, 1, SPATIAL_R)]
-    refs["plain"] += adacof_warp_field_grads(xp, wgt.detach(), a.detach(), b.detach(), cot, 1,
-                                             SPATIAL_R)
+    refs["plain"] += adacof_warp_field_grads(xp, wgt.detach(), a.detach(), b.detach(), cot,
+                                             1, SPATIAL_R)
+    del x, xp, wgt, a, b, cot
+
+    # (c): fusion_spatial_apply on a 1-process NCCL group and
+    # fusion_interpolate on the card; (b)'s reference: fusion_interpolate
+    # with the plain warp
+    models = _serve_models(dev, repo)
+    requests = _spatial_requests()
+    if dist.is_initialized():
+        raise AssertionError("spatial: a process group already exists in the smoke's "
+                             "process")
+    distributed.initialize(backend="nccl")
+    try:
+        mesh = make_mesh(1, ("data", "spatial"), (1, 1))
+        one = spatial.fusion_spatial_apply(models, mesh, device=dev)(
+            requests[0][0][None], requests[0][1][None]).gather()
+    finally:
+        dist.destroy_process_group()
+    one_bit_equal = bool(torch.equal(one, fusion_interpolate(
+        models, requests[0][0][None], requests[0][1][None], device=dev)))
+    models.adacof.warp = warp_plain
+    single = [fusion_interpolate(models, f1[None], f2[None], device=dev)[0].cpu().numpy()
+              for f1, f2 in requests]
+    del models, one
+    blocks = [dict(np.load(os.path.join(work, f"rank{r}.npz"))) for r in (0, 1)]
     warp_diff = {k: 0.0 for k in refs}
     grad_diff = {k: 0.0 for k in refs}
     for rec, blk in zip(ranks, blocks):
@@ -2638,33 +2830,11 @@ def _spatial(dev, repo, work):
             warp_diff[k] = max(warp_diff[k], float((got[0] - ref[0][:, :, rows]).abs().max()))
             for g, want in zip(got[1:], ref[1:]):
                 grad_diff[k] = max(grad_diff[k], float((g - want[:, :, rows]).abs().max()))
-    del x, xp, wgt, a, b, cot, refs, got
-    torch.cuda.empty_cache()
-
-    # (c): fusion_spatial_apply on a 1-process NCCL group and
-    # fusion_interpolate on the card; (b)'s reference: fusion_interpolate
-    # with the plain warp
-    models = _serve_models(dev, repo)
-    requests = _spatial_requests()
-    if dist.is_initialized():
-        raise AssertionError("spatial: a process group already exists in the smoke's process")
-    distributed.initialize(backend="nccl")
-    try:
-        mesh = make_mesh(1, ("data", "spatial"), (1, 1))
-        one = spatial.fusion_spatial_apply(models, mesh, device=dev)(
-            requests[0][0][None], requests[0][1][None]).gather()
-    finally:
-        dist.destroy_process_group()
-    one_bit_equal = bool(torch.equal(one, fusion_interpolate(models, requests[0][0][None],
-                                                             requests[0][1][None], device=dev)))
-    models.adacof.warp = warp_plain
-    single = [fusion_interpolate(models, f1[None], f2[None], device=dev)[0].cpu().numpy()
-              for f1, f2 in requests]
+    del refs, got
     psnr = {rec["rank"]: [_psnr(blk[f"fused{i}"], single[i]) for i in range(len(requests))]
             for rec, blk in zip(ranks, blocks)}
     ranks_equal = all(np.array_equal(blocks[0][f"fused{i}"], blocks[1][f"fused{i}"])
                       for i in range(len(requests)))
-    del models
     torch.cuda.empty_cache()
 
     _line(phase="spatial", seconds=time.perf_counter() - t0, ranks_seconds=ranks_seconds,
@@ -2714,9 +2884,9 @@ def _spatial(dev, repo, work):
     return k1, k2
 
 
-SPATIAL_TRAIN_STEPS = 5  # timed steps of regimes (a) and (b), after one warm-up
-SPATIAL_TRAIN_FULL_STEPS = 2  # timed 1080p fusion steps (c), after one warm-up
-SPATIAL_TRAIN_GAN_STEPS = 2  # timed adversarial steps (d), after the compared first one
+SPATIAL_TRAIN_STEPS = 2  # timed steps of regimes (a) and (b), after one warm-up
+SPATIAL_TRAIN_FULL_STEPS = 1  # timed 1080p fusion steps (c), after one warm-up
+SPATIAL_TRAIN_GAN_STEPS = 1  # timed adversarial steps (d), after the compared first one
 SPATIAL_LOSS_TOL = 1e-5  # relative: a first step's loss on 2 ranks against one process
 SPATIAL_GRAD_TOL = 2e-4  # of each tensor's largest: the first step's gradient, the same
 # FusionNet's gradient on the ranks' own inputs to it against one process's
@@ -2966,32 +3136,25 @@ def _spatial_train(dev, repo, work):
     vgg_path = _seeded_vgg16(os.path.join(work, "vgg16.pth"))
     env = dict(os.environ, PYTHONPATH=repo)
     coord = f"localhost:{_free_port()}"
-    procs = [subprocess.Popen([sys.executable, "-c", _SPATIAL_TRAIN_RANK_CHILD, coord, str(r),
-                               repo, os.path.join(work, f"rank{r}.npz"), vgg_path], cwd=repo,
-                              env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for r in (0, 1)]
-    ranks = []
+    procs = _spawn_children([[sys.executable, "-c", _SPATIAL_TRAIN_RANK_CHILD, coord, str(r),
+                              repo, os.path.join(work, f"rank{r}.npz"), vgg_path]
+                             for r in (0, 1)], repo, env, work, "rank")
     try:
-        for r, p in enumerate(procs):
-            out, err = p.communicate(timeout=900)
-            if p.returncode != 0:
-                raise AssertionError(f"spatial_train rank {r}: exit {p.returncode}\n{err[-3000:]}")
-            ranks.append(json.loads(out.strip().splitlines()[-1]))
+        # the one-process references, here while the ranks run: each
+        # regime's steps, and its first step once more (the card's own
+        # run-to-run spread)
+        one, again, one_grads, again_grads = {}, {}, {}, {}
+        for regime in SPATIAL_TRAIN_REGIMES:
+            one[regime], one_grads[regime], _ = _spatial_train_run(regime, dev, repo,
+                                                                   vgg_path=vgg_path)
+            if regime != "fusion_1080p":
+                again[regime], again_grads[regime], _ = _spatial_train_run(
+                    regime, dev, repo, vgg_path=vgg_path, steps=1)
+        ranks = _child_results(procs, "spatial_train rank", 900)
     finally:
-        for p in procs:
-            p.kill()
+        _stop_children(procs)
     ranks_seconds = time.perf_counter() - t0
     blocks = [dict(np.load(os.path.join(work, f"rank{r}.npz"))) for r in (0, 1)]
-
-    # the one-process references: each regime's steps here, and its first
-    # step once more (the card's own run-to-run spread)
-    one, again, one_grads, again_grads = {}, {}, {}, {}
-    for regime in SPATIAL_TRAIN_REGIMES:
-        one[regime], one_grads[regime], _ = _spatial_train_run(regime, dev, repo,
-                                                               vgg_path=vgg_path)
-        if regime != "fusion_1080p":
-            again[regime], again_grads[regime], _ = _spatial_train_run(
-                regime, dev, repo, vgg_path=vgg_path, steps=1)
     shared, input_gaps = _fusion_grads_on(blocks, dev, repo)
 
     def grad_gap(got, want):
@@ -4104,20 +4267,26 @@ def main() -> int:
                                (requests[0][0], requests[0][2]), clip)
     del clip
 
-    # export: the fused pipeline as a torch.export artifact for the card,
-    # loaded in a fresh process; a port-trained AdaCoF written out; the
-    # profiling utilities on one request
+    # train_gan: AdaCoF training with the VGG and adversarial terms; each
+    # adversarial step on the card against the CPU; the native loader; and
+    # beside them `cli export`'s process.  Then export: its artifact loaded
+    # in a fresh process; a port-trained AdaCoF written out; the profiling
+    # utilities on one request
     torch.cuda.empty_cache()
+    exporter = start_export(repo)
+    try:
+        gan_k1, gan_k2, gan_types_k1, gan_types_k2 = phase_train_gan(dev, repo, ada_path)
+        phase_gan_vs_cpu(dev)
+        phase_native()
+        torch.cuda.empty_cache()
+    except BaseException:
+        _stop_children(exporter["proc"])
+        exporter["work"].cleanup()
+        raise
     export_k1, export_k2 = phase_export(dev, repo, ada_path, fusion_path,
                                         (requests[0][0], requests[0][2]),
-                                        float(np.mean(lat_ms[1:])))
+                                        float(np.mean(lat_ms[1:])), exporter)
     del requests
-
-    # train_gan: AdaCoF training with the VGG and adversarial terms; each
-    # adversarial step on the card against the CPU; the native loader
-    gan_k1, gan_k2, gan_types_k1, gan_types_k2 = phase_train_gan(dev, repo, ada_path)
-    phase_gan_vs_cpu(dev)
-    phase_native()
     dp_k1, dp_k2 = phase_dp(dev, repo)
     spatial_k1, spatial_k2 = phase_spatial(dev, repo)
     spatial_train_k1, spatial_train_k2 = phase_spatial_train(dev, repo)

@@ -7,10 +7,12 @@ utils/avi.py), which shares jpeg.cpp's entropy decoder through
 jpeg_common.h, and the MPEG-4 Part 2 decoder of mpeg4.cpp and encoder of
 mpeg4_enc.cpp (for utils/mp4.py and utils/avi.py), which share FFmpeg's
 IDCT and swscale's conversion with mjpeg.cpp through ffmpeg_common.h, and
-the VP8 decoder of vp8.cpp (for utils/mkv.py), on the same conversion.
+the VP8 decoder of vp8.cpp (for utils/mkv.py) and the VP9 decoder of vp9.cpp
+(for utils/mkv.py, mp4.py and avi.py), on the same conversion.
 
 The library is built at first use, never at import, with `g++ -O3
--march=native -fPIC -shared -pthread`, into `build/fmvfi_tpu_torch/` at the
+-march=native -fPIC -pthread` a source (all at once) and a `-shared` link,
+into `build/fmvfi_tpu_torch/` at the
 repository root (git-ignored) under a name keyed by a hash of the source
 and flags; a second run with the same source loads the existing library.
 This is host code: the crop, flips, time reversal, uint8 -> float32 and the
@@ -45,8 +47,9 @@ JPEG_ENC_SOURCE = Path(__file__).resolve().parent / "jpeg_enc.cpp"
 MJPEG_SOURCE = Path(__file__).resolve().parent / "mjpeg.cpp"
 MPEG4_SOURCES = tuple(Path(__file__).resolve().parent / f for f in ("mpeg4.cpp", "mpeg4_enc.cpp"))
 VP8_SOURCE = Path(__file__).resolve().parent / "vp8.cpp"
+VP9_SOURCE = Path(__file__).resolve().parent / "vp9.cpp"
 HEADERS = tuple(Path(__file__).resolve().parent / h
-                for h in ("jpeg_common.h", "ffmpeg_common.h", "mpeg4.h"))
+                for h in ("jpeg_common.h", "ffmpeg_common.h", "mpeg4.h", "vpx_rac.h"))
 FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-pthread")
 
 _lock = threading.Lock()
@@ -62,7 +65,7 @@ _I64 = ctypes.c_int64
 
 def _sources() -> Tuple[Path, ...]:
     return (SOURCE, PNG_SOURCE, JPEG_SOURCE, JPEG_ENC_SOURCE, MJPEG_SOURCE) + MPEG4_SOURCES + (
-        VP8_SOURCE,)
+        VP8_SOURCE, VP9_SOURCE)
 
 
 def library_path() -> Path:
@@ -74,14 +77,31 @@ def library_path() -> Path:
 
 def _build(path: Path) -> None:
     """Compile the sources into `path` through a private temporary name, so
-    a reader never sees half a library."""
+    a reader never sees half a library: one g++ a source, all started
+    together, then the link."""
     global build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
+    compile_flags = [f for f in FLAGS if f != "-shared"]
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, f"{src.stem}.o") for src in _sources()]
+        cmds = [["g++", *compile_flags, "-c", "-o", obj, str(src)]
+                for src, obj in zip(_sources(), objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for cmd in cmds]
+        try:
+            for cmd, proc in zip(cmds, procs):
+                _, err = proc.communicate(timeout=300)
+                if proc.returncode:
+                    raise subprocess.CalledProcessError(proc.returncode, cmd, stderr=err)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
         out = os.path.join(tmp, path.name)
-        subprocess.run(["g++", *FLAGS, "-o", out, *map(str, _sources())], check=True,
-                       capture_output=True, text=True, timeout=300)
+        subprocess.run(["g++", *FLAGS, "-o", out, *objs], check=True, capture_output=True,
+                       text=True, timeout=300)
         os.replace(out, path)
     build_seconds = time.perf_counter() - t0
 
@@ -123,6 +143,7 @@ def library() -> ctypes.CDLL:
                 lib.fmvfi_jpeg_encode.restype = _I64
                 _bind_mpeg4(lib)
                 _bind_vp8(lib)
+                _bind_vp9(lib)
                 _lib = lib
                 return _lib
         raise RuntimeError(f"the native library is unavailable: {_error}")
@@ -313,6 +334,17 @@ def _bind_vp8(lib: ctypes.CDLL) -> None:
     lib.fmvfi_vp8_close.argtypes = [_VP]
 
 
+def _bind_vp9(lib: ctypes.CDLL) -> None:
+    lib.fmvfi_vp9_open.argtypes = [ctypes.c_char_p, _I32, ctypes.POINTER(_I32)]
+    lib.fmvfi_vp9_open.restype = _VP
+    lib.fmvfi_vp9_decode.argtypes = [_VP, _VP, _I64, _VP, ctypes.c_char_p, _I32]
+    lib.fmvfi_vp9_decode.restype = _I32
+    for fn in (lib.fmvfi_vp9_frame, lib.fmvfi_vp9_close):
+        fn.restype = None
+    lib.fmvfi_vp9_frame.argtypes = [_VP, _I32, _VP]
+    lib.fmvfi_vp9_close.argtypes = [_VP]
+
+
 def _fourcc_int(fourcc: bytes) -> int:
     return int.from_bytes(fourcc.ljust(4, b"\0")[:4], "little") if fourcc else 0
 
@@ -471,6 +503,67 @@ class Vp8Decoder:
     def close(self) -> None:
         if self._h:
             self._lib.fmvfi_vp8_close(self._h)
+            self._h = None
+
+    def __del__(self):
+        self.close()
+
+
+# vp9.cpp's feature bits (Vp9Decoder.info["features"]): what a packet's
+# frames use
+VP9_FEATURES = dict(
+    superframe=1, hidden=2, show_existing=4, compound=8, tile_cols=16, tile_rows=32, lossless=64,
+    segmentation=128, seg_temporal=256, error_resilient=512, frame_parallel=1024, sharpness=2048,
+    switchable=4096, tx_select=8192, sub8x8_inter=16384, tx32=32768, high_precision_mv=65536,
+    smooth=1 << 17, sharp=1 << 18, bilinear=1 << 19, seg_feature=1 << 21, prev_mvs=1 << 22,
+    full_range=1 << 23, intra_in_inter=1 << 24, golden_altref=1 << 25, adapt=1 << 26,
+    context_reset=1 << 27)
+
+
+class Vp9Decoder:
+    """A VP9 video stream decoded as cv2.VideoCapture decodes it (FFmpeg's
+    vp9 decoder and swscale's conversion to BGR24, vp9.cpp):
+    `decode(packet)` takes one container packet (a frame, or a superframe of
+    several) and returns the pictures it shows, each (H, W, 3) uint8 RGB: none
+    for a hidden frame, the reference it names for a show_existing_frame.
+    After each call `info` holds the packet's facts (the last shown frame's
+    size, the profile, chroma subsampling, colour space and range, tile
+    columns and rows as log2, key frame, vp9.cpp's feature bits:
+    VP9_FEATURES).  Raises NotImplementedError for what vp9.cpp refuses
+    (profiles 2 and 3, reference scaling, intra-only frames, the sRGB colour
+    space) and ValueError for malformed data, each with the reason."""
+
+    INFO = ("frames", "width", "height", "profile", "ss_x", "ss_y", "color_space", "color_range",
+            "tile_cols_log2", "tile_rows_log2", "keyframe", "features")
+
+    def __init__(self):
+        lib = library()
+        self._lib = lib
+        self._msg = ctypes.create_string_buffer(256)
+        code = _I32(0)
+        self._h = lib.fmvfi_vp9_open(self._msg, len(self._msg), ctypes.byref(code))
+        if not self._h:
+            raise _JPEG_ERRORS[code.value](self._msg.value.decode("ascii", "replace"))
+        self._info = np.zeros(len(self.INFO), np.int32)
+        self.info = {}
+
+    def decode(self, packet: bytes) -> list:
+        buf = np.frombuffer(packet, np.uint8)
+        code = self._lib.fmvfi_vp9_decode(self._h, buf.ctypes.data, buf.size,
+                                          self._info.ctypes.data, self._msg, len(self._msg))
+        if code:
+            raise _JPEG_ERRORS[code](self._msg.value.decode("ascii", "replace"))
+        self.info = dict(zip(self.INFO, (int(v) for v in self._info)))
+        frames = []
+        for i in range(self.info["frames"]):
+            out = np.empty((self.info["height"], self.info["width"], 3), np.uint8)
+            self._lib.fmvfi_vp9_frame(self._h, i, out.ctypes.data)
+            frames.append(out)
+        return frames
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.fmvfi_vp9_close(self._h)
             self._h = None
 
     def __del__(self):

@@ -299,8 +299,9 @@ inline Filter chroma_filter(int src, int dst, int subsampled, int align, int one
                        local_pos(dst_sub));
 }
 
-// sws_setColorspaceDetails' coefficients for BT.601 (ff_yuv2rgb_coeffs'
-// default row), contrast and saturation 1, brightness 0
+// sws_setColorspaceDetails' coefficients (a row of ff_yuv2rgb_coeffs: crv,
+// cbu, cgu, cgv; BT.601 by default), contrast and saturation 1,
+// brightness 0
 struct Coeffs {
     // the SIMD and MMX converters: 2^13-scaled, used through pmulhw
     int y, oy8, vr, ug, vg, ub;
@@ -316,8 +317,14 @@ inline int round_to_int16(int64_t f) {
     return static_cast<int>(r < -0x7FFF ? -0x8000 : (r > 0x7FFF ? 0x7FFF : r));
 }
 
-inline Coeffs coeffs(bool full_range) {
-    int64_t crv = 104597, cbu = 132201, cgu = -25675, cgv = -53279;
+// ff_yuv2rgb_coeffs' rows for the matrices swscale tells apart
+const int32_t BT601[4] = {104597, 132201, 25675, 53279};
+const int32_t BT709[4] = {117489, 138438, 13975, 34925};
+const int32_t SMPTE240M[4] = {117579, 136230, 16907, 35559};
+const int32_t BT2020[4] = {110013, 140363, 12277, 42626};
+
+inline Coeffs coeffs(bool full_range, const int32_t* matrix = BT601) {
+    int64_t crv = matrix[0], cbu = matrix[1], cgu = -int64_t(matrix[2]), cgv = -int64_t(matrix[3]);
     int64_t cy = 1 << 16, oy = 0;
     if (!full_range) {
         cy = cy * 255 / 219;
@@ -408,7 +415,7 @@ inline std::vector<int32_t> hscale(const Plane& p, const Filter& f, int dst) {
 // swscale (-513: the centre, its default and Motion-JPEG's; 0: left, MPEG-4
 // Part 2's AVCHROMA_LOC_LEFT), which only the filtering routes read.
 inline void yuv_to_rgb(int w, int h, int ncomp, int rx, int ry, const Plane* pl, bool full_range,
-                       uint8_t* out, int chroma_h_pos = -513) {
+                       uint8_t* out, int chroma_h_pos = -513, const int32_t* matrix = BT601) {
     const Plane& Y = pl[0];
     if (ncomp == 1) {
         for (int y = 0; y < h; ++y)
@@ -418,7 +425,7 @@ inline void yuv_to_rgb(int w, int h, int ncomp, int rx, int ry, const Plane* pl,
             }
         return;
     }
-    const Coeffs k = coeffs(full_range);
+    const Coeffs k = coeffs(full_range, matrix);
     const Plane &U = pl[1], &V = pl[2];
     if (rx == 2 && h % 2 == 0) {  // the unscaled SIMD converter
         for (int y = 0; y < h; ++y) {
@@ -432,7 +439,7 @@ inline void yuv_to_rgb(int w, int h, int ncomp, int rx, int ry, const Plane* pl,
         return;
     }
     const Filter vf = chroma_filter(U.h, h, ry - 1, 2, 1 << 12);
-    if (rx == 1 || w % 2 == 1) {  // full chroma: resampled to w x h, then write_full
+    if ((rx == 1 && ry == 1) || w % 2 == 1) {  // full chroma: resampled to w x h, then write_full
         const Filter hf = chroma_filter(U.w, w, rx - 1, 4, 1 << 14, chroma_h_pos);
         const std::vector<int32_t> u15 = hscale(U, hf, w), v15 = hscale(V, hf, w);
         for (int y = 0; y < h; ++y) {
@@ -454,9 +461,10 @@ inline void yuv_to_rgb(int w, int h, int ncomp, int rx, int ry, const Plane* pl,
         return;
     }
     // chroma at half width (through the horizontal scaler: one tap, unless
-    // the siting moves it), filtered vertically: MMX rows, then two C rows
-    const int cw = U.w;
-    const Filter hf = chroma_filter(cw, cw, 1, 4, 1 << 14, chroma_h_pos, 1);
+    // the siting moves it; 4:4:0 chroma halved), filtered vertically: MMX
+    // rows, then two C rows
+    const int cw = (w + 1) >> 1;
+    const Filter hf = chroma_filter(U.w, cw, rx - 1, 4, 1 << 14, chroma_h_pos, 1);
     const std::vector<int32_t> u15 = hscale(U, hf, cw), v15 = hscale(V, hf, cw);
     std::vector<int> uc(cw), vc(cw);
     for (int y = 0; y < h; ++y) {

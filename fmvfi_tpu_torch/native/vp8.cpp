@@ -59,6 +59,7 @@
 
 #include "ffmpeg_common.h"
 #include "jpeg_common.h"
+#include "vpx_rac.h"
 
 namespace {
 
@@ -67,6 +68,7 @@ using fmvfi_jpeg::Error;
 using fmvfi_jpeg::fail;
 using fmvfi_jpeg::OK;
 using fmvfi_jpeg::UNSUPPORTED;
+using fmvfi_vpx::RangeCoder;
 
 // The probability tables, copied from libvpx (cv2's bundled libvpx, found by
 // byte search: vp8_kf_bmode_prob, vp8_default_coef_probs,
@@ -403,64 +405,6 @@ inline uint8_t clip8(int v) { return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ?
 inline int clip_int8(int v) { return v < -128 ? -128 : (v > 127 ? 127 : v); }
 inline int clip_uint7(int v) { return v < 0 ? 0 : (v > 127 ? 127 : v); }
 inline int clip_uint6(int v) { return v < 0 ? 0 : (v > 63 ? 63 : v); }
-
-// FFmpeg's VPXRangeCoder (vpx_rac.h): a 24-bit window refilled 16 bits at
-// a time; the data is padded with zeros, which is what it reads past the end
-class RangeCoder {
-  public:
-    void init(const uint8_t* buf, int size) {
-        if (size < 1) fail(CORRUPT, "an empty partition");
-        end_ = buf + size;
-        high_ = 255;
-        bits_ = -16;
-        code_ = uint32_t(buf[0]) << 16 | uint32_t(buf[1]) << 8 | buf[2];
-        buf_ = buf + 3;
-        end_reached_ = 0;
-    }
-    int get(int prob) {
-        const int shift = __builtin_clz(uint32_t(high_)) - 24;
-        high_ <<= shift;
-        code_ <<= shift;
-        bits_ += shift;
-        if (bits_ >= 0 && buf_ < end_) {
-            code_ |= (uint32_t(buf_[0]) << 8 | buf_[1]) << bits_;
-            buf_ += 2;
-            bits_ -= 16;
-        }
-        const uint32_t low = 1 + (((high_ - 1) * uint32_t(prob)) >> 8);
-        const uint32_t low_shift = low << 16;
-        const int bit = code_ >= low_shift;
-        if (bit) {
-            high_ -= low;
-            code_ -= low_shift;
-        } else {
-            high_ = low;
-        }
-        return bit;
-    }
-    int bit() { return get(128); }
-    int uint(int n) {
-        int v = 0;
-        while (n--) v = (v << 1) | bit();
-        return v;
-    }
-    int sint(int n) {  // vp8_rac_get_sint: a flag, the magnitude, the sign
-        if (!bit()) return 0;
-        const int v = uint(n);
-        return bit() ? -v : v;
-    }
-    // vpx_rac_is_end: true once the end was seen at more than ten checks
-    bool is_end() {
-        if (end_ <= buf_ && bits_ >= 0) ++end_reached_;
-        return end_reached_ > 10;
-    }
-
-  private:
-    const uint8_t* buf_ = nullptr;
-    const uint8_t* end_ = nullptr;
-    uint32_t high_ = 255, code_ = 0;
-    int bits_ = 0, end_reached_ = 0;
-};
 
 struct Probs {
     uint8_t segment[3] = {255, 255, 255};

@@ -9,14 +9,14 @@ results come down into pinned memory, both copied asynchronously, so the
 host waits only for a finished result: pair i+1's work is queued on the card
 before the host waits for pair i's.  Video files are read when they hold
 Motion-JPEG (AVI, utils/avi.py), MPEG-4 Part 2 (AVI, or MP4 / M4V / MOV
-through utils/mp4.py) or VP8 (utils/mkv.py: Matroska and WebM, which also
-carry Motion-JPEG and MPEG-4 Part 2), each frame decoded as
-cv2.VideoCapture decodes it (FFmpeg's decoders and swscale's conversion,
-native/mjpeg.cpp, native/mpeg4.cpp and native/vp8.cpp, an MP4 track's
-rotation applied as cv2 applies it); the container is told from the file's
-bytes, as FFmpeg probes it.  Other codecs and containers (H.264, HEVC, VP9,
-AV1; FLV, Ogg, ...) raise NotImplementedError: the card's machine has no
-decoder for them (ROADMAP Queue 1, item 18.4).
+through utils/mp4.py), VP8 (utils/mkv.py: Matroska and WebM, which also
+carry Motion-JPEG and MPEG-4 Part 2) or VP9 (WebM, Matroska, MP4 and AVI),
+each frame decoded as cv2.VideoCapture decodes it (FFmpeg's decoders and
+swscale's conversion, native/mjpeg.cpp, native/mpeg4.cpp, native/vp8.cpp
+and native/vp9.cpp, an MP4 track's rotation applied as cv2 applies it); the
+container is told from the file's bytes, as FFmpeg probes it.  Other codecs
+and containers (H.264, HEVC, AV1; FLV, Ogg, ...) raise NotImplementedError:
+the card's machine has no decoder for them (ROADMAP Queue 1, item 18.4).
 """
 
 from __future__ import annotations
@@ -59,8 +59,9 @@ OTHER_CONTAINERS = ((b"FLV", "an FLV file"), (b"OggS", "an Ogg file"),
 def _no_decoder(path: str, what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{path}: {what}; reading it needs a decoder the card's machine lacks (ROADMAP Queue 1, "
-        "item 18.4); pass a Motion-JPEG or MPEG-4 Part 2 (mp4v) AVI, MP4 or MOV file, an .mkv "
-        "or .webm file of VP8, Motion-JPEG or mp4v video, or a directory of PNG or JPEG frames")
+        "item 18.4); pass a Motion-JPEG, MPEG-4 Part 2 (mp4v) or VP9 AVI, an mp4v or VP9 MP4, "
+        "an mp4v MOV file, an .mkv or .webm file of VP8, VP9, Motion-JPEG or mp4v video, or a "
+        "directory of PNG or JPEG frames")
 
 
 def _container(path: str) -> str:
@@ -95,9 +96,11 @@ def _as_refusal(path: str, where: str, e: Exception) -> Exception:
 
 def _iter_decoded(path: str) -> Iterator[np.ndarray]:
     """A video file's frames as cv2.VideoCapture returns them, (H, W, 3)
-    uint8 RGB: Motion-JPEG or MPEG-4 Part 2 in AVI, MPEG-4 Part 2 in MP4,
-    M4V or MOV (turned by the track's display matrix), VP8, Motion-JPEG or
-    MPEG-4 Part 2 in Matroska or WebM."""
+    uint8 RGB: Motion-JPEG, MPEG-4 Part 2 or VP9 in AVI, MPEG-4 Part 2 in
+    MP4, M4V or MOV and VP9 in MP4 (turned by the track's display matrix),
+    VP8, VP9, Motion-JPEG or MPEG-4 Part 2 in Matroska or WebM.  A VP9
+    packet yields the frames it shows: none for a hidden frame, two for a
+    superframe showing two."""
     rotation = 0
     try:
         container = _container(path)
@@ -112,12 +115,17 @@ def _iter_decoded(path: str) -> Iterator[np.ndarray]:
             samples = avi.iter_frames(stream)
             if stream.codec == "mjpeg":
                 decode = native.mjpeg_decode
+            elif stream.codec == "vp9":
+                decode = native.Vp9Decoder().decode
             else:
                 decode = native.Mpeg4Decoder(fourcc=stream.strf["compression"]).decode
         else:
             track = mp4.open_video(path)
             samples, rotation = mp4.iter_samples(track), track.rotation
-            decode = native.Mpeg4Decoder(track.config).decode
+            if track.codec == b"vp09":
+                decode = native.Vp9Decoder().decode
+            else:
+                decode = native.Mpeg4Decoder(track.config).decode
     except (ValueError, NotImplementedError) as e:
         if "18.4" in str(e) or str(e).startswith(("no frames decoded", path)):
             raise
@@ -127,8 +135,10 @@ def _iter_decoded(path: str) -> Iterator[np.ndarray]:
             frame = decode(data)
         except (ValueError, NotImplementedError) as e:
             raise _as_refusal(path, f"frame {i}: ", e) from None
-        if frame is not None:  # not for a packet of headers or a not-coded VOP
-            yield mp4.rotate(frame, rotation)
+        if frame is None:  # a packet of headers or a not-coded VOP
+            continue
+        for f in frame if isinstance(frame, list) else [frame]:  # VP9: the frames it shows
+            yield mp4.rotate(f, rotation)
 
 
 def iter_video_frames(path: str, resize=None) -> Iterator[np.ndarray]:

@@ -29,13 +29,15 @@ The reader takes what cv2.VideoWriter(..., "MJPG", ...) writes (FFmpeg's
 muxer: JUNK chunks, an INFO list, idx1) and what MjpgWriter writes, and
 also 'rec ' lists, files without an index, '##db' chunks and OpenDML's
 'AVIX' extensions: `open_video` parses the headers and picks the first
-video stream, which must be Motion-JPEG or MPEG-4 Part 2 (by the strf
-compression FourCC, as FFmpeg's demuxer picks the codec;
-NotImplementedError otherwise, naming the FourCC and ROADMAP item 18.4),
+video stream, which must be Motion-JPEG, MPEG-4 Part 2 or VP9 (VP90, what
+cv2.VideoWriter(..., "VP90", ...) writes; by the strf compression FourCC,
+as FFmpeg's demuxer picks the codec; NotImplementedError otherwise, naming
+the FourCC and ROADMAP item 18.4),
 `iter_frames` streams its frames' bytes from the 'movi' lists in file
 order, and `read` returns the headers, the idx1 index and every frame.
-pipeline/video.py decodes the frames with native.mjpeg_decode or
-native.Mpeg4Decoder, as cv2.VideoCapture decodes them.
+pipeline/video.py decodes the frames with native.mjpeg_decode,
+native.Mpeg4Decoder or native.Vp9Decoder, as cv2.VideoCapture decodes
+them.
 """
 
 from __future__ import annotations
@@ -165,14 +167,17 @@ def _list(kind: bytes, body: bytes) -> bytes:
 MJPEG_FOURCCS = (b"MJPG", b"AVI1", b"JPEG")  # FourCCs FFmpeg reads as Motion-JPEG
 # FourCCs FFmpeg reads as MPEG-4 Part 2 (upper-cased, as its decoder reads the tag)
 MPEG4_FOURCCS = (b"MP4V", b"FMP4", b"XVID", b"DIVX", b"DX50")
-CODECS = {**{f: "mjpeg" for f in MJPEG_FOURCCS}, **{f: "mpeg4" for f in MPEG4_FOURCCS}}
+VP9_FOURCCS = (b"VP90",)  # what cv2.VideoWriter(..., "VP90", ...) stores
+CODECS = {**{f: "mjpeg" for f in MJPEG_FOURCCS}, **{f: "mpeg4" for f in MPEG4_FOURCCS},
+          **{f: "vp9" for f in VP9_FOURCCS}}
 
 
 def _unsupported(path: str, what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{path}: {what}; the port reads Motion-JPEG and MPEG-4 Part 2 (mp4v) AVI files, mp4v "
-        "MP4 / MOV files and .mkv / .webm files of VP8, Motion-JPEG or mp4v video (ROADMAP "
-        "Queue 1, item 18.4: other codecs need a video decoder the card's machine lacks)")
+        f"{path}: {what}; the port reads Motion-JPEG, MPEG-4 Part 2 (mp4v) and VP9 AVI files, "
+        "mp4v and VP9 MP4 files, mp4v MOV files and .mkv / .webm files of VP8, VP9, Motion-JPEG "
+        "or mp4v video (ROADMAP Queue 1, item 18.4: other codecs need a video decoder the card's "
+        "machine lacks)")
 
 
 def _walk(f, start: int, end: int):
@@ -220,7 +225,7 @@ def _strf(body: bytes) -> Dict[str, object]:
 class VideoStream(NamedTuple):
     """An AVI file's first video stream: the file's main header, the
     stream's headers, its number (its frames are the '<nn>dc' and '<nn>db'
-    chunks) and its codec ("mjpeg" or "mpeg4")."""
+    chunks) and its codec ("mjpeg", "mpeg4" or "vp9")."""
 
     path: str
     avih: Dict[str, int]
@@ -264,8 +269,8 @@ def open_video(path) -> VideoStream:
         codec = CODECS.get(strf["compression"].upper())  # FFmpeg's choice: strh's handler
         if codec is None:                                  # is not read for it
             raise _unsupported(path, f"a video stream whose strf compression is "
-                                     f"{strf['compression'].decode('latin-1')!r}, not MJPG or "
-                                     "an MPEG-4 Part 2 FourCC")
+                                     f"{strf['compression'].decode('latin-1')!r}, not MJPG, "
+                                     "VP90 or an MPEG-4 Part 2 FourCC")
         return VideoStream(path, avih, strh, strf, number, codec)
     raise ValueError(f"{path}: no video stream")
 

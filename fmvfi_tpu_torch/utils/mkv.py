@@ -10,16 +10,17 @@ Attachments; a Segment or Cluster of unknown size (what a browser's
 MediaRecorder writes) ends where the file or the next top-level element
 begins.  The first video track is read, as OpenCV's FFmpeg backend picks
 it; the blocks of other tracks (an interleaved audio track) are skipped.
-Its CodecID names the decoder: `V_VP8` (native/vp8.cpp), `V_MJPEG`
-(native/mjpeg.cpp) and `V_MPEG4/ISO/ASP` with its CodecPrivate VOL
-(native/mpeg4.cpp), what cv2.VideoWriter stores for the FourCCs VP80,
-MJPG, mp4v and XVID.  What the port cannot decode as cv2 does raises
-NotImplementedError naming it and ROADMAP item 18.4: any other CodecID
-(`V_VP9`, `V_AV1`, `V_MPEG4/ISO/AVC`, `V_MPEGH/ISO/HEVC`, `V_THEORA`, ...),
-ContentEncodings (header stripping, compression, encryption), and an mp4v
-track's Colour values that change cv2's conversion (a BT.709 or other
-matrix, full range).  PixelCrop, the display size and a VP8 or Motion-JPEG
-track's Colour leave cv2's frames as they are, and the port's too.
+Its CodecID names the decoder: `V_VP8` (native/vp8.cpp), `V_VP9`
+(native/vp9.cpp), `V_MJPEG` (native/mjpeg.cpp) and `V_MPEG4/ISO/ASP` with
+its CodecPrivate VOL (native/mpeg4.cpp), what cv2.VideoWriter stores for
+the FourCCs VP80, VP90, MJPG, mp4v and XVID.  What the port cannot decode
+as cv2 does raises NotImplementedError naming it and ROADMAP item 18.4: any
+other CodecID (`V_AV1`, `V_MPEG4/ISO/AVC`, `V_MPEGH/ISO/HEVC`, `V_THEORA`,
+...), ContentEncodings (header stripping, compression, encryption), and an
+mp4v track's Colour values that change cv2's conversion (a BT.709 or other
+matrix, full range).  PixelCrop, the display size and a VP8, VP9 or
+Motion-JPEG track's Colour leave cv2's frames as they are (a VP9 stream's
+own colour config decides them), and the port's too.
 
 The writer (`MkvWriter`) stores the port's MPEG-4 Part 2 packets
 (native/mpeg4_enc.cpp) as cv2.VideoWriter(fourcc "mp4v")'s muxer (FFmpeg's)
@@ -47,14 +48,15 @@ SEGMENT = 0x18538067
 CLUSTER = 0x1F43B675
 TOP_LEVEL = {0x114D9B74, 0x1549A966, 0x1654AE6B, CLUSTER, 0x1C53BB6B, 0x1254C367, 0x1043A770,
              0x1941A469}  # SeekHead, Info, Tracks, Cluster, Cues, Tags, Chapters, Attachments
-CODECS = {"V_VP8": "vp8", "V_MJPEG": "mjpeg", "V_MPEG4/ISO/ASP": "mpeg4"}
+CODECS = {"V_VP8": "vp8", "V_VP9": "vp9", "V_MJPEG": "mjpeg", "V_MPEG4/ISO/ASP": "mpeg4"}
 DOC_TYPES = (b"matroska", b"webm")
 # The Colour values under which cv2 returns an mp4v track's frames as it
 # does with no Colour element (measured on forged files): FFmpeg's mpeg4
 # decoder passes the container's matrix and range on to OpenCV's
 # conversion, so BT.709 or full range change the pixels.  cv2 ignores the
-# chroma siting there (the decoder sets its own), Colour as a whole in VP8
-# and Motion-JPEG tracks, and PixelCrop and the display size in every track.
+# chroma siting there (the decoder sets its own), Colour as a whole in VP8,
+# VP9 and Motion-JPEG tracks, and PixelCrop and the display size in every
+# track.
 MPEG4_COLOUR = {
     0x55B1: ("MatrixCoefficients", (2, 5, 6)),  # unspecified, BT.470BG, BT.601
     0x55B9: ("Range", (0, 1)),  # unspecified, limited
@@ -63,9 +65,10 @@ MPEG4_COLOUR = {
 
 def _unsupported(path: str, what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{path}: {what}; the port reads Motion-JPEG and MPEG-4 Part 2 (mp4v) AVI files, mp4v "
-        "MP4 / MOV files and .mkv / .webm files of VP8, Motion-JPEG or mp4v video (ROADMAP "
-        "Queue 1, item 18.4: other codecs need a video decoder the card's machine lacks)")
+        f"{path}: {what}; the port reads Motion-JPEG, MPEG-4 Part 2 (mp4v) and VP9 AVI files, "
+        "mp4v and VP9 MP4 files, mp4v MOV files and .mkv / .webm files of VP8, VP9, Motion-JPEG "
+        "or mp4v video (ROADMAP Queue 1, item 18.4: other codecs need a video decoder the card's "
+        "machine lacks)")
 
 
 def _vint(buf, pos: int, end: int, keep_marker: bool = False) -> Tuple[int, int, bool]:
@@ -333,9 +336,12 @@ def iter_samples(track: Track) -> Iterator[bytes]:
 
 def decoder(track: Track):
     """A callable that decodes one frame's bytes of the track as cv2 does
-    (None for a frame that shows nothing)."""
+    (None for a frame that shows nothing; for VP9 the list of the frames a
+    packet shows)."""
     if track.codec == "vp8":
         return native.Vp8Decoder().decode
+    if track.codec == "vp9":
+        return native.Vp9Decoder().decode
     if track.codec == "mjpeg":
         return native.mjpeg_decode
     return native.Mpeg4Decoder(track.config).decode

@@ -1,5 +1,5 @@
-"""ISO base media files (.mp4, .m4v, .mov) of MPEG-4 Part 2 video without
-cv2: a reader for pipeline/video.py and a writer for
+"""ISO base media files (.mp4, .m4v, .mov) of MPEG-4 Part 2 or VP9 video
+without cv2: a reader for pipeline/video.py and a writer for
 utils/datasets.py::images_to_video.
 
 The reader (`open_video`, `iter_samples`) walks the boxes as FFmpeg's mov
@@ -7,13 +7,15 @@ demuxer does for such a file: `ftyp`, `moov` before or after `mdat`
 (64-bit box sizes too), the first video track's sample tables (`stts`,
 `stsc`, `stsz` / `stz2`, `stco` / `co64`, `stss`), its `mp4v` sample
 entry's `esds` (object type 0x20, MPEG-4 Visual; its DecoderSpecificInfo
-holds the VOS / VO / VOL headers), `tkhd`'s display matrix composed with
-`mvhd`'s (the rotation cv2 applies, CAP_PROP_ORIENTATION_AUTO: 90, 180 or
-270 degrees clockwise) and the edit list.  What the port cannot decode as
-cv2 does raises NotImplementedError naming it and ROADMAP item 18.4: any
-other sample entry (`avc1`, `hvc1`, `av01`, `vp09`, ...), an `esds` of
-another object type, a non-trivial edit list, fragmented or compressed
-movies, several sample descriptions.
+holds the VOS / VO / VOL headers) or its `vp09` sample entry (VP9, what
+cv2.VideoWriter(fourcc "VP90") writes into .mp4; its `vpcC` changes
+nothing cv2 returns), `tkhd`'s display matrix composed with `mvhd`'s (the
+rotation cv2 applies, CAP_PROP_ORIENTATION_AUTO: 90, 180 or 270 degrees
+clockwise) and the edit list.  What the port cannot decode as cv2 does
+raises NotImplementedError naming it and ROADMAP item 18.4: any other
+sample entry (`avc1`, `hvc1`, `av01`, ...), an `esds` of another object
+type, a non-trivial edit list, fragmented or compressed movies, several
+sample descriptions.
 
 The writer (`Mp4Writer`) writes what cv2.VideoWriter(fourcc "mp4v")'s
 muxer (FFmpeg's) writes, box for box where a reader looks: `ftyp` by the
@@ -49,9 +51,10 @@ MPEG4_VISUAL = 0x20  # esds objectTypeIndication
 
 def _unsupported(path: str, what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{path}: {what}; the port reads Motion-JPEG and MPEG-4 Part 2 (mp4v) AVI files, mp4v "
-        "MP4 / MOV files and .mkv / .webm files of VP8, Motion-JPEG or mp4v video (ROADMAP "
-        "Queue 1, item 18.4: other codecs need a video decoder the card's machine lacks)")
+        f"{path}: {what}; the port reads Motion-JPEG, MPEG-4 Part 2 (mp4v) and VP9 AVI files, "
+        "mp4v and VP9 MP4 files, mp4v MOV files and .mkv / .webm files of VP8, VP9, Motion-JPEG "
+        "or mp4v video (ROADMAP Queue 1, item 18.4: other codecs need a video decoder the card's "
+        "machine lacks)")
 
 
 def _boxes(data: bytes, start: int = 0, end: Optional[int] = None) -> Iterator[Tuple[bytes, int, int]]:
@@ -149,7 +152,7 @@ class Track(NamedTuple):
     codec: bytes  # the sample entry's type
     width: int
     height: int
-    config: bytes  # the esds DecoderSpecificInfo
+    config: bytes  # the esds DecoderSpecificInfo (mp4v), the vpcC body (vp09)
     offsets: List[int]  # each sample's file offset
     sizes: List[int]
     keyframes: Optional[List[int]]  # stss (1-based), None when every sample is one
@@ -251,15 +254,22 @@ def _video_track(path: str, moov: bytes, start: int, length: int):
     if not entries:
         raise ValueError(f"{path}: an empty stsd box")
     codec, p, n = entries[0]
-    if codec != b"mp4v":
+    if codec not in (b"mp4v", b"vp09"):
         raise _unsupported(path, f"a {codec.decode('latin-1')!r} video track")
     width, height = struct.unpack(">HH", stsd[p + 24:p + 28])
-    esds = [stsd[q:q + m] for kind, q, m in _boxes(stsd, p + 78, p + n) if kind == b"esds"]
-    if not esds:
-        raise ValueError(f"{path}: an mp4v sample entry without esds")
-    oti, config = _esds_config(esds[0])
-    if oti != MPEG4_VISUAL:
-        raise _unsupported(path, f"an mp4v track of object type 0x{oti:02x}, not MPEG-4 Visual")
+    children = {kind: stsd[q:q + m] for kind, q, m in _boxes(stsd, p + 78, p + n)}
+    if codec == b"vp09":
+        # the VP9 stream's own colour config decides cv2's conversion: a vpcC
+        # saying another profile, depth, sampling, range or matrix changes
+        # nothing (measured on forged files)
+        config = children.get(b"vpcC", b"")
+    else:
+        if b"esds" not in children:
+            raise ValueError(f"{path}: an mp4v sample entry without esds")
+        oti, config = _esds_config(children[b"esds"])
+        if oti != MPEG4_VISUAL:
+            raise _unsupported(path, f"an mp4v track of object type 0x{oti:02x}, not MPEG-4 "
+                                     "Visual")
     sizes = _sizes(found)
     offsets = _offsets(path, found, sizes)
     deltas = []

@@ -18,8 +18,8 @@ native/mjpeg.cpp) must return JAX's frames bit for bit:
   AdaCoF offsets far under 48), adacof and fusion, with the bundled AdaCoF,
   a seeded PhaseNet and a seeded variant-0 FusionNet (JAX's default): each
   frame >= 60 dB against JAX's.
-An H.264 mp4, or an AVI whose codec is neither Motion-JPEG nor MPEG-4
-Part 2, raises NotImplementedError naming item 18.4.  The committed AVI fixtures of
+An H.264 mp4, or an AVI whose codec is none of Motion-JPEG, MPEG-4 Part
+2 and VP9, raises NotImplementedError naming item 18.4.  The committed AVI fixtures of
 tests/data/inputs/ (tools/make_input_fixtures.py) must decode to the
 digests chip_smoke.py pins for the card's host (INPUT_PINS), which must be
 those of JAX's frames.
@@ -322,7 +322,7 @@ def test_interpolate_video_file_matches_jax(toolchain, tmp_path, weights, method
 
 def test_committed_fixtures_match_the_smokes_pins(toolchain):
     names = [n for n in chip_smoke.INPUT_PINS
-             if n.endswith(".avi") and not n.startswith("mp4v_")]  # the MJPG AVIs
+             if n.endswith(".avi") and not n.startswith(("mp4v_", "vp9_"))]  # the MJPG AVIs
     assert len(names) == 4
     for name in names:
         contract, digest = chip_smoke.INPUT_PINS[name]

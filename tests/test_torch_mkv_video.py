@@ -24,8 +24,9 @@ images_to_video(".mkv") writes a file cv2 reads with the right count, fps
 and size, whose frames cv2 and the port decode alike, equal to the
 encoder's own reconstruction, within 1 dB below JAX's file.  What the port
 cannot decode as cv2 does raises NotImplementedError naming it and item
-18.4: VP9, AV1, H.264, HEVC and Theora tracks, ContentEncodings, an mp4v
-track whose Colour says BT.709 or full range.
+18.4: AV1, H.264, HEVC and Theora tracks, a VP9 track of profile 2 (VP9 in
+general: tests/test_torch_vp9_video.py), ContentEncodings, an mp4v track
+whose Colour says BT.709 or full range.
 """
 
 import hashlib
@@ -253,11 +254,13 @@ def test_images_to_video_mkv(toolchain, tmp_path):
 
 
 def _with_track(tmp_path, name, edit):
-    """A copy of the cv2 .webm (or, for "mp4v", the cv2 mp4v .mkv) whose
-    TrackEntry children edit(list) changes."""
-    src = "mp4v_cv2_96x72.mkv" if name.startswith("mp4v") else "vp8_cv2_96x72.webm"
+    """A copy of the cv2 .webm (or, for "mp4v", the cv2 mp4v .mkv; for
+    "vp9", the cv2 VP9 .webm) whose TrackEntry children edit(list, tree)
+    changes (the tree: the whole file's elements)."""
+    src = ("mp4v_cv2_96x72.mkv" if name.startswith("mp4v") else
+           "vp9_cv2_96x72.webm" if name.startswith("vp9") else "vp8_cv2_96x72.webm")
     tree = TOOL.ebml_strip(TOOL.ebml_parse(open(os.path.join(INPUTS, src), "rb").read()))
-    edit(TOOL.ebml_find(tree, TOOL.SEGMENT, TOOL.TRACKS, 0xAE))
+    edit(TOOL.ebml_find(tree, TOOL.SEGMENT, TOOL.TRACKS, 0xAE), tree)
     path = str(tmp_path / name)
     with open(path, "wb") as f:
         f.write(TOOL.ebml_dump(tree))
@@ -265,7 +268,7 @@ def _with_track(tmp_path, name, edit):
 
 
 def _codec(codec_id):
-    def edit(entry):
+    def edit(entry, tree=None):
         for e in entry:
             if e[0] == 0x86:
                 e[1] = codec_id
@@ -276,21 +279,30 @@ def _colour(crop=(), **values):
     """A Colour element of `values` (and PixelCrop elements) in the Video element."""
     ids = dict(matrix=0x55B1, range=0x55B9, siting_h=0x55B7, siting_v=0x55B8)
 
-    def edit(entry):
+    def edit(entry, tree=None):
         video = next(e[1] for e in entry if e[0] == 0xE0)
         video.append([0x55B0, [TOOL._uint(ids[k], v) for k, v in values.items()]])
         video.extend(TOOL._uint(eid, v) for eid, v in crop)
     return edit
 
 
+def _vp9_profile2(entry, tree):
+    """The VP9 track's key frame marked profile 2 (10 or 12 bits a sample)."""
+    cluster = next(c for c in TOOL.ebml_find(tree, TOOL.SEGMENT) if c[0] == TOOL.CLUSTER)
+    block = next(e for e in cluster[1] if e[0] == 0xA3)
+    data = bytearray(block[1])
+    data[4] |= 0x10  # after the track number, timecode and flags: profile_high_bit
+    block[1] = bytes(data)
+
+
 @pytest.mark.parametrize("name,edit,what", [
-    ("vp9.webm", _codec(b"V_VP9"), "V_VP9"),
+    ("vp9.webm", _vp9_profile2, "VP9 profile 2"),
     ("av1.webm", _codec(b"V_AV1"), "V_AV1"),
     ("avc.mkv", _codec(b"V_MPEG4/ISO/AVC"), "V_MPEG4/ISO/AVC"),
     ("hevc.mkv", _codec(b"V_MPEGH/ISO/HEVC"), "V_MPEGH/ISO/HEVC"),
     ("theora.mkv", _codec(b"V_THEORA"), "V_THEORA"),
-    ("enc.webm", lambda entry: entry.append([0x6D80, [[0x6240, [TOOL._uint(0x5032, 1)]]]]),
-     "ContentEncodings"),
+    ("enc.webm", lambda entry, tree: entry.append(
+        [0x6D80, [[0x6240, [TOOL._uint(0x5032, 1)]]]]), "ContentEncodings"),
     ("mp4v_709.mkv", _colour(matrix=1), "MatrixCoefficients 1"),
     ("mp4v_full.mkv", _colour(range=2), "Range 2"),
 ])

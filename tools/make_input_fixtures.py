@@ -38,14 +38,26 @@ Each fixture is made from seeded numpy with what JAX's readers are held to:
   video one and its blocks interleaved, and with a Colour element and a
   PixelCrop (which cv2 ignores in a VP8 track); and the video phase's
   first three 1080x1920 frames as cv2.VideoWriter's VP80 .webm, which
-  chip_smoke.py runs `cli video` on.
+  chip_smoke.py runs `cli video` on;
+- VP9: cv2.VideoWriter's VP90 in .webm, .mkv, .mp4 and .avi (odd sizes
+  cropped to even); clips coded with cv2's libvpx through ctypes
+  (`vp9_encode`) in settings cv2's writer never takes: two-pass
+  auto-alt-ref (superframes, hidden frames, compound prediction), tile
+  columns and tile rows, lossless, AQ modes 1-3, error-resilient,
+  cpu-used 0, 5 and 8, profile 1 at 4:4:4, 4:2:2 and 4:4:0, BT.709 at
+  full range, BT.2020 and SMPTE 240M; forged: loop filter sharpness 5 and
+  the bilinear filter written into frame headers, 1-byte
+  show_existing_frame packets, a Colour element on a VP9 track, an MP4
+  whose vpcC says BT.709 at full range; and the smoke clip's first three
+  1080x1920 frames as cv2's VP90 .webm.
 
 It prints INPUT_PINS, chip_smoke.py's table: for each fixture the reader
 contract ("imread": cv2.imread + BGR2RGB; "read_jpeg": PIL's Image.open;
 "video": cv2.VideoCapture's frames + BGR2RGB, stacked) and the sha256 of
 those pixels.  The CPU tests (tests/test_torch_png_adam7.py,
 test_torch_jpeg_progressive.py, test_torch_mjpg_video.py,
-test_torch_mp4v_video.py) hold the pins
+test_torch_mp4v_video.py, test_torch_mkv_video.py,
+test_torch_vp9_video.py) hold the pins
 against cv2 and PIL and the port against the pins; chip_smoke.py's phase
 `inputs` holds the port on the card's host, which has neither cv2 nor PIL,
 against them.  Needs cv2, PIL and the port (its MjpgWriter and MPEG-4
@@ -268,6 +280,8 @@ def make(out: str) -> dict:
     files["mp4v_port_paths_45x37.avi"] = None
     for name in make_matroska(out):
         files[name] = None
+    for name in make_vp9(out):
+        files[name] = None
     return pins(out, files)
 
 
@@ -422,7 +436,8 @@ def _libvpx():
         libs = os.path.join(os.path.dirname(os.path.dirname(cv2.__file__)), "opencv_python.libs")
         lib = ctypes.CDLL(glob.glob(os.path.join(libs, "libvpx-*.so*"))[0])
         vp = ctypes.c_void_p
-        lib.vpx_codec_vp8_cx.restype = vp
+        for codec in ("vp8_cx", "vp9_cx"):
+            getattr(lib, f"vpx_codec_{codec}").restype = vp
         lib.vpx_codec_enc_config_default.argtypes = [vp, vp, ctypes.c_uint]
         lib.vpx_codec_enc_init_ver.argtypes = [vp, vp, vp, ctypes.c_long, ctypes.c_int]
         lib.vpx_codec_encode.argtypes = [vp, vp, ctypes.c_int64, ctypes.c_ulong, ctypes.c_long,
@@ -434,6 +449,7 @@ def _libvpx():
         lib.vpx_img_wrap.restype = vp
         lib.vpx_codec_control_.argtypes = [vp, ctypes.c_int, ctypes.c_int]
         lib.vpx_codec_destroy.argtypes = [vp]
+        lib.vpx_codec_enc_config_set.argtypes = [vp, vp]
         _VPX = lib
     return _VPX
 
@@ -586,6 +602,289 @@ def make_matroska(out: str):
 
 
 SMOKE_WEBM = "vp8_cv2_1080x1920.webm"
+
+
+# --- VP9 ---------------------------------------------------------------------
+
+# libvpx's encoder controls (vp8cx.h's vp8e_enc_control_id)
+VP9_CONTROLS = dict(cpu_used=13, auto_alt_ref=14, lossless=32, tile_columns=33, tile_rows=34,
+                    frame_parallel=35, aq_mode=36, color_space=46, color_range=51)
+# vpx_img_fmt and chroma subsampling (x, y) of each sampling
+VP9_FORMATS = {"420": (0x102, 1, 1), "422": (0x105, 1, 0), "444": (0x106, 0, 0),
+               "440": (0x107, 0, 1)}
+
+
+def _yuv_planes(bgr: np.ndarray, fmt: str) -> np.ndarray:
+    """A BGR frame as the planes of a sampling: I420 as _i420, the others
+    from cv2's BGR2YUV with the chroma averaged down."""
+    if fmt == "420":
+        return _i420(bgr)
+    _, sx, sy = VP9_FORMATS[fmt]
+    h, w = bgr.shape[:2]
+    yuv = cv2.cvtColor(bgr, cv2.COLOR_BGR2YUV)
+    size = ((w + sx) >> sx, (h + sy) >> sy)
+    chroma = [cv2.resize(np.ascontiguousarray(yuv[..., c]), size, interpolation=cv2.INTER_AREA)
+              if sx or sy else yuv[..., c] for c in (1, 2)]
+    return np.concatenate([yuv[..., 0].reshape(-1)] + [c.reshape(-1) for c in chroma])
+
+
+def vp9_encode(frames, fmt: str = "420", bitrate: int = 200, two_pass: bool = False,
+               lag: int = 0, error_resilient: bool = False, realtime: bool = True,
+               cbr: bool = False, kf_max_dist=None, resize_at=None, **controls) -> list:
+    """VP9 packets of BGR frames, coded by cv2's libvpx through ctypes:
+    profile 0 (4:2:0) or 1 (`fmt` 444, 422, 440), two-pass with `lag`
+    frames of look-ahead (auto-alt-ref: hidden frames in superframes),
+    error-resilient, CBR, the VP9_CONTROLS given as keywords (frame_parallel
+    0 turns the backward adaptation on), and `resize_at` (frame index,
+    (width, height)): the frames from there coded at another size, which
+    the encoder predicts across by reference scaling."""
+    lib = _libvpx()
+    if two_pass:
+        stats = _vp9_pass(lib, frames, fmt, 1, None, bitrate, lag, error_resilient, False, cbr,
+                          kf_max_dist, resize_at, controls)
+        return _vp9_pass(lib, frames, fmt, 2, b"".join(stats), bitrate, lag, error_resilient,
+                         False, cbr, kf_max_dist, resize_at, controls)
+    return _vp9_pass(lib, frames, fmt, 0, None, bitrate, lag, error_resilient, realtime, cbr,
+                     kf_max_dist, resize_at, controls)
+
+
+def _vp9_pass(lib, frames, fmt, npass, stats, bitrate, lag, error_resilient, realtime, cbr,
+              kf_max_dist, resize_at, controls) -> list:
+    import ctypes
+    h, w = frames[0].shape[:2]
+    cfg = ctypes.create_string_buffer(4096)
+    assert lib.vpx_codec_enc_config_default(lib.vpx_codec_vp9_cx(), cfg, 0) == 0
+    words = (ctypes.c_uint32 * 64).from_buffer(cfg)
+    words[2], words[3], words[4] = int(fmt != "420"), w, h
+    words[9], words[11], words[28] = int(error_resilient), lag, bitrate
+    if cbr:
+        words[18] = 1  # VPX_CBR
+    if kf_max_dist is not None:
+        words[42] = kf_max_dist
+    keep = None
+    if npass:
+        words[10] = npass
+        if npass == 2:
+            keep = ctypes.create_string_buffer(stats, len(stats))
+            ctypes.c_void_p.from_buffer(cfg, 80).value = ctypes.addressof(keep)
+            ctypes.c_size_t.from_buffer(cfg, 88).value = len(stats)
+    ctx = ctypes.create_string_buffer(1024)
+    for abi in range(64):  # VPX_ENCODER_ABI_VERSION of this build
+        err = lib.vpx_codec_enc_init_ver(ctx, lib.vpx_codec_vp9_cx(), cfg, 0, abi)
+        if err != 3:  # VPX_CODEC_ABI_MISMATCH
+            break
+    assert err == 0, f"vpx_codec_enc_init_ver: {err}"
+    if lag:
+        controls = dict(controls, auto_alt_ref=1)
+    for name, value in controls.items():
+        assert lib.vpx_codec_control_(ctx, VP9_CONTROLS[name], int(value)) == 0, name
+    deadline = 1 if realtime else 0  # VPX_DL_REALTIME or best quality
+    out, img = [], ctypes.create_string_buffer(256)
+
+    def drain():
+        it = ctypes.c_void_p(0)
+        while True:
+            pkt = lib.vpx_codec_get_cx_data(ctx, ctypes.byref(it))
+            if not pkt:
+                return
+            kind = ctypes.c_int.from_address(pkt).value  # 0: a frame, 1: first-pass stats
+            if kind == (1 if npass == 1 else 0):
+                buf = ctypes.c_void_p.from_address(pkt + 8).value
+                out.append(ctypes.string_at(buf, ctypes.c_size_t.from_address(pkt + 16).value))
+
+    for i, f in enumerate(frames):
+        if resize_at is not None and i == resize_at[0]:
+            words[3], words[4] = resize_at[1]
+            assert lib.vpx_codec_enc_config_set(ctx, cfg) == 0
+        fw, fh = words[3], words[4]
+        if f.shape[:2] != (fh, fw):
+            f = cv2.resize(f, (fw, fh), interpolation=cv2.INTER_AREA)
+        planes = _yuv_planes(f, fmt)
+        lib.vpx_img_wrap(img, VP9_FORMATS[fmt][0], fw, fh, 1, planes.ctypes.data)
+        assert lib.vpx_codec_encode(ctx, img, i, 1, 0, deadline) == 0
+        drain()
+    while True:  # flush the lagged frames
+        n = len(out)
+        lib.vpx_codec_encode(ctx, None, -1, 1, 0, deadline)
+        drain()
+        if len(out) == n:
+            break
+    lib.vpx_codec_destroy(ctx)
+    return out
+
+
+def vp9_key(packet: bytes) -> bool:
+    """Whether a VP9 packet starts with a key frame (profile 0-2 headers)."""
+    return (packet[0] >> 6) == 2 and not (packet[0] >> 3) & 1 and not (packet[0] >> 2) & 1
+
+
+def vp9_webm(path: str, packets, w: int, h: int, fps: int = 30) -> None:
+    """VP9 packets in a WebM file, muxed by the port's MkvMuxer."""
+    with mkv.MkvMuxer(path, "V_VP9", w, h, fps, doc_type="webm") as mux:
+        for p in packets:
+            mux.write_frame(p, vp9_key(p))
+
+
+def vp9_header_bits(frame: bytes) -> dict:
+    """The bit offsets of a VP9 frame's (profile 0 or 1, not intra-only)
+    loop filter sharpness and, in an inter frame with one filter for all
+    blocks, the interpolation filter's 2-bit literal."""
+    pos = [0]
+
+    def bits(n):
+        v = 0
+        for _ in range(n):
+            v = (v << 1) | ((frame[pos[0] >> 3] >> (7 - (pos[0] & 7))) & 1)
+            pos[0] += 1
+        return v
+
+    assert bits(2) == 2
+    profile = bits(1) | bits(1) << 1
+    assert profile < 2 and not bits(1), "profile 0 or 1, no show_existing_frame"
+    key, show, err = not bits(1), bits(1), bits(1)
+    found = {}
+    if key:
+        bits(24)
+        if bits(3) != 7:
+            bits(1)
+            if profile == 1:
+                bits(3)
+        bits(32)
+        if bits(1):
+            bits(32)
+    else:
+        assert show or not bits(1), "no intra-only frame"
+        if not err:
+            bits(2)
+        bits(8 + 3 * 4)
+        for _ in range(3):
+            if bits(1):
+                break
+        else:
+            bits(32)
+        if bits(1):
+            bits(32)
+        bits(1)
+        if not bits(1):
+            found["interp"] = pos[0]
+            bits(2)
+    if not err:
+        bits(2)
+    bits(2 + 6)
+    found["sharpness"] = pos[0]
+    return found
+
+
+def set_bits(frame: bytes, pos: int, n: int, value: int) -> bytes:
+    """`frame` with its n bits at bit offset pos set to value (MSB first)."""
+    out = bytearray(frame)
+    for i in range(n):
+        b, k = divmod(pos + i, 8)
+        bit = (value >> (n - 1 - i)) & 1
+        out[b] = (out[b] & ~(0x80 >> k)) | (bit << (7 - k))
+    return bytes(out)
+
+
+def forge_mp4_box(data: bytes, kind: bytes, patch) -> bytes:
+    """`data` (an MP4 file) with the body of its first `kind` box passed
+    through patch(bytearray) (same length)."""
+    i = data.index(kind) + 4
+    size = struct.unpack(">I", data[i - 8:i - 4])[0] - 8
+    body = bytearray(data[i:i + size])
+    patch(body)
+    assert len(body) == size
+    return data[:i] + bytes(body) + data[i + size:]
+
+
+def make_vp9(out: str):
+    """Write the VP9 fixtures; yields their names."""
+    rng = np.random.default_rng(2028)
+
+    def cv2_file(name, frames):
+        cv2_video(os.path.join(out, name), "VP90", frames)
+        return name
+
+    def clip(name, frames, **kw):
+        h, w = frames[0].shape[:2]
+        vp9_webm(os.path.join(out, name), vp9_encode(frames, **kw), w, h)
+        return name
+
+    def scene(n, h, w):
+        step = (float(rng.uniform(-4, 4)), float(rng.uniform(-4, 4)))
+        return sliding(rng, n, h, w, step=step)
+
+    # cv2.VideoWriter's VP90 in each container (odd sizes cropped to even)
+    base = cv2_file("vp9_cv2_96x72.webm", sliding(rng, 15, 72, 96))
+    yield base
+    yield cv2_file("vp9_cv2_44x36.mkv", scene(12, 37, 45))
+    mp4_base = cv2_file("vp9_cv2_96x72.mp4", sliding(rng, 10, 72, 96, step=(-2.5, 1.5)))
+    yield mp4_base
+    yield cv2_file("vp9_cv2_30x28.avi", scene(10, 29, 31))
+    # libvpx through ctypes, in settings cv2's writer never takes
+    yield clip("vp9_altref_45x37.webm", scene(24, 37, 45), two_pass=True, lag=16, bitrate=120,
+               frame_parallel=0)
+    yield clip("vp9_tilecols_520x40.webm", scene(3, 40, 520), bitrate=400, tile_columns=1,
+               frame_parallel=0)
+    yield clip("vp9_tilerows_48x200.webm", scene(3, 200, 48), bitrate=300, tile_columns=0,
+               tile_rows=2, frame_parallel=0)
+    yield clip("vp9_lossless_33x17.webm", scene(4, 17, 33), lossless=1)
+    for aq, (h, w) in ((1, (35, 47)), (2, (40, 56)), (3, (48, 64))):
+        yield clip(f"vp9_aq{aq}_{w}x{h}.webm", scene(12, h, w), bitrate=60, aq_mode=aq,
+                   frame_parallel=0, cbr=aq == 3, cpu_used=6 if aq == 3 else 4)
+    yield clip("vp9_errres_40x24.webm", scene(10, 24, 40), bitrate=80, error_resilient=True,
+               kf_max_dist=6)
+    for cpu, (h, w) in ((0, (31, 29)), (5, (26, 50)), (8, (33, 41))):
+        yield clip(f"vp9_cpu{cpu}_{w}x{h}.webm", scene(8, h, w), bitrate=90, cpu_used=cpu,
+                   frame_parallel=0)
+    for fmt, (h, w) in (("444", (37, 45)), ("422", (31, 46)), ("440", (38, 29))):
+        yield clip(f"vp9_p1_{fmt}_{w}x{h}.webm", scene(8, h, w), fmt=fmt, bitrate=150,
+                   frame_parallel=0)
+    yield clip("vp9_bt709_full_47x35.webm", scene(6, 35, 47), color_space=2, color_range=1)
+    yield clip("vp9_bt2020_40x30.webm", scene(6, 30, 40), color_space=5)
+    yield clip("vp9_smpte240_444_23x19.webm", scene(6, 19, 23), fmt="444", color_space=4)
+    # forged: loop filter sharpness 5 in every inter frame, the bilinear
+    # filter in a clip whose inter frames have one filter each, a 1-byte
+    # show_existing_frame packet showing a reference again, a Colour
+    # element on a VP9 track, an MP4 whose vpcC says BT.709 at full range
+    frames = scene(8, 40, 48)
+    packets = vp9_encode(frames, bitrate=70, frame_parallel=0)
+    sharp = [p if vp9_key(p) else set_bits(p, vp9_header_bits(p)["sharpness"], 3, 5)
+             for p in packets]
+    vp9_webm(os.path.join(out, "vp9_sharpness5_48x40.webm"), sharp, 48, 40)
+    yield "vp9_sharpness5_48x40.webm"
+    packets = vp9_encode(scene(8, 36, 44), bitrate=70, cpu_used=8)
+    bilinear = [p if vp9_key(p) or "interp" not in vp9_header_bits(p)
+                else set_bits(p, vp9_header_bits(p)["interp"], 2, 3) for p in packets]
+    assert bilinear != packets
+    vp9_webm(os.path.join(out, "vp9_bilinear_44x36.webm"), bilinear, 44, 36)
+    yield "vp9_bilinear_44x36.webm"
+    packets = vp9_encode(scene(10, 30, 42), bitrate=80, kf_max_dist=30)
+    shown = packets[:4] + [b"\x88"] + packets[4:7] + [b"\x8f", b"\x88"] + packets[7:]
+    vp9_webm(os.path.join(out, "vp9_show_existing_42x30.webm"), shown, 42, 30)
+    yield "vp9_show_existing_42x30.webm"
+    with open(os.path.join(out, base), "rb") as f:
+        data = f.read()
+    with open(os.path.join(out, "vp9_colour_96x72.webm"), "wb") as f:
+        f.write(forge_video_elements(data, [[0x55B0, [_uint(0x55B1, 1), _uint(0x55B9, 2),
+                                                      _uint(0x55BB, 1), _uint(0x55BA, 1)]]]))
+    yield "vp9_colour_96x72.webm"
+    with open(os.path.join(out, mp4_base), "rb") as f:
+        data = f.read()
+
+    def vpcc_709_full(body):
+        body[6] |= 1  # videoFullRangeFlag
+        body[7:10] = bytes([1, 1, 1])  # BT.709 primaries, transfer, matrix
+
+    with open(os.path.join(out, "vp9_vpcc_96x72.mp4"), "wb") as f:
+        f.write(forge_mp4_box(data, b"vpcC", vpcc_709_full))
+    yield "vp9_vpcc_96x72.mp4"
+    # the smoke's clip: translation_video(5, 1080, 1920, step=2.0, seed=0)[:3]
+    # (SMOKE_WEBM's frames are translation_video(3, ...)'s, which differ)
+    smoke = (translation_video(5, 1080, 1920, step=2.0, seed=0)[:3] * 255 + 0.5).astype(np.uint8)
+    yield cv2_file(SMOKE_VP9, [np.ascontiguousarray(f[..., ::-1]) for f in smoke])
+
+
+SMOKE_VP9 = "vp9_cv2_1080x1920.webm"
 
 
 def pixels(out: str, name: str, contract: str) -> np.ndarray:
