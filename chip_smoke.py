@@ -152,7 +152,7 @@ Phases, each printing one JSON line with its seconds:
               a set); where ffmpeg and ffprobe are on PATH (nothing is
               installed);
   inputs    - (after photo; lines inputs_pins, inputs_video, inputs_mp4v, inputs_mkv,
-              inputs_vp9, inputs_frames)
+              inputs_vp9, inputs_mpeg, inputs_frames)
               the inputs JAX reads through cv2, read here without it: the
               fixtures of tests/data/inputs/ (tools/make_input_fixtures.py:
               Adam7 PNGs, progressive JPEGs, one cut after its second scan
@@ -211,6 +211,23 @@ Phases, each printing one JSON line with its seconds:
               parse ms and the ms to decode its VP9 key frame and inter
               frames (medians of 5, one host thread), and `cli video
               --input clip.webm --method fusion` checked as the AVI's;
+              (line inputs_mpeg) each MPEG-1/2 pin (cv2's MPG2 and PIM1
+              in .mpg, .vob, .ts, .m2ts, .m1v / .m2v, .avi, .mkv, .mp4 and
+              .mov; libavcodec clips with MPEG-1 B pictures, alternate
+              scan, table B.15, q_scale_type 1, intra DC of 9-11 bits,
+              custom matrices and a quant matrix extension, field DCT and
+              field motion, BT.709, quantiser changes, address escapes)
+              and the pins of IVF (VP8, VP9), VP8 in AVI, Motion-JPEG in
+              MOV and MP4 and mp4v in a transport stream; the committed
+              1080x1920 MPEG-2 transport stream of the same 3 frames
+              (cv2.VideoWriter's MPG2, tests/data/inputs/
+              mpeg2_cv2_1080x1920.ts: an I, a P and a B picture) split
+              into pictures with utils/mpegts.py and decoded with
+              native/mpeg12.cpp (>= 16.5 dB against the pixels written:
+              16.96-18.24 dB measured on the CPU), the demux ms and the ms
+              to decode its I, P and B pictures and the flush (medians of
+              5, one host thread), and `cli video --input clip.ts
+              --method fusion` checked as the AVI's;
               double_frame_rate per pair on the Adam7 and the
               progressive-JPEG frame directories through K1;
   cli       - (after train_fusion) the command line on PNG files: the serve phase's
@@ -631,6 +648,64 @@ INPUT_PINS = {
         ("video", "fd38271bc655a55a38cccf9b3b045b1edd5f101efb53b29d2ea5b4ea690b0d7c"),
     "vp9_vpcc_96x72.mp4":
         ("video", "8e9f5622467acc13f9626459b627229af9b1b9ca74d3794c391d245b9c5ade27"),
+    "mjpg_cv2_64x48.mov":
+        ("video", "32d03363a57454e70e55f01633492bd5a3f8781f44d0c45ae98de6e7cf68d2f8"),
+    "mjpg_cv2_64x48.mp4":
+        ("video", "5fb5fe0946db5acb6c9064b5a1e8d3be10a6213d3ec0caf735a67c21c4abe80a"),
+    "mp4v_cv2_96x72.ts":
+        ("video", "b48da281e2c610ab6ab960ff73cff0e3897978a1c5c128c91f2d971d6568db7b"),
+    "mpeg1_bf_45x37.m1v":
+        ("video", "641dbb7831ba1061c7ec181e3dab079a9fe4a6ea7dac8c2755f5c94c6b7764e7"),
+    "mpeg1_cv2_44x36.m1v":
+        ("video", "e6a1d7dc3f3e7e7375da76568665ab4b9a6f5bd692bb92627f937fe20bac4879"),
+    "mpeg1_cv2_96x72.avi":
+        ("video", "c0c218ddec090632b831decacca7990839c53c090909a7282fe307831232ecc3"),
+    "mpeg1_cv2_96x72.mkv":
+        ("video", "e72345660454d7307f958410311c1c6efff320de42c8b330e02ffc8fc631b66f"),
+    "mpeg1_cv2_96x72.mov":
+        ("video", "00cd4df97b06329677843b5b319a23789051d513251adb596fedec35a5c70bd5"),
+    "mpeg1_cv2_96x72.mpg":
+        ("video", "4b3ad9992e4ee9f13e8be4bb6372e288e64f9b91af94276ae8e44f35602674c4"),
+    "mpeg1_cv2_96x72.ts":
+        ("video", "535b948ae544e98eeca4dc0ff0d30696c2deed4159818000d58fc0ef8bfa25a3"),
+    "mpeg2_aq_95x71.m2v":
+        ("video", "e1f6c9159a76095ed9c2acecefd590e51334fad84c3169318aae799c345555e4"),
+    "mpeg2_bt709_dc10_47x35.m2v":
+        ("video", "7ccdada8c8ca9782bd20e3c0ed9c3ed07ed9257d98f886d008cde0a8f59fb25f"),
+    "mpeg2_cv2_1080x1920.ts":
+        ("video", "7de399df0d2e3c9e47e0daaa0b0795dd8e11aa3581acd4f9be8eb34d7cb0b75f"),
+    "mpeg2_cv2_44x36.m2v":
+        ("video", "c4b6de4e330ea27098c4414625342b9045d2f65eeeecbdf7ef3383317c6af93e"),
+    "mpeg2_cv2_94x70.ts":
+        ("video", "581ffa4d77415629e92461dcbec304df2d559b89a45c411242de429f0ca03edb"),
+    "mpeg2_cv2_96x72.avi":
+        ("video", "8da64007f30a8074a58c6257929abbf47f55a056aa360d77600f4fecb8341181"),
+    "mpeg2_cv2_96x72.m2ts":
+        ("video", "79e26038534c39bb0c3a8cce33c9310bd4ddbe10947c8b41b12a6c0a2b92f159"),
+    "mpeg2_cv2_96x72.mkv":
+        ("video", "dd670eda9ec25337f217681eb980e5adb84d18188a0b534a46d6000f1b5d67a1"),
+    "mpeg2_cv2_96x72.mov":
+        ("video", "9ba249149572c30497f74ddbb8c4a9c3ec8152e7cad803e0a5142442e0b35a07"),
+    "mpeg2_cv2_96x72.mp4":
+        ("video", "a96af61bed1f604b3862c7685b8973025d140e2255c0562753ca5dd2480c468e"),
+    "mpeg2_cv2_96x72.mpg":
+        ("video", "ec7406062f22add6a4377c68afcdcbcaa3171f5ad87cfb62a69160139b48c1d6"),
+    "mpeg2_cv2_96x72.vob":
+        ("video", "d9b9cd12a61cfded775bfc3cbf16cfde8aacf55a3ec201447d17236a7feb45b3"),
+    "mpeg2_field_48x40.m2v":
+        ("video", "4c257c677bcfece903bc04a2c0ce0d68dd78610c7fee54059d38672085524a65"),
+    "mpeg2_matrices_dc11_64x48.m2v":
+        ("video", "805fa3a8e80ddeae5ed93f9c18874431e5a2b0d0c67e7d9c6df212fa1d47d340"),
+    "mpeg2_scan_vlc_q_96x72.m2v":
+        ("video", "e66e25ce4f0c6c7ab41b67a185a4e569a13405756ac51abc791ef0be814259b5"),
+    "mpeg2_wide_720x48.m2v":
+        ("video", "47f883c5354b20d323fc30d287fc19d1512968734a355030badd338ac74e1957"),
+    "vp8_cv2_64x48.avi":
+        ("video", "819b67a58f7416e12397eb72512563a6686dd802639c2e71e352843319d44b3b"),
+    "ivf_vp8_cv2_96x72.ivf":
+        ("video", "b8a9212765fc8509e2b03889e29183e907eab0c4da747159e8e890e573a7ed2b"),
+    "ivf_vp9_cv2_96x72.ivf":
+        ("video", "9f3fa159c1528eff6216cb824208f8b2280a9ef220e5bb17c442b1d84da3af9b"),
 }
 INPUTS_FRAME_DIRS = ("adam7_frames", "progressive_frames")
 INPUTS_CLIP_FRAMES = 3  # of the video phase's clip, written as a 1080p MJPG AVI
@@ -644,6 +719,13 @@ INPUTS_VP8_DB = 13.0  # that file decoded against the pixels written: 13.43-13.4
 INPUTS_VP9_WEBM = "vp9_cv2_1080x1920.webm"  # the same 3 frames as cv2's VP90 writer codes them
 INPUTS_VP9_DB = 18.0  # that file decoded against the pixels written: 18.29 dB measured on the
 # CPU (cv2's default VP9 bitrate on the pixel-noise texture)
+INPUTS_MPEG2_TS = "mpeg2_cv2_1080x1920.ts"  # the same 3 frames as cv2's MPG2 writer codes them
+INPUTS_MPEG2_DB = 16.5  # that file decoded against the pixels written: 16.96 dB (the I
+# picture), 18.24 and 18.23 dB measured on the CPU (cv2's MPG2 writer on the pixel-noise texture)
+# the pins of the MPEG-1/2 fixtures and of the containers read since then (IVF, VP8 in AVI,
+# Motion-JPEG in MOV / MP4, mp4v in a transport stream)
+INPUTS_MPEG_PINS = tuple(n for n in INPUT_PINS if n.startswith(("mpeg1_", "mpeg2_", "ivf_")) or (
+    n in ("vp8_cv2_64x48.avi", "mjpg_cv2_64x48.mov", "mjpg_cv2_64x48.mp4", "mp4v_cv2_96x72.ts")))
 
 
 def _line(**kw):
@@ -1111,10 +1193,11 @@ def _photo(dev, repo, models, ada_path, work):
 def phase_inputs(dev, repo, models, ada_path, fusion_path, clip, smi):
     """The inputs JAX reads through cv2: the committed fixtures against
     cv2's and PIL's digests, a 1080p MJPG AVI, a 1080p mp4v .mp4 (from
-    images_to_video) and the committed 1080p VP8 WebM through `cli video
-    --method fusion`, the frames through images_to_video into a .mkv, and
-    the Adam7 and progressive-JPEG frame directories through
-    double_frame_rate; returns the path's K1 launches."""
+    images_to_video) and the committed 1080p VP8 and VP9 WebMs and MPEG-2
+    transport stream through `cli video --method fusion`, the frames
+    through images_to_video into a .mkv, and the Adam7 and
+    progressive-JPEG frame directories through double_frame_rate; returns
+    the path's K1 launches."""
     with _work_dir(repo) as work:
         return _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work)
 
@@ -1133,7 +1216,7 @@ def _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work):
     from fmvfi_tpu_torch.pipeline.interpolate import FusionModels
     from fmvfi_tpu_torch.pipeline.video import (double_frame_rate, iter_video_frames, quantize,
                                                 read_frame_dir, read_video_frames)
-    from fmvfi_tpu_torch.utils import avi, datasets, imageio, mkv, mp4
+    from fmvfi_tpu_torch.utils import avi, datasets, imageio, mkv, mp4, mpegts
     from fmvfi_tpu_torch.utils.convert import (load_adacof_weights, load_fusion_weights,
                                                phase_net_from_torch)
 
@@ -1308,6 +1391,35 @@ def _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work):
     vp9_cli_seconds, vp9_c, vp9_images, vp9_names, vp9_outs = cli_video(
         vp9_path, os.path.join(work, "video_vp9"))
 
+    # (g) the committed 1080p MPEG-2 transport stream (cv2's MPG2 of the same
+    # 3 frames: an I, a P and a B picture): the demux and split into
+    # pictures (utils/mpegts.py) and native/mpeg12.cpp timed on their own
+    # (each decode call converts the frame it lets out), then `cli video`
+    t0_mpeg = time.perf_counter()
+    ts_path = os.path.join(repo, INPUTS_DIR, INPUTS_MPEG2_TS)
+    demux_ms = []
+    for _ in range(INPUTS_DECODE_REPS):
+        t = time.perf_counter()
+        ts_packets = list(mpegts.iter_packets(mpegts.open_stream(ts_path, "ts")))
+        demux_ms.append(1e3 * (time.perf_counter() - t))
+    mpeg_ms = dict(I=[], P=[], B=[], flush=[])
+    for _ in range(INPUTS_DECODE_REPS):
+        decoder = native.Mpeg12Decoder()
+        for sample in ts_packets:
+            t = time.perf_counter()
+            decoder.decode(sample)
+            mpeg_ms[decoder.info["picture"]].append(1e3 * (time.perf_counter() - t))
+        t = time.perf_counter()
+        decoder.flush()
+        mpeg_ms["flush"].append(1e3 * (time.perf_counter() - t))
+        decoder.close()
+    t = time.perf_counter()
+    mpeg_frames = read_video_frames(ts_path)
+    mpeg_read_seconds = time.perf_counter() - t
+    mpeg_db = [_psnr(f, g.astype(np.float32) / 255) for f, g in zip(mpeg_frames, written)]
+    mpeg_cli_seconds, mpeg_c, mpeg_images, mpeg_names, mpeg_outs = cli_video(
+        ts_path, os.path.join(work, "video_mpeg2"))
+
     # the same models in this process, per pair, on the frames read back
     ada = AdaCoFNet().to(dev).eval()
     ada.load_state_dict(load_adacof_weights(ada_path))
@@ -1321,6 +1433,7 @@ def _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work):
     mp4_per_pair = [quantize(f) for f in double_frame_rate(mp4_frames, pipe, device=dev)]
     webm_per_pair = [quantize(f) for f in double_frame_rate(webm_frames, pipe, device=dev)]
     vp9_per_pair = [quantize(f) for f in double_frame_rate(vp9_frames, pipe, device=dev)]
+    mpeg_per_pair = [quantize(f) for f in double_frame_rate(mpeg_frames, pipe, device=dev)]
     del ada, fusion, phase, pipe
     originals = len(outs) == 2 * n - 1 and all(
         np.array_equal(outs[2 * i], quantize(frames[i])) for i in range(n))
@@ -1338,6 +1451,10 @@ def _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work):
         np.array_equal(vp9_outs[2 * i], quantize(vp9_frames[i])) for i in range(n))
     vp9_mid_db = [_psnr(vp9_outs[2 * i + 1].astype(np.float64) / 255,
                         vp9_per_pair[2 * i + 1].astype(np.float64) / 255) for i in range(n - 1)]
+    mpeg_originals = len(mpeg_outs) == 2 * n - 1 and all(
+        np.array_equal(mpeg_outs[2 * i], quantize(mpeg_frames[i])) for i in range(n))
+    mpeg_mid_db = [_psnr(mpeg_outs[2 * i + 1].astype(np.float64) / 255,
+                         mpeg_per_pair[2 * i + 1].astype(np.float64) / 255) for i in range(n - 1)]
     want_images = [2, 4, 2] * (n - 1)
     _line(phase="inputs_video", seconds=t0_mp4 - t0, size=[h, w], frames=n,
           write_seconds=write_seconds, read_seconds=read_seconds,
@@ -1385,6 +1502,20 @@ def _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work):
             min(decoded_db) >= INPUTS_JPEG_DB):
         raise AssertionError(f"inputs: the 1080p AVI decodes to {frames.shape}, "
                              f"{decoded_db} dB against the pixels written")
+    mpeg_pins = {k: v["equal"] for k, v in pins.items() if k in INPUTS_MPEG_PINS}
+    _line(phase="inputs_mpeg", seconds=time.perf_counter() - t0_mpeg, size=[h, w], frames=n,
+          pins=mpeg_pins, ts=INPUTS_MPEG2_TS, ts_bytes=os.path.getsize(ts_path),
+          packet_bytes=[len(p) for p in ts_packets], demux_ms=float(np.median(demux_ms)),
+          demux_ms_each=demux_ms,
+          mpeg2_decode_1080p_i_ms=float(np.median(mpeg_ms["I"])),
+          mpeg2_decode_1080p_p_ms=float(np.median(mpeg_ms["P"])),
+          mpeg2_decode_1080p_b_ms=float(np.median(mpeg_ms["B"])),
+          mpeg2_flush_ms=float(np.median(mpeg_ms["flush"])), mpeg2_decode_ms=mpeg_ms, card=smi,
+          read_seconds=mpeg_read_seconds, decoded_vs_written_db=mpeg_db,
+          db_floor=INPUTS_MPEG2_DB, cli_seconds=mpeg_cli_seconds,
+          pngs_written=len(mpeg_names), originals_exact=mpeg_originals,
+          k1_launches=mpeg_c["k1"], k1_images=mpeg_images, k1_paths=mpeg_c["k1_paths"],
+          k2_launches=mpeg_c["k2"], interpolated_vs_per_pair_db=mpeg_mid_db)
     if len(names) != 2 * n - 1 or not originals or not min(mid_db) >= PLAIN_AGREEMENT_DB:
         raise AssertionError(f"inputs: cli video wrote {names}, originals exact {originals}, "
                              f"interpolated frames against per pair {mid_db} dB")
@@ -1438,6 +1569,25 @@ def _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work):
                              f"({vp9_c['k1_paths']}), K2 {vp9_c['k2']}; expected "
                              f"{want_images}")
 
+    if len(mpeg_pins) != len(INPUTS_MPEG_PINS) or not all(mpeg_pins.values()):
+        raise AssertionError(f"inputs: MPEG and container pins {mpeg_pins}")
+    if mpeg_frames.shape != (n, h, w, 3) or not np.isfinite(mpeg_frames).all() or not (
+            min(mpeg_db) >= INPUTS_MPEG2_DB) or sorted(k for k, v in mpeg_ms.items() if v) != [
+            "B", "I", "P", "flush"]:
+        raise AssertionError(f"inputs: the 1080p MPEG-2 .ts decodes to {mpeg_frames.shape}, "
+                             f"{mpeg_db} dB against the pixels written, pictures "
+                             f"{ {k: len(v) for k, v in mpeg_ms.items()} }")
+    if len(mpeg_names) != 2 * n - 1 or not mpeg_originals or not (
+            min(mpeg_mid_db) >= PLAIN_AGREEMENT_DB):
+        raise AssertionError(f"inputs: cli video on the .ts wrote {mpeg_names}, originals "
+                             f"exact {mpeg_originals}, interpolated frames against per pair "
+                             f"{mpeg_mid_db} dB")
+    if mpeg_images != want_images or mpeg_c["k1_paths"] != {RING_PATH: len(want_images)} or (
+            mpeg_c["k2"]):
+        raise AssertionError(f"inputs: cli video on the .ts: K1 images {mpeg_images} "
+                             f"({mpeg_c['k1_paths']}), K2 {mpeg_c['k2']}; expected "
+                             f"{want_images}")
+
     # (d) the Adam7 and progressive-JPEG frame directories through K1
     t0 = time.perf_counter()
     dirs = {}
@@ -1463,7 +1613,7 @@ def _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work):
                 or d["k1_images"] != want or d["k1_paths"] != {RING_PATH: len(want)}
                 or d["k2_launches"]):
             raise AssertionError(f"inputs: {name} through double_frame_rate: {d}")
-    return cli_c["k1"] + mp4_c["k1"] + webm_c["k1"] + vp9_c["k1"] + sum(
+    return cli_c["k1"] + mp4_c["k1"] + webm_c["k1"] + vp9_c["k1"] + mpeg_c["k1"] + sum(
         len(d["k1_images"]) for d in dirs.values())
 
 

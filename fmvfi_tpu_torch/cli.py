@@ -20,10 +20,12 @@ FusionNet in place of a file named fusion_net.pt.
 `evaluate` writes JAX's files: summary.json, each synthetic set's panels
 and <set>.avi, and the results.png bar chart (eval/visualize.py).  `video
 --input` and `evaluate --test_sets` read frame directories and video files
-(Motion-JPEG, MPEG-4 Part 2 or VP9 in AVI, MPEG-4 Part 2 in MP4 / M4V /
-MOV, VP9 in MP4, VP8, VP9, Motion-JPEG or MPEG-4 Part 2 in Matroska / WebM,
-decoded as cv2.VideoCapture decodes them); other codecs and containers raise
-NotImplementedError (ROADMAP Queue 1, item 18.4).  `train
+(what utils/formats.py's table lists: Motion-JPEG, MPEG-4 Part 2, MPEG-1/2,
+VP8 or VP9 in AVI, MP4 / M4V / MOV, Matroska / WebM, MPEG transport and
+program streams (.ts, .m2ts, .mpg, .vob), raw MPEG video and IVF, decoded as
+cv2.VideoCapture decodes them); other codecs and containers raise
+NotImplementedError (ROADMAP Queue 1, item 18.4), an image file or a
+numbered image sequence item 18.4k.  `train
 --data_parallel` runs one process per GPU (torchrun), where JAX runs one
 process over a mesh of devices.
 """

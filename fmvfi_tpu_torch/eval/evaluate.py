@@ -259,9 +259,8 @@ def evaluate_suite(
 
 
 def load_set(path: str, resize=None, stream: bool = False):
-    """A test set from a directory of frames or a video file (Motion-JPEG
-    or MPEG-4 Part 2 in AVI, MPEG-4 Part 2 in MP4 / M4V / MOV, VP8,
-    Motion-JPEG or MPEG-4 Part 2 in Matroska / WebM; pipeline/video.py) (fmvfi_tpu/eval/evaluate.py:332-347): (N, H, W, 3)
+    """A test set from a directory of frames or a video file (what
+    utils/formats.py's table lists; pipeline/video.py) (fmvfi_tpu/eval/evaluate.py:332-347): (N, H, W, 3)
     float32 in [0, 1], or with stream=True a zero-argument callable
     returning a fresh uint8 frame iterator (for evaluate_suite, which calls
     it once per method).  `resize` = (h, w) applies to a video's frames, as

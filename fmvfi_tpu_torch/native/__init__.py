@@ -48,6 +48,7 @@ MJPEG_SOURCE = Path(__file__).resolve().parent / "mjpeg.cpp"
 MPEG4_SOURCES = tuple(Path(__file__).resolve().parent / f for f in ("mpeg4.cpp", "mpeg4_enc.cpp"))
 VP8_SOURCE = Path(__file__).resolve().parent / "vp8.cpp"
 VP9_SOURCE = Path(__file__).resolve().parent / "vp9.cpp"
+MPEG12_SOURCE = Path(__file__).resolve().parent / "mpeg12.cpp"
 HEADERS = tuple(Path(__file__).resolve().parent / h
                 for h in ("jpeg_common.h", "ffmpeg_common.h", "mpeg4.h", "vpx_rac.h"))
 FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-pthread")
@@ -65,7 +66,7 @@ _I64 = ctypes.c_int64
 
 def _sources() -> Tuple[Path, ...]:
     return (SOURCE, PNG_SOURCE, JPEG_SOURCE, JPEG_ENC_SOURCE, MJPEG_SOURCE) + MPEG4_SOURCES + (
-        VP8_SOURCE, VP9_SOURCE)
+        VP8_SOURCE, VP9_SOURCE, MPEG12_SOURCE)
 
 
 def library_path() -> Path:
@@ -144,6 +145,7 @@ def library() -> ctypes.CDLL:
                 _bind_mpeg4(lib)
                 _bind_vp8(lib)
                 _bind_vp9(lib)
+                _bind_mpeg12(lib)
                 _lib = lib
                 return _lib
         raise RuntimeError(f"the native library is unavailable: {_error}")
@@ -343,6 +345,19 @@ def _bind_vp9(lib: ctypes.CDLL) -> None:
         fn.restype = None
     lib.fmvfi_vp9_frame.argtypes = [_VP, _I32, _VP]
     lib.fmvfi_vp9_close.argtypes = [_VP]
+
+
+def _bind_mpeg12(lib: ctypes.CDLL) -> None:
+    lib.fmvfi_mpeg12_open.argtypes = [_VP, _I64, ctypes.c_char_p, _I32, ctypes.POINTER(_I32)]
+    lib.fmvfi_mpeg12_open.restype = _VP
+    lib.fmvfi_mpeg12_decode.argtypes = [_VP, _VP, _I64, _VP, ctypes.c_char_p, _I32]
+    lib.fmvfi_mpeg12_decode.restype = _I32
+    lib.fmvfi_mpeg12_flush.argtypes = [_VP, _VP]
+    lib.fmvfi_mpeg12_flush.restype = _I32
+    for fn in (lib.fmvfi_mpeg12_frame, lib.fmvfi_mpeg12_close):
+        fn.restype = None
+    lib.fmvfi_mpeg12_frame.argtypes = [_VP, _VP]
+    lib.fmvfi_mpeg12_close.argtypes = [_VP]
 
 
 def _fourcc_int(fourcc: bytes) -> int:
@@ -564,6 +579,76 @@ class Vp9Decoder:
     def close(self) -> None:
         if self._h:
             self._lib.fmvfi_vp9_close(self._h)
+            self._h = None
+
+    def __del__(self):
+        self.close()
+
+
+# mpeg12.cpp's feature bits (Mpeg12Decoder.info["features"]): what a
+# packet's picture uses
+MPEG12_FEATURES = dict(
+    b_picture=1, skipped=2, intra_in_inter=4, field_dct=8, field_motion=16, alternate_scan=32,
+    intra_vlc=64, nonlinear_q=128, quant_change=256, custom_intra=1024,
+    custom_inter=2048, quant_ext=4096, bt709=8192, escape=16384, bidirectional=32768,
+    half_pel=65536, interlaced_seq=1 << 17, multi_row_slice=1 << 18, mba_escape=1 << 19,
+    backward=1 << 20, zero_mv=1 << 21)
+
+
+class Mpeg12Decoder:
+    """An MPEG-1 or MPEG-2 video stream decoded as cv2.VideoCapture decodes
+    it (FFmpeg's mpeg1video / mpeg2video decoder and swscale's conversion to
+    BGR24, mpeg12.cpp): `decode(packet)` takes one packet (a picture and the
+    headers before it, as FFmpeg's parser or a container's sample holds it)
+    and returns the frames now ready for display, each (H, W, 3) uint8 RGB:
+    a B picture at once, an I or P picture when the next one arrives;
+    `flush()` returns the last one at the end of the stream.  `config` is
+    headers decoded first (a container's sequence header).  After each call
+    `info` holds the picture's facts (size, type, MPEG-2 or not, mpeg12.cpp's
+    feature bits: MPEG12_FEATURES, intra DC precision).  Raises
+    NotImplementedError for what mpeg12.cpp refuses (field pictures, dual
+    prime, 4:2:2 / 4:4:4, scalability, D pictures) and ValueError for
+    malformed data, each with the reason."""
+
+    INFO = ("ready", "width", "height", "picture", "mpeg2", "features", "dc_bits")
+
+    def __init__(self, config: bytes = b""):
+        lib = library()
+        self._lib = lib
+        self._msg = ctypes.create_string_buffer(256)
+        code = _I32(0)
+        buf = np.frombuffer(config, np.uint8) if config else np.zeros(1, np.uint8)
+        self._h = lib.fmvfi_mpeg12_open(buf.ctypes.data, len(config), self._msg, len(self._msg),
+                                        ctypes.byref(code))
+        if not self._h:
+            raise _JPEG_ERRORS[code.value](self._msg.value.decode("ascii", "replace"))
+        self._info = np.zeros(len(self.INFO), np.int32)
+        self.info = {}
+
+    def _frames(self) -> list:
+        self.info = dict(zip(self.INFO, (int(v) for v in self._info)))
+        self.info["picture"] = chr(self.info["picture"]) if self.info["picture"] else ""
+        if not self.info["ready"]:
+            return []
+        out = np.empty((self.info["height"], self.info["width"], 3), np.uint8)
+        self._lib.fmvfi_mpeg12_frame(self._h, out.ctypes.data)
+        return [out]
+
+    def decode(self, packet: bytes) -> list:
+        buf = np.frombuffer(packet, np.uint8)
+        code = self._lib.fmvfi_mpeg12_decode(self._h, buf.ctypes.data, buf.size,
+                                             self._info.ctypes.data, self._msg, len(self._msg))
+        if code:
+            raise _JPEG_ERRORS[code](self._msg.value.decode("ascii", "replace"))
+        return self._frames()
+
+    def flush(self) -> list:
+        self._lib.fmvfi_mpeg12_flush(self._h, self._info.ctypes.data)
+        return self._frames()
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.fmvfi_mpeg12_close(self._h)
             self._h = None
 
     def __del__(self):

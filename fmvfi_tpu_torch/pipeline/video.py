@@ -8,29 +8,32 @@ are numpy (H, W, 3).  On the card, frames go up through pinned memory and
 results come down into pinned memory, both copied asynchronously, so the
 host waits only for a finished result: pair i+1's work is queued on the card
 before the host waits for pair i's.  Video files are read when they hold
-Motion-JPEG (AVI, utils/avi.py), MPEG-4 Part 2 (AVI, or MP4 / M4V / MOV
-through utils/mp4.py), VP8 (utils/mkv.py: Matroska and WebM, which also
-carry Motion-JPEG and MPEG-4 Part 2) or VP9 (WebM, Matroska, MP4 and AVI),
-each frame decoded as cv2.VideoCapture decodes it (FFmpeg's decoders and
-swscale's conversion, native/mjpeg.cpp, native/mpeg4.cpp, native/vp8.cpp
-and native/vp9.cpp, an MP4 track's rotation applied as cv2 applies it); the
-container is told from the file's bytes, as FFmpeg probes it.  Other codecs
-and containers (H.264, HEVC, AV1; FLV, Ogg, ...) raise NotImplementedError:
-the card's machine has no decoder for them (ROADMAP Queue 1, item 18.4).
+what utils/formats.py's table lists: Motion-JPEG, MPEG-4 Part 2, MPEG-1/2,
+VP8 or VP9 in AVI (utils/avi.py), MP4 / M4V / MOV (utils/mp4.py), Matroska
+/ WebM (utils/mkv.py), MPEG transport and program streams and raw MPEG
+video (utils/mpegts.py) and IVF (utils/ivf.py), each frame decoded as
+cv2.VideoCapture decodes it (FFmpeg's decoders and swscale's conversion:
+native/mjpeg.cpp, mpeg4.cpp, mpeg12.cpp, vp8.cpp and vp9.cpp; an MP4
+track's rotation applied as cv2 applies it; MPEG-1/2's display order and
+the frame it holds back until the end of the stream, as cv2 drains the
+decoder); the container is told from the file's bytes, as FFmpeg probes
+it.  Other codecs and containers (H.264, HEVC, AV1; FLV, Ogg, ...) raise
+NotImplementedError naming ROADMAP item 18.4 (the card's machine has no
+decoder for them), an image file or a numbered image sequence item 18.4k.
 """
 
 from __future__ import annotations
 
 import os
+import re
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator, List, Sequence
 
 import numpy as np
 import torch
 
-from .. import native
 from ..ops.pyramid import make_filters, max_pyr_height
-from ..utils import avi, imageio, mkv, mp4
+from ..utils import avi, formats, imageio, ivf, mkv, mp4, mpegts
 from ..utils.resample import resize_bilinear_u8
 from .interpolate import (
     FusionModels,
@@ -52,26 +55,24 @@ FRAME_SUFFIXES = (".png", ".jpg", ".jpeg")  # JAX's
 ISO_BOXES = (b"ftyp", b"moov", b"mdat", b"free", b"skip", b"wide", b"pnot", b"uuid")
 MATROSKA = b"\x1aE\xdf\xa3"  # the EBML header's id
 OTHER_CONTAINERS = ((b"FLV", "an FLV file"), (b"OggS", "an Ogg file"),
-                    (b"\x00\x00\x01\xba", "an MPEG program stream"),
                     (b"0&\xb2u", "an ASF (WMV) file"))
-
-
-def _no_decoder(path: str, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{path}: {what}; reading it needs a decoder the card's machine lacks (ROADMAP Queue 1, "
-        "item 18.4); pass a Motion-JPEG, MPEG-4 Part 2 (mp4v) or VP9 AVI, an mp4v or VP9 MP4, "
-        "an mp4v MOV file, an .mkv or .webm file of VP8, VP9, Motion-JPEG or mp4v video, or a "
-        "directory of PNG or JPEG frames")
+IMAGES = ((imageio.SIGNATURE, "PNG"), (b"\xff\xd8\xff", "JPEG"))
+PATTERN = re.compile(r"%0?\d*d")  # a printf pattern, as FFmpeg's image2 demuxer reads it
 
 
 def _container(path: str) -> str:
-    """"avi", "mp4" or "mkv" from the file's first bytes, as FFmpeg probes them;
-    NotImplementedError for a container the port does not read, ValueError
-    for a file that is none (cv2 decodes no frames from it)."""
+    """"avi", "mp4", "mkv", "ivf", "ts", "ps" or "es" (a raw MPEG video
+    stream) from the file's first bytes, as FFmpeg probes them;
+    NotImplementedError for a container the port does not read, an image
+    (cv2 reads it as a one-frame video) or a numbered image sequence,
+    ValueError for a file that is none (cv2 decodes no frames from it)."""
     try:
         with open(path, "rb") as f:
-            head = f.read(16)
+            head = f.read(192 * 5)
     except OSError:
+        if PATTERN.search(os.path.basename(path)) and any(
+                os.path.isfile(PATTERN.sub(lambda m: m.group(0) % i, path)) for i in range(5)):
+            raise formats.unsupported(path, "a numbered image sequence", "18.4k") from None
         raise ValueError(f"no frames decoded from {path}") from None
     if head[:4] == b"RIFF" and head[8:12] == b"AVI ":
         return "avi"
@@ -79,65 +80,84 @@ def _container(path: str) -> str:
         return "mp4"
     if head.startswith(MATROSKA):
         return "mkv"
+    if head.startswith(ivf.MAGIC):
+        return "ivf"
+    if mpegts.ts_packet_size(head):
+        return "ts"
+    if head.startswith(mpegts.PACK):
+        return "ps"
+    if head.startswith(mpegts.SEQUENCE):
+        return "es"
+    image = next((name for magic, name in IMAGES if head.startswith(magic)),
+                 None) or imageio.still_format(head)
+    if image is not None:  # cv2 reads it as a video of one frame (a GIF: of its frames)
+        raise formats.unsupported(path, f"a {image} image", "18.4k")
     for magic, what in OTHER_CONTAINERS:
         if head.startswith(magic):
-            raise _no_decoder(path, what)
+            raise formats.unsupported(path, what)
     raise ValueError(f"no frames decoded from {path}")
 
 
-def _as_refusal(path: str, where: str, e: Exception) -> Exception:
+def _as_refusal(path: str, where: str, e: Exception, item: str = "18.4") -> Exception:
     """A decoder's error about `where` in `path`; NotImplementedError names
-    item 18.4."""
+    ROADMAP item `item`."""
     if isinstance(e, NotImplementedError):
-        return NotImplementedError(f"{path}: {where}{e} (ROADMAP Queue 1, item 18.4: FFmpeg "
+        return NotImplementedError(f"{path}: {where}{e} (ROADMAP Queue 1, item {item}: FFmpeg "
                                    "decodes it otherwise)")
     return ValueError(f"{path}: {where}{e}")
 
 
+def _open(path: str):
+    """(packets, (decode, flush), rotation, codec) of a video file."""
+    container = _container(path)
+    if container == "mkv":
+        try:
+            track = mkv.open_video(path)
+        except ValueError as e:  # cv2 opens no stream in it
+            raise ValueError(f"no frames decoded from {path} ({e})") from None
+        # CodecPrivate configures mp4v (the VOL) and MPEG-1/2 (the sequence header)
+        return (mkv.iter_samples(track), formats.decoder(track.codec, track.config), 0,
+                track.codec)
+    if container == "avi":
+        stream = avi.open_video(path)
+        return (avi.iter_frames(stream),
+                formats.decoder(stream.codec, fourcc=stream.strf["compression"]), 0,
+                stream.codec)
+    if container == "mp4":
+        track = mp4.open_video(path)
+        return (mp4.iter_samples(track), formats.decoder(track.decoder, track.config),
+                track.rotation, track.decoder)
+    if container == "ivf":
+        clip = ivf.open_video(path)
+        return ivf.iter_frames(clip), formats.decoder(clip.codec), 0, clip.codec
+    stream = mpegts.open_stream(path, container)
+    return mpegts.iter_packets(stream), formats.decoder(stream.codec), 0, stream.codec
+
+
 def _iter_decoded(path: str) -> Iterator[np.ndarray]:
     """A video file's frames as cv2.VideoCapture returns them, (H, W, 3)
-    uint8 RGB: Motion-JPEG, MPEG-4 Part 2 or VP9 in AVI, MPEG-4 Part 2 in
-    MP4, M4V or MOV and VP9 in MP4 (turned by the track's display matrix),
-    VP8, VP9, Motion-JPEG or MPEG-4 Part 2 in Matroska or WebM.  A VP9
-    packet yields the frames it shows: none for a hidden frame, two for a
-    superframe showing two."""
-    rotation = 0
+    uint8 RGB, in the decoder's output order: a VP9 packet yields the frames
+    it shows (none for a hidden frame, two for a superframe showing two), an
+    MPEG-1/2 packet the frame its picture lets out (display order), and the
+    end of the stream the frame an MPEG-1/2 decoder still holds."""
     try:
-        container = _container(path)
-        if container == "mkv":
-            try:
-                track = mkv.open_video(path)
-            except ValueError as e:  # cv2 opens no stream in it
-                raise ValueError(f"no frames decoded from {path} ({e})") from None
-            samples, decode = mkv.iter_samples(track), mkv.decoder(track)
-        elif container == "avi":
-            stream = avi.open_video(path)
-            samples = avi.iter_frames(stream)
-            if stream.codec == "mjpeg":
-                decode = native.mjpeg_decode
-            elif stream.codec == "vp9":
-                decode = native.Vp9Decoder().decode
-            else:
-                decode = native.Mpeg4Decoder(fourcc=stream.strf["compression"]).decode
-        else:
-            track = mp4.open_video(path)
-            samples, rotation = mp4.iter_samples(track), track.rotation
-            if track.codec == b"vp09":
-                decode = native.Vp9Decoder().decode
-            else:
-                decode = native.Mpeg4Decoder(track.config).decode
+        samples, (decode, flush), rotation, codec = _open(path)
     except (ValueError, NotImplementedError) as e:
         if "18.4" in str(e) or str(e).startswith(("no frames decoded", path)):
             raise
         raise _as_refusal(path, "", e) from None
+    item = "18.4h" if codec == "mpeg12" else "18.4"
     for i, data in enumerate(samples):
         try:
             frame = decode(data)
         except (ValueError, NotImplementedError) as e:
-            raise _as_refusal(path, f"frame {i}: ", e) from None
+            raise _as_refusal(path, f"frame {i}: ", e, item) from None
         if frame is None:  # a packet of headers or a not-coded VOP
             continue
-        for f in frame if isinstance(frame, list) else [frame]:  # VP9: the frames it shows
+        for f in frame if isinstance(frame, list) else [frame]:
+            yield mp4.rotate(f, rotation)
+    if flush is not None:
+        for f in flush():
             yield mp4.rotate(f, rotation)
 
 

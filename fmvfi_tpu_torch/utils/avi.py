@@ -1,4 +1,4 @@
-"""AVI files of Motion-JPEG or MPEG-4 Part 2 video without cv2: writers
+"""AVI files without cv2: writers
 for eval/visualize.py's panel videos (MJPG) and utils/datasets.py's
 images_to_video (mp4v), and a reader for pipeline/video.py.
 
@@ -29,14 +29,14 @@ The reader takes what cv2.VideoWriter(..., "MJPG", ...) writes (FFmpeg's
 muxer: JUNK chunks, an INFO list, idx1) and what MjpgWriter writes, and
 also 'rec ' lists, files without an index, '##db' chunks and OpenDML's
 'AVIX' extensions: `open_video` parses the headers and picks the first
-video stream, which must be Motion-JPEG, MPEG-4 Part 2 or VP9 (VP90, what
-cv2.VideoWriter(..., "VP90", ...) writes; by the strf compression FourCC,
-as FFmpeg's demuxer picks the codec; NotImplementedError otherwise, naming
-the FourCC and ROADMAP item 18.4),
-`iter_frames` streams its frames' bytes from the 'movi' lists in file
-order, and `read` returns the headers, the idx1 index and every frame.
-pipeline/video.py decodes the frames with native.mjpeg_decode,
-native.Mpeg4Decoder or native.Vp9Decoder, as cv2.VideoCapture decodes
+video stream, which must be Motion-JPEG, MPEG-4 Part 2, MPEG-1/2 (cv2's
+PIM1 and MPG2 writers store PIM1 and mpg2), VP8 or VP9 (VP80, VP90: what
+cv2.VideoWriter writes for those FourCCs), told by the strf compression
+FourCC as FFmpeg's demuxer picks the codec (NotImplementedError otherwise,
+naming the FourCC and ROADMAP item 18.4), `iter_frames` streams its
+frames' bytes from the 'movi' lists in file order, and `read` returns the
+headers, the idx1 index and every frame.  pipeline/video.py decodes the
+frames with utils/formats.py's decoders, as cv2.VideoCapture decodes
 them.
 """
 
@@ -51,6 +51,7 @@ from typing import Dict, Iterator, List, NamedTuple, Tuple
 import numpy as np
 
 from .. import native
+from .formats import unsupported
 
 RIFF_LIMIT = 1 << 30  # RIFF 1.0: the whole file under 1 GiB
 AVIF_HASINDEX = 0x10
@@ -167,17 +168,16 @@ def _list(kind: bytes, body: bytes) -> bytes:
 MJPEG_FOURCCS = (b"MJPG", b"AVI1", b"JPEG")  # FourCCs FFmpeg reads as Motion-JPEG
 # FourCCs FFmpeg reads as MPEG-4 Part 2 (upper-cased, as its decoder reads the tag)
 MPEG4_FOURCCS = (b"MP4V", b"FMP4", b"XVID", b"DIVX", b"DX50")
+# riff.c's FourCCs of mpeg1video and mpeg2video (upper-cased; cv2's PIM1 and
+# MPG2 writers store PIM1 and mpg2); VCR2 and SLIF, whose streams FFmpeg
+# decodes with workarounds, are not among them
+MPEG12_FOURCCS = (b"MPG1", b"MPG2", b"PIM1", b"PIM2", b"MPEG", b"MP1V", b"MP2V", b"MPGV",
+                  b"MMES", b"LMP2", b"EM2V", b"DVR ", b"\x01\x00\x00\x10", b"\x02\x00\x00\x10")
+VP8_FOURCCS = (b"VP80",)
 VP9_FOURCCS = (b"VP90",)  # what cv2.VideoWriter(..., "VP90", ...) stores
 CODECS = {**{f: "mjpeg" for f in MJPEG_FOURCCS}, **{f: "mpeg4" for f in MPEG4_FOURCCS},
+          **{f: "mpeg12" for f in MPEG12_FOURCCS}, **{f: "vp8" for f in VP8_FOURCCS},
           **{f: "vp9" for f in VP9_FOURCCS}}
-
-
-def _unsupported(path: str, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{path}: {what}; the port reads Motion-JPEG, MPEG-4 Part 2 (mp4v) and VP9 AVI files, "
-        "mp4v and VP9 MP4 files, mp4v MOV files and .mkv / .webm files of VP8, VP9, Motion-JPEG "
-        "or mp4v video (ROADMAP Queue 1, item 18.4: other codecs need a video decoder the card's "
-        "machine lacks)")
 
 
 def _walk(f, start: int, end: int):
@@ -225,7 +225,7 @@ def _strf(body: bytes) -> Dict[str, object]:
 class VideoStream(NamedTuple):
     """An AVI file's first video stream: the file's main header, the
     stream's headers, its number (its frames are the '<nn>dc' and '<nn>db'
-    chunks) and its codec ("mjpeg", "mpeg4" or "vp9")."""
+    chunks) and its codec ("mjpeg", "mpeg4", "mpeg12", "vp8" or "vp9")."""
 
     path: str
     avih: Dict[str, int]
@@ -238,8 +238,7 @@ class VideoStream(NamedTuple):
 def open_video(path) -> VideoStream:
     """The headers of the AVI file at `path` and its first video stream.
     ValueError for a file that is not a RIFF AVI or has no video stream;
-    NotImplementedError for a stream that is neither Motion-JPEG nor MPEG-4
-    Part 2."""
+    NotImplementedError for a stream of a codec the port does not decode."""
     path = os.fspath(path)
     with open(path, "rb") as f:
         size = os.fstat(f.fileno()).st_size
@@ -268,9 +267,8 @@ def open_video(path) -> VideoStream:
             raise ValueError(f"{path}: video stream {number} has no strf header")
         codec = CODECS.get(strf["compression"].upper())  # FFmpeg's choice: strh's handler
         if codec is None:                                  # is not read for it
-            raise _unsupported(path, f"a video stream whose strf compression is "
-                                     f"{strf['compression'].decode('latin-1')!r}, not MJPG, "
-                                     "VP90 or an MPEG-4 Part 2 FourCC")
+            raise unsupported(path, f"a video stream whose strf compression is "
+                                    f"{strf['compression'].decode('latin-1')!r}")
         return VideoStream(path, avih, strh, strf, number, codec)
     raise ValueError(f"{path}: no video stream")
 

@@ -3,10 +3,10 @@ reference's download sources, a streaming download, zip extraction, and the
 Testset bootstrap's check for git-LFS pointers.
 
 `video_to_images` (and `videos_to_images`, `bootstrap_testset`) extract
-the frames of video files (Motion-JPEG, MPEG-4 Part 2 or VP9 in AVI, MPEG-4
-Part 2 in MP4 / M4V / MOV, VP9 in MP4, VP8, VP9, Motion-JPEG or MPEG-4 Part
-2 in Matroska / WebM), decoded as cv2.VideoCapture decodes them
-(pipeline/video.py),
+the frames of the video files utils/formats.py's table lists (Motion-JPEG,
+MPEG-4 Part 2, MPEG-1/2, VP8 or VP9 in AVI, MP4 / M4V / MOV, Matroska /
+WebM, MPEG transport and program streams, raw MPEG video and IVF), decoded
+as cv2.VideoCapture decodes them (pipeline/video.py),
 resized as cv2.resize resizes them and written as cv2.imwrite writes them.
 `images_to_video` writes MPEG-4 Part 2 ("mp4v", as JAX's cv2.VideoWriter)
 into the container its extension names (.mp4, .m4v, .mov: utils/mp4.py;

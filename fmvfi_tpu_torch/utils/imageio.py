@@ -42,6 +42,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 
 from .. import native
+from . import formats
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _JPEG_MAGIC = b"\xff\xd8\xff"
@@ -180,14 +181,43 @@ def _read_raw(data: bytes, path: str) -> RawPNG:
     return RawPNG(width, height, depth, color, palette, tuple(passes))
 
 
+# the other still images cv2.imread decodes, told by their first bytes
+STILL_FORMATS = ((b"BM", "BMP"), (b"II*\0", "TIFF"), (b"MM\0*", "TIFF"),
+                 (b"\0\0\0\x0cjP  \r\n\x87\n", "JPEG 2000"), (b"\xffO\xffQ", "JPEG 2000"),
+                 (b"\x59\xa6\x6a\x95", "Sun raster"), (b"#?RADIANCE", "Radiance HDR"),
+                 (b"#?RGBE", "Radiance HDR"), (b"GIF87a", "GIF"), (b"GIF89a", "GIF"))
+
+
+def still_format(data: bytes) -> Optional[str]:
+    """The name of a still-image format other than PNG and JPEG that the
+    bytes begin with (cv2.imread decodes them), else None."""
+    for magic, name in STILL_FORMATS:
+        if data.startswith(magic):
+            return name
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return "WebP"
+    if len(data) >= 3 and data[0:1] == b"P" and data[2:3] in b" \t\r\n":
+        if data[1:2] in b"1234567":
+            return "PNM"
+        if data[1:2] in b"Ff":
+            return "PFM"
+    return None
+
+
 def imread(path) -> np.ndarray:
     """The PNG or JPEG file at `path` as an (H, W, 3) uint8 RGB array (a
-    JPEG turned upright by its EXIF Orientation tag, as cv2 reads it)."""
+    JPEG turned upright by its EXIF Orientation tag, as cv2 reads it).  The
+    other formats cv2.imread decodes (BMP, TIFF, WebP, PNM, PFM, JPEG 2000,
+    Sun raster, Radiance HDR, GIF) raise NotImplementedError naming ROADMAP
+    item 18.11."""
     path = os.fspath(path)
     with open(path, "rb") as f:
         data = f.read()
     if data.startswith(_JPEG_MAGIC):
         return _decode_jpeg(data, path, orient=True)
+    other = still_format(data)
+    if other is not None:
+        raise formats.unsupported(path, f"a {other} image", "18.11")
     raw = _read_raw(data, path)
     out = np.empty((raw.height, raw.width, 3), np.uint8)
     for p in raw.passes:  # each pass unfiltered on its own, its pixels put in place

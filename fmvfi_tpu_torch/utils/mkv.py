@@ -11,9 +11,11 @@ MediaRecorder writes) ends where the file or the next top-level element
 begins.  The first video track is read, as OpenCV's FFmpeg backend picks
 it; the blocks of other tracks (an interleaved audio track) are skipped.
 Its CodecID names the decoder: `V_VP8` (native/vp8.cpp), `V_VP9`
-(native/vp9.cpp), `V_MJPEG` (native/mjpeg.cpp) and `V_MPEG4/ISO/ASP` with
-its CodecPrivate VOL (native/mpeg4.cpp), what cv2.VideoWriter stores for
-the FourCCs VP80, VP90, MJPG, mp4v and XVID.  What the port cannot decode
+(native/vp9.cpp), `V_MJPEG` (native/mjpeg.cpp), `V_MPEG4/ISO/ASP` with
+its CodecPrivate VOL (native/mpeg4.cpp) and `V_MPEG1` / `V_MPEG2` with
+their CodecPrivate sequence header (native/mpeg12.cpp), what
+cv2.VideoWriter stores for the FourCCs VP80, VP90, MJPG, mp4v, XVID, PIM1
+and MPG2.  What the port cannot decode
 as cv2 does raises NotImplementedError naming it and ROADMAP item 18.4: any
 other CodecID (`V_AV1`, `V_MPEG4/ISO/AVC`, `V_MPEGH/ISO/HEVC`, `V_THEORA`,
 ...), ContentEncodings (header stripping, compression, encryption), and an
@@ -41,6 +43,7 @@ from typing import Iterator, List, NamedTuple, Optional, Tuple
 import numpy as np
 
 from .. import native
+from .formats import unsupported
 from .mp4 import GOP, QUANT
 
 EBML = 0x1A45DFA3
@@ -48,7 +51,8 @@ SEGMENT = 0x18538067
 CLUSTER = 0x1F43B675
 TOP_LEVEL = {0x114D9B74, 0x1549A966, 0x1654AE6B, CLUSTER, 0x1C53BB6B, 0x1254C367, 0x1043A770,
              0x1941A469}  # SeekHead, Info, Tracks, Cluster, Cues, Tags, Chapters, Attachments
-CODECS = {"V_VP8": "vp8", "V_VP9": "vp9", "V_MJPEG": "mjpeg", "V_MPEG4/ISO/ASP": "mpeg4"}
+CODECS = {"V_VP8": "vp8", "V_VP9": "vp9", "V_MJPEG": "mjpeg", "V_MPEG4/ISO/ASP": "mpeg4",
+          "V_MPEG1": "mpeg12", "V_MPEG2": "mpeg12"}
 DOC_TYPES = (b"matroska", b"webm")
 # The Colour values under which cv2 returns an mp4v track's frames as it
 # does with no Colour element (measured on forged files): FFmpeg's mpeg4
@@ -61,14 +65,6 @@ MPEG4_COLOUR = {
     0x55B1: ("MatrixCoefficients", (2, 5, 6)),  # unspecified, BT.470BG, BT.601
     0x55B9: ("Range", (0, 1)),  # unspecified, limited
 }
-
-
-def _unsupported(path: str, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{path}: {what}; the port reads Motion-JPEG, MPEG-4 Part 2 (mp4v) and VP9 AVI files, "
-        "mp4v and VP9 MP4 files, mp4v MOV files and .mkv / .webm files of VP8, VP9, Motion-JPEG "
-        "or mp4v video (ROADMAP Queue 1, item 18.4: other codecs need a video decoder the card's "
-        "machine lacks)")
 
 
 def _vint(buf, pos: int, end: int, keep_marker: bool = False) -> Tuple[int, int, bool]:
@@ -124,7 +120,7 @@ class Track(NamedTuple):
 
     path: str
     codec_id: str
-    codec: str  # "vp8", "mjpeg" or "mpeg4"
+    codec: str  # "vp8", "vp9", "mjpeg", "mpeg4" or "mpeg12"
     width: int
     height: int
     config: bytes  # CodecPrivate
@@ -145,10 +141,10 @@ def _track_entry(path: str, buf, start: int, end: int) -> Optional[dict]:
         return None
     codec_id = bytes(buf[slice(*c[0x86])]).rstrip(b"\0").decode("latin-1") if 0x86 in c else ""
     if 0x6D80 in c:
-        raise _unsupported(path, f"a {codec_id} track with ContentEncodings (header stripping, "
+        raise unsupported(path, f"a {codec_id} track with ContentEncodings (header stripping, "
                                  "compression or encryption)")
     if codec_id not in CODECS:
-        raise _unsupported(path, f"a {codec_id or 'CodecID-less'} video track")
+        raise unsupported(path, f"a {codec_id or 'CodecID-less'} video track")
     if 0xE0 not in c or 0xD7 not in c:
         raise ValueError(f"{path}: a video track without its Video element or TrackNumber")
     video = _children(buf, *c[0xE0])
@@ -156,7 +152,7 @@ def _track_entry(path: str, buf, start: int, end: int) -> Optional[dict]:
         colour = _children(buf, *video[0x55B0])
         for eid, (name, ok) in MPEG4_COLOUR.items():
             if eid in colour and _uint(buf, *colour[eid]) not in ok:
-                raise _unsupported(path, f"an mp4v track with Colour {name} "
+                raise unsupported(path, f"an mp4v track with Colour {name} "
                                          f"{_uint(buf, *colour[eid])} (cv2 converts its frames "
                                          "otherwise)")
     return dict(codec_id=codec_id, codec=CODECS[codec_id], number=_uint(buf, *c[0xD7]),
@@ -332,19 +328,6 @@ def iter_samples(track: Track) -> Iterator[bytes]:
             if len(data) != n:
                 raise ValueError(f"{track.path}: a frame at {pos} runs past the file")
             yield data
-
-
-def decoder(track: Track):
-    """A callable that decodes one frame's bytes of the track as cv2 does
-    (None for a frame that shows nothing; for VP9 the list of the frames a
-    packet shows)."""
-    if track.codec == "vp8":
-        return native.Vp8Decoder().decode
-    if track.codec == "vp9":
-        return native.Vp9Decoder().decode
-    if track.codec == "mjpeg":
-        return native.mjpeg_decode
-    return native.Mpeg4Decoder(track.config).decode
 
 
 def _id_bytes(eid: int) -> bytes:

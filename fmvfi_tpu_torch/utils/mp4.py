@@ -1,17 +1,22 @@
-"""ISO base media files (.mp4, .m4v, .mov) of MPEG-4 Part 2 or VP9 video
-without cv2: a reader for pipeline/video.py and a writer for
+"""ISO base media files (.mp4, .m4v, .mov) without cv2: a reader for pipeline/video.py and a writer for
 utils/datasets.py::images_to_video.
 
 The reader (`open_video`, `iter_samples`) walks the boxes as FFmpeg's mov
 demuxer does for such a file: `ftyp`, `moov` before or after `mdat`
 (64-bit box sizes too), the first video track's sample tables (`stts`,
 `stsc`, `stsz` / `stz2`, `stco` / `co64`, `stss`), its `mp4v` sample
-entry's `esds` (object type 0x20, MPEG-4 Visual; its DecoderSpecificInfo
-holds the VOS / VO / VOL headers) or its `vp09` sample entry (VP9, what
-cv2.VideoWriter(fourcc "VP90") writes into .mp4; its `vpcC` changes
-nothing cv2 returns), `tkhd`'s display matrix composed with `mvhd`'s (the
+entry's `esds` (its object type names the codec, as FFmpeg's demuxer reads
+it: 0x20 MPEG-4 Visual, whose DecoderSpecificInfo holds the VOS / VO / VOL
+headers; 0x60-0x65 and 0x6A MPEG-2 and MPEG-1, whose DecoderSpecificInfo
+is the sequence header; 0x6C Motion-JPEG: what cv2's MPG2 and MJPG writers
+store in .mp4), QuickTime's `m2v1` / `m1v ` (MPEG-1/2) and `jpeg`
+(Motion-JPEG) entries (what those writers store in .mov), or its `vp09`
+sample entry (VP9, what cv2.VideoWriter(fourcc "VP90") writes into .mp4;
+its `vpcC` changes nothing cv2 returns), `tkhd`'s display matrix composed with `mvhd`'s (the
 rotation cv2 applies, CAP_PROP_ORIENTATION_AUTO: 90, 180 or 270 degrees
-clockwise) and the edit list.  What the port cannot decode as cv2 does
+clockwise) and the edit list (one that plays every sample, as cv2's
+writer's do: from media time 0 or from the first composition time).  What
+the port cannot decode as cv2 does
 raises NotImplementedError naming it and ROADMAP item 18.4: any other
 sample entry (`avc1`, `hvc1`, `av01`, ...), an `esds` of another object
 type, a non-trivial edit list, fragmented or compressed movies, several
@@ -39,6 +44,7 @@ from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 import numpy as np
 
 from .. import native
+from .formats import unsupported
 
 QUANT = 3  # the writer's fixed vop_quant (no rate control)
 GOP = 12  # cv2's: an I-VOP every 12 frames
@@ -47,14 +53,16 @@ BRANDS = {".mp4": (b"isom", 512, (b"isom", b"iso2", b"mp41")),
           ".mov": (b"qt  ", 512, (b"qt  ",))}
 CONTAINERS = {b"moov", b"trak", b"mdia", b"minf", b"stbl", b"edts", b"dinf", b"udta"}
 MPEG4_VISUAL = 0x20  # esds objectTypeIndication
-
-
-def _unsupported(path: str, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{path}: {what}; the port reads Motion-JPEG, MPEG-4 Part 2 (mp4v) and VP9 AVI files, "
-        "mp4v and VP9 MP4 files, mp4v MOV files and .mkv / .webm files of VP8, VP9, Motion-JPEG "
-        "or mp4v video (ROADMAP Queue 1, item 18.4: other codecs need a video decoder the card's "
-        "machine lacks)")
+# the esds object types FFmpeg's mov demuxer (ff_mp4_obj_type) reads as
+# mpeg2video (the MPEG-2 profiles 0x60-0x65) and mpeg1video (0x6A), and as
+# mjpeg (0x6C); cv2's MPG2 and MJPG writers store an mp4v entry of type 0x61
+# or 0x6C in .mp4
+MPEG12_OBJECT_TYPES = (0x60, 0x61, 0x62, 0x63, 0x64, 0x65, 0x6A)
+MJPEG_OBJECT_TYPE = 0x6C
+# QuickTime sample entries of MPEG-1/2 (cv2's MPG2 and PIM1 writers store
+# m2v1 and 'm1v ' in .mov) and Motion-JPEG (its MJPG writer stores jpeg)
+MPEG12_ENTRIES = (b"m1v ", b"m1v1", b"mp1v", b"m2v1", b"mp2v")
+MJPEG_ENTRIES = (b"jpeg",)
 
 
 def _boxes(data: bytes, start: int = 0, end: Optional[int] = None) -> Iterator[Tuple[bytes, int, int]]:
@@ -150,6 +158,7 @@ class Track(NamedTuple):
 
     path: str
     codec: bytes  # the sample entry's type
+    decoder: str  # "mpeg4", "mpeg12", "mjpeg" or "vp9" (utils/formats.py's decoders)
     width: int
     height: int
     config: bytes  # the esds DecoderSpecificInfo (mp4v), the vpcC body (vp09)
@@ -193,7 +202,7 @@ def open_video(path) -> Track:
         top = _top_level(f, size)
         if b"moov" not in top:
             if b"moof" in top:
-                raise _unsupported(path, "a fragmented MP4 file")
+                raise unsupported(path, "a fragmented MP4 file")
             raise ValueError(f"{path}: no moov box")
         pos, n = top[b"moov"]
         f.seek(pos)
@@ -202,9 +211,9 @@ def open_video(path) -> Track:
     track = None
     for kind, p, n in _boxes(moov):
         if kind == b"cmov":
-            raise _unsupported(path, "a compressed moov box")
+            raise unsupported(path, "a compressed moov box")
         if kind == b"mvex":
-            raise _unsupported(path, "a fragmented MP4 file")
+            raise unsupported(path, "a fragmented MP4 file")
         if kind == b"mvhd":
             v, body = _full(moov[p:p + n])
             at = (28 if v else 16) + 16  # past the times, rate, volume and reserved
@@ -249,27 +258,37 @@ def _video_track(path: str, moov: bytes, start: int, length: int):
     _, stsd = _full(found[b"stsd"])
     count = struct.unpack(">I", stsd[:4])[0]
     if count != 1:
-        raise _unsupported(path, f"a track with {count} sample descriptions")
+        raise unsupported(path, f"a track with {count} sample descriptions")
     entries = list(_boxes(stsd, 4))
     if not entries:
         raise ValueError(f"{path}: an empty stsd box")
     codec, p, n = entries[0]
-    if codec not in (b"mp4v", b"vp09"):
-        raise _unsupported(path, f"a {codec.decode('latin-1')!r} video track")
+    if codec not in (b"mp4v", b"vp09") + MPEG12_ENTRIES + MJPEG_ENTRIES:
+        raise unsupported(path, f"a {codec.decode('latin-1')!r} video track")
     width, height = struct.unpack(">HH", stsd[p + 24:p + 28])
     children = {kind: stsd[q:q + m] for kind, q, m in _boxes(stsd, p + 78, p + n)}
+    config = b""
     if codec == b"vp09":
         # the VP9 stream's own colour config decides cv2's conversion: a vpcC
         # saying another profile, depth, sampling, range or matrix changes
         # nothing (measured on forged files)
-        config = children.get(b"vpcC", b"")
+        config, decoder = children.get(b"vpcC", b""), "vp9"
+    elif codec in MPEG12_ENTRIES:
+        decoder = "mpeg12"  # the sequence header is in the samples
+    elif codec in MJPEG_ENTRIES:
+        decoder = "mjpeg"
     else:
         if b"esds" not in children:
             raise ValueError(f"{path}: an mp4v sample entry without esds")
         oti, config = _esds_config(children[b"esds"])
-        if oti != MPEG4_VISUAL:
-            raise _unsupported(path, f"an mp4v track of object type 0x{oti:02x}, not MPEG-4 "
-                                     "Visual")
+        if oti == MPEG4_VISUAL:
+            decoder = "mpeg4"
+        elif oti in MPEG12_OBJECT_TYPES:
+            decoder = "mpeg12"
+        elif oti == MJPEG_OBJECT_TYPE:
+            decoder, config = "mjpeg", b""
+        else:
+            raise unsupported(path, f"an mp4v track of object type 0x{oti:02x}")
     sizes = _sizes(found)
     offsets = _offsets(path, found, sizes)
     deltas = []
@@ -279,14 +298,15 @@ def _video_track(path: str, moov: bytes, start: int, length: int):
         deltas += [d] * c
     deltas = (deltas + [deltas[-1] if deltas else 1] * len(sizes))[:len(sizes)]
     if b"elst" in found:
-        _check_edits(path, found[b"elst"], sum(deltas) - (deltas[-1] if deltas else 0), timescale,
+        cts = _composition_times(found, deltas)
+        _check_edits(path, found[b"elst"], min(cts, default=0), max(cts, default=0), timescale,
                      _movie_timescale(moov))
     keyframes = None
     if b"stss" in found:
         _, stss = _full(found[b"stss"])
         keyframes = list(struct.unpack(f">{struct.unpack('>I', stss[:4])[0]}I", stss[4:]))
-    return tkhd_matrix, dict(codec=codec, width=width, height=height, config=config,
-                             offsets=offsets, sizes=sizes, keyframes=keyframes,
+    return tkhd_matrix, dict(codec=codec, decoder=decoder, width=width, height=height,
+                             config=config, offsets=offsets, sizes=sizes, keyframes=keyframes,
                              timescale=timescale, deltas=deltas)
 
 
@@ -298,21 +318,44 @@ def _movie_timescale(moov: bytes) -> int:
     return 1000
 
 
-def _check_edits(path: str, elst: bytes, last_start: int, timescale: int, movie_scale: int):
-    """An edit list cv2 plays as the media itself: none, or one edit from
-    media time 0 at rate 1 that reaches past the last sample's start (FFmpeg
-    keeps the samples that start inside the edit)."""
+def _composition_times(found: Dict[bytes, bytes], deltas: List[int]) -> List[int]:
+    """Each sample's composition time: its decode time plus its ctts offset
+    (MPEG-1/2 with B pictures, and the one-picture delay of MPEG-1/2
+    without them)."""
+    times, t = [], 0
+    for d in deltas:
+        times.append(t)
+        t += d
+    if b"ctts" in found:
+        v, b = _full(found[b"ctts"])
+        i = 0
+        for k in range(struct.unpack(">I", b[:4])[0]):
+            count, offset = struct.unpack(">Ii" if v else ">II", b[4 + 8 * k:12 + 8 * k])
+            for _ in range(count):
+                if i < len(times):
+                    times[i] += offset
+                i += 1
+    return times
+
+
+def _check_edits(path: str, elst: bytes, first: int, last: int, timescale: int,
+                 movie_scale: int):
+    """An edit list cv2 plays as the media itself: none, or one edit at rate 1
+    from a media time no later than the first composition time `first`
+    (what FFmpeg's muxer writes for a codec's delay) that reaches past the
+    last sample's composition time `last` (FFmpeg keeps the samples that
+    start inside the edit)."""
     v, body = _full(elst)
     count = struct.unpack(">I", body[:4])[0]
     if count == 0:
         return
     fmt, size = (">QqHH", 20) if v else (">IiHH", 12)
     edits = [struct.unpack(fmt, body[4 + size * i:4 + size * (i + 1)]) for i in range(count)]
-    whole = count == 1 and edits[0][1] == 0 and edits[0][2:] == (1, 0) and (
-        edits[0][0] == 0 or edits[0][0] * timescale > last_start * movie_scale)
+    whole = count == 1 and 0 <= edits[0][1] <= max(first, 0) and edits[0][2:] == (1, 0) and (
+        edits[0][0] == 0 or edits[0][0] * timescale > (last - edits[0][1]) * movie_scale)
     if not whole:
-        raise _unsupported(path, f"a non-trivial edit list ({count} edits: "
-                                 f"{[(e[0], e[1], e[2] + e[3] / 65536) for e in edits]})")
+        raise unsupported(path, f"a non-trivial edit list ({count} edits: "
+                                f"{[(e[0], e[1], e[2] + e[3] / 65536) for e in edits]})")
 
 
 def _sizes(found: Dict[bytes, bytes]) -> List[int]:
@@ -347,7 +390,7 @@ def _offsets(path: str, found: Dict[bytes, bytes], sizes: List[int]) -> List[int
     runs = [struct.unpack(">III", b[4 + 12 * i:16 + 12 * i])
             for i in range(struct.unpack(">I", b[:4])[0])]
     if any(r[2] != 1 for r in runs):
-        raise _unsupported(path, "samples of a second sample description")
+        raise unsupported(path, "samples of a second sample description")
     offsets: List[int] = []
     for k, (first, per_chunk, _) in enumerate(runs):
         last = runs[k + 1][0] - 1 if k + 1 < len(runs) else len(chunks)

@@ -85,7 +85,8 @@ sys.path.insert(0, ROOT)
 from fmvfi_tpu_torch.eval.synth import translation_video  # noqa: E402
 from fmvfi_tpu_torch.utils import avi, mkv  # noqa: E402
 
-VIDEO_SUFFIXES = (".avi", ".mp4", ".mov", ".m4v", ".mkv", ".webm")
+VIDEO_SUFFIXES = (".avi", ".mp4", ".mov", ".m4v", ".mkv", ".webm", ".mpg", ".vob", ".ts",
+                  ".m2ts", ".m1v", ".m2v", ".ivf")
 
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
          (0, 1, 1, 2))
@@ -281,6 +282,10 @@ def make(out: str) -> dict:
     for name in make_matroska(out):
         files[name] = None
     for name in make_vp9(out):
+        files[name] = None
+    for name in make_mpeg12(out):
+        files[name] = None
+    for name in make_containers(out):
         files[name] = None
     return pins(out, files)
 
@@ -887,6 +892,247 @@ def make_vp9(out: str):
 SMOKE_VP9 = "vp9_cv2_1080x1920.webm"
 
 
+# --- MPEG-1 / MPEG-2 and the other containers --------------------------------
+
+_AV = None
+
+
+def _libavcodec():
+    """cv2's bundled libavutil and libavcodec (opencv_python.libs), loaded
+    with ctypes: (avutil, avcodec)."""
+    global _AV
+    if _AV is None:
+        import ctypes
+        import glob
+        libs = os.path.join(os.path.dirname(os.path.dirname(cv2.__file__)), "opencv_python.libs")
+        util, codec = (ctypes.CDLL(glob.glob(os.path.join(libs, f"lib{n}-*.so*"))[0],
+                                   mode=ctypes.RTLD_GLOBAL) for n in ("avutil", "avcodec"))
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        for lib, fn, args, res in (
+                (codec, "avcodec_find_encoder_by_name", [ctypes.c_char_p], vp),
+                (codec, "avcodec_alloc_context3", [vp], vp),
+                (codec, "avcodec_open2", [vp, vp, vp], i),
+                (codec, "avcodec_send_frame", [vp, vp], i),
+                (codec, "avcodec_receive_packet", [vp, vp], i),
+                (codec, "av_packet_alloc", [], vp), (codec, "av_packet_unref", [vp], None),
+                (codec, "avcodec_free_context", [vp], None),
+                (util, "av_frame_alloc", [], vp), (util, "av_frame_free", [vp], None),
+                (util, "av_frame_get_buffer", [vp, i], i),
+                (util, "av_opt_set", [vp, ctypes.c_char_p, ctypes.c_char_p, i], i),
+                (util, "av_opt_find", [vp, ctypes.c_char_p, ctypes.c_char_p, i, i], vp),
+                (util, "av_malloc", [ctypes.c_size_t], vp)):
+            f = getattr(lib, fn)
+            f.argtypes, f.restype = args, res
+        _AV = util, codec
+    return _AV
+
+
+def _frame_pts_offset(util) -> int:
+    """AVFrame.pts's offset: the first int64 after `format` that
+    av_frame_alloc sets to AV_NOPTS_VALUE."""
+    import ctypes
+    frame = util.av_frame_alloc()
+    words = (ctypes.c_int64 * 24).from_address(frame)
+    at = next(8 * k for k in range(15, 24) if words[k] == -(1 << 63))
+    util.av_frame_free(ctypes.byref(ctypes.c_void_p(frame)))
+    return at
+
+
+def mpeg12_encode(planes, w: int, h: int, codec: str = "mpeg2video", fps: int = 25,
+                  options=None, matrices=None):
+    """The packets (decode order) of yuv420p frames (Y, U, V uint8 planes),
+    coded by cv2's libavcodec through ctypes with AVOptions set by name
+    (`options`: "bf", "flags", "intra_vlc", "dc", ...) and custom intra /
+    inter matrices (natural order; AVCodecContext's intra_matrix and
+    inter_matrix pointers, found 24 and 16 bytes before the "dc" option's
+    field)."""
+    import ctypes
+    util, av = _libavcodec()
+    ctx = av.avcodec_alloc_context3(av.avcodec_find_encoder_by_name(codec.encode()))
+
+    def opt(key, value):
+        if util.av_opt_set(ctx, key.encode(), str(value).encode(), 1) < 0:
+            raise ValueError(f"{codec}: option {key}={value} refused")
+
+    opt("video_size", f"{w}x{h}")
+    opt("pixel_format", "yuv420p")
+    opt("time_base", f"1/{fps}")
+    for key, value in (options or {}).items():
+        opt(key, value)
+    if matrices:
+        dc = ctypes.c_int.from_address(util.av_opt_find(ctx, b"dc", None, 0, 0) + 16).value
+        for k, name in enumerate(("intra", "inter")):
+            if name in matrices:
+                buf = util.av_malloc(128)
+                (ctypes.c_uint16 * 64).from_address(buf)[:] = [int(v) for v in matrices[name]]
+                ctypes.c_void_p.from_address(ctx + dc - 24 + 8 * k).value = buf
+    if av.avcodec_open2(ctx, None, None) != 0:
+        raise ValueError(f"{codec}: the encoder does not open with {options}")
+    pts_at = _frame_pts_offset(util)
+    pkt, out = av.av_packet_alloc(), []
+
+    def drain():
+        while av.avcodec_receive_packet(ctx, pkt) == 0:
+            data = ctypes.c_void_p.from_address(pkt + 24).value
+            out.append(ctypes.string_at(data, ctypes.c_int.from_address(pkt + 32).value))
+            av.av_packet_unref(pkt)
+
+    for i, frame_planes in enumerate(planes):
+        frame = util.av_frame_alloc()
+        for at, v in ((104, w), (108, h), (116, 0)):  # width, height, AV_PIX_FMT_YUV420P
+            ctypes.c_int.from_address(frame + at).value = v
+        util.av_frame_get_buffer(frame, 0)
+        for k, plane in enumerate(frame_planes):
+            data = ctypes.c_void_p.from_address(frame + 8 * k).value
+            stride = ctypes.c_int.from_address(frame + 64 + 4 * k).value
+            for r in range(plane.shape[0]):
+                ctypes.memmove(data + r * stride, np.ascontiguousarray(plane[r]).ctypes.data,
+                               plane.shape[1])
+        ctypes.c_int64.from_address(frame + pts_at).value = i
+        av.avcodec_send_frame(ctx, frame)
+        util.av_frame_free(ctypes.byref(ctypes.c_void_p(frame)))
+        drain()
+    av.avcodec_send_frame(ctx, None)
+    drain()
+    av.avcodec_free_context(ctypes.byref(ctypes.c_void_p(ctx)))
+    return out
+
+
+def yuv_scene(rng, n: int, h: int, w: int, step=(2.5, -1.5), combed: bool = False):
+    """n yuv420p frames (Y, U, V) of a textured scene sliding by `step`; with
+    `combed`, each frame's odd lines from half a frame later (what field DCT
+    and field motion code well)."""
+    frames = sliding(rng, 2 * n if combed else n, h, w, step=step)
+    out = []
+    for i in range(n):
+        f = frames[2 * i] if combed else frames[i]
+        if combed:
+            f = f.copy()
+            f[1::2] = frames[2 * i + 1][1::2]
+        ch, cw = (h + 1) // 2, (w + 1) // 2
+        u = cv2.resize(f[..., 1], (cw, ch), interpolation=cv2.INTER_AREA)
+        v = cv2.resize(f[..., 2], (cw, ch), interpolation=cv2.INTER_AREA)
+        out.append((np.ascontiguousarray(f[..., 0]), u, v))
+    return out
+
+
+def forge_progressive(es: bytes) -> bytes:
+    """An MPEG-2 stream with every picture coding extension's
+    progressive_frame (and chroma_420_type) set: cv2's conversion refuses a
+    frame FFmpeg marks interlaced, and the decoding does not depend on the
+    flag, so field DCT and field motion can be pinned so."""
+    out = bytearray(es)
+    i = out.find(b"\0\0\1\xb5")
+    while i >= 0:
+        if out[i + 4] >> 4 == 8:
+            out[i + 7] |= 1
+            out[i + 8] |= 0x80
+        i = out.find(b"\0\0\1\xb5", i + 4)
+    return bytes(out)
+
+
+def forge_quant_matrix_extension(es: bytes, matrices) -> bytes:
+    """An MPEG-2 stream with a quant matrix extension after each picture
+    coding extension: four optional matrices (intra, inter, chroma intra,
+    chroma inter; natural order, written in zigzag order)."""
+    zigzag = [0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48,
+              41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15,
+              23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63]
+    bits = "0011"
+    for m in matrices:
+        bits += "0" if m is None else "1" + "".join(f"{int(m[z]):08b}" for z in zigzag)
+    bits += "0" * (-len(bits) % 8)
+    ext = b"\0\0\1\xb5" + int(bits, 2).to_bytes(len(bits) // 8, "big")
+    out, i = bytearray(), 0
+    while True:
+        j = es.find(b"\0\0\1\xb5", i)
+        if j < 0:
+            return bytes(out + es[i:])
+        k = es.find(b"\0\0\1", j + 4)
+        out += es[i:k]
+        if es[j + 4] >> 4 == 8:
+            out += ext
+        i = k
+
+
+def make_mpeg12(out: str):
+    """Write the MPEG-1 / MPEG-2 fixtures; yields their names."""
+    rng = np.random.default_rng(2029)
+
+    def cv2_file(name, fourcc, frames):
+        cv2_video(os.path.join(out, name), fourcc, frames, fps=25)
+        return name
+
+    def scene(n, h, w):
+        return sliding(rng, n, h, w, step=(float(rng.uniform(-4, 4)), float(rng.uniform(-4, 4))))
+
+    # cv2.VideoWriter's MPG2 (B pictures: OpenCV sets max_b_frames 2) and PIM1
+    # (I and P pictures; FFmpeg refuses 10 fps) in every container it writes
+    yield cv2_file("mpeg2_cv2_96x72.mpg", "MPG2", sliding(rng, 15, 72, 96))
+    yield cv2_file("mpeg2_cv2_96x72.vob", "MPG2", scene(12, 72, 96))
+    yield cv2_file("mpeg2_cv2_94x70.ts", "MPG2", scene(13, 71, 95))
+    yield cv2_file("mpeg2_cv2_96x72.m2ts", "MPG2", scene(12, 72, 96))
+    yield cv2_file("mpeg2_cv2_44x36.m2v", "MPG2", scene(14, 37, 45))
+    for ext in ("avi", "mkv", "mp4", "mov"):
+        yield cv2_file(f"mpeg2_cv2_96x72.{ext}", "MPG2", scene(12, 72, 96))
+    yield cv2_file("mpeg1_cv2_96x72.mpg", "PIM1", scene(14, 72, 96))
+    yield cv2_file("mpeg1_cv2_44x36.m1v", "PIM1", scene(12, 37, 45))
+    for ext in ("ts", "avi", "mkv", "mov"):
+        yield cv2_file(f"mpeg1_cv2_96x72.{ext}", "PIM1", scene(12, 72, 96))
+
+    # cv2's libavcodec through ctypes, in settings cv2's writer never takes
+    def clip(name, planes, w, h, codec="mpeg2video", forge=None, **kw):
+        es = b"".join(mpeg12_encode(planes, w, h, codec, **kw))
+        with open(os.path.join(out, name), "wb") as f:
+            f.write(forge(es) if forge else es)
+        return name
+
+    yield clip("mpeg1_bf_45x37.m1v", yuv_scene(rng, 14, 37, 45), 45, 37, "mpeg1video",
+               options={"bf": 2})
+    yield clip("mpeg2_scan_vlc_q_96x72.m2v", yuv_scene(rng, 12, 72, 96), 96, 72,
+               forge=forge_progressive,
+               options={"bf": 2, "intra_vlc": 1, "alternate_scan": 1, "non_linear_quant": 1,
+                        "qmax": 28, "dc": 1})
+    yield clip("mpeg2_bt709_dc10_47x35.m2v", yuv_scene(rng, 12, 35, 47), 47, 35,
+               options={"bf": 2, "dc": 2, "colorspace": "bt709", "color_primaries": "bt709",
+                        "color_trc": "bt709"})
+    intra = (np.arange(64) * 7) % 60 + 6
+    intra[0] = 8
+    yield clip("mpeg2_matrices_dc11_64x48.m2v", yuv_scene(rng, 12, 48, 64), 64, 48,
+               options={"bf": 2, "dc": 3},
+               matrices={"intra": intra, "inter": intra[::-1] + 4},
+               forge=lambda es: forge_quant_matrix_extension(
+                   es, (None, None, (intra * 2) % 90 + 5, np.full(64, 21))))
+    yield clip("mpeg2_field_48x40.m2v", yuv_scene(rng, 12, 40, 48, step=(6.0, 3.0), combed=True),
+               48, 40, forge=forge_progressive, options={"bf": 2, "flags": "+ildct+ilme"})
+    yield clip("mpeg2_aq_95x71.m2v", yuv_scene(rng, 12, 71, 95), 95, 71,
+               options={"bf": 2, "scplx_mask": 0.9})
+    # a still scene 45 macroblocks wide: P pictures skip runs past 33 (the
+    # address increment's escape)
+    wide = yuv_scene(np.random.default_rng(2029), 1, 48, 720)
+    yield clip("mpeg2_wide_720x48.m2v", wide * 6, 720, 48, options={"bf": 0})
+    # the smoke's clip (translation_video(5, 1080, 1920)[:3], see make_vp9)
+    smoke = (translation_video(5, 1080, 1920, step=2.0, seed=0)[:3] * 255 + 0.5).astype(np.uint8)
+    yield cv2_file(SMOKE_MPEG2, "MPG2", [np.ascontiguousarray(f[..., ::-1]) for f in smoke])
+
+
+SMOKE_MPEG2 = "mpeg2_cv2_1080x1920.ts"
+
+
+def make_containers(out: str):
+    """Write the fixtures of the containers the port reads for codecs it
+    already decoded elsewhere; yields their names."""
+    rng = np.random.default_rng(2030)
+    for name, fourcc, (h, w), n in (("ivf_vp8_cv2_96x72.ivf", "VP80", (72, 96), 12),
+                                    ("ivf_vp9_cv2_96x72.ivf", "VP90", (72, 96), 12),
+                                    ("vp8_cv2_64x48.avi", "VP80", (48, 64), 10),
+                                    ("mjpg_cv2_64x48.mov", "MJPG", (48, 64), 4),
+                                    ("mjpg_cv2_64x48.mp4", "MJPG", (48, 64), 4),
+                                    ("mp4v_cv2_96x72.ts", "mp4v", (72, 96), 13)):
+        cv2_video(os.path.join(out, name), fourcc, sliding(rng, n, h, w), fps=25)
+        yield name
+
+
 def pixels(out: str, name: str, contract: str) -> np.ndarray:
     """The RGB pixels cv2 or PIL returns for a fixture under `contract`."""
     path = os.path.join(out, name)
@@ -921,11 +1167,20 @@ def pins(out: str, files) -> dict:
     return table
 
 
+GROUPS = dict(mpeg12=make_mpeg12, containers=make_containers)
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", default=os.path.join(ROOT, "tests", "data", "inputs"))
+    p.add_argument("--only", choices=sorted(GROUPS), nargs="+",
+                   help="write (and pin) these groups alone, not every fixture")
     args = p.parse_args()
-    table = make(args.out)
+    if args.only:
+        os.makedirs(args.out, exist_ok=True)
+        table = pins(args.out, [name for g in args.only for name in GROUPS[g](args.out)])
+    else:
+        table = make(args.out)
     print("INPUT_PINS = {")
     for name, (contract, digest) in table.items():
         print(f'    "{name}": ("{contract}", "{digest}"),')
