@@ -227,7 +227,10 @@ Phases, each printing one JSON line with its seconds:
               16.96-18.24 dB measured on the CPU), the demux ms and the ms
               to decode its I, P and B pictures and the flush (medians of
               5, one host thread), and `cli video --input clip.ts
-              --method fusion` checked as the AVI's;
+              --method fusion` checked as the AVI's; the stills pins
+              (BMP, PNM, TIFF with the committed 1080x1920 cv2 LZW TIFF,
+              CMYK / RGB JPEGs, EXIF-oriented PNG and JPEG, lone images
+              and numbered sequences read as video);
               double_frame_rate per pair on the Adam7 and the
               progressive-JPEG frame directories through K1;
   cli       - (after train_fusion) the command line on PNG files: the serve phase's
@@ -243,7 +246,14 @@ Phases, each printing one JSON line with its seconds:
               makes the card's context, its
               PNG within 1 LSB of the same request run here on the decoded
               frames, which launches K1 3 times through F5C3 with the ring;
-              then through cli.main: `video` per pair and --batch 2 (9
+              (line cli_interpolate_stills) the pair as a.tif and b.bmp
+              (the port's imwrite; the 1080p BMP, PPM and TIFF write and
+              read ms and bytes) fused by a second cold process into
+              mid.tif, within 1 LSB of mid.png, K1 [2, 4, 2] counted on
+              the same request in process;
+              then through cli.main: `video` per pair, on `clip/%03d.png`
+              (line cli_video_sequence: every frame equal to the directory
+              route's, K1 3 a pair) and --batch 2 (9
               PNGs, the originals exact at the even positions, K1 [2, 4, 2]
               per pair and [4, 8, 4] per dispatch, batch 2 within 1 LSB of
               per pair), `evaluate` on a 2-scene middlebury layout of
@@ -706,6 +716,140 @@ INPUT_PINS = {
         ("video", "b8a9212765fc8509e2b03889e29183e907eab0c4da747159e8e890e573a7ed2b"),
     "ivf_vp9_cv2_96x72.ivf":
         ("video", "9f3fa159c1528eff6216cb824208f8b2280a9ef220e5bb17c442b1d84da3af9b"),
+    "bmp_1bit_37x53.bmp":
+        ("imread", "9227f77e08a5964ea43c042a0c3c704e03bdd62f496049440c84287c1b4e9d29"),
+    "bmp_32_29x31.bmp":
+        ("imread", "52a4eb3ff40f8ef1adbb6d2dbbcab9b81d79e0d71574b17969af2a5a1a64cd30"),
+    "bmp_4bit_29x31.bmp":
+        ("imread", "49aa09f8662f762614d4e8e04038fc6a670ae7403361caaaf8bbe02d121f07a8"),
+    "bmp_555_29x31.bmp":
+        ("imread", "90e81a8d274fe497de32c369225b80bdf3bb9f3d03d7a5a1ece1859560414594"),
+    "bmp_565_29x31.bmp":
+        ("imread", "b02a12fe3ae290cb5a5a57e5f386e8254e3ad28d34c08f1e999c6d7048a7d554"),
+    "bmp_8bit_29x31.bmp":
+        ("imread", "bb451e18fa47e7c5ade7d8fb106fa8700a7a1407312815eeb4967d65101db105"),
+    "bmp_cv2_24_37x53.bmp":
+        ("imread", "aceedc0beb0db32ca6aad7bdf21bace33df1f78ee0260a2ddfa3d9bd1bae94b8"),
+    "bmp_cv2_grey_37x53.bmp":
+        ("imread", "f6062d819f5b336ea90bab308a343895b8e32a45acf32b7810b695ce2408ba61"),
+    "bmp_os2_24_29x31.bmp":
+        ("imread", "e16df3f099095d079d02732e9dfdd7fe4a5782eeb5277b20af1850e6995f9307"),
+    "bmp_os2_8bit_29x31.bmp":
+        ("imread", "0dfa5f25941cb959044a292e2e0d6794a19f1fe2013c7960ca9faa9ea4330453"),
+    "bmp_rle4_40x30.bmp":
+        ("imread", "32db6c6f4007e1153a81c9363369674472be7df9f19f1dda7e41a49b9698497d"),
+    "bmp_rle8_40x30.bmp":
+        ("imread", "3b7560f911f9198a77257533723408019477b3788642f843d845b3a0e9f543cc"),
+    "bmp_topdown_29x31.bmp":
+        ("imread", "e16df3f099095d079d02732e9dfdd7fe4a5782eeb5277b20af1850e6995f9307"),
+    "bmp_v5_24_29x31.bmp":
+        ("imread", "e16df3f099095d079d02732e9dfdd7fe4a5782eeb5277b20af1850e6995f9307"),
+    "bmp_v5_bitfields_29x31.bmp":
+        ("imread", "915650e121bbbdcc094d550338d64fbfa990fc299373326e776f77eb72b52349"),
+    "jpeg_cmyk_29x31.jpg":
+        ("imread", "3e2e50fdbde3d24edc55a212bfdb0d0fe8b23d980f31b4a3e06f3da6a7e20378"),
+    "jpeg_cmyk_noadobe_29x31.jpg":
+        ("imread", "3e2e50fdbde3d24edc55a212bfdb0d0fe8b23d980f31b4a3e06f3da6a7e20378"),
+    "jpeg_exif6_37x53.jpg":
+        ("imread", "ea7b8ffe12761bc1312e0167aea1509dd7ebcf5d42c4431010d862b9d2e7dee5"),
+    "jpeg_rgb_29x31.jpg":
+        ("imread", "f7dfe47aae1c29dc64734fcd4272c28bb20e744478d056c9ef2c30dce74d8d89"),
+    "jpeg_rgb_progressive_29x31.jpg":
+        ("imread", "6fa40875b30672c138f8db00b3b172634fb2f39a524832d2244a5f245551aa6c"),
+    "png_exif6_37x53.png":
+        ("imread", "9772891e078ccce8801bb8f882ed2a0cbbba059a98b264a37b85001cffeb42ee"),
+    "pnm_cv2_p5_37x53.pgm":
+        ("imread", "e99e7ed16655bca63578ce91c0321e4707eeaf78f0252c2803737c3c9fb653d3"),
+    "pnm_cv2_p6_37x53.ppm":
+        ("imread", "aceedc0beb0db32ca6aad7bdf21bace33df1f78ee0260a2ddfa3d9bd1bae94b8"),
+    "pnm_p1_23x17.pbm":
+        ("imread", "d27d8609aba9a4ecc7393e7a2c040deb7f74c23cf5c4b3e4e24eaa698d3d50be"),
+    "pnm_p2_16bit_23x17.pgm":
+        ("imread", "ec756987c88665fb99affaebef225c213c9203e08316a71316725307e1335eb2"),
+    "pnm_p2_23x17.pgm":
+        ("imread", "c9f31d7d7264cc309d9a1523907a6bb4ec5d12a12d54a1a53b804ef5ba8cf70c"),
+    "pnm_p3_23x17.ppm":
+        ("imread", "c38099dbe74c8c2beab7f5d9954d8ba3bb44eb93b573e8ebccb5d6bb91b85cb0"),
+    "pnm_p4_23x17.pbm":
+        ("imread", "92e2db36daf5f2417b3e07692b1b981994677e89ee9121b32f7f847abac847f8"),
+    "pnm_p5_16bit_23x17.pgm":
+        ("imread", "7d38304da8914fdb8826877f083a7cf5c807d442335bd4b7f419021f2844521e"),
+    "pnm_p6_max100_23x17.ppm":
+        ("imread", "fa096c9ff8c575f57a711d54830fd9f904bcad5fe0af78207f1ddafb8f925e39"),
+    "tiff_1bit_29x31.tif":
+        ("imread", "798d9c942ad4c409a4a68157834f02602c89a08124c0c97f81873606cfa2b24f"),
+    "tiff_1bit_miniswhite_29x31.tif":
+        ("imread", "c030f21f3386696901fc29891a2bbd60a5ab04eb3d384b0a1d46b9b5a86e5e04"),
+    "tiff_cmyk_29x31.tif":
+        ("imread", "1e10e9cb24d8c40dc05107f72aa81dd0e1eaf44f2c203c3d5b92bd64e47b5a74"),
+    "tiff_cv2_1080x1920.tif":
+        ("imread", "1f41793533290f7c00314f85fc145c69f7c73a55d6a85b6a6deac10283173345"),
+    "tiff_cv2_grey_37x53.tif":
+        ("imread", "da8c7de10b174efd939e2f7f510b49fc557970646a1f2e6fe82bde4361b361c0"),
+    "tiff_cv2_lzw_37x53.tif":
+        ("imread", "aceedc0beb0db32ca6aad7bdf21bace33df1f78ee0260a2ddfa3d9bd1bae94b8"),
+    "tiff_deflate_29x31.tif":
+        ("imread", "1e10e9cb24d8c40dc05107f72aa81dd0e1eaf44f2c203c3d5b92bd64e47b5a74"),
+    "tiff_grey16_29x31.tif":
+        ("imread", "67d7f23451c7e7e4c889748afe2e7450d3c50a3bd0830ba9fde4a88be2196e80"),
+    "tiff_la_29x31.tif":
+        ("imread", "5b9b706484b481db03194c0651cf032a2f17ad73463917beb537e6e64f988746"),
+    "tiff_lzw_29x31.tif":
+        ("imread", "1e10e9cb24d8c40dc05107f72aa81dd0e1eaf44f2c203c3d5b92bd64e47b5a74"),
+    "tiff_miniswhite_29x31.tif":
+        ("imread", "85b7c585daa100bbb8c578cf867a111247640139f00b03bb4e71cb3ed9b45959"),
+    "tiff_orient3_29x31.tif":
+        ("imread", "07fed191230a53b5d10c0f2888c7fe81308fef3ccedfa3b40a838b60acf20e42"),
+    "tiff_packbits_29x31.tif":
+        ("imread", "1e10e9cb24d8c40dc05107f72aa81dd0e1eaf44f2c203c3d5b92bd64e47b5a74"),
+    "tiff_palette4_29x31.tif":
+        ("imread", "f97601432e647432e1d6071fe140447a4e7b5500c991528d2ad39f490746f84e"),
+    "tiff_palette_29x31.tif":
+        ("imread", "595da5fd1503de86186219b0aa2edf0d11b94f4b748cb1839e46cfce2790e859"),
+    "tiff_planar2_29x31.tif":
+        ("imread", "dce24a37a55eb9471914043708b948e02cb0359b7b495d6d318f7dde1ca3daca"),
+    "tiff_raw_29x31.tif":
+        ("imread", "1e10e9cb24d8c40dc05107f72aa81dd0e1eaf44f2c203c3d5b92bd64e47b5a74"),
+    "tiff_rgb16_mm_29x31.tif":
+        ("imread", "4d4fca3ca11eb3bea328f2742e4f378872f242e0421889b259b150a3c89cdf7a"),
+    "tiff_rgba_assoc_29x31.tif":
+        ("imread", "db69ab455e1ce2a724adb301e5f07bce69fec1ae8deeb924d652d7960b707e52"),
+    "tiff_rgba_unassoc_29x31.tif":
+        ("imread", "ab03b5e61b3e2755feda537078e578d9602e130ffc17986780eefc3316fb3e82"),
+    "tiff_tiled_50x40.tif":
+        ("imread", "353510cd9cd6a6c94b64f2b310c7d2d27d6172fb0b164f8facdb51e06eb9dcf5"),
+    "video_jpeg_exif6_37x53.jpg":
+        ("video", "a465c64637f5c15ad2070cb2f91aa98eed5d189d21740221dd290fd4604cbd13"),
+    "video_png_exif6_37x53.png":
+        ("video", "d960604eb6c95797ccf7ffe45a30fc9912cb271e3147555deea4a3a15e414b1a"),
+    "video_png_grey16_37x53.png":
+        ("video", "53240e39d21880977158a6751af554f21fbe6b04ed762eb7e1772c12507948d0"),
+    "video_png_l_37x53.png":
+        ("video", "ccbd5e2db98e793714f9f7fbc283fe1ae2091d8b5125a936a24f7751ddcecbc2"),
+    "video_png_p_37x53.png":
+        ("video", "6c6250617052718f61406930312c3ed479b1ceedff8f730f889ffbd56cb31b2c"),
+    "video_png_rgb16_37x53.png":
+        ("video", "5fb2b93f1131fff7316499b70139ff92c1a9911e29a347574c45a7f680b76189"),
+    "video_png_rgba16_37x53.png":
+        ("video", "eeaefbbbf6c20ed3ef4ad85186cf589e69cf0f86f3926d7f1303cc91bb559fae"),
+    "video_png_rgba_37x53.png":
+        ("video", "d960604eb6c95797ccf7ffe45a30fc9912cb271e3147555deea4a3a15e414b1a"),
+    "video_seq0/%05d.jpg":
+        ("video", "082fb758427cb0b0f686fa065ca83e6e0d1bc1911c904c6cb01235955cebca90"),
+    "video_seq2/%03d.png":
+        ("video", "773f59064d8cbfb25f25a498064ad2bc4df8c4c56ff6105e363e1f406877f2e7"),
+    "tiff_jpeg_cmyk_29x31.tif":
+        ("imread", "6986c5f06127bdddd4f89a4c7f55466d3fde1e501ac182943c02790881bf3e24"),
+    "tiff_jpeg_l_29x31.tif":
+        ("imread", "b4fbe48c7703b4853199b1ad48417df0145b26d9ccabace5d5f0b649dc107b8e"),
+    "tiff_jpeg_la_29x31.tif":
+        ("imread", "b4fbe48c7703b4853199b1ad48417df0145b26d9ccabace5d5f0b649dc107b8e"),
+    "tiff_jpeg_rgb_29x31.tif":
+        ("imread", "f0f152eed362cf6a60b6e6c88caf115bce8a2d3110e056eb3e559f736d6d2230"),
+    "tiff_jpeg_rgba_29x31.tif":
+        ("imread", "577bfd137f4df5f419d7a65ea4bf1c8ed5afa9c3e386faae266918468668ece1"),
+    "tiff_jpeg_ycbcr_29x31.tif":
+        ("imread", "e6ce0e0a7460f629acb8cc4231da6550f5eef5d60a0cc393713dc2376a5e99d0"),
 }
 INPUTS_FRAME_DIRS = ("adam7_frames", "progressive_frames")
 INPUTS_CLIP_FRAMES = 3  # of the video phase's clip, written as a 1080p MJPG AVI
@@ -726,6 +870,12 @@ INPUTS_MPEG2_DB = 16.5  # that file decoded against the pixels written: 16.96 dB
 # Motion-JPEG in MOV / MP4, mp4v in a transport stream)
 INPUTS_MPEG_PINS = tuple(n for n in INPUT_PINS if n.startswith(("mpeg1_", "mpeg2_", "ivf_")) or (
     n in ("vp8_cv2_64x48.avi", "mjpg_cv2_64x48.mov", "mjpg_cv2_64x48.mp4", "mp4v_cv2_96x72.ts")))
+# the pins of the stills (BMP, PNM, TIFF, CMYK / RGB JPEGs, PNG orientation) and of the lone
+# images and numbered sequences read as video (the names starting video_)
+INPUTS_STILL_PINS = tuple(n for n in INPUT_PINS if n.startswith(("bmp_", "pnm_", "tiff_", "jpeg_",
+                                                                  "png_", "video_")))
+INPUTS_TIFF = "tiff_cv2_1080x1920.tif"  # cv2.imwrite's 1080p LZW TIFF: one row a strip
+CLI_STILL_REPS = 3  # timed writes and reads of each 1080p BMP, PPM and TIFF
 
 
 def _line(**kw):
@@ -1962,6 +2112,73 @@ def _cli(dev, repo, ada_path, fusion_path, pair, clip, work):
     if interp_images != [2, 4, 2] or interp_counts["k1_paths"] != {RING_PATH: 3}:
         raise AssertionError(f"cli: the in-process request's K1 launches {interp}")
 
+    # the same pair as a TIFF and a BMP (the port's imwrite), fused by a
+    # second cold process into a .tif; the 1080p BMP, PPM and TIFF codecs
+    # timed on the card's host
+    still_ms, still_bytes = {}, {}
+    for ext in ("bmp", "ppm", "tif"):
+        path = os.path.join(work, f"a.{ext}")
+        w_ms, r_ms = [], []
+        for _ in range(CLI_STILL_REPS):
+            t = time.perf_counter()
+            imageio.imwrite(path, quantize(pair[0]))
+            w_ms.append(1e3 * (time.perf_counter() - t))
+            t = time.perf_counter()
+            back = imageio.imread(path)
+            r_ms.append(1e3 * (time.perf_counter() - t))
+            if not np.array_equal(back, quantize(pair[0])):
+                raise AssertionError(f"cli: {path} does not read back as written")
+        still_ms[ext] = dict(write_ms=float(np.median(w_ms)), read_ms=float(np.median(r_ms)))
+        still_bytes[ext] = os.path.getsize(path)
+    imageio.imwrite(os.path.join(work, "b.bmp"), quantize(pair[1]))
+    out_tif = os.path.join(work, "mid.tif")
+    t_start, t = time.time(), time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "fmvfi_tpu_torch.cli", "interpolate", "--first_frame",
+         os.path.join(work, "a.tif"), "--second_frame", os.path.join(work, "b.bmp"),
+         "--output_frame", out_tif, "--method", "fusion", "--phase_checkpoint", phase_pt],
+        cwd=repo, capture_output=True, text=True, timeout=600)
+    stills_process_s = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise AssertionError(f"cli interpolate (TIFF + BMP) exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    stills_cold_s = os.path.getmtime(out_tif) - t_start
+    # K1 counted in process, on the frames the TIFF and the BMP decode to
+    f1s, f2s = (imageio.imread(os.path.join(work, n)).astype(np.float32) / 255.0
+                for n in ("a.tif", "b.bmp"))
+    ada = AdaCoFNet().to(dev).eval()
+    ada.load_state_dict(load_adacof_weights(ada_path))
+    fusion = FusionNet(variant=infer_variant(fusion_sd)).to(dev).eval()
+    fusion.load_state_dict(fusion_sd)
+    phase = PhaseNetCore().to(dev).eval()
+    phase.load_state_dict(phase_net_from_torch(phase_pt))
+    ada.warp = recording_warp
+    try:
+        _reset_counts()
+        images.clear()
+        want_stills = quantize(fusion_interpolate(FusionModels(phase, ada, fusion), f1s[None],
+                                                  f2s[None], device=dev)[0].cpu().numpy())
+        stills_counts, stills_images = _counts(), list(images)
+    finally:
+        ada.warp = real_warp
+    del ada, fusion, phase
+    got_tif = imageio.imread(out_tif)
+    diff = np.abs(got_tif.astype(np.int16) - imageio.imread(out_png).astype(np.int16))
+    stills = dict(seconds=stills_cold_s, process_seconds=stills_process_s,
+                  max_lsb_vs_png_run=int(diff.max()),
+                  share_differing_vs_png_run=float((diff > 0).mean()),
+                  in_process_lsb_vs_png_request=int(np.abs(want_stills.astype(np.int16)
+                                                           - want.astype(np.int16)).max()),
+                  k1_launches=stills_counts["k1"], k1_images=stills_images,
+                  k1_paths=stills_counts["k1_paths"], k2_launches=stills_counts["k2"],
+                  codec_1080p_ms=still_ms, codec_1080p_bytes=still_bytes,
+                  size=list(pair[0].shape[:2]), stderr=proc.stderr.strip().splitlines())
+    _line(phase="cli_interpolate_stills", **stills)
+    if max(stills["max_lsb_vs_png_run"], stills["in_process_lsb_vs_png_request"]) > CLI_LSB:
+        raise AssertionError(f"cli interpolate (TIFF + BMP) against the PNG run: {stills}")
+    if stills_images != [2, 4, 2] or stills_counts["k1_paths"] != {RING_PATH: 3}:
+        raise AssertionError(f"cli: the TIFF + BMP request's K1 launches {stills}")
+
     # video, evaluate and train through cli.main in this process, K1 and K2
     # counted around each command; the models the commands build take the
     # recording warp from adacof_cuda
@@ -2010,6 +2227,20 @@ def _cli(dev, repo, ada_path, fusion_path, pair, clip, work):
             if not np.array_equal(imageio.imread(os.path.join(out_dir, names[2 * i])),
                                   imageio.imread(os.path.join(clip_dir, n))):
                 raise AssertionError(f"cli {name}: original {n} is not at position {2 * i}")
+    # the clip as a numbered sequence (FFmpeg's image2, as cv2 reads it): the
+    # directory route's frames, 3 K1 launches a pair
+    r = run("video_sequence", ["video", "--input", os.path.join(clip_dir, "%03d.png"),
+                               "--output_dir", os.path.join(work, "video_sequence"),
+                               "--phase_checkpoint", phase_pt], [2, 4, 2] * n_pairs)
+    seq_names = sorted(os.listdir(os.path.join(work, "video_sequence")))
+    r["ms_per_interpolated_frame"] = r["ms"] / n_pairs
+    r["equal_to_directory_route"] = seq_names == sorted(os.listdir(
+        os.path.join(work, "video_per_pair"))) and all(np.array_equal(
+            imageio.imread(os.path.join(work, "video_sequence", n)),
+            imageio.imread(os.path.join(work, "video_per_pair", n))) for n in seq_names)
+    _line(phase="cli_video_sequence", input="clip/%03d.png", frames=n_frames, **r)
+    if not r["equal_to_directory_route"]:
+        raise AssertionError(f"cli video on clip/%03d.png differs from the directory route: {r}")
     batch_lsb = max(int(np.abs(
         imageio.imread(os.path.join(work, "video_per_pair", n)).astype(np.int16)
         - imageio.imread(os.path.join(work, "video_batch2", n)).astype(np.int16)).max())
@@ -2103,8 +2334,9 @@ def _cli(dev, repo, ada_path, fusion_path, pair, clip, work):
           png_read_ms=float(np.median(read_ms[2:])), png_write_ms_all=write_ms,
           png_read_ms_all=read_ms, png_bytes=png_bytes, png_filter_types=filter_types.tolist(),
           unfilter_oracle_seconds=t_oracle, interpolate=interp, video_batch2_vs_per_pair_lsb=batch_lsb,
-          commands=runs, k1_launches=k1 + interp_counts["k1"], k2_launches=k2)
-    return k1 + interp_counts["k1"], k2
+          commands=runs, k1_launches=k1 + interp_counts["k1"] + stills_counts["k1"],
+          k2_launches=k2)
+    return k1 + interp_counts["k1"] + stills_counts["k1"], k2
 
 
 # run in a process of its own: load a `cuda` artifact onto the card, answer

@@ -1,6 +1,7 @@
 """Native host runtime, loaded with ctypes: the C++ triplet augmentation of
 augment.cpp (port of fmvfi_tpu/native, with its own copy of the source),
-the PNG row filters of png.cpp, the JPEG decoder of jpeg.cpp (baseline and
+the PNG row filters of png.cpp (and swscale's route for a 16-bit PNG given
+as video, for utils/image2.py), the JPEG decoder of jpeg.cpp (baseline and
 progressive) and the baseline JPEG encoder of jpeg_enc.cpp (all three for
 utils/imageio.py), the Motion-JPEG frame decoder of mjpeg.cpp (for
 utils/avi.py), which shares jpeg.cpp's entropy decoder through
@@ -8,7 +9,9 @@ jpeg_common.h, and the MPEG-4 Part 2 decoder of mpeg4.cpp and encoder of
 mpeg4_enc.cpp (for utils/mp4.py and utils/avi.py), which share FFmpeg's
 IDCT and swscale's conversion with mjpeg.cpp through ffmpeg_common.h, and
 the VP8 decoder of vp8.cpp (for utils/mkv.py) and the VP9 decoder of vp9.cpp
-(for utils/mkv.py, mp4.py and avi.py), on the same conversion.
+(for utils/mkv.py, mp4.py and avi.py), on the same conversion; and the
+still-image codecs behind utils/bmp.py (run-length BMP data, bmp.cpp) and
+utils/tiff.py (LZW and PackBits strips, tiff.cpp).
 
 The library is built at first use, never at import, with `g++ -O3
 -march=native -fPIC -pthread` a source (all at once) and a `-shared` link,
@@ -49,6 +52,7 @@ MPEG4_SOURCES = tuple(Path(__file__).resolve().parent / f for f in ("mpeg4.cpp",
 VP8_SOURCE = Path(__file__).resolve().parent / "vp8.cpp"
 VP9_SOURCE = Path(__file__).resolve().parent / "vp9.cpp"
 MPEG12_SOURCE = Path(__file__).resolve().parent / "mpeg12.cpp"
+STILL_SOURCES = tuple(Path(__file__).resolve().parent / f for f in ("bmp.cpp", "tiff.cpp"))
 HEADERS = tuple(Path(__file__).resolve().parent / h
                 for h in ("jpeg_common.h", "ffmpeg_common.h", "mpeg4.h", "vpx_rac.h"))
 FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-pthread")
@@ -66,7 +70,7 @@ _I64 = ctypes.c_int64
 
 def _sources() -> Tuple[Path, ...]:
     return (SOURCE, PNG_SOURCE, JPEG_SOURCE, JPEG_ENC_SOURCE, MJPEG_SOURCE) + MPEG4_SOURCES + (
-        VP8_SOURCE, VP9_SOURCE, MPEG12_SOURCE)
+        VP8_SOURCE, VP9_SOURCE, MPEG12_SOURCE) + STILL_SOURCES
 
 
 def library_path() -> Path:
@@ -137,15 +141,21 @@ def library() -> ctypes.CDLL:
                 lib.fmvfi_png_unfilter.restype = _I64
                 lib.fmvfi_png_filter.argtypes = [_U8P, _I64, _I64, _I32, _U8P]
                 lib.fmvfi_png_filter.restype = None
+                lib.fmvfi_png16_swscale.argtypes = [ctypes.c_void_p, _I64, _I32, _U8P]
+                lib.fmvfi_png16_swscale.restype = None
                 for fn in (lib.fmvfi_jpeg_header, lib.fmvfi_jpeg_decode, lib.fmvfi_mjpeg_decode):
                     fn.argtypes = [_U8P, _I64, ctypes.c_void_p, ctypes.c_char_p, _I32]
                     fn.restype = _I32
+                lib.fmvfi_jpeg_decode_strip.argtypes = [_U8P, _I64, ctypes.c_void_p, _I32,
+                                                        ctypes.c_char_p, _I32]
+                lib.fmvfi_jpeg_decode_strip.restype = _I32
                 lib.fmvfi_jpeg_encode.argtypes = [_U8P, _I32, _I32, _I32, _I32, _U8P, _I64]
                 lib.fmvfi_jpeg_encode.restype = _I64
                 _bind_mpeg4(lib)
                 _bind_vp8(lib)
                 _bind_vp9(lib)
                 _bind_mpeg12(lib)
+                _bind_stills(lib)
                 _lib = lib
                 return _lib
         raise RuntimeError(f"the native library is unavailable: {_error}")
@@ -226,6 +236,20 @@ def png_filter(image: np.ndarray, bpp: int) -> np.ndarray:
     return out
 
 
+def png16_swscale(samples: np.ndarray) -> np.ndarray:
+    """(H, W, spp) 16-bit PNG samples (spp 1-2 grey, 3-4 RGB; alpha ignored)
+    as cv2.VideoCapture hands them on through FFmpeg and swscale (png.cpp):
+    (H, W, 3) uint8 RGB, within a level of their high bytes."""
+    lib = library()
+    samples = np.ascontiguousarray(samples, dtype=np.uint16)
+    h, w, spp = samples.shape
+    if spp not in (1, 2, 3, 4):
+        raise ValueError(f"png16_swscale takes 1-4 samples a pixel, got {spp}")
+    out = np.empty((h, w, 3), np.uint8)
+    lib.fmvfi_png16_swscale(samples.ctypes.data, h * w, spp, out.ctypes.data_as(_U8P))
+    return out
+
+
 _JPEG_ERRORS = {1: NotImplementedError, 2: ValueError}
 MAX_JPEG_PIXELS = 1 << 30  # cv2's limit (CV_IO_MAX_IMAGE_PIXELS)
 
@@ -249,7 +273,19 @@ def mjpeg_decode(data: bytes) -> np.ndarray:
     return _decode(data, library().fmvfi_mjpeg_decode)
 
 
-def _decode(data: bytes, decode) -> np.ndarray:
+def jpeg_decode_strip(data: bytes, ycbcr: bool) -> np.ndarray:
+    """Decode one strip or tile of a JPEG-compressed TIFF (the JPEGTables
+    segments before its own) as libtiff's JPEG codec has libjpeg-turbo
+    decode it: (H, W, components) as the components decode, or with ycbcr
+    (H, W, 3) RGB converted from YCbCr.  Raises as jpeg_decode."""
+    lib = library()
+    return _decode(data, lambda src, n, out, msg, size: lib.fmvfi_jpeg_decode_strip(
+        src, n, out, int(ycbcr), msg, size), channels=None if not ycbcr else 3)
+
+
+def _decode(data: bytes, decode, channels=3) -> np.ndarray:
+    """The file's pixels through `decode`, into (H, W, channels); channels
+    None: the file's own number of components."""
     lib = library()
     buf = np.frombuffer(data, np.uint8)
     src = buf.ctypes.data_as(_U8P)
@@ -257,10 +293,10 @@ def _decode(data: bytes, decode) -> np.ndarray:
     info = np.zeros(3, np.int32)
     code = lib.fmvfi_jpeg_header(src, buf.size, info.ctypes.data, msg, len(msg))
     if code == 0:
-        w, h, _ = (int(v) for v in info)
+        w, h, ncomp = (int(v) for v in info)
         if w * h > MAX_JPEG_PIXELS:
             raise ValueError(f"a {w}x{h} JPEG, over the {MAX_JPEG_PIXELS} pixels decoded")
-        out = np.empty((h, w, 3), np.uint8)
+        out = np.empty((h, w, channels or ncomp), np.uint8)
         code = decode(src, buf.size, out.ctypes.data, msg, len(msg))
     if code:
         raise _JPEG_ERRORS[code](msg.value.decode("ascii", "replace"))
@@ -299,6 +335,59 @@ def jpeg_encode(image: np.ndarray, quality: int = 95) -> bytes:
 
 
 _VP = ctypes.c_void_p
+
+
+def _bind_stills(lib: ctypes.CDLL) -> None:
+    lib.fmvfi_bmp_rle.argtypes = [_VP, _I64, _I32, _I32, _I32, _VP, ctypes.c_char_p, _I32]
+    lib.fmvfi_bmp_rle.restype = _I32
+    for fn in (lib.fmvfi_tiff_lzw_decode, lib.fmvfi_tiff_packbits_decode):
+        fn.argtypes = [_VP, _I64, _VP, _I64, ctypes.c_char_p, _I32]
+        fn.restype = _I32
+    lib.fmvfi_tiff_lzw_encode.argtypes = [_VP, _I64, _VP, _I64]
+    lib.fmvfi_tiff_lzw_encode.restype = _I64
+
+
+def bmp_rle(data: bytes, bits: int, width: int, height: int) -> np.ndarray:
+    """Decode BI_RLE8 (bits 8) or BI_RLE4 (bits 4) pixel data into (height,
+    width) uint8 palette indices in stored row order, as OpenCV's BMP
+    decoder does (bmp.cpp); ValueError for data that runs past a row or
+    ends before the last one."""
+    lib = library()
+    buf = np.frombuffer(data, np.uint8)
+    out = np.zeros((height, width), np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    if lib.fmvfi_bmp_rle(buf.ctypes.data, buf.size, bits, width, height, out.ctypes.data, msg,
+                         len(msg)):
+        raise ValueError(msg.value.decode("ascii", "replace"))
+    return out
+
+
+def tiff_decode(data: bytes, method: str, size: int) -> np.ndarray:
+    """One TIFF strip or tile of `method` ("lzw" or "packbits") decoded into
+    `size` bytes, as libtiff decodes it (tiff.cpp); ValueError for corrupt
+    data or data that ends before `size` bytes."""
+    lib = library()
+    fn = lib.fmvfi_tiff_lzw_decode if method == "lzw" else lib.fmvfi_tiff_packbits_decode
+    buf = np.frombuffer(data, np.uint8)
+    out = np.empty(size, np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    if fn(buf.ctypes.data, buf.size, out.ctypes.data, size, msg, len(msg)):
+        raise ValueError(msg.value.decode("ascii", "replace"))
+    return out
+
+
+def tiff_lzw_encode(data) -> bytes:
+    """One TIFF strip's bytes LZW-coded as libtiff codes them (tiff.cpp):
+    Clear first, EOI last, byte-equal to what cv2.imwrite writes."""
+    lib = library()
+    buf = np.ascontiguousarray(np.frombuffer(data, np.uint8) if isinstance(data, bytes)
+                               else data, dtype=np.uint8).reshape(-1)
+    cap = 2 * buf.size + 16
+    out = np.empty(cap, np.uint8)
+    n = lib.fmvfi_tiff_lzw_encode(buf.ctypes.data, buf.size, out.ctypes.data, cap)
+    if n < 0:
+        raise RuntimeError(f"tiff_lzw_encode: {buf.size} bytes overran their bound {cap}")
+    return out[:n].tobytes()
 
 
 def _bind_mpeg4(lib: ctypes.CDLL) -> None:

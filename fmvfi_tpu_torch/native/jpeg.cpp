@@ -28,15 +28,29 @@
 //     wide, and every other integer ratio, replicate;
 //   - jdcolor.c's fixed-point YCbCr -> RGB (16-bit tables, arithmetic
 //     shifts, values clamped to 0-255).
-// Lossless, hierarchical and arithmetic-coded files, 12-bit samples, two or
-// four components (CMYK) and RGB-coded three-component files are refused as
-// unsupported, each naming its SOF; malformed or truncated data as corrupt.
+// Three components coded as RGB (jdapimin.c's choice: an Adobe marker's
+// transform 0 without a JFIF marker, or the component ids 'R', 'G', 'B'
+// without either marker) are copied as they decode; four components (CMYK,
+// Adobe's inverted convention, as PIL and Photoshop write them) go through
+// OpenCV's own CMYK -> BGR step (grfmt_jpeg.cpp's icvCvt_CMYK2BGR_8u_C4C3R:
+// each channel k - ((255 - c) * k >> 8)).
+// Lossless, hierarchical and arithmetic-coded files, 12-bit samples and
+// YCCK (an Adobe transform other than 0 on four components) are refused as
+// unsupported, each naming its SOF; two components (libjpeg's JCS_UNKNOWN,
+// which cv2.imread reads no image of), malformed or truncated data as
+// corrupt.  A JPEG-compressed TIFF's strips decode through
+// fmvfi_jpeg_decode_strip, which hands the components on as libtiff asks
+// libjpeg for them.
 //
 // Exposed C ABI (ctypes):
 //   fmvfi_jpeg_header(data, n, info, msg, msglen) -> int32
 //     info[0..2] = width, height, components.
 //   fmvfi_jpeg_decode(data, n, out, msg, msglen) -> int32
 //     out: height * width * 3 bytes, RGB (grey repeated to three channels).
+//   fmvfi_jpeg_decode_strip(data, n, out, ycbcr, msg, msglen) -> int32
+//     A JPEG-compressed TIFF's strip (its JPEGTables before it):
+//     height * width * components bytes as they decode, or with ycbcr set
+//     height * width * 3 bytes of RGB.
 //   Both return 0, 1 (unsupported: msg says what) or 2 (corrupt: msg says
 //   where).
 
@@ -239,9 +253,9 @@ struct Decoder {
         if (precision != 8)
             fail(UNSUPPORTED, "SOF" + std::to_string(sof) + " JPEG with " +
                                   std::to_string(precision) + "-bit samples (only 8-bit)");
-        if (img.ncomp != 1 && img.ncomp != 3)
+        if (img.ncomp < 1 || img.ncomp > 4)
             fail(UNSUPPORTED, "SOF" + std::to_string(sof) + " JPEG with " +
-                                  std::to_string(img.ncomp) + " components (only grey and YCbCr)");
+                                  std::to_string(img.ncomp) + " components (only 1 to 4)");
         if (len < 6 + 3 * img.ncomp) fail(CORRUPT, "a short SOF segment");
         if (img.width == 0 || img.height == 0)
             fail(UNSUPPORTED, "a zero width or height (DNL) in the SOF segment");
@@ -324,19 +338,32 @@ struct Decoder {
         }
     }
 
-    void header() {
+    // the SOF, then the markers up to the first scan (pos left on its SOS
+    // segment's length), then the colour space; returns the marker it
+    // stopped at (SOS, or EOI in a file of no scan)
+    int header() {
         if (n < 3 || d[0] != 0xFF || d[1] != 0xD8) fail(CORRUPT, "not a JPEG file (no SOI)");
-        const int m = read_markers(true);
+        int m = read_markers(true);
         if (img.comps.empty()) fail(CORRUPT, m == 0xD9 ? "no SOF before EOI" : "no SOF before SOS");
+        m = read_markers(false);
+        const auto& c = img.comps;
+        if (img.ncomp == 1) {
+            img.color = Color::GREY;
+        } else if (img.ncomp == 3) {
+            const bool rgb_ids = c[0].id == 'R' && c[1].id == 'G' && c[2].id == 'B';
+            img.color = !jfif && (adobe ? adobe_transform == 0 : rgb_ids) ? Color::RGB : Color::YCBCR;
+        } else if (img.ncomp == 4) {
+            img.color = adobe && adobe_transform != 0 ? Color::YCCK : Color::CMYK;
+        } else {
+            img.color = Color::NONE;
+        }
+        return m;
     }
 
     void setup() {
-        if (img.ncomp == 3) {
-            const auto& c = img.comps;
-            const bool rgb_ids = c[0].id == 'R' && c[1].id == 'G' && c[2].id == 'B';
-            if ((adobe && adobe_transform == 0) || (!jfif && !adobe && rgb_ids))
-                fail(UNSUPPORTED, "an RGB-coded (not YCbCr) three-component JPEG");
-        }
+        if (img.color == Color::YCCK)
+            fail(UNSUPPORTED, "a YCCK (Adobe transform " + std::to_string(adobe_transform) +
+                                  ") four-component JPEG; only CMYK ones are decoded");
         img.mcux = (img.width + 8 * img.hmax - 1) / (8 * img.hmax);
         img.mcuy = (img.height + 8 * img.vmax - 1) / (8 * img.vmax);
         for (Component& c : img.comps) {
@@ -555,12 +582,11 @@ struct Decoder {
     }
 
     void decode_all() {
-        header();
+        int m = header();
         setup();
-        for (;;) {
-            const int m = read_markers(false);
-            if (m == 0xD9) break;
+        while (m != 0xD9) {
             read_scan();
+            m = read_markers(false);
         }
         for (const Component& c : img.comps)
             if (!c.scanned) fail(CORRUPT, "a component without a scan");
@@ -928,7 +954,14 @@ void ycc_to_rgb(const uint8_t* yp, const uint8_t* cbp, const uint8_t* crp, uint8
     }
 }
 
-void decode_libjpeg(const uint8_t* d, size_t n, uint8_t* out) {
+// How the decoded components leave decode_libjpeg: as cv2.imread hands
+// them on (by the file's colour space), or as libtiff's JPEG codec asks
+// libjpeg for a strip of a JPEG-compressed TIFF: its components as they
+// decode (JCS_UNKNOWN out), or, for a YCbCr TIFF, converted to RGB
+// (JPEGCOLORMODE_RGB).
+enum class Out { IMREAD, COMPONENTS, YCBCR_TO_RGB };
+
+void decode_libjpeg(const uint8_t* d, size_t n, uint8_t* out, Out how = Out::IMREAD) {
     Image img;
     decode_coefficients(d, n, img, Store::QUANTIZED);
     const bool smooth = smoothing_useful(img);
@@ -936,11 +969,29 @@ void decode_libjpeg(const uint8_t* d, size_t n, uint8_t* out) {
     for (int i = 0; i < img.ncomp; ++i)
         full[i] = upsample(img, img.comps[i], component_plane(img, img.comps[i], smooth));
     const size_t npx = size_t(img.width) * img.height;
-    if (img.ncomp == 1) {
+    if (how == Out::COMPONENTS) {
+        for (size_t p = 0; p < npx; ++p)
+            for (int k = 0; k < img.ncomp; ++k) out[img.ncomp * p + k] = full[k][p];
+    } else if (how == Out::YCBCR_TO_RGB) {
+        if (img.ncomp != 3) fail(CORRUPT, "a YCbCr strip of other than three components");
+        ycc_to_rgb(full[0].data(), full[1].data(), full[2].data(), out, npx);
+    } else if (img.color == Color::NONE) {
+        fail(CORRUPT, "two components, which libjpeg converts to no colour (cv2 reads no image)");
+    } else if (img.color == Color::GREY) {
         for (size_t p = 0; p < npx; ++p) out[3 * p] = out[3 * p + 1] = out[3 * p + 2] = full[0][p];
-        return;
+    } else if (img.color == Color::RGB) {  // jdcolor.c's rgb_rgb_convert: a copy
+        for (size_t p = 0; p < npx; ++p)
+            for (int k = 0; k < 3; ++k) out[3 * p + k] = full[k][p];
+    } else if (img.color == Color::CMYK) {
+        // libjpeg-turbo hands CMYK out as stored; OpenCV's grfmt_jpeg.cpp
+        // (icvCvt_CMYK2BGR_8u_C4C3R) reads it as Adobe's inverted CMYK
+        for (size_t p = 0; p < npx; ++p) {
+            const int k = full[3][p];
+            for (int i = 0; i < 3; ++i) out[3 * p + i] = uint8_t(k - (((255 - full[i][p]) * k) >> 8));
+        }
+    } else {
+        ycc_to_rgb(full[0].data(), full[1].data(), full[2].data(), out, npx);
     }
-    ycc_to_rgb(full[0].data(), full[1].data(), full[2].data(), out, npx);
 }
 
 }  // namespace
@@ -982,6 +1033,19 @@ int32_t fmvfi_jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out, char* ms
                           int32_t msglen) {
     try {
         decode_libjpeg(data, static_cast<size_t>(n), out);
+        return OK;
+    } catch (const Error& e) {
+        return report(e, msg, msglen);
+    } catch (const std::bad_alloc&) {
+        return report(Error{CORRUPT, "out of memory"}, msg, msglen);
+    }
+}
+
+int32_t fmvfi_jpeg_decode_strip(const uint8_t* data, int64_t n, uint8_t* out, int32_t ycbcr,
+                                char* msg, int32_t msglen) {
+    try {
+        decode_libjpeg(data, static_cast<size_t>(n), out,
+                       ycbcr ? Out::YCBCR_TO_RGB : Out::COMPONENTS);
         return OK;
     } catch (const Error& e) {
         return report(e, msg, msglen);

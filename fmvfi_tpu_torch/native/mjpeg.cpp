@@ -57,6 +57,9 @@ void decode_mjpeg(const uint8_t* d, size_t n, uint8_t* out) {
     if (img.progressive)
         fail(UNSUPPORTED, "a progressive (SOF2) Motion-JPEG frame; only sequential frames "
                           "(SOF0, SOF1) are decoded as FFmpeg decodes them");
+    if (img.color != Color::GREY && img.color != Color::YCBCR)
+        fail(UNSUPPORTED, "an RGB-coded or four-component Motion-JPEG frame; only grey and YCbCr "
+                          "frames are decoded as FFmpeg decodes them");
     if (img.ncomp == 3) {
         const Component &l = img.comps[0], &cb = img.comps[1], &cr = img.comps[2];
         const bool ok = cb.h == cr.h && cb.v == cr.v && l.h % cb.h == 0 && l.v % cb.v == 0 &&

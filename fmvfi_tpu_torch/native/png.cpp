@@ -19,10 +19,22 @@
 //     The inverse: src rows * rowbytes image bytes, dst rows * (1 +
 //     rowbytes).  Each row takes the filter whose output has the least sum
 //     of absolute values as signed bytes (libpng's heuristic).
+//   fmvfi_png16_swscale(src, npx, spp, dst)
+//     A 16-bit PNG's samples (npx pixels of spp native uint16: 1 or 2 grey,
+//     3 or 4 RGB, alpha last and ignored) as cv2.VideoCapture hands them on:
+//     FFmpeg's png decoder gives gray16be / ya16be / rgb48be / rgba64be,
+//     which swscale converts to BGR24 through its full path (ffmpeg_common.h:
+//     hScale16To15's one unscaled tap, then yuv2rgb_write_full).  Grey is
+//     full-range luma, v >> 1 on 15 bits; RGB goes to limited-range BT.601
+//     Y'CbCr first (input.c's rgb48ToY_c / rgb48ToUV_c with
+//     fill_rgb2yuv_table's coefficients for the default table).  dst: npx
+//     RGB bytes.
 
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+
+#include "ffmpeg_common.h"
 
 namespace {
 
@@ -125,6 +137,34 @@ void fmvfi_png_filter(const uint8_t* src, int64_t rows, int64_t rowbytes, int32_
     }
     std::free(trial);
     std::free(zeros);
+}
+
+void fmvfi_png16_swscale(const uint16_t* src, int64_t npx, int32_t spp, uint8_t* dst) {
+    static const fmvfi_ff::Coeffs full = fmvfi_ff::coeffs(true), limited = fmvfi_ff::coeffs(false);
+    // the default table's RGB -> Y'CbCr coefficients on 2^15 (utils.c)
+    auto fix = [](double x) { return int64_t(x * (1 << 15) + 0.5); };
+    static const int64_t ry = fix(0.299 * 219 / 255), gy = fix(0.587 * 219 / 255),
+                         by = fix(0.114 * 219 / 255), ru = -fix(0.169 * 224 / 255),
+                         gu = -fix(0.331 * 224 / 255), bu = fix(0.500 * 224 / 255),
+                         rv = fix(0.500 * 224 / 255), gv = -fix(0.419 * 224 / 255),
+                         bv = -fix(0.081 * 224 / 255);
+    auto to15 = [](int64_t v16) {  // hScale16To15: one tap of 1 << 14, shift 15
+        const int64_t v = ((v16 & 0xFFFF) << 14) >> 15;
+        return v < (1 << 15) - 1 ? v : (1 << 15) - 1;
+    };
+    const int64_t mid = 128 << 7;  // zero chroma on 15 bits
+    for (int64_t p = 0; p < npx; ++p) {
+        const uint16_t* s = src + p * spp;
+        if (spp <= 2) {
+            fmvfi_ff::put_full(full, dst + 3 * p, to15(s[0]) * 4, 0, 0);
+            continue;
+        }
+        const int64_t r = s[0], g = s[1], b = s[2];
+        const int64_t y = to15((ry * r + gy * g + by * b + (int64_t(0x2001) << 14)) >> 15);
+        const int64_t u = to15((ru * r + gu * g + bu * b + (int64_t(0x10001) << 14)) >> 15);
+        const int64_t v = to15((rv * r + gv * g + bv * b + (int64_t(0x10001) << 14)) >> 15);
+        fmvfi_ff::put_full(limited, dst + 3 * p, y * 4, (u - mid) * 4, (v - mid) * 4);
+    }
 }
 
 }  // extern "C"

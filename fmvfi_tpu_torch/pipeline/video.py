@@ -19,13 +19,15 @@ the frame it holds back until the end of the stream, as cv2 drains the
 decoder); the container is told from the file's bytes, as FFmpeg probes
 it.  Other codecs and containers (H.264, HEVC, AV1; FLV, Ogg, ...) raise
 NotImplementedError naming ROADMAP item 18.4 (the card's machine has no
-decoder for them), an image file or a numbered image sequence item 18.4k.
+decoder for them).  A lone PNG or JPEG image, and a printf pattern of them
+(`frames/%05d.png`), read as one video as cv2.VideoCapture reads them
+(FFmpeg's image2 demuxer, utils/image2.py); lone images and sequences of
+other formats raise NotImplementedError naming item 18.4k.
 """
 
 from __future__ import annotations
 
 import os
-import re
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator, List, Sequence
 
@@ -33,7 +35,7 @@ import numpy as np
 import torch
 
 from ..ops.pyramid import make_filters, max_pyr_height
-from ..utils import avi, formats, imageio, ivf, mkv, mp4, mpegts
+from ..utils import avi, formats, image2, imageio, ivf, mkv, mp4, mpegts
 from ..utils.resample import resize_bilinear_u8
 from .interpolate import (
     FusionModels,
@@ -56,23 +58,21 @@ ISO_BOXES = (b"ftyp", b"moov", b"mdat", b"free", b"skip", b"wide", b"pnot", b"uu
 MATROSKA = b"\x1aE\xdf\xa3"  # the EBML header's id
 OTHER_CONTAINERS = ((b"FLV", "an FLV file"), (b"OggS", "an Ogg file"),
                     (b"0&\xb2u", "an ASF (WMV) file"))
-IMAGES = ((imageio.SIGNATURE, "PNG"), (b"\xff\xd8\xff", "JPEG"))
-PATTERN = re.compile(r"%0?\d*d")  # a printf pattern, as FFmpeg's image2 demuxer reads it
 
 
 def _container(path: str) -> str:
     """"avi", "mp4", "mkv", "ivf", "ts", "ps" or "es" (a raw MPEG video
-    stream) from the file's first bytes, as FFmpeg probes them;
-    NotImplementedError for a container the port does not read, an image
-    (cv2 reads it as a one-frame video) or a numbered image sequence,
-    ValueError for a file that is none (cv2 decodes no frames from it)."""
+    stream) from the file's first bytes, as FFmpeg probes them, or "image"
+    for a lone image or a numbered image sequence (FFmpeg's image2, read by
+    utils/image2.py); NotImplementedError for a container the port does not
+    read, ValueError for a file that is none (cv2 decodes no frames from
+    it)."""
+    if image2.is_sequence(path):
+        return "image"
     try:
         with open(path, "rb") as f:
             head = f.read(192 * 5)
     except OSError:
-        if PATTERN.search(os.path.basename(path)) and any(
-                os.path.isfile(PATTERN.sub(lambda m: m.group(0) % i, path)) for i in range(5)):
-            raise formats.unsupported(path, "a numbered image sequence", "18.4k") from None
         raise ValueError(f"no frames decoded from {path}") from None
     if head[:4] == b"RIFF" and head[8:12] == b"AVI ":
         return "avi"
@@ -88,10 +88,8 @@ def _container(path: str) -> str:
         return "ps"
     if head.startswith(mpegts.SEQUENCE):
         return "es"
-    image = next((name for magic, name in IMAGES if head.startswith(magic)),
-                 None) or imageio.still_format(head)
-    if image is not None:  # cv2 reads it as a video of one frame (a GIF: of its frames)
-        raise formats.unsupported(path, f"a {image} image", "18.4k")
+    if imageio.image_format(head) is not None:  # a video of one frame (a GIF: of its frames)
+        return "image"
     for magic, what in OTHER_CONTAINERS:
         if head.startswith(magic):
             raise formats.unsupported(path, what)
@@ -139,7 +137,11 @@ def _iter_decoded(path: str) -> Iterator[np.ndarray]:
     uint8 RGB, in the decoder's output order: a VP9 packet yields the frames
     it shows (none for a hidden frame, two for a superframe showing two), an
     MPEG-1/2 packet the frame its picture lets out (display order), and the
-    end of the stream the frame an MPEG-1/2 decoder still holds."""
+    end of the stream the frame an MPEG-1/2 decoder still holds; a lone
+    image or a numbered sequence its images (utils/image2.py)."""
+    if _container(path) == "image":
+        yield from image2.iter_frames(path)
+        return
     try:
         samples, (decode, flush), rotation, codec = _open(path)
     except (ValueError, NotImplementedError) as e:

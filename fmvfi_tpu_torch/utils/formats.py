@@ -26,22 +26,27 @@ READS = (
 ITEMS = {
     "18.4": "other codecs need a video decoder the card's machine lacks",
     "18.4h": "FFmpeg's MPEG-1/2 decoder decodes it otherwise, or cv2 returns no pixels of it",
-    "18.4k": "cv2 reads an image file or a numbered image sequence as a video; the port reads "
-             "a directory of frames",
-    "18.11": "cv2.imread decodes it; reading it waits for the port's own decoder",
+    "18.4k": "cv2 reads a lone BMP, TIFF, PNM, GIF or WebP image, or a numbered sequence of "
+             "them, as a video through FFmpeg's own decoders for them; the port reads lone PNG "
+             "and JPEG images and sequences of them",
+    "18.11": "cv2.imread decodes it (WebP, PFM, PAM, JPEG 2000, Sun raster, Radiance HDR, GIF, "
+             "YCbCr TIFF not JPEG-compressed, YCCK JPEG); reading it waits for the port's own "
+             "decoder",
 }
+STILLS = "PNG, JPEG (grey, YCbCr, RGB and CMYK), BMP, PNM (P1-P6) and TIFF images"
 
 
 def reads() -> str:
     """The table as a sentence."""
     parts = [f"{name} files of {', '.join(codecs)} video" for name, codecs in READS]
-    return "; ".join(parts) + "; and directories of PNG or JPEG frames"
+    return "; ".join(parts) + ("; directories of PNG or JPEG frames; and lone PNG or JPEG "
+                               "images and numbered sequences of them (frames/%05d.png)")
 
 
 def unsupported(path: str, what: str, item: str = "18.4") -> NotImplementedError:
     """The refusal of `what` in the file at `path`, naming ROADMAP item `item`
-    (18.11's is an image, which the port's imread reads as PNG or JPEG)."""
-    listing = "PNG and JPEG images" if item == "18.11" else reads()
+    (18.11's is an image: the refusal lists the still formats imread reads)."""
+    listing = STILLS if item == "18.11" else reads()
     return NotImplementedError(f"{path}: {what}; the port reads {listing} (ROADMAP Queue 1, "
                                f"item {item}: {ITEMS[item]})")
 

@@ -1,35 +1,46 @@
-"""PNG and JPEG files as RGB uint8 arrays, without cv2 or PIL: the port's
+"""Still images as RGB uint8 arrays, without cv2 or PIL: the port's
 counterpart of `cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)` and of
-`cv2.imwrite(path, cv2.cvtColor(img, cv2.COLOR_RGB2BGR))` (PNG and JPEG).
+`cv2.imwrite(path, cv2.cvtColor(img, cv2.COLOR_RGB2BGR))`.
 
-`imread` returns what cv2 (IMREAD_COLOR) returns, in RGB order, for every
-PNG, interlaced (Adam7: each pass unfiltered on its own, its pixels put in
-place) or not: grey is replicated to three channels (1, 2 and 4-bit grey
-scaled to 0-255 by 255, 85 and 17), palette indices are looked up (an
-index past the palette reads black), alpha and tRNS are dropped without
-blending, and 16-bit samples keep their high byte.  `imwrite` picks the
-format from the file's extension, as cv2.imwrite does: `.png` writes 8-bit
-RGB or grey, each row with the filter libpng's heuristic picks, at zlib
-level 1 (cv2's default); `.jpg`, `.jpeg` and `.jpe` write the baseline JPEG
-of native/jpeg_enc.cpp, byte-equal to cv2's at the same quality (default
-95, cv2's); any other extension raises NotImplementedError.
+`imread` tells the format by the file's first bytes, as cv2's findDecoder
+does, and returns what cv2 (IMREAD_COLOR) returns, in RGB order, for PNG,
+JPEG, BMP (utils/bmp.py), PNM P1-P6 (utils/pnm.py) and TIFF
+(utils/tiff.py) files.
 
-A JPEG file (`imread` dispatches on its magic bytes), baseline or
-progressive, is decoded by native/jpeg.cpp, bit-equal to libjpeg-turbo with
-its defaults (ISLOW IDCT, fancy upsampling, block smoothing of a
-progressive file whose scans leave coefficients short), as cv2 decodes it:
-grey becomes three equal channels, and the EXIF Orientation tag is applied
-(flips and rotations), as cv2.imread applies it.  `read_jpeg(path,
-orient=False)` leaves the orientation alone, as PIL's Image.open does.
+A PNG, interlaced (Adam7: each pass unfiltered on its own, its pixels put
+in place) or not: grey is replicated to three channels (1, 2 and 4-bit grey
+scaled to 0-255 by 255, 85 and 17), palette indices are looked up (an index
+past the palette reads black), alpha and tRNS are dropped without blending,
+16-bit samples keep their high byte, and the Orientation of an eXIf chunk
+(before or after the image data) is applied, as cv2 applies it.  A JPEG,
+baseline or progressive, is decoded by native/jpeg.cpp, bit-equal to
+libjpeg-turbo with its defaults (ISLOW IDCT, fancy upsampling, block
+smoothing of a progressive file whose scans leave coefficients short), as
+cv2 decodes it: grey becomes three equal channels, RGB-coded files are
+copied, CMYK files go through OpenCV's own CMYK step, and the EXIF
+Orientation tag is applied (flips and rotations).  `read_jpeg(path,
+orient=False)` and `read_raw` leave the orientation alone, as PIL's
+Image.open and FFmpeg do.
 
-The PNG row filters and the JPEG decoder and encoder run in the C++ library of
-fmvfi_tpu_torch.native (built with g++ at first use); `imread` and `imwrite`
-raise RuntimeError when it does not build.  `unfilter_numpy` is the row
-filters' plain version, for the tests.  A lossless, arithmetic-coded,
-hierarchical, 12-bit or CMYK JPEG raises NotImplementedError naming its
-SOF; any other file that is not a well-formed PNG or JPEG raises
-ValueError (a JPEG cut short too, which cv2 would decode in part); each
-names the path.
+`imwrite` picks the format from the file's extension, as cv2.imwrite does:
+`.png` writes 8-bit RGB or grey, each row with the filter libpng's
+heuristic picks, at zlib level 1 (cv2's default); `.jpg`, `.jpeg` and
+`.jpe` the baseline JPEG of native/jpeg_enc.cpp, byte-equal to cv2's at the
+same quality (default 95, cv2's); `.bmp` and `.dib`, `.ppm`, `.pgm` and
+`.pnm`, and `.tif` and `.tiff` the bytes cv2.imwrite writes (utils/bmp.py,
+pnm.py, tiff.py); any other extension raises NotImplementedError.
+
+The PNG row filters, the JPEG decoder and encoder, BMP's run-length data and
+TIFF's LZW and PackBits run in the C++ library of fmvfi_tpu_torch.native
+(built with g++ at first use); `imread` and `imwrite` raise RuntimeError
+when it does not build.  `unfilter_numpy` is the row filters' plain
+version, for the tests.  The formats cv2.imread decodes and the port does
+not yet (`STILL_FORMATS`: WebP, PFM, PAM, JPEG 2000, Sun raster, Radiance
+HDR, GIF), a lossless, arithmetic-coded, hierarchical, 12-bit or YCCK
+JPEG, and a YCbCr TIFF that is not JPEG-compressed raise NotImplementedError naming
+ROADMAP item 18.11; any other file that is not a well-formed image raises
+ValueError (a JPEG cut short too, which cv2 would decode in part, and the
+files cv2.imread returns None for); each names the path.
 """
 
 from __future__ import annotations
@@ -42,7 +53,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 
 from .. import native
-from . import formats
+from . import bmp, formats, pnm, tiff
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _JPEG_MAGIC = b"\xff\xd8\xff"
@@ -74,8 +85,9 @@ def _chunks(data: bytes, path: str):
 
 
 def _parse(data: bytes, path: str):
-    """The header fields, the palette (or None) and the joined IDAT bytes."""
-    header, palette, idat = None, None, []
+    """The header fields, the palette (or None), the joined IDAT bytes and
+    the first eXIf chunk's body (b"" when there is none)."""
+    header, palette, idat, exif = None, None, [], b""
     for ctype, body in _chunks(data, path):
         if header is None and ctype != b"IHDR":
             raise ValueError(f"{path}: the first chunk is {ctype!r}, not IHDR")
@@ -89,11 +101,13 @@ def _parse(data: bytes, path: str):
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif ctype == b"IDAT":
             idat.append(body)
+        elif ctype == b"eXIf":
+            exif = exif or body
         elif ctype != b"IEND" and ctype[:1].isupper():
             raise ValueError(f"{path}: unknown critical chunk {ctype!r}")
     if not idat:
         raise ValueError(f"{path}: no IDAT chunk")
-    return header, palette, b"".join(idat)
+    return header, palette, b"".join(idat), exif
 
 
 # Adam7: each pass's first column and row and its steps across and down
@@ -116,9 +130,10 @@ class Pass(NamedTuple):
 
 
 class RawPNG(NamedTuple):
-    """A PNG's header fields, its palette (or None) and its decompressed
-    image data as passes: one, or Adam7's seven less those that hold no
-    pixel (an image narrower or shorter than 8 has empty passes)."""
+    """A PNG's header fields, its palette (or None), its decompressed image
+    data as passes (one, or Adam7's seven less those that hold no pixel: an
+    image narrower or shorter than 8 has empty passes) and the Orientation
+    its eXIf chunk gives (1 without one)."""
 
     width: int
     height: int
@@ -126,6 +141,7 @@ class RawPNG(NamedTuple):
     color: int
     palette: Optional[np.ndarray]
     passes: Tuple[Pass, ...]
+    orientation: int = 1
 
     @property
     def bpp(self) -> int:
@@ -145,13 +161,14 @@ def read_raw(path) -> RawPNG:
     path = os.fspath(path)
     with open(path, "rb") as f:
         data = f.read()
-    return _read_raw(data, path)
+    return read_raw_bytes(data, path)
 
 
-def _read_raw(data: bytes, path: str) -> RawPNG:
+def read_raw_bytes(data: bytes, path: str) -> RawPNG:
+    """A PNG file's bytes parsed, checked and inflated (read_raw's work)."""
     if not data.startswith(SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
-    (width, height, depth, color, compression, filtering, interlace), palette, z = \
+    (width, height, depth, color, compression, filtering, interlace), palette, z, exif = \
         _parse(data, path)
     if color not in _COLOR_TYPES or depth not in _COLOR_TYPES[color][1]:
         raise ValueError(f"{path}: colour type {color} with bit depth {depth}")
@@ -178,56 +195,93 @@ def _read_raw(data: bytes, path: str) -> RawPNG:
         rows = np.frombuffer(raw, np.uint8, ph * (rowbytes + 1), pos).reshape(ph, rowbytes + 1)
         passes.append(Pass(x0, y0, dx, dy, pw, rows))
         pos += rows.size
-    return RawPNG(width, height, depth, color, palette, tuple(passes))
+    return RawPNG(width, height, depth, color, palette, tuple(passes), _tiff_orientation(exif))
 
 
-# the other still images cv2.imread decodes, told by their first bytes
-STILL_FORMATS = ((b"BM", "BMP"), (b"II*\0", "TIFF"), (b"MM\0*", "TIFF"),
-                 (b"\0\0\0\x0cjP  \r\n\x87\n", "JPEG 2000"), (b"\xffO\xffQ", "JPEG 2000"),
+# the still images cv2.imread decodes and the port does not yet (item 18.11),
+# told by their first bytes
+STILL_FORMATS = ((b"\0\0\0\x0cjP  \r\n\x87\n", "JPEG 2000"), (b"\xffO\xffQ", "JPEG 2000"),
                  (b"\x59\xa6\x6a\x95", "Sun raster"), (b"#?RADIANCE", "Radiance HDR"),
                  (b"#?RGBE", "Radiance HDR"), (b"GIF87a", "GIF"), (b"GIF89a", "GIF"))
+_TIFF_MAGIC = (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+")
 
 
 def still_format(data: bytes) -> Optional[str]:
-    """The name of a still-image format other than PNG and JPEG that the
-    bytes begin with (cv2.imread decodes them), else None."""
+    """The name of a still-image format that cv2.imread decodes and the
+    port does not, when the bytes begin with one, else None."""
     for magic, name in STILL_FORMATS:
         if data.startswith(magic):
             return name
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return "WebP"
     if len(data) >= 3 and data[0:1] == b"P" and data[2:3] in b" \t\r\n":
-        if data[1:2] in b"1234567":
-            return "PNM"
+        if data[1:2] == b"7":
+            return "PAM"
         if data[1:2] in b"Ff":
             return "PFM"
     return None
 
 
+def image_format(data: bytes) -> Optional[str]:
+    """The name of the still-image format the bytes begin with ("PNG",
+    "JPEG", "BMP", "PNM", "TIFF" or one of `still_format`'s), else None."""
+    if data.startswith(SIGNATURE):
+        return "PNG"
+    if data.startswith(_JPEG_MAGIC):
+        return "JPEG"
+    if data.startswith(bmp.MAGIC):
+        return "BMP"
+    if pnm.is_pnm(data):
+        return "PNM"
+    if data[:4] in _TIFF_MAGIC:
+        return "TIFF"
+    return still_format(data)
+
+
 def imread(path) -> np.ndarray:
-    """The PNG or JPEG file at `path` as an (H, W, 3) uint8 RGB array (a
-    JPEG turned upright by its EXIF Orientation tag, as cv2 reads it).  The
-    other formats cv2.imread decodes (BMP, TIFF, WebP, PNM, PFM, JPEG 2000,
-    Sun raster, Radiance HDR, GIF) raise NotImplementedError naming ROADMAP
-    item 18.11."""
+    """The image file at `path` as an (H, W, 3) uint8 RGB array, as
+    cv2.imread reads it: PNG and JPEG (turned upright by their EXIF
+    Orientation), BMP, PNM (P1-P6) and TIFF.  The other formats cv2.imread
+    decodes (WebP, PFM, PAM, JPEG 2000, Sun raster, Radiance HDR, GIF) raise
+    NotImplementedError naming ROADMAP item 18.11."""
     path = os.fspath(path)
     with open(path, "rb") as f:
         data = f.read()
-    if data.startswith(_JPEG_MAGIC):
+    kind = image_format(data)
+    if kind == "JPEG":
         return _decode_jpeg(data, path, orient=True)
-    other = still_format(data)
-    if other is not None:
-        raise formats.unsupported(path, f"a {other} image", "18.11")
-    raw = _read_raw(data, path)
+    if kind in ("BMP", "PNM", "TIFF"):
+        try:
+            return {"BMP": bmp.decode, "PNM": pnm.decode, "TIFF": tiff.decode}[kind](data)
+        except tiff.Unsupported as e:
+            raise formats.unsupported(path, e.what, "18.11") from None
+        except ValueError as e:
+            raise ValueError(f"{path}: {kind}: {e}") from None
+    if kind not in (None, "PNG"):
+        raise formats.unsupported(path, f"a {kind} image", "18.11")
+    return decode_png(data, path, orient=True)
+
+
+def decode_png(data: bytes, path: str, orient: bool = True) -> np.ndarray:
+    """A PNG file's bytes as cv2.imread reads them (orient=True: the
+    eXIf chunk's Orientation applied), or with orient=False as FFmpeg's PNG
+    decoder hands its pixels on, upright as stored."""
+    raw = read_raw_bytes(data, path)
     out = np.empty((raw.height, raw.width, 3), np.uint8)
     for p in raw.passes:  # each pass unfiltered on its own, its pixels put in place
-        try:
-            rows = native.png_unfilter(p.rows, p.rows.shape[0], p.rows.shape[1] - 1, raw.bpp)
-        except ValueError as e:
-            raise ValueError(f"{path}: {e}") from None
-        out[p.y0 :: p.dy, p.x0 :: p.dx] = _to_rgb(rows, p.width, raw.depth, raw.color,
-                                                  raw.palette)
+        out[p.y0 :: p.dy, p.x0 :: p.dx] = _to_rgb(unfilter(p, raw.bpp, path), p.width,
+                                                  raw.depth, raw.color, raw.palette)
+    if orient and raw.orientation in _ORIENT:
+        out = np.ascontiguousarray(_ORIENT[raw.orientation](out))
     return out
+
+
+def unfilter(p: Pass, bpp: int, path: str) -> np.ndarray:
+    """A pass's rows with the row filters undone (native/png.cpp)."""
+    try:
+        return native.png_unfilter(p.rows, p.rows.shape[0], p.rows.shape[1] - 1, bpp)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
 
 
 def read_jpeg(path, orient: bool = False) -> np.ndarray:
@@ -332,37 +386,55 @@ JPEG_EXTENSIONS = (".jpg", ".jpeg", ".jpe")
 JPEG_QUALITY = 95  # cv2's IMWRITE_JPEG_QUALITY default
 
 
+BMP_EXTENSIONS = (".bmp", ".dib")
+TIFF_EXTENSIONS = (".tif", ".tiff")
+WRITES = (".png",) + JPEG_EXTENSIONS + BMP_EXTENSIONS + tuple(pnm.EXTENSIONS) + TIFF_EXTENSIONS
+
+
 def imwrite(path, image: np.ndarray, quality: int = JPEG_QUALITY) -> None:
     """Write an (H, W, 3) RGB or (H, W) grey uint8 array in the format its
     extension names (case-insensitive, as cv2): an 8-bit PNG for `.png`, a
-    baseline JPEG at `quality` (1-100) for `.jpg`, `.jpeg` and `.jpe`.  Any
-    other extension raises NotImplementedError."""
+    baseline JPEG at `quality` (1-100) for `.jpg`, `.jpeg` and `.jpe`, and
+    cv2's own bytes for `.bmp` / `.dib`, `.ppm` / `.pgm` / `.pnm` and `.tif` /
+    `.tiff`.  Any other extension raises NotImplementedError; a grey image
+    to `.ppm`, or a colour one to `.pgm`, ValueError (cv2 writes neither)."""
     path = os.fspath(path)
     ext = os.path.splitext(path)[1].lower()
-    if ext != ".png" and ext not in JPEG_EXTENSIONS:
-        raise NotImplementedError(f"{path}: imwrite writes .png, .jpg, .jpeg and .jpe files, "
-                                  f"not {ext or 'a file without an extension'}")
+    if ext not in WRITES:
+        raise NotImplementedError(f"{path}: imwrite writes {', '.join(WRITES)} files, not "
+                                  f"{ext or 'a file without an extension'}")
     image = np.asarray(image)
     if image.dtype != np.uint8 or not (image.ndim == 2 or (image.ndim == 3
                                                            and image.shape[2] == 3)):
         raise ValueError(f"imwrite takes (H, W, 3) or (H, W) uint8, got {image.shape} "
                          f"{image.dtype}")
+    image = np.ascontiguousarray(image)
     if ext in JPEG_EXTENSIONS:
         data = native.jpeg_encode(image, quality)
-        with open(path, "wb") as f:
-            f.write(data)
-        return
+    elif ext in BMP_EXTENSIONS:
+        data = bmp.encode(image)
+    elif ext in pnm.EXTENSIONS:
+        data = pnm.encode(image, ext)
+    elif ext in TIFF_EXTENSIONS:
+        data = tiff.encode(image)
+    else:
+        data = encode_png(image)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def encode_png(image: np.ndarray) -> bytes:
+    """An (H, W, 3) RGB or (H, W) grey uint8 image as the PNG cv2 writes."""
     h, w = image.shape[:2]
     spp = 1 if image.ndim == 2 else 3
     filtered = native.png_filter(image.reshape(h, w * spp), spp)
     header = struct.pack(">IIBBBBB", w, h, 8, 0 if spp == 1 else 2, 0, 0, 0)
-    with open(path, "wb") as f:
-        f.write(SIGNATURE)
-        for ctype, body in ((b"IHDR", header),
-                            (b"IDAT", zlib.compress(filtered.tobytes(), ZLIB_LEVEL)),
-                            (b"IEND", b"")):
-            f.write(struct.pack(">I", len(body)) + ctype + body
-                    + struct.pack(">I", zlib.crc32(body, zlib.crc32(ctype))))
+    out = [SIGNATURE]
+    for ctype, body in ((b"IHDR", header), (b"IDAT", zlib.compress(filtered.tobytes(), ZLIB_LEVEL)),
+                        (b"IEND", b"")):
+        out.append(struct.pack(">I", len(body)) + ctype + body
+                   + struct.pack(">I", zlib.crc32(body, zlib.crc32(ctype))))
+    return b"".join(out)
 
 
 def unfilter_numpy(data: np.ndarray, rows: int, rowbytes: int, bpp: int) -> np.ndarray:

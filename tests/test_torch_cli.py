@@ -13,7 +13,8 @@ AdaCoF and FusionNet and a seeded PhaseNet saved in phase_net.pt's layout.
   pixel of every PNG within 1 LSB of JAX's (JAX truncates x * 255, so a
   float gap of ~1e-6 can flip a pixel), with the share that differs
   printed; `--output_frame out.jpg` byte-equal to cv2.imwrite of the
-  pixels of the .png output;
+  pixels of the .png output; the pair as a TIFF and a BMP fused into a
+  .tif within 1 LSB of JAX's PNG, the .tif cv2's bytes;
 - `evaluate` on a middlebury: layout and on the synthetic sets at --dim 64
   --max_num 2: per-scene and per-set PSNR within 0.05 dB of JAX's, and
   results.png (1320x440), the panels and the AVIs written as JAX writes
@@ -255,8 +256,24 @@ def test_interpolate_writes_the_format_its_extension_names(inputs, tmp_path):
         pt_cli.main(["interpolate", *pair, "--output_frame", str(tmp_path / f"out.{ext}")])
     assert cv2.imwrite(str(tmp_path / "ref.jpg"), cv2.imread(str(tmp_path / "out.png")))
     assert (tmp_path / "out.jpg").read_bytes() == (tmp_path / "ref.jpg").read_bytes()
-    with pytest.raises(NotImplementedError, match="bmp"):
-        pt_cli.main(["interpolate", *pair, "--output_frame", str(tmp_path / "out.bmp")])
+    with pytest.raises(NotImplementedError, match="webp"):
+        pt_cli.main(["interpolate", *pair, "--output_frame", str(tmp_path / "out.webp")])
+
+
+def test_interpolate_reads_and_writes_bmp_and_tiff(inputs, jax_out, tmp_path):
+    """The pair as a TIFF and a BMP (cv2's files of the same pixels), fused
+    into a .tif: within 1 LSB of JAX's PNG of the pair, and the .tif is what
+    cv2.imwrite writes of the port's pixels."""
+    a, b = tmp_path / "a.tif", tmp_path / "b.bmp"
+    assert cv2.imwrite(str(a), cv2.imread(str(inputs / "a.png")))
+    assert cv2.imwrite(str(b), cv2.imread(str(inputs / "b.png")))
+    out = tmp_path / "mid.tif"
+    pt_cli.main(["interpolate", "--first_frame", str(a), "--second_frame", str(b),
+                 "--output_frame", str(out), "--method", "fusion", "--phase_checkpoint",
+                 str(inputs / "phase_net.pt"), "--device", "cpu"])
+    _within_lsb(out, jax_out / "interp_fusion" / "out.png")
+    ok, ref = cv2.imencode(".tif", cv2.imread(str(out)))
+    assert ok and out.read_bytes() == ref.tobytes()
 
 
 @pytest.mark.parametrize("mode,n_out", [("per_pair", 7), ("factor4", 13), ("batch2", 7),

@@ -7,8 +7,8 @@
   quality 95 and at 10 and 75 (IMWRITE_JPEG_QUALITY); each file read back
   by the port's imread bit-equal to cv2.imread;
 - the extension choosing the format as cv2.imwrite does (.png, .jpg,
-  .jpeg, .jpe, any case) and .bmp, .tif or no extension raising
-  NotImplementedError;
+  .jpeg, .jpe, .bmp, .tif, any case, each cv2's bytes) and .webp, .exr or
+  no extension raising NotImplementedError;
 - native.jpeg_encode's byte stuffing (0xFF00) on noise at quality 100;
 - the digests of cv2.imencode('.jpg') that chip_smoke.py holds the card's
   host build of the writer to (JPEG_PINS), and the writer's bytes equal
@@ -76,7 +76,11 @@ def test_the_extension_picks_the_format(toolchain, tmp_path):
     imageio.imwrite(tmp_path / "d.PNG", img)
     assert (tmp_path / "d.PNG").read_bytes().startswith(imageio.SIGNATURE)
     np.testing.assert_array_equal(imageio.imread(tmp_path / "d.PNG"), img)
-    for name in ("e.bmp", "f.tif", "g"):
+    for name in ("e.BMP", "f.tif"):
+        imageio.imwrite(tmp_path / name, img)
+        ok, ref = cv2.imencode(os.path.splitext(name)[1].lower(), img[..., ::-1])
+        assert ok and (tmp_path / name).read_bytes() == ref.tobytes(), name
+    for name in ("e.webp", "f.exr", "g"):
         with pytest.raises(NotImplementedError, match=name):
             imageio.imwrite(tmp_path / name, img)
         assert not os.path.exists(tmp_path / name)

@@ -99,7 +99,8 @@ def test_adam7_passes_and_errors(toolchain, tmp_path):
 
 
 def test_committed_fixtures_match_the_smokes_pins(toolchain):
-    names = [n for n in chip_smoke.INPUT_PINS if n.endswith(".png")]
+    names = [n for n in chip_smoke.INPUT_PINS
+             if n.endswith(".png") and n not in chip_smoke.INPUTS_STILL_PINS]
     assert len(names) == 7
     for name in names:
         contract, digest = chip_smoke.INPUT_PINS[name]

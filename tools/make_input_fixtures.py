@@ -287,6 +287,8 @@ def make(out: str) -> dict:
         files[name] = None
     for name in make_containers(out):
         files[name] = None
+    for name in make_stills(out):
+        files[name] = None
     return pins(out, files)
 
 
@@ -1153,7 +1155,7 @@ def pixels(out: str, name: str, contract: str) -> np.ndarray:
 
 
 def contract_of(name: str) -> str:
-    if name.endswith(VIDEO_SUFFIXES):
+    if name.endswith(VIDEO_SUFFIXES) or name.startswith("video_"):
         return "video"
     return "read_jpeg" if "_pil_" in name else "imread"
 
@@ -1167,7 +1169,307 @@ def pins(out: str, files) -> dict:
     return table
 
 
-GROUPS = dict(mpeg12=make_mpeg12, containers=make_containers)
+# --- stills: BMP, PNM, TIFF, CMYK / RGB JPEGs, PNG orientation ------------
+
+
+def bmp_file(w: int, h: int, bpp: int, pixels: bytes, palette: bytes = b"", comp: int = 0,
+             header: int = 40, masks=(), clrused: int = 0, after: bytes = b"") -> bytes:
+    """A BMP file: `header` 40, 108 or 124 (Windows; the masks stored in it
+    past 40 bytes) or 12 (OS/2: 16-bit sides, 3-byte palette entries);
+    `after` goes between the header and the palette (BI_BITFIELDS masks)."""
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bpp)
+    else:
+        info = struct.pack("<IiiHHIIiiII", header, w, h, 1, bpp, comp, len(pixels), 2835, 2835,
+                           clrused, 0)
+        info += struct.pack("<4I", *(list(masks) + [0] * 4)[:4]) if header > 40 else b""
+        info += bytes(header - len(info))
+    off = 14 + len(info) + len(after) + len(palette)
+    return (b"BM" + struct.pack("<IHHI", off + len(pixels), 0, 0, off) + info + after + palette
+            + pixels)
+
+
+def bmp_rows(rows: np.ndarray) -> bytes:
+    """(h, rowbytes) stored bottom-up, each row padded to 4 bytes."""
+    pitch = (rows.shape[1] + 3) & -4
+    out = np.zeros((rows.shape[0], pitch), np.uint8)
+    out[:, : rows.shape[1]] = rows
+    return out[::-1].tobytes()
+
+
+def rle_encode(idx: np.ndarray, bits: int, rng) -> bytes:
+    """BI_RLE8 / BI_RLE4 data for palette indices (h, w), bottom-up: each
+    row split into encoded runs and absolute runs (odd lengths padded),
+    with an occasional delta over pixels left to palette entry 0, then an
+    end of line; RLE8 ends with end of bitmap right after the last row's
+    end of line is left out, RLE4 (where end of bitmap only ends a line)
+    with every end of line."""
+    h, w = idx.shape
+    out = bytearray()
+    for y, row in enumerate(idx[::-1]):
+        x = 0
+        while x < w:
+            if x and rng.random() < 0.08 and w - x > 4:
+                dx = int(rng.integers(1, min(8, w - x - 1)))
+                out += bytes([0, 2, dx, 0])  # skipped pixels take entry 0
+                x += dx
+                continue
+            run = 1
+            while x + run < w and run < 255 and row[x + run] == row[x]:
+                run += 1
+            if run >= 3 or w - x < 3:
+                n = min(run, w - x)
+                out += bytes([n, int(row[x]) if bits == 8 else int(row[x]) * 17])
+                x += n
+                continue
+            n = int(min(w - x, rng.integers(3, 12)))
+            vals = row[x : x + n].astype(np.uint8)
+            if bits == 8:
+                data = vals.tobytes() + bytes(n & 1)
+            else:
+                nib = np.zeros(n + (n & 1), np.uint8)
+                nib[:n] = vals
+                data = (nib[0::2] << 4 | nib[1::2]).tobytes()
+                data += bytes(len(data) & 1)
+            out += bytes([0, n]) + data
+            x += n
+        if bits == 8 and y == h - 1:
+            break
+        out += bytes([0, 0])
+    return bytes(out + bytes([0, 1]))
+
+
+def tiff_file(tags: dict, blocks, order: str = "<", tiled: bool = False) -> bytes:
+    """A TIFF file of `tags` ({tag: (type, values)}) and its strips or tiles
+    `blocks`, their offsets and byte counts filled in."""
+    data, offsets, pos = b"", [], 8
+    for b in blocks:
+        offsets.append(pos)
+        data += b
+        pos += len(b)
+    if pos & 1:
+        data += b"\0"
+        pos += 1
+    tags = dict(tags)
+    tags[324 if tiled else 273] = (4, offsets)
+    tags[325 if tiled else 279] = (4, [len(b) for b in blocks])
+    codes = {1: "B", 2: "B", 3: "H", 4: "I"}
+    extra_at, extra, body = pos + 2 + 12 * len(tags) + 4, b"", b""
+    for tag in sorted(tags):
+        typ, values = tags[tag]
+        raw = struct.pack(order + codes[typ] * len(values), *values)
+        body += struct.pack(order + "HHI", tag, typ, len(values))
+        if len(raw) <= 4:
+            body += raw.ljust(4, b"\0")
+        else:
+            body += struct.pack(order + "I", extra_at + len(extra))
+            extra += raw + bytes(len(raw) & 1)
+    head = (b"II*\0" if order == "<" else b"MM\0*") + struct.pack(order + "I", pos)
+    return head + data + struct.pack(order + "H", len(tags)) + body + bytes(4) + extra
+
+
+def _pack_bits(v: np.ndarray, bits: int) -> np.ndarray:
+    """(h, w) samples of `bits` bits -> (h, rowbytes), each row from the
+    high bit."""
+    b = (v[..., None] >> np.arange(bits - 1, -1, -1)) & 1
+    return np.packbits(b.reshape(v.shape[0], -1).astype(np.uint8), axis=1)
+
+
+def _png_exif(img: np.ndarray, orientation: int) -> bytes:
+    ex = Image.Exif()
+    ex[274] = orientation
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "PNG", exif=ex)
+    return buf.getvalue()
+
+
+def _pil(img, fmt: str, **kw) -> bytes:
+    buf = io.BytesIO()
+    img.save(buf, fmt, **kw)
+    return buf.getvalue()
+
+
+SMOKE_TIFF = "tiff_cv2_1080x1920.tif"
+
+
+def make_stills(out: str):
+    """Write the still-image fixtures (cv2's, PIL's and forged files, all
+    64x64 or smaller but the smoke's 1080p TIFF); yields their names."""
+    rng = np.random.default_rng(2031)
+
+    def put(name, data):
+        os.makedirs(os.path.dirname(os.path.join(out, name)), exist_ok=True)
+        with open(os.path.join(out, name), "wb") as f:
+            f.write(data)
+        return name
+
+    def tex(h, w, c=3):
+        return _texture(rng, h, w, c) if c > 1 else _texture(rng, h, w, 1)[..., 0]
+
+    a = tex(37, 53)
+    yield put("bmp_cv2_24_37x53.bmp", cv2.imencode(".bmp", a)[1].tobytes())
+    yield put("bmp_cv2_grey_37x53.bmp", cv2.imencode(".bmp", a[..., 0])[1].tobytes())
+    yield put("bmp_1bit_37x53.bmp", _pil(Image.fromarray(a).convert("1"), "BMP"))
+    yield put("bmp_8bit_29x31.bmp", _pil(Image.fromarray(tex(29, 31)).convert("P"), "BMP"))
+    yield put("bmp_32_29x31.bmp", _pil(Image.fromarray(tex(29, 31, 4), "RGBA"), "BMP"))
+    idx = rng.integers(0, 16, (29, 31))
+    pal = rng.integers(0, 256, (12, 4), np.uint8).tobytes()  # 12 entries: 12-15 read black
+    yield put("bmp_4bit_29x31.bmp", bmp_file(31, 29, 4, bmp_rows(_pack_bits(idx, 4)), pal,
+                                             clrused=12))
+    p16 = rng.integers(0, 65536, (29, 31)).astype("<u2")
+    rows16 = bmp_rows(p16.view(np.uint8).reshape(29, -1))
+    yield put("bmp_555_29x31.bmp", bmp_file(31, 29, 16, rows16))
+    yield put("bmp_565_29x31.bmp", bmp_file(31, 29, 16, rows16, comp=3,
+                                            after=struct.pack("<3I", 0xF800, 0x7E0, 0x1F)))
+    px32 = rng.integers(0, 256, (29, 31, 4), np.uint8)
+    yield put("bmp_v5_bitfields_29x31.bmp",
+              bmp_file(31, 29, 32, bmp_rows(px32.reshape(29, -1)), comp=3, header=124,
+                       masks=(0xFF00, 0xFF0000, 0xFF000000, 0xFF)))
+    b = tex(29, 31)
+    yield put("bmp_v5_24_29x31.bmp", bmp_file(31, 29, 24, bmp_rows(b.reshape(29, -1)),
+                                              header=124, masks=(0, 0, 0, 0)))
+    yield put("bmp_topdown_29x31.bmp",  # a negative height: rows stored top-down
+              bmp_file(31, -29, 24, np.pad(b.reshape(29, -1), ((0, 0), (0, 3))).tobytes()))
+    pal3 = rng.integers(0, 256, (256, 3), np.uint8).tobytes()
+    yield put("bmp_os2_8bit_29x31.bmp",
+              bmp_file(31, 29, 8, bmp_rows(rng.integers(0, 256, (29, 31), np.uint8)), pal3,
+                       header=12))
+    yield put("bmp_os2_24_29x31.bmp", bmp_file(31, 29, 24, bmp_rows(b.reshape(29, -1)),
+                                               header=12))
+    blocks = np.kron(rng.integers(0, 16, (6, 8)), np.ones((5, 5), np.int64))[:30, :40]
+    blocks[::7, 3:9] = rng.integers(0, 16, (5, 6))  # absolute runs among the encoded ones
+    for bits in (8, 4):
+        pal = rng.integers(0, 256, (1 << bits, 4), np.uint8).tobytes()
+        yield put(f"bmp_rle{bits}_40x30.bmp",
+                  bmp_file(40, 30, bits, rle_encode(blocks, bits, rng), pal,
+                           comp=1 if bits == 8 else 2))
+
+    g = tex(17, 23, 1)
+    c = tex(17, 23)
+    yield put("pnm_p1_23x17.pbm", b"P1\n# a comment\n23 17\n" + "".join(
+        str(v) for v in rng.integers(0, 2, 23 * 17)).encode() + b"\n")
+    yield put("pnm_p2_23x17.pgm", b"P2\n23 17\n200\n" + " ".join(
+        str(v) for v in rng.integers(0, 230, 23 * 17)).encode() + b"\n")
+    yield put("pnm_p2_16bit_23x17.pgm", b"P2\n23 17\n4000\n" + "\n".join(
+        str(v) for v in rng.integers(0, 4000, 23 * 17)).encode() + b"\n")
+    yield put("pnm_p3_23x17.ppm", b"P3 23 17\n#max\n255\n" + " ".join(
+        str(v) for v in c.reshape(-1)).encode() + b" \n")
+    yield put("pnm_p4_23x17.pbm", _pil(Image.fromarray(g).convert("1"), "PPM"))
+    yield put("pnm_cv2_p5_37x53.pgm", cv2.imencode(".pgm", a[..., 1])[1].tobytes())
+    yield put("pnm_cv2_p6_37x53.ppm", cv2.imencode(".ppm", a)[1].tobytes())
+    yield put("pnm_p5_16bit_23x17.pgm", b"P5\n23 17\n65535\n"
+              + rng.integers(0, 65536, 23 * 17).astype(">u2").tobytes())
+    yield put("pnm_p6_max100_23x17.ppm", b"P6\n23 17\n100\n" + rng.integers(
+        0, 101, 23 * 17 * 3).astype(np.uint8).tobytes())
+
+    yield put("tiff_cv2_lzw_37x53.tif", cv2.imencode(".tif", a)[1].tobytes())
+    yield put("tiff_cv2_grey_37x53.tif", cv2.imencode(".tif", a[..., 2])[1].tobytes())
+    t = Image.fromarray(tex(29, 31))
+    for comp, tag in (("raw", "raw"), ("tiff_adobe_deflate", "deflate"),
+                      ("packbits", "packbits"), ("tiff_lzw", "lzw")):
+        yield put(f"tiff_{tag}_29x31.tif", _pil(t, "TIFF", compression=comp))
+    yield put("tiff_1bit_29x31.tif", _pil(t.convert("1"), "TIFF", compression="packbits"))
+    yield put("tiff_grey16_29x31.tif", _pil(Image.fromarray(
+        rng.integers(0, 65536, (29, 31)).astype(np.uint16)), "TIFF", compression="tiff_lzw"))
+    yield put("tiff_palette_29x31.tif", _pil(t.convert("P"), "TIFF", compression="tiff_lzw"))
+    yield put("tiff_rgba_unassoc_29x31.tif", _pil(Image.fromarray(tex(29, 31, 4), "RGBA"),
+                                                  "TIFF", compression="tiff_adobe_deflate"))
+    yield put("tiff_cmyk_29x31.tif", _pil(t.convert("CMYK"), "TIFF", compression="tiff_lzw"))
+    yield put("tiff_la_29x31.tif", _pil(t.convert("LA"), "TIFF", compression="packbits"))
+
+    def base(w, h, bits, photometric, spp, more=()):
+        tags = {256: (3, [w]), 257: (3, [h]), 258: (3, [bits] * spp), 259: (3, [1]),
+                262: (3, [photometric]), 277: (3, [spp]), 278: (3, [h])}
+        tags.update(dict(more))
+        return tags
+
+    v1 = rng.integers(0, 2, (29, 31))
+    yield put("tiff_1bit_miniswhite_29x31.tif",
+              tiff_file(base(31, 29, 1, 0, 1), [_pack_bits(v1, 1).tobytes()]))
+    v4 = rng.integers(0, 16, (29, 31))
+    yield put("tiff_miniswhite_29x31.tif",
+              tiff_file(base(31, 29, 8, 0, 1, {278: (3, [10])}),
+                        [tex(29, 31, 1)[y : y + 10].tobytes() for y in range(0, 29, 10)]))
+    cmap = rng.integers(0, 65536, 48).tolist()  # 16-bit entries: their high bytes
+    yield put("tiff_palette4_29x31.tif",
+              tiff_file(base(31, 29, 4, 3, 1, {320: (3, cmap)}), [_pack_bits(v4, 4).tobytes()]))
+    rgb16 = rng.integers(0, 65536, (29, 31, 3)).astype(np.int64)
+    diff = rgb16.copy()
+    diff[:, 1:] = (rgb16[:, 1:] - rgb16[:, :-1]) & 0xFFFF  # predictor 2
+    yield put("tiff_rgb16_mm_29x31.tif",
+              tiff_file(base(31, 29, 16, 2, 3, {259: (3, [8]), 317: (3, [2])}),
+                        [zlib.compress(diff.astype(">u2").tobytes())], order=">"))
+    planes = tex(29, 31)
+    yield put("tiff_planar2_29x31.tif",
+              tiff_file(base(31, 29, 8, 2, 3, {259: (3, [32946]), 284: (3, [2]),
+                                                  278: (3, [16])}),
+                        [zlib.compress(planes[y : y + 16, :, k].tobytes())
+                         for k in range(3) for y in (0, 16)]))
+    yield put("tiff_rgba_assoc_29x31.tif",
+              tiff_file(base(31, 29, 8, 2, 4, {338: (3, [1])}), [tex(29, 31, 4).tobytes()]))
+    tile = tex(40, 50)
+    tiles = []
+    for ty in range(0, 40, 32):
+        for tx in range(0, 50, 32):
+            blk = np.zeros((32, 32, 3), np.int64)
+            part = tile[ty : ty + 32, tx : tx + 32]
+            blk[: part.shape[0], : part.shape[1]] = part
+            d = blk.copy()
+            d[:, 1:] = (blk[:, 1:] - blk[:, :-1]) & 255
+            tiles.append(zlib.compress(d.astype(np.uint8).tobytes()))
+    tiled = base(50, 40, 8, 2, 3, {259: (3, [8]), 317: (3, [2]), 322: (3, [32]),
+                                     323: (3, [32])})
+    del tiled[278]
+    yield put("tiff_tiled_50x40.tif", tiff_file(tiled, tiles, tiled=True))
+    yield put("tiff_orient3_29x31.tif",
+              tiff_file(base(31, 29, 8, 2, 3, {274: (3, [3])}), [tex(29, 31).tobytes()]))
+
+    j = Image.fromarray(tex(29, 31))
+    cmyk = _pil(j.convert("CMYK"), "JPEG", quality=85)
+    yield put("jpeg_cmyk_29x31.jpg", cmyk)
+    at = cmyk.find(b"\xff\xee")
+    yield put("jpeg_cmyk_noadobe_29x31.jpg",
+              cmyk[:at] + cmyk[at + 2 + int.from_bytes(cmyk[at + 2 : at + 4], "big"):])
+    yield put("jpeg_rgb_29x31.jpg", _pil(j, "JPEG", quality=85, keep_rgb=True))
+    yield put("jpeg_rgb_progressive_29x31.jpg", _pil(j, "JPEG", quality=75, keep_rgb=True,
+                                                     progressive=True))
+
+    e = tex(37, 53)
+    yield put("png_exif6_37x53.png", _png_exif(e, 6))
+    ex = Image.Exif()
+    ex[274] = 6
+    jpeg6 = _pil(Image.fromarray(e), "JPEG", quality=90, exif=ex)
+    yield put("jpeg_exif6_37x53.jpg", jpeg6)
+    yield put("video_jpeg_exif6_37x53.jpg", jpeg6)
+    yield put("video_png_exif6_37x53.png", _png_exif(e, 6))
+    yield put("video_png_rgb16_37x53.png", cv2.imencode(".png", rng.integers(
+        0, 65536, (37, 53, 3)).astype(np.uint16))[1].tobytes())
+    yield put("video_png_rgba16_37x53.png", cv2.imencode(".png", rng.integers(
+        0, 65536, (37, 53, 4)).astype(np.uint16))[1].tobytes())
+    yield put("video_png_grey16_37x53.png", cv2.imencode(".png", rng.integers(
+        0, 65536, (37, 53)).astype(np.uint16))[1].tobytes())
+    for mode in ("L", "P", "RGBA"):
+        yield put(f"video_png_{mode.lower()}_37x53.png", _pil(Image.fromarray(e).convert(mode),
+                                                               "PNG"))
+    for i in range(2, 5):
+        put(f"video_seq2/{i:03d}.png", cv2.imencode(".png", tex(24, 32))[1].tobytes())
+        put(f"video_seq0/{i - 2:05d}.jpg", cv2.imencode(".jpg", tex(24, 32))[1].tobytes())
+    yield "video_seq2/%03d.png"
+    yield "video_seq0/%05d.jpg"
+    # 1080p for cv2's many strips (one row each): seeded noise upsized 32x,
+    # bilinear, 2.7 MB (the smoke clip's frames are pixel noise, 8.3 MB as
+    # cv2's LZW TIFF)
+    big = cv2.resize(rng.integers(0, 256, (34, 60, 3), np.uint8), (1920, 1080))
+    yield put(SMOKE_TIFF, cv2.imencode(".tif", big)[1].tobytes())
+    t = Image.fromarray(tex(29, 31))
+    for mode in ("YCbCr", "RGB", "L", "CMYK", "LA"):  # libjpeg under libtiff's JPEG codec
+        yield put(f"tiff_jpeg_{mode.lower()}_29x31.tif",
+                  _pil(t.convert(mode), "TIFF", compression="jpeg", quality=80))
+    yield put("tiff_jpeg_rgba_29x31.tif", _pil(Image.fromarray(tex(29, 31, 4), "RGBA"), "TIFF",
+                                               compression="jpeg", quality=60))
+
+
+GROUPS = dict(mpeg12=make_mpeg12, containers=make_containers, stills=make_stills)
 
 
 def main() -> int:
