@@ -172,7 +172,18 @@ Phases, each printing one JSON line with its seconds:
               SMPTE 240M, and forged sharpness, bilinear, show_existing,
               Colour and vpcC copies) each decoded by
               the port with the sha256 of its pixels equal to that of cv2's
-              or PIL's (INPUT_PINS, held by the CPU tests);
+              or PIL's (INPUT_PINS, held by the CPU tests), the WebP and
+              GIF fixtures among them (lossy, with ALPH, EXIF-rotated and
+              lossless WebPs of every VP8L transform, the colour cache,
+              LZ77 and meta prefix codes, animated WebPs; GIF87a / 89a,
+              local tables, interlacing, transparency, disposals 0-3, odd
+              code widths, a full LZW table, clips and sequences); (line
+              inputs_webp_gif) the committed 1080x1920 WebP (cv2's lossy,
+              quality 90, of a smooth scene) decoded, the port's lossless
+              file of those pixels written and read back equal, and the
+              committed 1080p animated GIF's 3 frames, each timed (median
+              of 5, on the calling thread) beside the card's name and
+              power limit;
               the video phase's first 3 frames written as a 1080x1920 MJPG
               AVI with MjpgWriter and `cli video --input clip.avi --method
               fusion` on it: 5 PNGs, the originals those read_video_frames
@@ -250,10 +261,21 @@ Phases, each printing one JSON line with its seconds:
               (the port's imwrite; the 1080p BMP, PPM and TIFF write and
               read ms and bytes) fused by a second cold process into
               mid.tif, within 1 LSB of mid.png, K1 [2, 4, 2] counted on
-              the same request in process;
+              the same request in process; (line cli_interpolate_webp)
+              the pair as a.webp and b.webp (the port's lossless imwrite,
+              read back bit-equal; the 1080p WebP write and read ms and
+              bytes beside the card's name and power limit) fused by a
+              third cold process into mid.webp, within 1 LSB of mid.png,
+              K1 [2, 4, 2] counted on the same request in process;
               then through cli.main: `video` per pair, on `clip/%03d.png`
               (line cli_video_sequence: every frame equal to the directory
-              route's, K1 3 a pair) and --batch 2 (9
+              route's, K1 3 a pair), on the committed 1080x1920 animated
+              GIF (line cli_video_gif: tests/data/inputs/
+              gif_clip_1080x1920.gif, 3 images of a smooth moving scene,
+              every image a frame as FFmpeg's gif demuxer reads it, the
+              frames equal to their pin, the originals exact, K1 3 a pair,
+              each interpolated frame >= 60 dB against double_frame_rate
+              per pair in this process) and --batch 2 (9
               PNGs, the originals exact at the even positions, K1 [2, 4, 2]
               per pair and [4, 8, 4] per dispatch, batch 2 within 1 LSB of
               per pair), `evaluate` on a 2-scene middlebury layout of
@@ -850,6 +872,96 @@ INPUT_PINS = {
         ("imread", "577bfd137f4df5f419d7a65ea4bf1c8ed5afa9c3e386faae266918468668ece1"),
     "tiff_jpeg_ycbcr_29x31.tif":
         ("imread", "e6ce0e0a7460f629acb8cc4231da6550f5eef5d60a0cc393713dc2376a5e99d0"),
+    "gif_87a_53x37.gif":
+        ("imread", "bd126d55f953dbe73444f6299534a09c970c3e1583d65ebf320638fee2227d7b"),
+    "gif_clip_1080x1920.gif":
+        ("video", "c670413e47d05477a52108eaf979098e3b609f62bd415ca24a2edc4556f13453"),
+    "gif_clip_87a_three_images_32x24.gif":
+        ("video", "c4dc74ab03954a146f3f7df70799604efefe2f4ef186056a6308e9b781aba7c1"),
+    "gif_clip_comment_third_32x24.gif":
+        ("video", "0ed4ca432f8017f61a69ef11e7185e9f100091047d5e5e0e38076f933e408129"),
+    "gif_clip_disposals_53x37.gif":
+        ("video", "8c407389f03d990716e3a1638899eeee30b642a69976f7b6cf9ebe4ec86cb249"),
+    "gif_clip_local_only_53x37.gif":
+        ("video", "dae21210ebba72524f9041a7c6b383b8d02c127628dbe65356185bf846e96249"),
+    "gif_clip_one_transparent_53x37.gif":
+        ("video", "d3aeadec34e1b9a43881a977b90cc622db7f64cf4bc238d06c9c424c516c437f"),
+    "gif_clip_pil_disposal0_53x37.gif":
+        ("video", "25864241797a220e7c3b505679233dd05db9f9a2f6e1ebdfd215fc08a645b108"),
+    "gif_clip_pil_disposal1_53x37.gif":
+        ("video", "25864241797a220e7c3b505679233dd05db9f9a2f6e1ebdfd215fc08a645b108"),
+    "gif_clip_pil_disposal2_53x37.gif":
+        ("video", "25864241797a220e7c3b505679233dd05db9f9a2f6e1ebdfd215fc08a645b108"),
+    "gif_clip_pil_disposal3_53x37.gif":
+        ("video", "fcf5c19dc168021745267a515e88462302e6813f27c017a54592bc845d750b87"),
+    "gif_clip_pil_transparent_53x37.gif":
+        ("video", "2e77b9a9c322ed19cd922554c5f626cf036431a0dc7edb532a999bc0a073d841"),
+    "gif_deferred_clear_64x64.gif":
+        ("imread", "72123ed115e2c598f18f7b7ec2d2e3a98a40dbef657f04d767b1c5229d50a44f"),
+    "gif_full_table_64x64.gif":
+        ("imread", "72123ed115e2c598f18f7b7ec2d2e3a98a40dbef657f04d767b1c5229d50a44f"),
+    "gif_interlaced_53x37.gif":
+        ("imread", "bd126d55f953dbe73444f6299534a09c970c3e1583d65ebf320638fee2227d7b"),
+    "gif_local_53x37.gif":
+        ("imread", "a7cc0eaf39dce7c9d73eecdb48ec6c4343e0063a914b323cc22f3fb29749cc1d"),
+    "gif_local_only_sub_53x37.gif":
+        ("imread", "b7eb88218a939cacda02aa31ea1b852c9780b830e391aec277f164ef6c633236"),
+    "gif_pal32_53x37.gif":
+        ("imread", "0829af97bf9e9663937754db5538abcf57a0382677bae0fe65664f9244e61dd8"),
+    "gif_pal3_2bit_53x37.gif":
+        ("imread", "dec02ab27c288adf410aa1bae4243425a7db490ef3eae64e6c98bc63b3c533d5"),
+    "gif_quantized_53x37.gif":
+        ("imread", "e9c986d600484f5c3a2d76b3184ba959b00c7985ed70dfde0183bd20e9fde225"),
+    "gif_seq/%03d.gif":
+        ("video", "611c62aaf8cb88140350f0acb4b5ee3a49b0e6e9e004931966af8ec6443a3ed7"),
+    "gif_sub_bg_53x37.gif":
+        ("imread", "08afd2e171feee285bc6176094bc3cd2f3f8834b66e6cf867c76d10044a11b28"),
+    "gif_transparent_53x37.gif":
+        ("imread", "08403c5d434cc4f4e5a73c1067d80f4eb26a204629030aeaf116a7eb56fbaf5c"),
+    "webp_anim_lossless_53x37.webp":
+        ("imread", "979c4a44f3a87fad16e8f3dc987388d90a45e4160c3bbe04b1264b510a7d8bd0"),
+    "webp_anim_lossy_53x37.webp":
+        ("imread", "45356ecd05eb231ac381659a6d4bd2fc584106f885b67ba4a23c03082e4490cf"),
+    "webp_cv2_lossless_53x37.webp":
+        ("imread", "97855150b8a25ca5c399e604fb57415d5b1291511cbb1d68ad318d03cb7b2819"),
+    "webp_cv2_q90_1080x1920.webp":
+        ("imread", "9109bcbbbb0b01b38d236ed8252f3c0a9ee2a18421870168457afcd1e0c871e2"),
+    "webp_lossless_alpha_53x37.webp":
+        ("imread", "82d17cc091f2da59d4db84272959300e7e684fa48f058423eb6be1e91b2e60c0"),
+    "webp_lossless_cache_128x96.webp":
+        ("imread", "e9696827a32e299626c3518bcf99cadd6312f106418a039eb9db8d0472e524c7"),
+    "webp_lossless_m0_64x48.webp":
+        ("imread", "c4643fc7c130713e3c29ad1d726e2fdf83fc12a5c39b780b51c958f240c2c5c3"),
+    "webp_lossless_meta_128x96.webp":
+        ("imread", "4df9c2b72e02e6ff9bab12bdbb80a3027f5b076e71d9ade8f7db539302d15af6"),
+    "webp_lossless_noise_29x31.webp":
+        ("imread", "39820eaaadef2a083ad64d45a59d01bf68cc112f723419dbe2af5b83b8659577"),
+    "webp_lossless_pal16_31x29.webp":
+        ("imread", "021a8fa90a30225c34848528634f1e3c87031ea5415df5bb60039fe27dfe724b"),
+    "webp_lossless_pal256_31x29.webp":
+        ("imread", "92b139426cb60775d003e8161345b2f7cc6220b725ab71ea87cd78a285ba6bec"),
+    "webp_lossless_pal2_31x29.webp":
+        ("imread", "a0a38b33e65c377c7f020c40078805556123f2f8ef90cb933a64b14015037cf2"),
+    "webp_lossless_pal4_31x29.webp":
+        ("imread", "b8454a6eeeaa9e9fc472ca47fa474811c0e662539d0eada4c043ecbb6e3b40f7"),
+    "webp_lossy_53x37.webp":
+        ("imread", "a36ec55302ac6c47ef2eb6eead01e906a6ad227b157cf9d1edc8ecf8331657ca"),
+    "webp_lossy_alpha_53x37.webp":
+        ("imread", "a4c5d1c72d2e4e066d2b786c316090bd6e1094835993a4fd59840d9aa3a9c927"),
+    "webp_lossy_exif6_53x37.webp":
+        ("imread", "ef73561141c9473ba58207bb83353432ba06a104e77f65b3ed765ffd3900d964"),
+    "webp_lossy_q50_33x17.webp":
+        ("imread", "644ba7be12d35a598654c11c5c151d835e36e82fef30dd0e5219349c13e5182c"),
+    "webp_video_cv2_lossless_53x37.webp":
+        ("video", "97855150b8a25ca5c399e604fb57415d5b1291511cbb1d68ad318d03cb7b2819"),
+    "webp_video_lossy_53x37.webp":
+        ("video", "0b8e323c6efcadebb7211a2d36007f0d6c9b93e83110aa1bc2e8a07057c3f9c8"),
+    "webp_video_lossy_alpha_53x37.webp":
+        ("video", "88e2393f4d346a25f90cfa197f26882b5e9dbe43996ebc6d5c4fc660d011cfd8"),
+    "webp_video_lossy_exif6_53x37.webp":
+        ("video", "6c5869f4514332accfeacf23ca89cdcd6fbfe632196bfae8c030adcb3225b3cc"),
+    "webp_video_seq/%03d.webp":
+        ("video", "587dcd0d3866d3dbb3a9837392b709469fabd35fe696e4db2fa4d0e15b1b5ee2"),
 }
 INPUTS_FRAME_DIRS = ("adam7_frames", "progressive_frames")
 INPUTS_CLIP_FRAMES = 3  # of the video phase's clip, written as a 1080p MJPG AVI
@@ -870,12 +982,16 @@ INPUTS_MPEG2_DB = 16.5  # that file decoded against the pixels written: 16.96 dB
 # Motion-JPEG in MOV / MP4, mp4v in a transport stream)
 INPUTS_MPEG_PINS = tuple(n for n in INPUT_PINS if n.startswith(("mpeg1_", "mpeg2_", "ivf_")) or (
     n in ("vp8_cv2_64x48.avi", "mjpg_cv2_64x48.mov", "mjpg_cv2_64x48.mp4", "mp4v_cv2_96x72.ts")))
-# the pins of the stills (BMP, PNM, TIFF, CMYK / RGB JPEGs, PNG orientation) and of the lone
-# images and numbered sequences read as video (the names starting video_)
+# the pins of the stills (BMP, PNM, TIFF, CMYK / RGB JPEGs, PNG orientation, WebP, GIF) and of
+# the lone images, GIF clips and numbered sequences read as video (the names starting video_,
+# webp_video_ and gif_clip_, and the sequences)
 INPUTS_STILL_PINS = tuple(n for n in INPUT_PINS if n.startswith(("bmp_", "pnm_", "tiff_", "jpeg_",
-                                                                  "png_", "video_")))
+                                                                  "png_", "video_", "webp_", "gif_")))
 INPUTS_TIFF = "tiff_cv2_1080x1920.tif"  # cv2.imwrite's 1080p LZW TIFF: one row a strip
-CLI_STILL_REPS = 3  # timed writes and reads of each 1080p BMP, PPM and TIFF
+CLI_STILL_REPS = 3  # timed writes and reads of each 1080p BMP, PPM, TIFF and WebP
+INPUTS_GIF = "gif_clip_1080x1920.gif"  # 3 images of a smooth moving scene, PIL's, 256 colours
+INPUTS_WEBP = "webp_cv2_q90_1080x1920.webp"  # cv2's lossy WebP (quality 90) of its first frame
+INPUTS_WEBP_REPS = 5  # timed decodes of the 1080p WebP and GIF, one host thread
 
 
 def _line(**kw):
@@ -1386,6 +1502,43 @@ def _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work):
     if not all(p["equal"] for p in pins.values()):
         raise AssertionError(f"inputs: decodes unequal to cv2's or PIL's pixels: "
                              f"{[n for n, p in pins.items() if not p['equal']]}")
+
+    # (a2) the 1080p WebP and GIF codecs on the card's host, each on the
+    # calling thread: cv2's lossy WebP decoded as imread, the port's lossless
+    # file of those pixels written and read back, the animated GIF's frames
+    from fmvfi_tpu_torch.utils import gif, webp
+    t0 = time.perf_counter()
+    webp_path = os.path.join(repo, INPUTS_DIR, INPUTS_WEBP)
+    gif_path = os.path.join(repo, INPUTS_DIR, INPUTS_GIF)
+    with open(webp_path, "rb") as f:
+        lossy = f.read()
+    with open(gif_path, "rb") as f:
+        gif_data = f.read()
+    codec_ms = dict(lossy_decode=[], lossless_encode=[], lossless_decode=[], gif_frames=[])
+    for _ in range(INPUTS_WEBP_REPS):
+        t = time.perf_counter()
+        still, _ = webp.decode(lossy)
+        codec_ms["lossy_decode"].append(1e3 * (time.perf_counter() - t))
+        t = time.perf_counter()
+        lossless = webp.encode(still)
+        codec_ms["lossless_encode"].append(1e3 * (time.perf_counter() - t))
+        t = time.perf_counter()
+        back, _ = webp.decode(lossless)
+        codec_ms["lossless_decode"].append(1e3 * (time.perf_counter() - t))
+        t = time.perf_counter()
+        gif_frames = gif.frames(gif_data)
+        codec_ms["gif_frames"].append(1e3 * (time.perf_counter() - t))
+    webp_gif = dict(seconds=time.perf_counter() - t0, size=list(still.shape[:2]), card=smi,
+                    webp_lossy_bytes=len(lossy), webp_lossless_bytes=len(lossless),
+                    lossless_round_trip_equal=bool(np.array_equal(back, still)),
+                    gif_bytes=len(gif_data), gif_frames=len(gif_frames),
+                    **{f"{k}_1080p_ms": float(np.median(v)) for k, v in codec_ms.items()},
+                    ms=codec_ms, pins={k: v["equal"] for k, v in pins.items()
+                                       if k.startswith(("webp_", "gif_"))})
+    _line(phase="inputs_webp_gif", **webp_gif)
+    if not webp_gif["lossless_round_trip_equal"] or len(gif_frames) != 3 or not all(
+            webp_gif["pins"].values()):
+        raise AssertionError(f"inputs: the 1080p WebP and GIF: {webp_gif}")
 
     # (b) the full-width path: a 1080p MJPG AVI through `cli video`, K1
     # counted around the command (the models it builds take the recording warp)
@@ -1992,14 +2145,16 @@ def _reference_phase_pt(path, seed=0):
     return path
 
 
-def phase_cli(dev, repo, ada_path, fusion_path, pair, clip):
+def phase_cli(dev, repo, ada_path, fusion_path, pair, clip, smi):
     """The command line on PNG files of a 1080p `pair` of frames and a
     1080p `clip`, float in [0, 1]; returns its K1 and K2 launches."""
     with _work_dir(repo) as work_dir:
-        return _cli(dev, repo, ada_path, fusion_path, pair, clip, work_dir)
+        return _cli(dev, repo, ada_path, fusion_path, pair, clip, smi, work_dir)
 
 
-def _cli(dev, repo, ada_path, fusion_path, pair, clip, work):
+def _cli(dev, repo, ada_path, fusion_path, pair, clip, smi, work):
+    import hashlib
+
     import torch
     from fmvfi_tpu_torch import cli, native
     from fmvfi_tpu_torch.eval.synth import translation_triplet, translation_video
@@ -2008,7 +2163,7 @@ def _cli(dev, repo, ada_path, fusion_path, pair, clip, work):
     from fmvfi_tpu_torch.models.phase_net import PhaseNetCore
     from fmvfi_tpu_torch.ops import adacof_cuda
     from fmvfi_tpu_torch.pipeline.interpolate import FusionModels, fusion_interpolate
-    from fmvfi_tpu_torch.pipeline.video import quantize
+    from fmvfi_tpu_torch.pipeline.video import double_frame_rate, quantize, read_video_frames
     from fmvfi_tpu_torch.train import data, loop
     from fmvfi_tpu_torch.utils import imageio
     from fmvfi_tpu_torch.utils.convert import (
@@ -2179,6 +2334,73 @@ def _cli(dev, repo, ada_path, fusion_path, pair, clip, work):
     if stills_images != [2, 4, 2] or stills_counts["k1_paths"] != {RING_PATH: 3}:
         raise AssertionError(f"cli: the TIFF + BMP request's K1 launches {stills}")
 
+    # the same pair as lossless WebPs (the port's imwrite: read back as
+    # written), fused by a third cold process into mid.webp; the 1080p WebP
+    # write and read timed on the card's host
+    w_ms, r_ms = {"a": [], "b": []}, {"a": [], "b": []}
+    for name, frame in (("a", pair[0]), ("b", pair[1])):
+        path = os.path.join(work, f"{name}.webp")
+        for _ in range(CLI_STILL_REPS):
+            t = time.perf_counter()
+            imageio.imwrite(path, quantize(frame))
+            w_ms[name].append(1e3 * (time.perf_counter() - t))
+            t = time.perf_counter()
+            back = imageio.imread(path)
+            r_ms[name].append(1e3 * (time.perf_counter() - t))
+            if not np.array_equal(back, quantize(frame)):
+                raise AssertionError(f"cli: {path} does not read back as written")
+    out_webp = os.path.join(work, "mid.webp")
+    t_start, t = time.time(), time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "fmvfi_tpu_torch.cli", "interpolate", "--first_frame",
+         os.path.join(work, "a.webp"), "--second_frame", os.path.join(work, "b.webp"),
+         "--output_frame", out_webp, "--method", "fusion", "--phase_checkpoint", phase_pt],
+        cwd=repo, capture_output=True, text=True, timeout=600)
+    webp_process_s = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise AssertionError(f"cli interpolate (WebP) exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    webp_cold_s = os.path.getmtime(out_webp) - t_start
+    f1w, f2w = (imageio.imread(os.path.join(work, n)).astype(np.float32) / 255.0
+                for n in ("a.webp", "b.webp"))
+    ada = AdaCoFNet().to(dev).eval()
+    ada.load_state_dict(load_adacof_weights(ada_path))
+    fusion = FusionNet(variant=infer_variant(fusion_sd)).to(dev).eval()
+    fusion.load_state_dict(fusion_sd)
+    phase = PhaseNetCore().to(dev).eval()
+    phase.load_state_dict(phase_net_from_torch(phase_pt))
+    ada.warp = recording_warp
+    try:
+        _reset_counts()
+        images.clear()
+        want_webp = quantize(fusion_interpolate(FusionModels(phase, ada, fusion), f1w[None],
+                                                f2w[None], device=dev)[0].cpu().numpy())
+        webp_counts, webp_images = _counts(), list(images)
+    finally:
+        ada.warp = real_warp
+    del ada, fusion, phase
+    diff = np.abs(imageio.imread(out_webp).astype(np.int16)
+                  - imageio.imread(out_png).astype(np.int16))
+    webp_line = dict(seconds=webp_cold_s, process_seconds=webp_process_s,
+                     max_lsb_vs_png_run=int(diff.max()),
+                     share_differing_vs_png_run=float((diff > 0).mean()),
+                     in_process_lsb_vs_png_request=int(np.abs(want_webp.astype(np.int16)
+                                                              - want.astype(np.int16)).max()),
+                     k1_launches=webp_counts["k1"], k1_images=webp_images,
+                     k1_paths=webp_counts["k1_paths"], k2_launches=webp_counts["k2"],
+                     webp_1080p_write_ms=float(np.median(w_ms["a"] + w_ms["b"])),
+                     webp_1080p_read_ms=float(np.median(r_ms["a"] + r_ms["b"])),
+                     write_ms=w_ms, read_ms=r_ms,
+                     webp_bytes={n: os.path.getsize(os.path.join(work, f"{n}.webp"))
+                                 for n in ("a", "b", "mid")},
+                     png_bytes=png_bytes, card=smi, size=list(pair[0].shape[:2]),
+                     stderr=proc.stderr.strip().splitlines())
+    _line(phase="cli_interpolate_webp", **webp_line)
+    if max(webp_line["max_lsb_vs_png_run"], webp_line["in_process_lsb_vs_png_request"]) > CLI_LSB:
+        raise AssertionError(f"cli interpolate (WebP) against the PNG run: {webp_line}")
+    if webp_images != [2, 4, 2] or webp_counts["k1_paths"] != {RING_PATH: 3}:
+        raise AssertionError(f"cli: the WebP request's K1 launches {webp_line}")
+
     # video, evaluate and train through cli.main in this process, K1 and K2
     # counted around each command; the models the commands build take the
     # recording warp from adacof_cuda
@@ -2241,6 +2463,44 @@ def _cli(dev, repo, ada_path, fusion_path, pair, clip, work):
     _line(phase="cli_video_sequence", input="clip/%03d.png", frames=n_frames, **r)
     if not r["equal_to_directory_route"]:
         raise AssertionError(f"cli video on clip/%03d.png differs from the directory route: {r}")
+    # the committed 1080p animated GIF (3 images of a smooth moving scene, 256
+    # colours) as a clip: every image a frame, as FFmpeg's gif demuxer reads
+    # it; per pair, K1 3 a pair, against double_frame_rate in this process
+    gif_path = os.path.join(repo, INPUTS_DIR, INPUTS_GIF)
+    t = time.perf_counter()
+    gif_frames = read_video_frames(gif_path)
+    gif_read_s = time.perf_counter() - t
+    gif_digest = hashlib.sha256(np.ascontiguousarray(
+        quantize(gif_frames)).tobytes()).hexdigest()
+    r = run("video_gif", ["video", "--input", gif_path, "--output_dir",
+                          os.path.join(work, "video_gif"), "--phase_checkpoint", phase_pt],
+            [2, 4, 2] * (len(gif_frames) - 1))
+    gif_names = sorted(os.listdir(os.path.join(work, "video_gif")))
+    gif_outs = [imageio.imread(os.path.join(work, "video_gif", n)) for n in gif_names]
+    ada = AdaCoFNet().to(dev).eval()
+    ada.load_state_dict(load_adacof_weights(ada_path))
+    fusion = FusionNet(variant=infer_variant(fusion_sd)).to(dev).eval()
+    fusion.load_state_dict(fusion_sd)
+    phase = PhaseNetCore().to(dev).eval()
+    phase.load_state_dict(phase_net_from_torch(phase_pt))
+    gif_per_pair = [quantize(f) for f in double_frame_rate(
+        gif_frames, FusionModels(phase, ada, fusion), device=dev)]
+    del ada, fusion, phase
+    n_gif = len(gif_frames)
+    r.update(frames=n_gif, size=list(gif_frames.shape[1:3]), read_seconds=gif_read_s,
+             gif_bytes=os.path.getsize(gif_path), pngs_written=len(gif_names),
+             decoded_equal_to_pin=gif_digest == INPUT_PINS[INPUTS_GIF][1],
+             originals_exact=len(gif_outs) == 2 * n_gif - 1 and all(
+                 np.array_equal(gif_outs[2 * i], quantize(gif_frames[i])) for i in range(n_gif)),
+             interpolated_vs_per_pair_db=[
+                 _psnr(gif_outs[2 * i + 1].astype(np.float64) / 255,
+                       gif_per_pair[2 * i + 1].astype(np.float64) / 255)
+                 for i in range(n_gif - 1)],
+             ms_per_interpolated_frame=r["ms"] / max(n_gif - 1, 1))
+    _line(phase="cli_video_gif", input=INPUTS_GIF, **r)
+    if (n_gif != 3 or not r["decoded_equal_to_pin"] or not r["originals_exact"]
+            or not min(r["interpolated_vs_per_pair_db"]) >= PLAIN_AGREEMENT_DB):
+        raise AssertionError(f"cli video on the animated GIF: {r}")
     batch_lsb = max(int(np.abs(
         imageio.imread(os.path.join(work, "video_per_pair", n)).astype(np.int16)
         - imageio.imread(os.path.join(work, "video_batch2", n)).astype(np.int16)).max())
@@ -2334,9 +2594,9 @@ def _cli(dev, repo, ada_path, fusion_path, pair, clip, work):
           png_read_ms=float(np.median(read_ms[2:])), png_write_ms_all=write_ms,
           png_read_ms_all=read_ms, png_bytes=png_bytes, png_filter_types=filter_types.tolist(),
           unfilter_oracle_seconds=t_oracle, interpolate=interp, video_batch2_vs_per_pair_lsb=batch_lsb,
-          commands=runs, k1_launches=k1 + interp_counts["k1"] + stills_counts["k1"],
-          k2_launches=k2)
-    return k1 + interp_counts["k1"] + stills_counts["k1"], k2
+          commands=runs, k1_launches=k1 + interp_counts["k1"] + stills_counts["k1"]
+          + webp_counts["k1"], k2_launches=k2)
+    return k1 + interp_counts["k1"] + stills_counts["k1"] + webp_counts["k1"], k2
 
 
 # run in a process of its own: load a `cuda` artifact onto the card, answer
@@ -4646,7 +4906,7 @@ def main() -> int:
     del state, models
     torch.cuda.empty_cache()
     cli_k1, cli_k2 = phase_cli(dev, repo, ada_path, fusion_path,
-                               (requests[0][0], requests[0][2]), clip)
+                               (requests[0][0], requests[0][2]), clip, smi)
     del clip
 
     # train_gan: AdaCoF training with the VGG and adversarial terms; each

@@ -10,10 +10,11 @@ Flags, defaults and messages are JAX's, plus `--device` (default cuda): a
 command exits with an error when there is no CUDA card, unless it is given
 `--device cpu`.  Convolutions run in float32 (TF32 off), as the reference
 computes.  `interpolate` reads its two frames as cv2.imread reads them, by
-their bytes (utils/imageio.py: PNG, JPEG, BMP, PNM P1-P6, TIFF), and
-output frames are written in the format their extension names, as
-cv2.imwrite writes them (.png; .jpg/.jpeg/.jpe at quality 95; .bmp/.dib;
-.ppm/.pgm/.pnm; .tif/.tiff).  The default PhaseNet
+their bytes (utils/imageio.py: PNG, JPEG, BMP, PNM P1-P6, TIFF, WebP,
+GIF), and output frames are written in the format their extension names,
+as cv2.imwrite writes them (.png; .jpg/.jpeg/.jpe at quality 95;
+.bmp/.dib; .ppm/.pgm/.pnm; .tif/.tiff; .webp lossless, the pixels cv2
+writes but not its bytes).  The default PhaseNet
 and FusionNet checkpoints are the reference's file names under the
 repository's checkpoints/ directory.  As in JAX, without
 --adacof_checkpoint the bundled demo AdaCoF is used, and with it the demo
@@ -25,11 +26,11 @@ and <set>.avi, and the results.png bar chart (eval/visualize.py).  `video
 (what utils/formats.py's table lists: Motion-JPEG, MPEG-4 Part 2, MPEG-1/2,
 VP8 or VP9 in AVI, MP4 / M4V / MOV, Matroska / WebM, MPEG transport and
 program streams (.ts, .m2ts, .mpg, .vob), raw MPEG video and IVF, decoded as
-cv2.VideoCapture decodes them), and lone PNG or JPEG images and numbered
-sequences of them (`video --input 'frames/%05d.png'`, FFmpeg's image2 as
-cv2 reads it); other codecs and containers raise NotImplementedError
-(ROADMAP Queue 1, item 18.4), lone images and sequences of other formats
-item 18.4k.  `train
+cv2.VideoCapture decodes them), GIF files (every image a frame), and lone
+PNG, JPEG or WebP images and numbered sequences of them or of GIFs
+(`video --input 'frames/%05d.png'`, FFmpeg's image2 as cv2 reads it);
+other codecs and containers raise NotImplementedError (ROADMAP Queue 1,
+item 18.4), lone images and sequences of other formats item 18.4k.  `train
 --data_parallel` runs one process per GPU (torchrun), where JAX runs one
 process over a mesh of devices.
 """

@@ -52,7 +52,8 @@ MPEG4_SOURCES = tuple(Path(__file__).resolve().parent / f for f in ("mpeg4.cpp",
 VP8_SOURCE = Path(__file__).resolve().parent / "vp8.cpp"
 VP9_SOURCE = Path(__file__).resolve().parent / "vp9.cpp"
 MPEG12_SOURCE = Path(__file__).resolve().parent / "mpeg12.cpp"
-STILL_SOURCES = tuple(Path(__file__).resolve().parent / f for f in ("bmp.cpp", "tiff.cpp"))
+STILL_SOURCES = tuple(Path(__file__).resolve().parent / f
+                      for f in ("bmp.cpp", "tiff.cpp", "webp.cpp", "gif.cpp"))
 HEADERS = tuple(Path(__file__).resolve().parent / h
                 for h in ("jpeg_common.h", "ffmpeg_common.h", "mpeg4.h", "vpx_rac.h"))
 FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-pthread")
@@ -345,6 +346,16 @@ def _bind_stills(lib: ctypes.CDLL) -> None:
         fn.restype = _I32
     lib.fmvfi_tiff_lzw_encode.argtypes = [_VP, _I64, _VP, _I64]
     lib.fmvfi_tiff_lzw_encode.restype = _I64
+    lib.fmvfi_webp_yuv_rgb.argtypes = [_VP, _VP, _VP, _I64, _I64, _I32, _I32, _VP]
+    lib.fmvfi_webp_yuv_rgb.restype = None
+    lib.fmvfi_vp8l_decode.argtypes = [_VP, _I64, _I32, _VP, _I64, _VP, ctypes.c_char_p, _I32]
+    lib.fmvfi_vp8l_decode.restype = _I32
+    lib.fmvfi_vp8l_decode_image.argtypes = [_VP, _I64, _I32, _I32, _VP, ctypes.c_char_p, _I32]
+    lib.fmvfi_vp8l_decode_image.restype = _I32
+    lib.fmvfi_vp8l_encode.argtypes = [_VP, _I32, _I32, _VP, _I64]
+    lib.fmvfi_vp8l_encode.restype = _I64
+    lib.fmvfi_gif_lzw.argtypes = [_VP, _I64, _I32, _I32, _VP, _I64, ctypes.c_char_p, _I32]
+    lib.fmvfi_gif_lzw.restype = _I64
 
 
 def bmp_rle(data: bytes, bits: int, width: int, height: int) -> np.ndarray:
@@ -390,6 +401,102 @@ def tiff_lzw_encode(data) -> bytes:
     return out[:n].tobytes()
 
 
+def webp_yuv_rgb(y: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """A lossy WebP's decoded planes (Y (h, w), U and V ((h + 1) // 2,
+    (w + 1) // 2)) as libwebp's fancy upsampling and YUV -> RGB conversion
+    give them to cv2.imread (webp.cpp): (h, w, 3) uint8 RGB."""
+    lib = library()
+    y, u, v = (np.ascontiguousarray(p, dtype=np.uint8) for p in (y, u, v))
+    h, w = y.shape
+    if u.shape != ((h + 1) // 2, (w + 1) // 2) or v.shape != u.shape:
+        raise ValueError(f"planes {y.shape}, {u.shape}, {v.shape}: not 4:2:0")
+    out = np.empty((h, w, 3), np.uint8)
+    lib.fmvfi_webp_yuv_rgb(y.ctypes.data, u.ctypes.data, v.ctypes.data, w, u.shape[1], w, h,
+                           out.ctypes.data)
+    return out
+
+
+# webp.cpp's feature bits (vp8l_decode's second value): what a VP8L stream uses
+VP8L_FEATURES = dict(predictor=1, cross_color=2, subtract_green=4, color_indexing=8,
+                     color_cache=16, meta_codes=32, backward_refs=64, simple_code=128,
+                     bundled=256)
+MAX_WEBP_PIXELS = 1 << 30
+
+
+def vp8l_decode(data: bytes, ffmpeg: bool = False) -> Tuple[np.ndarray, int]:
+    """A VP8L (lossless WebP) bitstream decoded (webp.cpp) as libwebp decodes
+    it, or with ffmpeg as FFmpeg's vp8l decoder does (the two part only on
+    streams no encoder writes: a colour cache read of an empty entry, a
+    predictor mode past 13): ((h, w) uint32 ARGB, the feature bits of
+    VP8L_FEATURES it used); ValueError for a malformed stream, with the
+    reason."""
+    lib = library()
+    buf = np.frombuffer(data, np.uint8)
+    info = np.zeros(3, np.int32)
+    msg = ctypes.create_string_buffer(256)
+    if lib.fmvfi_vp8l_decode(buf.ctypes.data, buf.size, int(ffmpeg), None, 0, info.ctypes.data,
+                             msg, len(msg)):
+        raise ValueError(msg.value.decode("ascii", "replace"))
+    w, h = int(info[0]), int(info[1])
+    if w * h > MAX_WEBP_PIXELS:
+        raise ValueError(f"a {w}x{h} VP8L image, over the {MAX_WEBP_PIXELS} pixels decoded")
+    out = np.empty((h, w), np.uint32)
+    if lib.fmvfi_vp8l_decode(buf.ctypes.data, buf.size, int(ffmpeg), out.ctypes.data, out.size,
+                             info.ctypes.data, msg, len(msg)):
+        raise ValueError(msg.value.decode("ascii", "replace"))
+    return out, int(info[2])
+
+
+def vp8l_decode_image(data: bytes, width: int, height: int) -> np.ndarray:
+    """A VP8L image stream without the 5-byte header, of the size given (a
+    lossy WebP's ALPH data), decoded (webp.cpp): (height, width) uint32
+    ARGB; ValueError for a malformed stream."""
+    lib = library()
+    buf = np.frombuffer(data, np.uint8)
+    out = np.empty((height, width), np.uint32)
+    msg = ctypes.create_string_buffer(256)
+    if lib.fmvfi_vp8l_decode_image(buf.ctypes.data, buf.size, width, height, out.ctypes.data, msg,
+                                   len(msg)):
+        raise ValueError(msg.value.decode("ascii", "replace"))
+    return out
+
+
+def vp8l_encode(image: np.ndarray) -> bytes:
+    """An (H, W, 3) uint8 RGB image as a VP8L bitstream (webp.cpp:
+    subtract-green, the predictor transform and a colour cache), which
+    decodes to the same pixels; sides 1-16384."""
+    lib = library()
+    image = np.ascontiguousarray(image, dtype=np.uint8)
+    h, w = image.shape[:2]
+    if image.ndim != 3 or image.shape[2] != 3 or not (0 < h <= 16384 and 0 < w <= 16384):
+        raise ValueError(f"vp8l_encode takes (H, W, 3) uint8 of sides 1-16384, got {image.shape}")
+    # a literal costs at most 4 x 15 bits; the codes and the mode image 64 KiB
+    cap = 8 * h * w + (1 << 16)
+    out = np.empty(cap, np.uint8)
+    n = lib.fmvfi_vp8l_encode(image.ctypes.data, w, h, out.ctypes.data, cap)
+    if n == -2:
+        raise MemoryError(f"vp8l_encode: out of memory for a {w}x{h} image")
+    if n < 0:
+        raise RuntimeError(f"vp8l_encode: a {w}x{h} image overran its bound {cap}")
+    return out[:n].tobytes()
+
+
+def gif_lzw(data: bytes, min_code: int, npix: int, strict: bool = False) -> np.ndarray:
+    """A GIF image's LZW data (its sub-blocks joined) decoded into `npix`
+    palette indices (gif.cpp), as FFmpeg decodes it, or with strict as
+    OpenCV's decoder does (the data must end with the last pixel);
+    ValueError for a code past the table, a minimum code size outside 1-8,
+    data that ends first or (strict) goes on after."""
+    lib = library()
+    buf = np.frombuffer(data, np.uint8)
+    out = np.empty(npix, np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    if lib.fmvfi_gif_lzw(buf.ctypes.data, buf.size, int(min_code), int(strict), out.ctypes.data,
+                         npix, msg, len(msg)) < 0:
+        raise ValueError(msg.value.decode("ascii", "replace"))
+    return out
+
+
 def _bind_mpeg4(lib: ctypes.CDLL) -> None:
     lib.fmvfi_mpeg4_open.argtypes = [ctypes.c_uint32, _VP, _I64, ctypes.c_char_p, _I32,
                                      ctypes.POINTER(_I32)]
@@ -417,11 +524,12 @@ def _bind_mpeg4(lib: ctypes.CDLL) -> None:
 def _bind_vp8(lib: ctypes.CDLL) -> None:
     lib.fmvfi_vp8_open.argtypes = [ctypes.c_char_p, _I32, ctypes.POINTER(_I32)]
     lib.fmvfi_vp8_open.restype = _VP
-    lib.fmvfi_vp8_decode.argtypes = [_VP, _VP, _I64, _VP, ctypes.c_char_p, _I32]
+    lib.fmvfi_vp8_decode.argtypes = [_VP, _VP, _I64, _I64, _VP, ctypes.c_char_p, _I32]
     lib.fmvfi_vp8_decode.restype = _I32
-    for fn in (lib.fmvfi_vp8_frame, lib.fmvfi_vp8_close):
+    for fn in (lib.fmvfi_vp8_frame, lib.fmvfi_vp8_close, lib.fmvfi_vp8_planes):
         fn.restype = None
     lib.fmvfi_vp8_frame.argtypes = [_VP, _VP]
+    lib.fmvfi_vp8_planes.argtypes = [_VP, _VP, _VP, _VP]
     lib.fmvfi_vp8_close.argtypes = [_VP]
 
 
@@ -572,7 +680,9 @@ class Vp8Decoder:
     vp8 decoder and swscale's yuv420p -> BGR24 conversion, vp8.cpp):
     `decode(frame)` takes one frame's bytes (a Matroska / WebM block) and
     returns the picture it shows, (H, W, 3) uint8 RGB, or None for a frame
-    with show_frame 0 (an alt-ref frame, decoded into the references only).
+    with show_frame 0 (an alt-ref frame, decoded into the references only);
+    `planes()` returns the frame's Y, U and V planes before the conversion
+    (for a lossy WebP, which libwebp converts otherwise: utils/webp.py).
     After each call `info` holds the frame's header facts (key frame,
     version, token partitions, vp8.cpp's feature bits: VP8_FEATURES).
     Raises NotImplementedError for what vp8.cpp refuses and ValueError for
@@ -591,9 +701,13 @@ class Vp8Decoder:
         self._info = np.zeros(len(self.INFO), np.int32)
         self.info = {}
 
-    def decode(self, frame: bytes) -> Optional[np.ndarray]:
-        buf = np.frombuffer(frame, np.uint8)
-        code = self._lib.fmvfi_vp8_decode(self._h, buf.ctypes.data, buf.size,
+    def decode(self, frame: bytes, after: bytes = b"") -> Optional[np.ndarray]:
+        """`after`: the bytes that follow the frame where it lies (a WebP
+        file's after its VP8 chunk), which FFmpeg's range decoder may read
+        past the last partition's end; zeros by default, as a packet's
+        padding."""
+        buf = np.frombuffer(frame + after, np.uint8)
+        code = self._lib.fmvfi_vp8_decode(self._h, buf.ctypes.data, len(frame), len(after),
                                           self._info.ctypes.data, self._msg, len(self._msg))
         if code:
             raise _JPEG_ERRORS[code](self._msg.value.decode("ascii", "replace"))
@@ -603,6 +717,15 @@ class Vp8Decoder:
         out = np.empty((self.info["height"], self.info["width"], 3), np.uint8)
         self._lib.fmvfi_vp8_frame(self._h, out.ctypes.data)
         return out
+
+    def planes(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The last decoded frame's Y, U and V planes before swscale, cropped
+        to its size: (h, w), and ((h + 1) // 2, (w + 1) // 2) twice."""
+        h, w = self.info["height"], self.info["width"]
+        y = np.empty((h, w), np.uint8)
+        u, v = (np.empty(((h + 1) // 2, (w + 1) // 2), np.uint8) for _ in range(2))
+        self._lib.fmvfi_vp8_planes(self._h, y.ctypes.data, u.ctypes.data, v.ctypes.data)
+        return y, u, v
 
     def close(self) -> None:
         if self._h:

@@ -437,7 +437,7 @@ struct Picture {
 
 class Decoder {
   public:
-    bool decode(const uint8_t* data, size_t n);
+    bool decode(const uint8_t* data, size_t n, const uint8_t* after = nullptr, size_t n_after = 0);
     int width() const { return width_; }
     int height() const { return height_; }
     int keyframe() const { return keyframe_; }
@@ -445,6 +445,7 @@ class Decoder {
     int partitions() const { return num_partitions_; }
     int features() const { return features_; }
     void frame_rgb(uint8_t* out) const;
+    void frame_planes(uint8_t* y, uint8_t* u, uint8_t* v) const;
 
   private:
     void parse_header(const uint8_t* buf, size_t n);
@@ -1436,8 +1437,12 @@ void Decoder::loop_filter() {
         }
 }
 
-bool Decoder::decode(const uint8_t* data, size_t n) {
+// `after`: the bytes that follow the frame in the caller's buffer (a WebP
+// file's after its VP8 chunk), which a range decoder may read past the last
+// partition's end; zeros (a demuxer's packet padding) when there are none
+bool Decoder::decode(const uint8_t* data, size_t n, const uint8_t* after, size_t n_after) {
     data_.assign(data, data + n);
+    data_.insert(data_.end(), after, after + std::min<size_t>(n_after, 32));
     data_.resize(n + 32, 0);  // what the range decoders read past a partition's end
     parse_header(data_.data(), n);
     cur_ = std::make_shared<Picture>();
@@ -1487,6 +1492,18 @@ void Decoder::frame_rgb(uint8_t* out) const {
     fmvfi_ff::yuv_to_rgb(width_, height_, 3, 2, 2, cur_->p, false, out);
 }
 
+// the planes before the conversion, cropped to the frame's size: Y w x h, U
+// and V (w + 1) / 2 x (h + 1) / 2, each row after row
+void Decoder::frame_planes(uint8_t* y, uint8_t* u, uint8_t* v) const {
+    uint8_t* dst[3] = {y, u, v};
+    for (int i = 0; i < 3; ++i) {
+        const fmvfi_ff::Plane& p = cur_->p[i];
+        for (int r = 0; r < p.h; ++r)
+            std::memcpy(dst[i] + size_t(r) * size_t(p.w), p.px.data() + size_t(r) * p.stride,
+                        size_t(p.w));
+    }
+}
+
 
 }  // namespace
 
@@ -1502,13 +1519,14 @@ void* fmvfi_vp8_open(char* msg, int32_t msglen, int32_t* code) {
     return nullptr;
 }
 
-// info: width, height, shown, key frame, version, token partitions,
-// feature bits
-int32_t fmvfi_vp8_decode(void* handle, const uint8_t* data, int64_t n, int32_t* info, char* msg,
-                         int32_t msglen) {
+// n_after: bytes readable after the frame's n (see Decoder::decode); info:
+// width, height, shown, key frame, version, token partitions, feature bits
+int32_t fmvfi_vp8_decode(void* handle, const uint8_t* data, int64_t n, int64_t n_after,
+                         int32_t* info, char* msg, int32_t msglen) {
     Decoder* dec = static_cast<Decoder*>(handle);
     try {
-        const bool shown = dec->decode(data, static_cast<size_t>(n));
+        const bool shown = dec->decode(data, static_cast<size_t>(n), data + n,
+                                       static_cast<size_t>(n_after));
         info[0] = dec->width();
         info[1] = dec->height();
         info[2] = shown;
@@ -1525,6 +1543,10 @@ int32_t fmvfi_vp8_decode(void* handle, const uint8_t* data, int64_t n, int32_t* 
 }
 
 void fmvfi_vp8_frame(void* handle, uint8_t* out) { static_cast<Decoder*>(handle)->frame_rgb(out); }
+
+void fmvfi_vp8_planes(void* handle, uint8_t* y, uint8_t* u, uint8_t* v) {
+    static_cast<Decoder*>(handle)->frame_planes(y, u, v);
+}
 
 void fmvfi_vp8_close(void* handle) { delete static_cast<Decoder*>(handle); }
 

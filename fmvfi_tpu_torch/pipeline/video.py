@@ -19,10 +19,13 @@ the frame it holds back until the end of the stream, as cv2 drains the
 decoder); the container is told from the file's bytes, as FFmpeg probes
 it.  Other codecs and containers (H.264, HEVC, AV1; FLV, Ogg, ...) raise
 NotImplementedError naming ROADMAP item 18.4 (the card's machine has no
-decoder for them).  A lone PNG or JPEG image, and a printf pattern of them
-(`frames/%05d.png`), read as one video as cv2.VideoCapture reads them
-(FFmpeg's image2 demuxer, utils/image2.py); lone images and sequences of
-other formats raise NotImplementedError naming item 18.4k.
+decoder for them).  A lone PNG, JPEG or WebP image, and a printf pattern
+of them or of GIFs (`frames/%05d.png`), read as one video as
+cv2.VideoCapture reads them (FFmpeg's image2 demuxer, or cv2's own image
+backend for GIFs: utils/image2.py); a lone GIF is a clip of every image in
+it, composited as FFmpeg's gif demuxer and decoder composite them
+(utils/gif.py); lone images and sequences of other formats raise
+NotImplementedError naming item 18.4k.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import numpy as np
 import torch
 
 from ..ops.pyramid import make_filters, max_pyr_height
-from ..utils import avi, formats, image2, imageio, ivf, mkv, mp4, mpegts
+from ..utils import avi, formats, gif, image2, imageio, ivf, mkv, mp4, mpegts
 from ..utils.resample import resize_bilinear_u8
 from .interpolate import (
     FusionModels,
@@ -62,8 +65,9 @@ OTHER_CONTAINERS = ((b"FLV", "an FLV file"), (b"OggS", "an Ogg file"),
 
 def _container(path: str) -> str:
     """"avi", "mp4", "mkv", "ivf", "ts", "ps" or "es" (a raw MPEG video
-    stream) from the file's first bytes, as FFmpeg probes them, or "image"
-    for a lone image or a numbered image sequence (FFmpeg's image2, read by
+    stream) from the file's first bytes, as FFmpeg probes them, "gif" for a
+    GIF (FFmpeg's gif demuxer: every image a frame), or "image" for another
+    lone image or a numbered image sequence (FFmpeg's image2, read by
     utils/image2.py); NotImplementedError for a container the port does not
     read, ValueError for a file that is none (cv2 decodes no frames from
     it)."""
@@ -88,7 +92,9 @@ def _container(path: str) -> str:
         return "ps"
     if head.startswith(mpegts.SEQUENCE):
         return "es"
-    if imageio.image_format(head) is not None:  # a video of one frame (a GIF: of its frames)
+    if gif.is_gif(head):
+        return "gif"
+    if imageio.image_format(head) is not None:  # a video of one frame
         return "image"
     for magic, what in OTHER_CONTAINERS:
         if head.startswith(magic):
@@ -137,10 +143,22 @@ def _iter_decoded(path: str) -> Iterator[np.ndarray]:
     uint8 RGB, in the decoder's output order: a VP9 packet yields the frames
     it shows (none for a hidden frame, two for a superframe showing two), an
     MPEG-1/2 packet the frame its picture lets out (display order), and the
-    end of the stream the frame an MPEG-1/2 decoder still holds; a lone
-    image or a numbered sequence its images (utils/image2.py)."""
-    if _container(path) == "image":
+    end of the stream the frame an MPEG-1/2 decoder still holds; a GIF its
+    images (utils/gif.py); a lone image or a numbered sequence its images
+    (utils/image2.py)."""
+    container = _container(path)
+    if container == "image":
         yield from image2.iter_frames(path)
+        return
+    if container == "gif":
+        with open(path, "rb") as f:
+            data = f.read()
+        try:
+            yield from gif.frames(data)
+        except ValueError as e:
+            raise ValueError(f"{path}: GIF: {e}") from None
+        except NotImplementedError as e:
+            raise _as_refusal(path, "", e, "18.4k") from None
         return
     try:
         samples, (decode, flush), rotation, codec = _open(path)

@@ -26,21 +26,23 @@ READS = (
 ITEMS = {
     "18.4": "other codecs need a video decoder the card's machine lacks",
     "18.4h": "FFmpeg's MPEG-1/2 decoder decodes it otherwise, or cv2 returns no pixels of it",
-    "18.4k": "cv2 reads a lone BMP, TIFF, PNM, GIF or WebP image, or a numbered sequence of "
-             "them, as a video through FFmpeg's own decoders for them; the port reads lone PNG "
-             "and JPEG images and sequences of them",
-    "18.11": "cv2.imread decodes it (WebP, PFM, PAM, JPEG 2000, Sun raster, Radiance HDR, GIF, "
-             "YCbCr TIFF not JPEG-compressed, YCCK JPEG); reading it waits for the port's own "
-             "decoder",
+    "18.4k": "cv2 reads a lone BMP, TIFF or PNM image, or a numbered sequence of them, as a "
+             "video through FFmpeg's own decoders for them; the port reads lone PNG, JPEG and "
+             "WebP images, GIF clips and sequences of them",
+    "18.11": "cv2.imread decodes it (PFM, PAM, JPEG 2000, Sun raster, Radiance HDR, YCbCr TIFF "
+             "not JPEG-compressed, YCCK JPEG), or cv2.imwrite writes it (GIF); that waits for the "
+             "port's own codec",
 }
-STILLS = "PNG, JPEG (grey, YCbCr, RGB and CMYK), BMP, PNM (P1-P6) and TIFF images"
+STILLS = ("PNG, JPEG (grey, YCbCr, RGB and CMYK), BMP, PNM (P1-P6), TIFF, WebP (lossy and "
+          "lossless) and GIF images")
 
 
 def reads() -> str:
     """The table as a sentence."""
     parts = [f"{name} files of {', '.join(codecs)} video" for name, codecs in READS]
-    return "; ".join(parts) + ("; directories of PNG or JPEG frames; and lone PNG or JPEG "
-                               "images and numbered sequences of them (frames/%05d.png)")
+    return "; ".join(parts) + ("; directories of PNG or JPEG frames; GIF files (animated or "
+                               "not); and lone PNG, JPEG or WebP images and numbered sequences "
+                               "of them or of GIFs (frames/%05d.png)")
 
 
 def unsupported(path: str, what: str, item: str = "18.4") -> NotImplementedError:

@@ -1,6 +1,6 @@
 """Lone images and numbered image sequences as cv2.VideoCapture reads them:
-FFmpeg's image2 demuxer, its PNG and Motion-JPEG decoders, and swscale's
-conversion to BGR24, without cv2 or FFmpeg.
+FFmpeg's image2 demuxer, its PNG, Motion-JPEG and WebP decoders, and
+swscale's conversion to BGR24, without cv2 or FFmpeg.
 
 - A path with one printf number (`%d`, `%05d`, `%5d`, read as `%05d`;
   `%%` a literal percent sign) and an image extension is a sequence: the
@@ -20,11 +20,21 @@ conversion to BGR24, without cv2 or FFmpeg.
 - JPEG frames go through native/mjpeg.cpp (FFmpeg's decoder and swscale's
   yuvj -> BGR24 routes), not libjpeg: they differ from imread by up to tens
   of levels.
+- WebP frames go through FFmpeg's webp decoder (utils/webp.py's
+  video_frame): a lossy one through vp8.cpp's swscale route, not libwebp's
+  upsampler (up to tens of levels from imread), a lossless one as imread
+  reads it.  An animated WebP is no frame (FFmpeg's decoder refuses it):
+  ValueError "no frames decoded", as JAX's read_video_frames raises.
+- A numbered sequence of GIFs is not FFmpeg's to read (it opens none):
+  cv2 falls back to its own image backend, which reads each file's first
+  image as cv2.imread does, alpha dropped (utils/gif.py's decode).  A lone
+  GIF is a clip of its own (pipeline/video.py reads every image of it
+  through utils/gif.py's frames, as FFmpeg's gif demuxer does).
 - No EXIF orientation is applied (FFmpeg ignores it).
 
 Sequences and lone files of the other formats image2 reads (BMP, TIFF,
-PNM, GIF, WebP, ...) raise NotImplementedError naming ROADMAP item 18.4k:
-they need FFmpeg's own decoders for them.
+PNM, ...) raise NotImplementedError naming ROADMAP item 18.4k: they need
+FFmpeg's own decoders for them.
 """
 
 from __future__ import annotations
@@ -36,14 +46,14 @@ from typing import Callable, Iterator, List, Optional
 import numpy as np
 
 from .. import native
-from . import formats, imageio
+from . import formats, gif, imageio, webp
 
 # image2's extension table (img2.c's img_tags), the decoders the port has by
 # name and the others by the format they name
 EXTENSIONS = {"png": "png", "jpeg": "mjpeg", "jpg": "mjpeg", "jps": "mjpeg", "mpo": "mjpeg",
               "bmp": "BMP", "tiff": "TIFF", "tif": "TIFF", "dng": "TIFF", "pgm": "PNM",
-              "ppm": "PNM", "pbm": "PNM", "pam": "PAM", "pfm": "PFM", "gif": "GIF",
-              "webp": "WebP", "jp2": "JPEG 2000", "j2k": "JPEG 2000", "j2c": "JPEG 2000",
+              "ppm": "PNM", "pbm": "PNM", "pam": "PAM", "pfm": "PFM", "gif": "gif",
+              "webp": "webp", "jp2": "JPEG 2000", "j2k": "JPEG 2000", "j2c": "JPEG 2000",
               "ras": "Sun raster", "sun": "Sun raster", "hdr": "Radiance HDR", "exr": "OpenEXR",
               "tga": "Targa", "dpx": "DPX", "sgi": "SGI", "qoi": "QOI", "pcx": "PCX",
               "xbm": "XBM", "xwd": "XWD", "jxl": "JPEG XL", "dds": "DDS"}
@@ -100,12 +110,16 @@ def decoder(path: str, head: bytes) -> Callable[[bytes, str], np.ndarray]:
     if is_sequence(path):
         kind = EXTENSIONS[os.path.splitext(path)[1][1:].lower()]
     else:
-        kind = {"PNG": "png", "JPEG": "mjpeg"}.get(imageio.image_format(head),
-                                                 imageio.image_format(head))
+        kind = {"PNG": "png", "JPEG": "mjpeg", "WebP": "webp"}.get(imageio.image_format(head),
+                                                                   imageio.image_format(head))
     if kind == "png":
         return png_frame
     if kind == "mjpeg":
         return jpeg_frame
+    if kind == "webp":
+        return webp_frame
+    if kind == "gif":
+        return gif_frame
     what = "a numbered sequence of " + kind + " images" if is_sequence(path) else f"a {kind} image"
     raise formats.unsupported(path, what, "18.4k")
 
@@ -123,11 +137,38 @@ def iter_frames(path: str) -> Iterator[np.ndarray]:
             data = f.read()
         try:
             yield decode(data, p)
+        except NoFrame as e:
+            raise ValueError(f"no frames decoded from {path} ({e})") from None
         except NotImplementedError as e:
             raise NotImplementedError(f"{path}: frame {i}: {e} (ROADMAP Queue 1, item 18.4k: "
                                       "FFmpeg decodes it otherwise)") from None
         except ValueError as e:
             raise ValueError(f"{path}: frame {i}: {e}") from None
+
+
+class NoFrame(ValueError):
+    """A file FFmpeg's decoder returns no frame of."""
+
+
+def webp_frame(data: bytes, path: str) -> np.ndarray:
+    """A WebP file as FFmpeg's webp decoder and swscale hand it to cv2."""
+    try:
+        if webp.parse(data).animated:
+            raise NoFrame(f"{path}: an animated WebP, which FFmpeg's webp decoder does not read")
+        return webp.video_frame(data)
+    except NoFrame:
+        raise
+    except ValueError as e:
+        raise ValueError(f"{path}: WebP: {e}") from None
+
+
+def gif_frame(data: bytes, path: str) -> np.ndarray:
+    """A GIF of a numbered sequence as cv2's own image backend reads it:
+    cv2.imread's first image."""
+    try:
+        return gif.decode(data)
+    except ValueError as e:
+        raise ValueError(f"{path}: GIF: {e}") from None
 
 
 def jpeg_frame(data: bytes, path: str) -> np.ndarray:

@@ -4,8 +4,11 @@ counterpart of `cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)` and of
 
 `imread` tells the format by the file's first bytes, as cv2's findDecoder
 does, and returns what cv2 (IMREAD_COLOR) returns, in RGB order, for PNG,
-JPEG, BMP (utils/bmp.py), PNM P1-P6 (utils/pnm.py) and TIFF
-(utils/tiff.py) files.
+JPEG, BMP (utils/bmp.py), PNM P1-P6 (utils/pnm.py), TIFF
+(utils/tiff.py), WebP (utils/webp.py: lossy, lossless, with alpha, the
+first frame of an animation, turned by its EXIF Orientation) and GIF
+(utils/gif.py: the first image, transparent pixels in the background
+colour) files.
 
 A PNG, interlaced (Adam7: each pass unfiltered on its own, its pixels put
 in place) or not: grey is replicated to three channels (1, 2 and 4-bit grey
@@ -28,15 +31,18 @@ heuristic picks, at zlib level 1 (cv2's default); `.jpg`, `.jpeg` and
 `.jpe` the baseline JPEG of native/jpeg_enc.cpp, byte-equal to cv2's at the
 same quality (default 95, cv2's); `.bmp` and `.dib`, `.ppm`, `.pgm` and
 `.pnm`, and `.tif` and `.tiff` the bytes cv2.imwrite writes (utils/bmp.py,
-pnm.py, tiff.py); any other extension raises NotImplementedError.
+pnm.py, tiff.py); `.webp` a lossless WebP (utils/webp.py: the pixels cv2
+writes, not its bytes); any other extension raises NotImplementedError
+(`.gif` too: cv2 writes it through its own lossy quantiser, ROADMAP item
+18.11).
 
 The PNG row filters, the JPEG decoder and encoder, BMP's run-length data and
 TIFF's LZW and PackBits run in the C++ library of fmvfi_tpu_torch.native
 (built with g++ at first use); `imread` and `imwrite` raise RuntimeError
 when it does not build.  `unfilter_numpy` is the row filters' plain
 version, for the tests.  The formats cv2.imread decodes and the port does
-not yet (`STILL_FORMATS`: WebP, PFM, PAM, JPEG 2000, Sun raster, Radiance
-HDR, GIF), a lossless, arithmetic-coded, hierarchical, 12-bit or YCCK
+not yet (`STILL_FORMATS`: PFM, PAM, JPEG 2000, Sun raster, Radiance
+HDR), a lossless, arithmetic-coded, hierarchical, 12-bit or YCCK
 JPEG, and a YCbCr TIFF that is not JPEG-compressed raise NotImplementedError naming
 ROADMAP item 18.11; any other file that is not a well-formed image raises
 ValueError (a JPEG cut short too, which cv2 would decode in part, and the
@@ -53,7 +59,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 
 from .. import native
-from . import bmp, formats, pnm, tiff
+from . import bmp, formats, gif, pnm, tiff, webp
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _JPEG_MAGIC = b"\xff\xd8\xff"
@@ -202,7 +208,7 @@ def read_raw_bytes(data: bytes, path: str) -> RawPNG:
 # told by their first bytes
 STILL_FORMATS = ((b"\0\0\0\x0cjP  \r\n\x87\n", "JPEG 2000"), (b"\xffO\xffQ", "JPEG 2000"),
                  (b"\x59\xa6\x6a\x95", "Sun raster"), (b"#?RADIANCE", "Radiance HDR"),
-                 (b"#?RGBE", "Radiance HDR"), (b"GIF87a", "GIF"), (b"GIF89a", "GIF"))
+                 (b"#?RGBE", "Radiance HDR"))
 _TIFF_MAGIC = (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+")
 
 
@@ -212,8 +218,6 @@ def still_format(data: bytes) -> Optional[str]:
     for magic, name in STILL_FORMATS:
         if data.startswith(magic):
             return name
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return "WebP"
     if len(data) >= 3 and data[0:1] == b"P" and data[2:3] in b" \t\r\n":
         if data[1:2] == b"7":
             return "PAM"
@@ -224,7 +228,8 @@ def still_format(data: bytes) -> Optional[str]:
 
 def image_format(data: bytes) -> Optional[str]:
     """The name of the still-image format the bytes begin with ("PNG",
-    "JPEG", "BMP", "PNM", "TIFF" or one of `still_format`'s), else None."""
+    "JPEG", "BMP", "PNM", "TIFF", "WebP", "GIF" or one of `still_format`'s),
+    else None."""
     if data.startswith(SIGNATURE):
         return "PNG"
     if data.startswith(_JPEG_MAGIC):
@@ -235,15 +240,19 @@ def image_format(data: bytes) -> Optional[str]:
         return "PNM"
     if data[:4] in _TIFF_MAGIC:
         return "TIFF"
+    if webp.is_webp(data):
+        return "WebP"
+    if gif.is_gif(data):
+        return "GIF"
     return still_format(data)
 
 
 def imread(path) -> np.ndarray:
     """The image file at `path` as an (H, W, 3) uint8 RGB array, as
-    cv2.imread reads it: PNG and JPEG (turned upright by their EXIF
-    Orientation), BMP, PNM (P1-P6) and TIFF.  The other formats cv2.imread
-    decodes (WebP, PFM, PAM, JPEG 2000, Sun raster, Radiance HDR, GIF) raise
-    NotImplementedError naming ROADMAP item 18.11."""
+    cv2.imread reads it: PNG, JPEG and WebP (turned upright by their EXIF
+    Orientation), BMP, PNM (P1-P6), TIFF and GIF (the first image).  The
+    other formats cv2.imread decodes (PFM, PAM, JPEG 2000, Sun raster,
+    Radiance HDR) raise NotImplementedError naming ROADMAP item 18.11."""
     path = os.fspath(path)
     with open(path, "rb") as f:
         data = f.read()
@@ -257,6 +266,14 @@ def imread(path) -> np.ndarray:
             raise formats.unsupported(path, e.what, "18.11") from None
         except ValueError as e:
             raise ValueError(f"{path}: {kind}: {e}") from None
+    if kind in ("WebP", "GIF"):
+        try:
+            if kind == "GIF":
+                return gif.decode(data)
+            img, exif = webp.decode(data)
+        except ValueError as e:
+            raise ValueError(f"{path}: {kind}: {e}") from None
+        return np.ascontiguousarray(_ORIENT.get(_tiff_orientation(exif), lambda a: a)(img))
     if kind not in (None, "PNG"):
         raise formats.unsupported(path, f"a {kind} image", "18.11")
     return decode_png(data, path, orient=True)
@@ -388,7 +405,8 @@ JPEG_QUALITY = 95  # cv2's IMWRITE_JPEG_QUALITY default
 
 BMP_EXTENSIONS = (".bmp", ".dib")
 TIFF_EXTENSIONS = (".tif", ".tiff")
-WRITES = (".png",) + JPEG_EXTENSIONS + BMP_EXTENSIONS + tuple(pnm.EXTENSIONS) + TIFF_EXTENSIONS
+WRITES = ((".png",) + JPEG_EXTENSIONS + BMP_EXTENSIONS + tuple(pnm.EXTENSIONS) + TIFF_EXTENSIONS
+          + (".webp",))
 
 
 def imwrite(path, image: np.ndarray, quality: int = JPEG_QUALITY) -> None:
@@ -396,10 +414,16 @@ def imwrite(path, image: np.ndarray, quality: int = JPEG_QUALITY) -> None:
     extension names (case-insensitive, as cv2): an 8-bit PNG for `.png`, a
     baseline JPEG at `quality` (1-100) for `.jpg`, `.jpeg` and `.jpe`, and
     cv2's own bytes for `.bmp` / `.dib`, `.ppm` / `.pgm` / `.pnm` and `.tif` /
-    `.tiff`.  Any other extension raises NotImplementedError; a grey image
-    to `.ppm`, or a colour one to `.pgm`, ValueError (cv2 writes neither)."""
+    `.tiff`, and a lossless WebP for `.webp` (cv2.imread reads back the
+    pixels written).  Any other extension raises NotImplementedError (`.gif`
+    naming ROADMAP item 18.11); a grey image to `.ppm`, or a colour one to
+    `.pgm`, ValueError (cv2 writes neither)."""
     path = os.fspath(path)
     ext = os.path.splitext(path)[1].lower()
+    if ext == ".gif":
+        raise NotImplementedError(f"{path}: imwrite does not write GIFs yet: cv2.imwrite "
+                                  "quantises the image to a palette of its own, lossily (ROADMAP "
+                                  "Queue 1, item 18.11)")
     if ext not in WRITES:
         raise NotImplementedError(f"{path}: imwrite writes {', '.join(WRITES)} files, not "
                                   f"{ext or 'a file without an extension'}")
@@ -417,6 +441,8 @@ def imwrite(path, image: np.ndarray, quality: int = JPEG_QUALITY) -> None:
         data = pnm.encode(image, ext)
     elif ext in TIFF_EXTENSIONS:
         data = tiff.encode(image)
+    elif ext == ".webp":
+        data = webp.encode(image)
     else:
         data = encode_png(image)
     with open(path, "wb") as f:

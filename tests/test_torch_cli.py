@@ -14,7 +14,10 @@ AdaCoF and FusionNet and a seeded PhaseNet saved in phase_net.pt's layout.
   float gap of ~1e-6 can flip a pixel), with the share that differs
   printed; `--output_frame out.jpg` byte-equal to cv2.imwrite of the
   pixels of the .png output; the pair as a TIFF and a BMP fused into a
-  .tif within 1 LSB of JAX's PNG, the .tif cv2's bytes;
+  .tif within 1 LSB of JAX's PNG, the .tif cv2's bytes; the pair as cv2's
+  lossy WebPs through both CLIs within 1 LSB, and as lossless WebPs fused
+  into a .webp within 1 LSB of JAX's PNG; `video` on the clip as an
+  animated GIF (PIL's, 64 colours) within 1 LSB of JAX's, per pair;
 - `evaluate` on a middlebury: layout and on the synthetic sets at --dim 64
   --max_num 2: per-scene and per-set PSNR within 0.05 dB of JAX's, and
   results.png (1320x440), the panels and the AVIs written as JAX writes
@@ -42,6 +45,7 @@ import cv2
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from fmvfi_tpu import cli as jx_cli
 from fmvfi_tpu.eval.evaluate import synthetic_sets as jx_synthetic_sets
@@ -78,15 +82,23 @@ def _write(path, rgb_float):
 
 @pytest.fixture(scope="module")
 def inputs(tmp_path_factory):
-    """A frame pair, a 4-frame clip (as PNGs and as JPEGs), a 2-scene middlebury layout, a
-    4-triplet Vimeo90k layout (72x80) and a seeded phase_net.pt."""
+    """A frame pair (as PNGs and as lossy WebPs), a 4-frame clip (as PNGs, as JPEGs and as an
+    animated GIF), a 2-scene middlebury layout, a 4-triplet Vimeo90k layout (72x80) and a
+    seeded phase_net.pt."""
     d = tmp_path_factory.mktemp("inputs")
     f1, _, f2 = translation_triplet(SIZE, SIZE, dx=2.0, dy=1.0, seed=0)
     _write(d / "a.png", f1)
     _write(d / "b.png", f2)
-    for i, f in enumerate(translation_video(4, SIZE, SIZE, step=2.0, seed=3)):
+    for name in ("a", "b"):
+        assert cv2.imwrite(str(d / f"{name}.webp"), cv2.imread(str(d / f"{name}.png")),
+                           [cv2.IMWRITE_WEBP_QUALITY, 80])
+    clip = translation_video(4, SIZE, SIZE, step=2.0, seed=3)
+    for i, f in enumerate(clip):
         _write(d / "clip" / f"f{i}.png", f)
         _write(d / "clip_jpg" / f"f{i}.jpg", f)
+    gif = [Image.fromarray((np.clip(f, 0, 1) * 255 + 0.5).astype(np.uint8)).quantize(64)
+           for f in clip]
+    gif[0].save(d / "clip.gif", save_all=True, append_images=gif[1:], duration=40, loop=0)
     for k, scene in enumerate(("Dimetrodon", "Venus")):
         a, mid, b = translation_triplet(SIZE, SIZE, dx=1.0 + k, dy=-1.0, seed=10 + k)
         _write(d / "mb" / "other" / scene / "frame10.png", a)
@@ -121,6 +133,12 @@ def _commands(d, out):
                                  f"{out}/video_{name}", *ph, *extra]
     cmds["video_jpeg"] = ["video", "--input", str(d / "clip_jpg"), "--output_dir",
                           f"{out}/video_jpeg", *ph]
+    cmds["video_gif"] = ["video", "--input", str(d / "clip.gif"), "--output_dir",
+                         f"{out}/video_gif", *ph]
+    os.makedirs(f"{out}/interp_webp", exist_ok=True)
+    cmds["interpolate_webp"] = ["interpolate", "--first_frame", str(d / "a.webp"),
+                                "--second_frame", str(d / "b.webp"), "--output_frame",
+                                f"{out}/interp_webp/out.png", *ph]
     mb = f"middlebury:{d / 'mb' / 'other'}:{d / 'mb' / 'gt'}"
     for name, sets in (("middlebury", mb), ("synthetic", "synthetic")):
         cmds[f"evaluate_{name}"] = ["evaluate", "--test_sets", sets, "--out_dir",
@@ -249,15 +267,20 @@ def test_interpolate_matches_jax_cli(inputs, jax_out, method):
 
 def test_interpolate_writes_the_format_its_extension_names(inputs, tmp_path):
     """--output_frame out.jpg writes what cv2.imwrite writes of the same
-    pixels (JAX's writer: a JPEG at quality 95), not a PNG."""
+    pixels (JAX's writer: a JPEG at quality 95), not a PNG; out.webp a
+    lossless WebP that cv2 reads back as the PNG's pixels; out.gif is
+    refused (item 18.11)."""
     pair = ["--first_frame", str(inputs / "a.png"), "--second_frame", str(inputs / "b.png"),
             "--method", "adacof", "--device", "cpu"]
     for ext in ("png", "jpg"):
         pt_cli.main(["interpolate", *pair, "--output_frame", str(tmp_path / f"out.{ext}")])
     assert cv2.imwrite(str(tmp_path / "ref.jpg"), cv2.imread(str(tmp_path / "out.png")))
     assert (tmp_path / "out.jpg").read_bytes() == (tmp_path / "ref.jpg").read_bytes()
-    with pytest.raises(NotImplementedError, match="webp"):
-        pt_cli.main(["interpolate", *pair, "--output_frame", str(tmp_path / "out.webp")])
+    pt_cli.main(["interpolate", *pair, "--output_frame", str(tmp_path / "out.webp")])
+    np.testing.assert_array_equal(cv2.imread(str(tmp_path / "out.webp")),  # lossless, as cv2's
+                                  cv2.imread(str(tmp_path / "out.png")))
+    with pytest.raises(NotImplementedError, match="gif"):
+        pt_cli.main(["interpolate", *pair, "--output_frame", str(tmp_path / "out.gif")])
 
 
 def test_interpolate_reads_and_writes_bmp_and_tiff(inputs, jax_out, tmp_path):
@@ -274,6 +297,37 @@ def test_interpolate_reads_and_writes_bmp_and_tiff(inputs, jax_out, tmp_path):
     _within_lsb(out, jax_out / "interp_fusion" / "out.png")
     ok, ref = cv2.imencode(".tif", cv2.imread(str(out)))
     assert ok and out.read_bytes() == ref.tobytes()
+
+
+def test_interpolate_on_webp_matches_jax_cli(inputs, jax_out, tmp_path):
+    """The pair as cv2's lossy WebPs (libwebp's upsampling on imread) through
+    both CLIs: within 1 LSB; as lossless WebPs of the PNGs' pixels, fused
+    into a .webp: within 1 LSB of JAX's PNG of the pair."""
+    out = _run_port(inputs, "interpolate_webp")
+    _within_lsb(out / "interp_webp" / "out.png", jax_out / "interp_webp" / "out.png")
+    a, b = tmp_path / "a.webp", tmp_path / "b.webp"
+    assert cv2.imwrite(str(a), cv2.imread(str(inputs / "a.png")))
+    assert cv2.imwrite(str(b), cv2.imread(str(inputs / "b.png")))
+    mid = tmp_path / "mid.webp"
+    pt_cli.main(["interpolate", "--first_frame", str(a), "--second_frame", str(b),
+                 "--output_frame", str(mid), "--method", "fusion", "--phase_checkpoint",
+                 str(inputs / "phase_net.pt"), "--device", "cpu"])
+    _within_lsb(mid, jax_out / "interp_fusion" / "out.png")
+
+
+def test_video_on_animated_gif_matches_jax_cli(inputs, jax_out):
+    """Per pair on the clip as an animated GIF: its 4 images are the frames
+    (FFmpeg's gif demuxer under cv2), every PNG within 1 LSB of JAX's and
+    the originals exact."""
+    out = _run_port(inputs, "video_gif")
+    names = sorted(os.listdir(jax_out / "video_gif"))
+    assert names == [f"{i:05d}.png" for i in range(7)]
+    assert sorted(os.listdir(out / "video_gif")) == names
+    for n in names:
+        _within_lsb(out / "video_gif" / n, jax_out / "video_gif" / n)
+    for i in range(4):
+        np.testing.assert_array_equal(cv2.imread(str(out / "video_gif" / names[2 * i])),
+                                      cv2.imread(str(jax_out / "video_gif" / names[2 * i])))
 
 
 @pytest.mark.parametrize("mode,n_out", [("per_pair", 7), ("factor4", 13), ("batch2", 7),

@@ -10,12 +10,12 @@ those it refuses, against cv2 and JAX on the CPU.
   stream of 188- or 192-byte packets, a program stream, a raw MPEG video
   stream and an IVF file decode whatever their names.
 - What cv2 reads and the port does not yet (ROADMAP Q3-8): a lone BMP,
-  TIFF, PNM, GIF or WebP image or a numbered sequence of them as a video
-  raises NotImplementedError naming item 18.4k (lone PNGs and JPEGs and
-  sequences of them read as JAX reads them), and WebP, PFM, JPEG 2000, Sun
-  raster, Radiance HDR and GIF files through imread name item 18.11 (PNG,
-  JPEG, BMP, TIFF and PNM read as cv2.imread reads them): never "no frames
-  decoded" or "not a PNG file".
+  TIFF or PNM image or a numbered sequence of them as a video raises
+  NotImplementedError naming item 18.4k (lone PNGs, JPEGs, WebPs and GIFs
+  and sequences of PNGs read as JAX reads them), and PFM, JPEG 2000, Sun
+  raster and Radiance HDR files through imread name item 18.11 (PNG, JPEG,
+  BMP, TIFF, PNM, WebP and GIF read as cv2.imread reads them): never "no
+  frames decoded" or "not a PNG file".
 - Every refusal of the readers lists what the port reads from one table
   (utils/formats.py) and names its item.
 """
@@ -93,36 +93,36 @@ def _images(tmp_path):
 
 
 def test_still_images_name_item_18_11(toolchain, tmp_path):
-    """PNG, JPEG, BMP, TIFF and PNM files read as cv2.imread reads them; the
-    formats still refused name item 18.11."""
+    """PNG, JPEG, BMP, TIFF, PNM, WebP and GIF files read as cv2.imread reads
+    them; the formats still refused name item 18.11."""
     for ext, path in _images(tmp_path).items():
-        if ext in ("png", "jpg", "bmp", "tiff", "ppm"):
+        if ext in ("png", "jpg", "bmp", "tiff", "ppm", "webp", "gif"):
             np.testing.assert_array_equal(imageio.imread(path), cv2.imread(path)[..., ::-1])
             continue
         assert ext == "jp2" or cv2.imread(path) is not None, ext
-        with pytest.raises(NotImplementedError, match="image; the port reads PNG, JPEG.*TIFF "
-                                                      "images.*item 18.11") as e:
+        with pytest.raises(NotImplementedError, match="image; the port reads PNG, JPEG.*TIFF, "
+                                                      "WebP.*GIF images.*item 18.11") as e:
             imageio.imread(path)
         assert "not a PNG" not in str(e.value)
 
 
 def test_images_and_sequences_as_video_name_item_18_4k(toolchain, tmp_path):
     """cv2.VideoCapture reads a lone image, a GIF and a printf pattern of
-    frames as videos: the port reads lone PNGs and JPEGs and patterns of
-    them as JAX does, names item 18.4k for the other formats, an interlaced
-    PNG (cv2's swscale converts no pixels of it) and a progressive JPEG,
-    and a pattern that names no file is JAX's ValueError."""
+    frames as videos: the port reads lone PNGs, JPEGs, WebPs and GIFs and
+    patterns of PNGs as JAX does, names item 18.4k for the other formats,
+    an interlaced PNG (cv2's swscale converts no pixels of it) and a
+    progressive JPEG, and a pattern that names no file is JAX's
+    ValueError."""
     paths = _images(tmp_path)
     img = cv2.imread(paths["png"])
     for i in range(3):
         cv2.imwrite(str(tmp_path / f"{i:05d}.png"), img)
         cv2.imwrite(str(tmp_path / f"{i:05d}.bmp"), img)
     pattern = str(tmp_path / "%05d.png")
-    for path in (paths["png"], paths["jpg"], pattern):
+    for path in (paths["png"], paths["jpg"], paths["webp"], paths["gif"], pattern):
         np.testing.assert_array_equal(pt_video.read_video_frames(path),
                                       jx_video.read_video_frames(path))
-    for path in (paths["gif"], paths["bmp"], paths["tiff"], paths["ppm"], paths["webp"],
-                 str(tmp_path / "%05d.bmp"), os.path.join(INPUTS, "adam7_rgb8_29x37.png"),
+    for path in (paths["bmp"], paths["tiff"], paths["ppm"], str(tmp_path / "%05d.bmp"), os.path.join(INPUTS, "adam7_rgb8_29x37.png"),
                  os.path.join(INPUTS, "progressive_420_61x77.jpg")):
         assert jx_video.read_video_frames(path).shape[0] >= 1, path
         with pytest.raises(NotImplementedError, match="item 18.4k") as e:

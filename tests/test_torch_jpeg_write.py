@@ -7,8 +7,9 @@
   quality 95 and at 10 and 75 (IMWRITE_JPEG_QUALITY); each file read back
   by the port's imread bit-equal to cv2.imread;
 - the extension choosing the format as cv2.imwrite does (.png, .jpg,
-  .jpeg, .jpe, .bmp, .tif, any case, each cv2's bytes) and .webp, .exr or
-  no extension raising NotImplementedError;
+  .jpeg, .jpe, .bmp, .tif, any case, each cv2's bytes; .webp a lossless
+  file cv2 reads back as written) and .gif, .exr or no extension raising
+  NotImplementedError;
 - native.jpeg_encode's byte stuffing (0xFF00) on noise at quality 100;
 - the digests of cv2.imencode('.jpg') that chip_smoke.py holds the card's
   host build of the writer to (JPEG_PINS), and the writer's bytes equal
@@ -80,7 +81,9 @@ def test_the_extension_picks_the_format(toolchain, tmp_path):
         imageio.imwrite(tmp_path / name, img)
         ok, ref = cv2.imencode(os.path.splitext(name)[1].lower(), img[..., ::-1])
         assert ok and (tmp_path / name).read_bytes() == ref.tobytes(), name
-    for name in ("e.webp", "f.exr", "g"):
+    imageio.imwrite(tmp_path / "e.WEBP", img)  # lossless: cv2 reads back the pixels written
+    np.testing.assert_array_equal(cv2.imread(str(tmp_path / "e.WEBP"))[..., ::-1], img)
+    for name in ("e.gif", "f.exr", "g"):
         with pytest.raises(NotImplementedError, match=name):
             imageio.imwrite(tmp_path / name, img)
         assert not os.path.exists(tmp_path / name)

@@ -49,12 +49,23 @@ Each fixture is made from seeded numpy with what JAX's readers are held to:
   the bilinear filter written into frame headers, 1-byte
   show_existing_frame packets, a Colour element on a VP9 track, an MP4
   whose vpcC says BT.709 at full range; and the smoke clip's first three
-  1080x1920 frames as cv2's VP90 .webm.
+  1080x1920 frames as cv2's VP90 .webm;
+- WebP and GIF (`--only webp_gif`): cv2's and PIL's lossy WebPs (odd
+  sides, ALPH, EXIF Orientation 6), lossless ones made to use each VP8L
+  transform, the colour cache, LZ77 and meta prefix codes, palettes of 2,
+  4, 16 and 256 colours, animated WebPs, and copies read as video; GIFs of
+  this file's own writer (`gif_file`, `gif_lzw`: 87a, local tables,
+  interlacing, transparency, a 2-bit and a 5-bit table, a full LZW table
+  with and without a Clear, disposals 0-3 over sub-rectangles) and PIL's,
+  clips and sequences; and the smoke's two 1080x1920 files, cv2's lossy
+  WebP (quality 90) of a smooth scene and a 3-frame animated GIF of it
+  moving (PIL's, 256 colours).
 
 It prints INPUT_PINS, chip_smoke.py's table: for each fixture the reader
 contract ("imread": cv2.imread + BGR2RGB; "read_jpeg": PIL's Image.open;
-"video": cv2.VideoCapture's frames + BGR2RGB, stacked) and the sha256 of
-those pixels.  The CPU tests (tests/test_torch_png_adam7.py,
+"video": cv2.VideoCapture's frames + BGR2RGB, stacked; `gif_clip_`,
+`webp_video_` and `video_` names and sequences) and the sha256 of those
+pixels.  The CPU tests (tests/test_torch_png_adam7.py,
 test_torch_jpeg_progressive.py, test_torch_mjpg_video.py,
 test_torch_mp4v_video.py, test_torch_mkv_video.py,
 test_torch_vp9_video.py) hold the pins
@@ -288,6 +299,8 @@ def make(out: str) -> dict:
     for name in make_containers(out):
         files[name] = None
     for name in make_stills(out):
+        files[name] = None
+    for name in make_webp_gif(out):
         files[name] = None
     return pins(out, files)
 
@@ -1143,19 +1156,22 @@ def pixels(out: str, name: str, contract: str) -> np.ndarray:
     if contract == "imread":
         return cv2.imread(path, cv2.IMREAD_COLOR)[..., ::-1]
     cap = cv2.VideoCapture(path)
-    assert cap.getBackendName() == "FFMPEG"
+    # a sequence of GIFs: FFmpeg opens none, cv2 falls back to its own image backend
+    assert cap.getBackendName() == ("CV_IMAGES" if name.endswith(".gif") and "%" in name
+                                    else "FFMPEG")
     frames = []
     while True:
         ok, frame = cap.read()
         if not ok:
             break
-        frames.append(frame[..., ::-1])
+        frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))  # as JAX: a BGRA frame's alpha dropped
     cap.release()
     return np.stack(frames)
 
 
 def contract_of(name: str) -> str:
-    if name.endswith(VIDEO_SUFFIXES) or name.startswith("video_"):
+    if name.endswith(VIDEO_SUFFIXES) or name.startswith(("video_", "gif_clip_", "webp_video_",
+                                                         "gif_seq/")):
         return "video"
     return "read_jpeg" if "_pil_" in name else "imread"
 
@@ -1469,7 +1485,257 @@ def make_stills(out: str):
                                                compression="jpeg", quality=60))
 
 
-GROUPS = dict(mpeg12=make_mpeg12, containers=make_containers, stills=make_stills)
+# --- WebP and GIF ----------------------------------------------------------
+
+
+def gif_lzw(idx, min_code: int, clear_when_full: bool = True) -> bytes:
+    """GIF LZW of a flat index sequence; clear_when_full=False keeps coding
+    at 12 bits with the full table frozen (a deferred clear)."""
+    clear, end = 1 << min_code, (1 << min_code) + 1
+    out, acc, nacc, size = bytearray(), 0, 0, min_code + 1
+
+    def emit(code):
+        nonlocal acc, nacc
+        acc |= code << nacc
+        nacc += size
+        while nacc >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nacc -= 8
+
+    table, nxt, w = {}, end + 1, None
+    emit(clear)
+    for k in (int(v) for v in idx):
+        if w is None:
+            w = (k,)
+            continue
+        if w + (k,) in table:
+            w = w + (k,)
+            continue
+        emit(table[w] if len(w) > 1 else w[0])
+        if nxt < 4096:
+            table[w + (k,)] = nxt
+            nxt += 1
+            if nxt > (1 << size) and size < 12:
+                size += 1
+        elif clear_when_full:
+            emit(clear)
+            table, nxt, size = {}, end + 1, min_code + 1
+        w = (k,)
+    emit(table[w] if len(w) > 1 else w[0])
+    emit(end)
+    if nacc:
+        out.append(acc & 255)
+    return bytes(out)
+
+
+def _table_bits(n: int) -> int:
+    return max(1, int(np.ceil(np.log2(max(n, 2)))))
+
+
+def gif_file(w: int, h: int, images, gpal=None, bg: int = 0, version: bytes = b"89a") -> bytes:
+    """A GIF of `images`: dicts of idx (h, w) palette indices and optional x,
+    y, lpal (a local table), trans (index), disposal, delay, interlace,
+    min_code, clear_when_full and extensions (raw blocks put before the
+    image)."""
+    out = bytearray(b"GIF" + version + struct.pack("<HH", w, h))
+    if gpal is not None:
+        bits = _table_bits(len(gpal))
+        table = np.zeros((1 << bits, 3), np.uint8)
+        table[: len(gpal)] = gpal
+        out += bytes([0x80 | 0x70 | (bits - 1), bg, 0]) + table.tobytes()
+    else:
+        out += bytes([0x70, bg, 0])
+    for im in images:
+        idx = np.asarray(im["idx"])
+        ih, iw = idx.shape
+        if version == b"89a" and any(k in im for k in ("trans", "disposal", "delay")):
+            flags = (im.get("disposal", 0) << 2) | (1 if "trans" in im else 0)
+            out += b"\x21\xf9\x04" + bytes([flags]) + struct.pack("<H", im.get("delay", 10)) + bytes(
+                [im.get("trans", 0), 0])
+        out += b"".join(im.get("extensions", ()))  # raw extension blocks, before the image
+        flags, lpal = 0x40 if im.get("interlace") else 0, im.get("lpal")
+        npal = len(lpal) if lpal is not None else len(gpal)
+        if lpal is not None:
+            bits = _table_bits(len(lpal))
+            flags |= 0x80 | (bits - 1)
+        out += b"," + struct.pack("<HHHHB", im.get("x", 0), im.get("y", 0), iw, ih, flags)
+        if lpal is not None:
+            table = np.zeros((1 << bits, 3), np.uint8)
+            table[: len(lpal)] = lpal
+            out += table.tobytes()
+        if im.get("interlace"):
+            idx = idx[np.concatenate([np.arange(a, ih, b) for a, b in ((0, 8), (4, 8), (2, 4),
+                                                                      (1, 2))])]
+        min_code = im.get("min_code", max(2, _table_bits(npal)))
+        data = gif_lzw(idx.reshape(-1), min_code, im.get("clear_when_full", True))
+        out += bytes([min_code])
+        for i in range(0, len(data), 255):
+            out += bytes([len(data[i : i + 255])]) + data[i : i + 255]
+        out += b"\0"
+    return bytes(out + b";")
+
+
+def smooth_scene(t: int, h: int = 1080, w: int = 1920) -> np.ndarray:
+    """A smooth RGB scene (gradients and soft blobs) at time t, the blobs
+    moving right and down a few pixels a step."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([128 + 100 * np.sin(xx / 300 + t * 0.2 + yy / 500),
+                    128 + 100 * np.cos(yy / 240 - t * 0.15),
+                    128 + 90 * np.sin((xx + yy) / 410 + t * 0.1)], -1)
+    for k in range(6):
+        cx, cy = 300 + 250 * k + 12 * t, h / 2 + 200 * np.sin(k) + 5 * t
+        blob = np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / (2 * 90.0 ** 2))
+        img += 60 * blob[..., None] * np.array([1, -0.5, 0.3 * k - 0.6], np.float32)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+SMOKE_WEBP = "webp_cv2_q90_1080x1920.webp"
+SMOKE_GIF = "gif_clip_1080x1920.gif"
+
+
+def make_webp_gif(out: str):
+    """Write the WebP and GIF fixtures (cv2's, PIL's and this file's own
+    GIF writer's; 64x64 or smaller but the smoke's two 1080p files); yields
+    their names.  `gif_clip_`, `webp_video_` and the sequences are read as
+    video, the others through imread."""
+    rng = np.random.default_rng(2033)
+
+    def put(name, data):
+        os.makedirs(os.path.dirname(os.path.join(out, name)), exist_ok=True)
+        with open(os.path.join(out, name), "wb") as f:
+            f.write(data)
+        return name
+
+    def tex(h, w, c=3):
+        return _texture(rng, h, w, c)
+
+    def pil_webp(img, mode=None, **kw):
+        return _pil(Image.fromarray(img, mode), "WEBP", **kw)
+
+    a = tex(37, 53)
+    rgba = tex(37, 53, 4)
+    rgba[..., 3] = rng.integers(0, 256, (37, 53))
+    rgba[:6, :9, 3] = 0
+    yield put("webp_lossy_53x37.webp", cv2.imencode(".webp", a, [cv2.IMWRITE_WEBP_QUALITY, 80])[1]
+              .tobytes())
+    yield put("webp_lossy_q50_33x17.webp", pil_webp(tex(17, 33), quality=50))
+    yield put("webp_lossy_alpha_53x37.webp", pil_webp(rgba, "RGBA", quality=80))
+    ex = Image.Exif()
+    ex[274] = 6
+    yield put("webp_lossy_exif6_53x37.webp", pil_webp(a, quality=80, exif=ex))
+    yield put("webp_cv2_lossless_53x37.webp", cv2.imencode(".webp", a)[1].tobytes())
+    # libwebp's choices, read back by the tests: predictor and subtract-green
+    # (method 0); the colour cache and cross-colour (method 3); meta prefix
+    # codes (method 4, quality 100); backward references in all three
+    smooth = cv2.GaussianBlur(rng.integers(0, 256, (96, 128, 3), np.uint8), (0, 0), 4)
+    yield put("webp_lossless_m0_64x48.webp", pil_webp(np.ascontiguousarray(smooth[:48, :64]),
+                                                      lossless=True, quality=0, method=0))
+    yield put("webp_lossless_cache_128x96.webp", pil_webp(_texture(rng, 96, 128), lossless=True,
+                                                          quality=50, method=3))
+    mixed = smooth.copy()  # regions of unlike statistics: one prefix code group each
+    mixed[:, 64:] = rng.integers(0, 256, (96, 64, 3), np.uint8) // 8 * 8
+    mixed[48:, :64] = np.linspace(0, 255, 64).astype(np.uint8)[None, :, None]
+    yield put("webp_lossless_meta_128x96.webp", pil_webp(mixed, lossless=True, quality=100,
+                                                         method=4))
+    yield put("webp_lossless_alpha_53x37.webp", pil_webp(rgba, "RGBA", lossless=True))
+    yield put("webp_lossless_noise_29x31.webp", pil_webp(rng.integers(0, 256, (31, 29, 3),
+                                                                     np.uint8), lossless=True))
+    for n in (2, 4, 16, 256):
+        pal = rng.integers(0, 256, (n, 3), np.uint8)
+        yield put(f"webp_lossless_pal{n}_31x29.webp",
+                  pil_webp(pal[rng.integers(0, n, (29, 31))], lossless=True))
+    frames = [Image.fromarray(np.roll(a, 3 * i, 1)) for i in range(3)]
+    for tag, kw in (("lossy", dict(quality=80)), ("lossless", dict(lossless=True))):
+        yield put(f"webp_anim_{tag}_53x37.webp", _pil(frames[0], "WEBP", save_all=True,
+                                                       append_images=frames[1:], duration=100,
+                                                       loop=0, **kw))
+    for name in ("webp_lossy_53x37.webp", "webp_lossy_alpha_53x37.webp",
+                 "webp_lossy_exif6_53x37.webp", "webp_cv2_lossless_53x37.webp"):
+        with open(os.path.join(out, name), "rb") as f:
+            yield put("webp_video_" + name[5:], f.read())
+    for i in range(3):
+        put(f"webp_video_seq/{i:03d}.webp",
+            pil_webp(tex(24, 32), **(dict(lossless=True) if i == 1 else dict(quality=75))))
+    yield "webp_video_seq/%03d.webp"
+    yield put(SMOKE_WEBP, cv2.imencode(".webp", smooth_scene(0)[..., ::-1],
+                                       [cv2.IMWRITE_WEBP_QUALITY, 90])[1].tobytes())
+
+    pal16 = rng.integers(0, 256, (16, 3), np.uint8)
+    idx = rng.integers(0, 16, (37, 53))
+    idx[:3, :7] = 5
+    yield put("gif_87a_53x37.gif", gif_file(53, 37, [dict(idx=idx)], pal16, version=b"87a"))
+    yield put("gif_quantized_53x37.gif", _pil(Image.fromarray(a).quantize(64), "GIF"))
+    yield put("gif_local_53x37.gif", gif_file(53, 37, [dict(idx=idx, lpal=rng.integers(
+        0, 256, (16, 3), np.uint8))], pal16, bg=3))
+    yield put("gif_local_only_sub_53x37.gif", gif_file(53, 37, [dict(
+        idx=idx[5:30, 4:40], x=4, y=5, lpal=rng.integers(0, 256, (16, 3), np.uint8))]))
+    yield put("gif_sub_bg_53x37.gif", gif_file(53, 37, [dict(idx=idx[:20, :30], x=11, y=9)],
+                                               pal16, bg=7))
+    yield put("gif_interlaced_53x37.gif", gif_file(53, 37, [dict(idx=idx, interlace=True)], pal16))
+    yield put("gif_transparent_53x37.gif", gif_file(53, 37, [dict(idx=idx, trans=5)], pal16, bg=2))
+    pal32 = rng.integers(0, 256, (32, 3), np.uint8)
+    yield put("gif_pal32_53x37.gif", gif_file(53, 37, [dict(idx=rng.integers(0, 32, (37, 53)))],
+                                              pal32))
+    yield put("gif_pal3_2bit_53x37.gif", gif_file(53, 37, [dict(idx=rng.integers(0, 3, (37, 53)))],
+                                                  pal16[:3]))
+    pal256 = rng.integers(0, 256, (256, 3), np.uint8)
+    noise = rng.integers(0, 256, (64, 64))
+    yield put("gif_full_table_64x64.gif", gif_file(64, 64, [dict(idx=noise)], pal256))
+    yield put("gif_deferred_clear_64x64.gif", gif_file(64, 64, [dict(idx=noise,
+                                                                    clear_when_full=False)], pal256))
+
+    # clips, read as video: PIL's optimized sub-rectangles under each
+    # disposal, and this writer's disposals, transparency and local tables
+    moving = []
+    for i in range(4):  # a patch moving over a still background: sub-rectangles
+        m = a.copy()
+        m[4 + 3 * i : 18 + 3 * i, 6 + 5 * i : 22 + 5 * i] = a[20:34, 30:46][::-1]
+        moving.append(Image.fromarray(m))
+    # one palette for all, so the unchanged pixels are equal and PIL crops
+    moving = [moving[0].quantize(64)] + [m.quantize(palette=moving[0].quantize(64)) for m in moving[1:]]
+    for d in range(4):
+        yield put(f"gif_clip_pil_disposal{d}_53x37.gif", _pil(
+            moving[0], "GIF", save_all=True, append_images=moving[1:], duration=[40, 80, 40, 120],
+            loop=0, disposal=d, optimize=True))
+    yield put("gif_clip_pil_transparent_53x37.gif", _pil(
+        moving[0], "GIF", save_all=True, append_images=moving[1:], duration=60, loop=0,
+        transparency=0, disposal=2))
+    images = [dict(idx=idx, trans=5, disposal=1)]
+    for k, (x, y, w, h) in enumerate(((3, 2, 20, 15), (10, 8, 30, 20), (0, 20, 53, 17),
+                                      (25, 0, 28, 37), (5, 5, 12, 12))):
+        im = dict(idx=rng.integers(0, 8 if k == 1 else 16, (h, w)), x=x, y=y, disposal=(k + 2) % 4,
+                  delay=10 * (k + 1), interlace=k == 3)
+        if k % 2 == 0:
+            im["trans"] = int(rng.integers(0, 16))
+        if k == 1:
+            im["lpal"] = rng.integers(0, 256, (8, 3), np.uint8)
+        images.append(im)
+    yield put("gif_clip_disposals_53x37.gif", gif_file(53, 37, images, pal16, bg=9))
+    yield put("gif_clip_local_only_53x37.gif", gif_file(53, 37, [
+        dict(idx=idx[:20, :20], x=2, y=3, lpal=pal16, disposal=2),
+        dict(idx=idx[10:30, 10:40], x=20, y=10, lpal=pal32[:16], trans=1)]))
+    yield put("gif_clip_one_transparent_53x37.gif",
+              gif_file(53, 37, [dict(idx=idx, trans=5)], pal16, bg=2))
+    for i in range(3):
+        put(f"gif_seq/{i:03d}.gif", gif_file(32, 24, [dict(idx=rng.integers(0, 16, (24, 32)),
+                                                           trans=3)], pal16, bg=1))
+    yield "gif_seq/%03d.gif"
+    scenes = [Image.fromarray(smooth_scene(t)).quantize(256) for t in range(3)]
+    yield put(SMOKE_GIF, _pil(scenes[0], "GIF", save_all=True, append_images=scenes[1:],
+                              duration=40, loop=0))
+    # FFmpeg's gif parser splits images off only after an extension block:
+    # a GIF87a of 3 images is 1 frame; with a comment before the third
+    # image only, 2 (the first and the third)
+    small = [dict(idx=rng.integers(0, 16, (12, 16)), x=4 * i, y=3 * i) for i in range(3)]
+    yield put("gif_clip_87a_three_images_32x24.gif", gif_file(32, 24, small, pal16,
+                                                               version=b"87a"))
+    small[2]["extensions"] = [b"\x21\xfe\x07comment\x00"]
+    yield put("gif_clip_comment_third_32x24.gif", gif_file(32, 24, small, pal16))
+
+
+GROUPS = dict(mpeg12=make_mpeg12, containers=make_containers, stills=make_stills,
+              webp_gif=make_webp_gif)
 
 
 def main() -> int:
