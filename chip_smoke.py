@@ -183,7 +183,12 @@ Phases, each printing one JSON line with its seconds:
               file of those pixels written and read back equal, and the
               committed 1080p animated GIF's 3 frames, each timed (median
               of 5, on the calling thread) beside the card's name and
-              power limit;
+              power limit; (line inputs_vp9_highbd_lossless) the pins of
+              VP9 profiles 2 and 3 (10 and 12 bits, every sampling and
+              container), PNG and raw frames in AVI and MOV and the
+              corrupted WebPs libwebp reads on past their chunk, all
+              equal, and the committed 1080p 10-bit VP9 WebM's key and
+              inter frames decoded (median of 5, on the calling thread);
               the video phase's first 3 frames written as a 1080x1920 MJPG
               AVI with MjpgWriter and `cli video --input clip.avi --method
               fusion` on it: 5 PNGs, the originals those read_video_frames
@@ -275,7 +280,11 @@ Phases, each printing one JSON line with its seconds:
               every image a frame as FFmpeg's gif demuxer reads it, the
               frames equal to their pin, the originals exact, K1 3 a pair,
               each interpolated frame >= 60 dB against double_frame_rate
-              per pair in this process) and --batch 2 (9
+              per pair in this process), on the committed 1080p 10-bit
+              VP9 WebM with --method fusion (line cli_video_vp9_10bit:
+              tests/data/inputs/vp9_hbd10_1080x1920.webm, the clip's 3
+              frames at full precision in profile 2, the same checks, K1
+              3 a pair) and --batch 2 (9
               PNGs, the originals exact at the even positions, K1 [2, 4, 2]
               per pair and [4, 8, 4] per dispatch, batch 2 within 1 LSB of
               per pair), `evaluate` on a 2-scene middlebury layout of
@@ -962,6 +971,92 @@ INPUT_PINS = {
         ("video", "6c5869f4514332accfeacf23ca89cdcd6fbfe632196bfae8c030adcb3225b3cc"),
     "webp_video_seq/%03d.webp":
         ("video", "587dcd0d3866d3dbb3a9837392b709469fabd35fe696e4db2fa4d0e15b1b5ee2"),
+    # VP9 profiles 2-3 (10 and 12 bits), PNG and raw frames in AVI and MOV, and
+    # the corrupted lossy WebPs libwebp reads past their chunk
+    "ivf_vp9_hbd12_440_36x44.ivf":
+        ("video", "8c1516674dbe27574a638ee6b729c51a9d831ef933a3f8744d8020120dba3941"),
+    "lossless_cv2_grey_46x36.avi":
+        ("video", "39a874e95ca93962f22b9d996cb3153336b3764229182d0d7851f413a3cdfb28"),
+    "lossless_cv2_i420_46x36.avi":
+        ("video", "21bf453dd3347da33012ef8632d009284c72c5292b082820717826b21574ae2f"),
+    "lossless_cv2_iyuv_64x48.avi":
+        ("video", "80dcc352127ce2f504697ba27335c16f503a6e50a4119c4ae25c11f15ae5e06c"),
+    "lossless_cv2_mpng_46x36.avi":
+        ("video", "38588f87925681503d4061f0be85186d7111e00cc72a9754c73c1ede30fd958f"),
+    "lossless_cv2_png_42x30.mov":
+        ("video", "c55b658b9033ce5c76b1585b7206e85a291adf7ebd70e26e3966c74207d25d2e"),
+    "lossless_cv2_png_64x48.avi":
+        ("video", "5d6adb1e488cdede0ceef0dae2128b965f687b33bbdbb8d7d1da1d7e28620449"),
+    "lossless_cv2_rgba_46x36.avi":
+        ("video", "aae805455396ed016619bdff806ed875cdb398fbc799e676d8ed30e342cb4087"),
+    "lossless_cv2_rgba_64x48.mov":
+        ("video", "893928ba82e07ccccd5d9d261eff44ae482f68ff6f6c1905c5581e02ababa13f"),
+    "lossless_cv2_y800_64x48.avi":
+        ("video", "f900b92b5623ad59c76e5ad5a44cbcd3c6c337cee1255f089759e092f3183dc7"),
+    "lossless_cv2_y8_42x30.avi":
+        ("video", "60296cda2cbdafd38d6bf53ec41aa71d69f81de2f30c02ec34c8bb07fbb4812f"),
+    "lossless_cv2_yv12_42x30.avi":
+        ("video", "bf68f7e9a343605b1b9c9804950a0cd1665c0542ebdea51de321eb949f28f924"),
+    "lossless_grey_45x37.avi":
+        ("video", "97662766233a4c2f90cf65cef1d80c7f3469c6bcc2c0e35be73c5d849ef29ac2"),
+    "lossless_i420_45x37.avi":
+        ("video", "f0c50615135ec5b398241852a7339ecaf16e12d6273156c6b3fa0e660a126e05"),
+    "lossless_png_kinds_31x17.avi":
+        ("video", "4c7505e1c0797fd5134fb2c8ce5e6477dfd6a5112c01a66f4c13ed7e52097633"),
+    "lossless_png_pal_45x37.mov":
+        ("video", "30dd0f728ad2b07aebc39718630f70fcf7a0846d55cf5ce93149439a51f52bc8"),
+    "lossless_png_rgb_45x37.avi":
+        ("video", "704b44653b21b9ab80c42dbee5f8b37d513ad4960913b1cf8fc28a74c45b731e"),
+    "lossless_rgba_45x37.mov":
+        ("video", "704b44653b21b9ab80c42dbee5f8b37d513ad4960913b1cf8fc28a74c45b731e"),
+    "lossless_rgba_topdown_45x37.avi":
+        ("video", "704b44653b21b9ab80c42dbee5f8b37d513ad4960913b1cf8fc28a74c45b731e"),
+    "vp9_hbd10_1080x1920.webm":
+        ("video", "bbe0cdca97187af1b6bcf8f29fdea484a1d9aa15d7a1a055d46806fc90a90e1b"),
+    "vp9_hbd10_30x28.avi":
+        ("video", "68a35ea2b1524d05f2a0cf612f55199563063e5c700049674ab6d68e3c6f8bd3"),
+    "vp9_hbd10_420_64x48.webm":
+        ("video", "053ef0c052789a3cb1a8c11bc7acaf73c75367db5b380e877ec7139cdf20c4f7"),
+    "vp9_hbd10_422_45x37.webm":
+        ("video", "d2a4b131b2e323d54b678ea1d37495994f22316d68899a936076273293325b9e"),
+    "vp9_hbd10_440_29x38.webm":
+        ("video", "22837ddd75fef4d2b5b76b227c881877acfe1720733715216519f6b2fdcfda09"),
+    "vp9_hbd10_444_40x31.webm":
+        ("video", "e73232ac74537077b953b30497155fb6e294f39381cf07cb7f72512774b902b1"),
+    "vp9_hbd10_44x36.mkv":
+        ("video", "2666c1f5fa74e740eb8bffd2f4d058db18fd79a229b79dfb757fa15551e71bce"),
+    "vp9_hbd10_altref_45x37.webm":
+        ("video", "af104f3adb3299f27309c427662d3ed64dc1deb9a8792e4474c5f113ae24b909"),
+    "vp9_hbd10_bt709_full_47x35.webm":
+        ("video", "dc9b2161280fb074704165a638a5638af4533193721347318c5c92a64fd98111"),
+    "vp9_hbd10_lossless_33x17.webm":
+        ("video", "ecdbd58cf55694a24554d35d13c54d538bde30c310ede23c6a14e2b933b486ba"),
+    "vp9_hbd10_tilecols_520x40.webm":
+        ("video", "aaec0b1fcd72083efad15b45702c9be3ee892234143a8677a4f1e59de9d73ca7"),
+    "vp9_hbd12_420_45x37.webm":
+        ("video", "7c788fc5dd7a9786280c59cfd3a934f038673d08613f408c620d8a8c44417ad4"),
+    "vp9_hbd12_422_46x31.webm":
+        ("video", "f09d437ad4041ff38dd16912e5fe2c2e2fe0de1f7ac9b1d6a588a2978a446d5b"),
+    "vp9_hbd12_440_48x40.webm":
+        ("video", "02096b3b38eb21cef96eb272cc2344c12a99c0339cf98b877ca80f7989b11121"),
+    "vp9_hbd12_444_33x18.webm":
+        ("video", "57bb2aef7fc018e738ebe68eb77939632dbfae08bf6e5ce8fd3186447e14ef84"),
+    "vp9_hbd12_444_64x48.mp4":
+        ("video", "e91256960b52938c958e6ee8e9931241c26935a921fc2d931879c02a40105b19"),
+    "vp9_hbd12_bt2020_422_30x26.webm":
+        ("video", "3158dadc74b2ea8884b82c8ecf082206dd746a3068235926f2de72483b887841"),
+    "vp9_hbd12_errres_40x24.webm":
+        ("video", "af90405a79cb35418fbcc93ef84d5021d46147ef4adaf949908e36037f9f05e9"),
+    "vp9_hbd12_lossless_444_23x19.webm":
+        ("video", "a2cc2a238d059ec1d86942c73ed32d15d0609e34ca8c4f46e0208ddf3002bfde"),
+    "corrupt_webp_dup140_53x37.webp":
+        ("imread", "2b4624dac149cc3d694a4db99004137e287ff6c71021140708a3efdffdd1232f"),
+    "corrupt_webp_dup244_53x37.webp":
+        ("imread", "6108675918cce4c59c13e20ed85afddfaab4130b866439f1f3f08e40b520ba66"),
+    "corrupt_webp_dup372_53x37.webp":
+        ("imread", "ba9b3272cc679c95b1163a3a78aca351c8d1a60a62ff6eb76efeb144c8ce441e"),
+    "corrupt_webp_dup407_53x37.webp":
+        ("imread", "99e62e5791196f83c8313f14fedd5d2e67d2b9e8544f5688129392d265e50254"),
 }
 INPUTS_FRAME_DIRS = ("adam7_frames", "progressive_frames")
 INPUTS_CLIP_FRAMES = 3  # of the video phase's clip, written as a 1080p MJPG AVI
@@ -992,6 +1087,10 @@ CLI_STILL_REPS = 3  # timed writes and reads of each 1080p BMP, PPM, TIFF and We
 INPUTS_GIF = "gif_clip_1080x1920.gif"  # 3 images of a smooth moving scene, PIL's, 256 colours
 INPUTS_WEBP = "webp_cv2_q90_1080x1920.webp"  # cv2's lossy WebP (quality 90) of its first frame
 INPUTS_WEBP_REPS = 5  # timed decodes of the 1080p WebP and GIF, one host thread
+# the clip's 3 frames at full precision as a 10-bit VP9 (profile 2) WebM, coded by libvpx
+INPUTS_VP9_10BIT = "vp9_hbd10_1080x1920.webm"
+# the pins of line inputs_vp9_highbd_lossless
+INPUTS_HIGHBD_LOSSLESS = ("vp9_hbd", "ivf_vp9_hbd", "lossless_", "corrupt_webp_")
 
 
 def _line(**kw):
@@ -1539,6 +1638,38 @@ def _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work):
     if not webp_gif["lossless_round_trip_equal"] or len(gif_frames) != 3 or not all(
             webp_gif["pins"].values()):
         raise AssertionError(f"inputs: the 1080p WebP and GIF: {webp_gif}")
+
+    # (a3) VP9 profiles 2-3, PNG and raw frames in AVI / MOV, the corrupted
+    # WebPs: their pins (read in (a)), and the committed 1080p 10-bit VP9
+    # WebM's key and inter frames decoded on the card's host, each decode
+    # with its swscale conversion, medians of INPUTS_DECODE_REPS
+    t0 = time.perf_counter()
+    hbd_path = os.path.join(repo, INPUTS_DIR, INPUTS_VP9_10BIT)
+    hbd_packets = list(mkv.iter_samples(mkv.open_video(hbd_path)))
+    hbd_ms = dict(key=[], inter=[])
+    for _ in range(INPUTS_DECODE_REPS):
+        decoder = native.Vp9Decoder()
+        for sample in hbd_packets:
+            t = time.perf_counter()
+            shown = decoder.decode(sample)
+            hbd_ms["key" if decoder.info["keyframe"] else "inter"].append(
+                1e3 * (time.perf_counter() - t))
+        hbd_info = dict(decoder.info)
+        decoder.close()
+    hbd = dict(seconds=time.perf_counter() - t0, webm=INPUTS_VP9_10BIT,
+               webm_bytes=os.path.getsize(hbd_path), frame_bytes=[len(p) for p in hbd_packets],
+               size=list(shown[0].shape[:2]), profile=hbd_info["profile"],
+               bit_depth=hbd_info["bit_depth"],
+               vp9_10bit_decode_1080p_key_ms=float(np.median(hbd_ms["key"])),
+               vp9_10bit_decode_1080p_inter_ms=float(np.median(hbd_ms["inter"])),
+               decode_ms=hbd_ms, card=smi,
+               pins={k: v["equal"] for k, v in pins.items()
+                     if k.startswith(INPUTS_HIGHBD_LOSSLESS)})
+    _line(phase="inputs_vp9_highbd_lossless", **hbd)
+    if hbd["bit_depth"] != 10 or hbd["size"] != [1080, 1920] or len(hbd["pins"]) != sum(
+            n.startswith(INPUTS_HIGHBD_LOSSLESS) for n in INPUT_PINS) or not all(
+                hbd["pins"].values()):
+        raise AssertionError(f"inputs: VP9 profiles 2-3 and the lossless frames: {hbd}")
 
     # (b) the full-width path: a 1080p MJPG AVI through `cli video`, K1
     # counted around the command (the models it builds take the recording warp)
@@ -2501,6 +2632,45 @@ def _cli(dev, repo, ada_path, fusion_path, pair, clip, smi, work):
     if (n_gif != 3 or not r["decoded_equal_to_pin"] or not r["originals_exact"]
             or not min(r["interpolated_vs_per_pair_db"]) >= PLAIN_AGREEMENT_DB):
         raise AssertionError(f"cli video on the animated GIF: {r}")
+    # the committed 1080p 10-bit VP9 WebM (profile 2, yuv420p10 through
+    # swscale's 16-bit route) through `cli video --method fusion`: per pair,
+    # K1 3 a pair, the originals exact, against double_frame_rate here
+    hbd_path = os.path.join(repo, INPUTS_DIR, INPUTS_VP9_10BIT)
+    t = time.perf_counter()
+    hbd_frames = read_video_frames(hbd_path)
+    hbd_read_s = time.perf_counter() - t
+    hbd_digest = hashlib.sha256(np.ascontiguousarray(
+        quantize(hbd_frames)).tobytes()).hexdigest()
+    r = run("video_vp9_10bit", ["video", "--input", hbd_path, "--output_dir",
+                                os.path.join(work, "video_vp9_10bit"), "--method", "fusion",
+                                "--phase_checkpoint", phase_pt],
+            [2, 4, 2] * (len(hbd_frames) - 1))
+    hbd_names = sorted(os.listdir(os.path.join(work, "video_vp9_10bit")))
+    hbd_outs = [imageio.imread(os.path.join(work, "video_vp9_10bit", n)) for n in hbd_names]
+    ada = AdaCoFNet().to(dev).eval()
+    ada.load_state_dict(load_adacof_weights(ada_path))
+    fusion = FusionNet(variant=infer_variant(fusion_sd)).to(dev).eval()
+    fusion.load_state_dict(fusion_sd)
+    phase = PhaseNetCore().to(dev).eval()
+    phase.load_state_dict(phase_net_from_torch(phase_pt))
+    hbd_per_pair = [quantize(f) for f in double_frame_rate(
+        hbd_frames, FusionModels(phase, ada, fusion), device=dev)]
+    del ada, fusion, phase
+    n_hbd = len(hbd_frames)
+    r.update(frames=n_hbd, size=list(hbd_frames.shape[1:3]), read_seconds=hbd_read_s,
+             webm_bytes=os.path.getsize(hbd_path), pngs_written=len(hbd_names),
+             decoded_equal_to_pin=hbd_digest == INPUT_PINS[INPUTS_VP9_10BIT][1],
+             originals_exact=len(hbd_outs) == 2 * n_hbd - 1 and all(
+                 np.array_equal(hbd_outs[2 * i], quantize(hbd_frames[i])) for i in range(n_hbd)),
+             interpolated_vs_per_pair_db=[
+                 _psnr(hbd_outs[2 * i + 1].astype(np.float64) / 255,
+                       hbd_per_pair[2 * i + 1].astype(np.float64) / 255)
+                 for i in range(n_hbd - 1)],
+             ms_per_interpolated_frame=r["ms"] / max(n_hbd - 1, 1))
+    _line(phase="cli_video_vp9_10bit", input=INPUTS_VP9_10BIT, **r)
+    if (n_hbd != 3 or not r["decoded_equal_to_pin"] or not r["originals_exact"]
+            or not min(r["interpolated_vs_per_pair_db"]) >= PLAIN_AGREEMENT_DB):
+        raise AssertionError(f"cli video on the 10-bit VP9 WebM: {r}")
     batch_lsb = max(int(np.abs(
         imageio.imread(os.path.join(work, "video_per_pair", n)).astype(np.int16)
         - imageio.imread(os.path.join(work, "video_batch2", n)).astype(np.int16)).max())

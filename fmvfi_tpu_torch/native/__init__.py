@@ -52,6 +52,7 @@ MPEG4_SOURCES = tuple(Path(__file__).resolve().parent / f for f in ("mpeg4.cpp",
 VP8_SOURCE = Path(__file__).resolve().parent / "vp8.cpp"
 VP9_SOURCE = Path(__file__).resolve().parent / "vp9.cpp"
 MPEG12_SOURCE = Path(__file__).resolve().parent / "mpeg12.cpp"
+RAW_SOURCE = Path(__file__).resolve().parent / "rawvideo.cpp"
 STILL_SOURCES = tuple(Path(__file__).resolve().parent / f
                       for f in ("bmp.cpp", "tiff.cpp", "webp.cpp", "gif.cpp"))
 HEADERS = tuple(Path(__file__).resolve().parent / h
@@ -71,7 +72,7 @@ _I64 = ctypes.c_int64
 
 def _sources() -> Tuple[Path, ...]:
     return (SOURCE, PNG_SOURCE, JPEG_SOURCE, JPEG_ENC_SOURCE, MJPEG_SOURCE) + MPEG4_SOURCES + (
-        VP8_SOURCE, VP9_SOURCE, MPEG12_SOURCE) + STILL_SOURCES
+        VP8_SOURCE, VP9_SOURCE, MPEG12_SOURCE, RAW_SOURCE) + STILL_SOURCES
 
 
 def library_path() -> Path:
@@ -144,6 +145,10 @@ def library() -> ctypes.CDLL:
                 lib.fmvfi_png_filter.restype = None
                 lib.fmvfi_png16_swscale.argtypes = [ctypes.c_void_p, _I64, _I32, _U8P]
                 lib.fmvfi_png16_swscale.restype = None
+                lib.fmvfi_yuv420p_swscale.argtypes = [_U8P, _U8P, _U8P, _I32, _I32, _U8P]
+                lib.fmvfi_yuv420p_swscale.restype = None
+                lib.fmvfi_yuv16_swscale.argtypes = [ctypes.c_void_p] * 3 + [_I32] * 6 + [_U8P]
+                lib.fmvfi_yuv16_swscale.restype = None
                 for fn in (lib.fmvfi_jpeg_header, lib.fmvfi_jpeg_decode, lib.fmvfi_mjpeg_decode):
                     fn.argtypes = [_U8P, _I64, ctypes.c_void_p, ctypes.c_char_p, _I32]
                     fn.restype = _I32
@@ -248,6 +253,39 @@ def png16_swscale(samples: np.ndarray) -> np.ndarray:
         raise ValueError(f"png16_swscale takes 1-4 samples a pixel, got {spp}")
     out = np.empty((h, w, 3), np.uint8)
     lib.fmvfi_png16_swscale(samples.ctypes.data, h * w, spp, out.ctypes.data_as(_U8P))
+    return out
+
+
+def yuv420p_swscale(y: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """A yuv420p frame's planes (uint8 Y (h, w), U and V ((h + 1) // 2,
+    (w + 1) // 2)) as cv2.VideoCapture hands them on through swscale
+    (BT.601, limited range; rawvideo.cpp): (h, w, 3) uint8 RGB."""
+    lib = library()
+    h, w = y.shape
+    planes = [np.ascontiguousarray(p, dtype=np.uint8) for p in (y, u, v)]
+    for p in planes[1:]:
+        if p.shape != ((h + 1) // 2, (w + 1) // 2):
+            raise ValueError(f"chroma planes of {p.shape} for a {w}x{h} yuv420p frame")
+    out = np.empty((h, w, 3), np.uint8)
+    lib.fmvfi_yuv420p_swscale(*(p.ctypes.data_as(_U8P) for p in planes), w, h,
+                              out.ctypes.data_as(_U8P))
+    return out
+
+
+def yuv16_swscale(y: np.ndarray, u: np.ndarray, v: np.ndarray, depth: int,
+                  full_range: bool = False) -> np.ndarray:
+    """Planes of `depth` bits in uint16 (Y (h, w), U and V at their
+    subsampling, told by their shapes) as swscale converts them to BGR24
+    for cv2 (BT.601; rawvideo.cpp): (h, w, 3) uint8 RGB."""
+    lib = library()
+    h, w = y.shape
+    planes = [np.ascontiguousarray(p, dtype=np.uint16) for p in (y, u, v)]
+    ss_x, ss_y = int(u.shape[1] < w), int(u.shape[0] < h)
+    if u.shape != v.shape or u.shape != ((h + ss_y) >> ss_y, (w + ss_x) >> ss_x):
+        raise ValueError(f"chroma planes of {u.shape} and {v.shape} for a {w}x{h} frame")
+    out = np.empty((h, w, 3), np.uint8)
+    lib.fmvfi_yuv16_swscale(*(p.ctypes.data for p in planes), w, h, ss_x, ss_y, depth,
+                            int(full_range), out.ctypes.data_as(_U8P))
     return out
 
 
@@ -530,6 +568,8 @@ def _bind_vp8(lib: ctypes.CDLL) -> None:
         fn.restype = None
     lib.fmvfi_vp8_frame.argtypes = [_VP, _VP]
     lib.fmvfi_vp8_planes.argtypes = [_VP, _VP, _VP, _VP]
+    lib.fmvfi_vp8_libwebp.argtypes = [_VP, _I32]
+    lib.fmvfi_vp8_libwebp.restype = None
     lib.fmvfi_vp8_close.argtypes = [_VP]
 
 
@@ -538,9 +578,10 @@ def _bind_vp9(lib: ctypes.CDLL) -> None:
     lib.fmvfi_vp9_open.restype = _VP
     lib.fmvfi_vp9_decode.argtypes = [_VP, _VP, _I64, _VP, ctypes.c_char_p, _I32]
     lib.fmvfi_vp9_decode.restype = _I32
-    for fn in (lib.fmvfi_vp9_frame, lib.fmvfi_vp9_close):
+    for fn in (lib.fmvfi_vp9_frame, lib.fmvfi_vp9_planes, lib.fmvfi_vp9_close):
         fn.restype = None
     lib.fmvfi_vp9_frame.argtypes = [_VP, _I32, _VP]
+    lib.fmvfi_vp9_planes.argtypes = [_VP, _I32, _VP, _VP, _VP]
     lib.fmvfi_vp9_close.argtypes = [_VP]
 
 
@@ -683,6 +724,9 @@ class Vp8Decoder:
     with show_frame 0 (an alt-ref frame, decoded into the references only);
     `planes()` returns the frame's Y, U and V planes before the conversion
     (for a lossy WebP, which libwebp converts otherwise: utils/webp.py).
+    `libwebp`: decode a key frame as libwebp does at the data's ends (the
+    last partition running on through `after`, a read past a partition's
+    end an error; vp8.cpp), as cv2.imread's lossy WebP.
     After each call `info` holds the frame's header facts (key frame,
     version, token partitions, vp8.cpp's feature bits: VP8_FEATURES).
     Raises NotImplementedError for what vp8.cpp refuses and ValueError for
@@ -690,7 +734,7 @@ class Vp8Decoder:
 
     INFO = ("width", "height", "shown", "keyframe", "version", "partitions", "features")
 
-    def __init__(self):
+    def __init__(self, libwebp: bool = False):
         lib = library()
         self._lib = lib
         self._msg = ctypes.create_string_buffer(256)
@@ -698,6 +742,7 @@ class Vp8Decoder:
         self._h = lib.fmvfi_vp8_open(self._msg, len(self._msg), ctypes.byref(code))
         if not self._h:
             raise _JPEG_ERRORS[code.value](self._msg.value.decode("ascii", "replace"))
+        lib.fmvfi_vp8_libwebp(self._h, int(libwebp))
         self._info = np.zeros(len(self.INFO), np.int32)
         self.info = {}
 
@@ -756,12 +801,14 @@ class Vp9Decoder:
     After each call `info` holds the packet's facts (the last shown frame's
     size, the profile, chroma subsampling, colour space and range, tile
     columns and rows as log2, key frame, vp9.cpp's feature bits:
-    VP9_FEATURES).  Raises NotImplementedError for what vp9.cpp refuses
-    (profiles 2 and 3, reference scaling, intra-only frames, the sRGB colour
-    space) and ValueError for malformed data, each with the reason."""
+    VP9_FEATURES, bits a sample: 8, 10 or 12, profiles 0-3) and `planes(i)`
+    returns the i-th shown frame's Y, U, V planes before the conversion
+    (uint16).  Raises NotImplementedError for what vp9.cpp refuses
+    (reference scaling, intra-only frames, the sRGB colour space) and
+    ValueError for malformed data, each with the reason."""
 
     INFO = ("frames", "width", "height", "profile", "ss_x", "ss_y", "color_space", "color_range",
-            "tile_cols_log2", "tile_rows_log2", "keyframe", "features")
+            "tile_cols_log2", "tile_rows_log2", "keyframe", "features", "bit_depth")
 
     def __init__(self):
         lib = library()
@@ -787,6 +834,16 @@ class Vp9Decoder:
             self._lib.fmvfi_vp9_frame(self._h, i, out.ctypes.data)
             frames.append(out)
         return frames
+
+    def planes(self, i: int = 0) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The i-th frame the last packet showed, as Y (h, w) and U, V at the
+        stream's subsampling, before swscale (the frames of one packet share
+        a size and sampling)."""
+        h, w, sx, sy = (self.info[k] for k in ("height", "width", "ss_x", "ss_y"))
+        y = np.empty((h, w), np.uint16)
+        u, v = (np.empty(((h + sy) >> sy, (w + sx) >> sx), np.uint16) for _ in range(2))
+        self._lib.fmvfi_vp9_planes(self._h, i, y.ctypes.data, u.ctypes.data, v.ctypes.data)
+        return y, u, v
 
     def close(self) -> None:
         if self._h:

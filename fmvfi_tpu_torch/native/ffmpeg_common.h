@@ -33,6 +33,12 @@
 //         chroma terms C k' >> 16 - (k' >> 9), k' the coefficients over the
 //         luma gain, added to Y before its table);
 //       * grey: Y repeated to three channels.
+//     Planes of 9 to 16 bits a sample (yuv4xxp10le / yuv4xxp12le: VP9's
+//     profiles 2 and 3) never take the unscaled converter; they enter
+//     swscale through hScale16To15 (a sample v of depth d becomes
+//     v << (15 - d) on the 15-bit scale of the 8-bit v << 7, filtered taps
+//     summed and shifted by d - 1 instead of 7), then take the same routes
+//     as 8-bit planes of their size.
 #pragma once
 
 #include <algorithm>
@@ -140,13 +146,16 @@ inline void simple_idct_add(const int16_t* coef, uint8_t* dst, size_t stride) {
 }
 
 // A component's samples as FFmpeg's frame holds them: w x h of a plane with
-// `stride` bytes a row.
-struct Plane {
-    std::vector<uint8_t> px;
+// `stride` samples a row (8 bits a sample, or up to 16 in PlaneT<uint16_t>).
+template <class T>
+struct PlaneT {
+    std::vector<T> px;
     size_t stride = 0;
     int w = 0, h = 0;
-    uint8_t at(int y, int x) const { return px[size_t(y) * stride + x]; }
+    T at(int y, int x) const { return px[size_t(y) * stride + x]; }
 };
+using Plane = PlaneT<uint8_t>;
+using Plane16 = PlaneT<uint16_t>;
 
 // libswscale's integer filter for one axis: dst sample i is
 // sum_j coef[i * size + j] * src[pos[i] + j].
@@ -393,8 +402,10 @@ inline void put_full(const Coeffs& k, uint8_t* o, int64_t y, int64_t u, int64_t 
     o[2] = c(b);
 }
 
-// The 15-bit chroma rows of the horizontal scaler (hScale8To15).
-inline std::vector<int32_t> hscale(const Plane& p, const Filter& f, int dst) {
+// The 15-bit chroma rows of the horizontal scaler (hScale8To15; for samples
+// of `depth` > 8 bits hScale16To15, the sums shifted by depth - 1).
+template <class T>
+std::vector<int32_t> hscale(const PlaneT<T>& p, const Filter& f, int dst, int depth = 8) {
     std::vector<int32_t> out(size_t(p.h) * dst);
     for (int y = 0; y < p.h; ++y)
         for (int i = 0; i < dst; ++i) {
@@ -403,7 +414,7 @@ inline std::vector<int32_t> hscale(const Plane& p, const Filter& f, int dst) {
                 const int x = std::min(f.pos[i] + j, p.w - 1);
                 s += int64_t(f.coef[size_t(i) * f.size + j]) * p.at(y, x);
             }
-            out[size_t(y) * dst + i] = static_cast<int32_t>(std::min<int64_t>(s >> 7, 32767));
+            out[size_t(y) * dst + i] = static_cast<int32_t>(std::min<int64_t>(s >> (depth - 1), 32767));
         }
     return out;
 }
@@ -414,9 +425,14 @@ inline std::vector<int32_t> hscale(const Plane& p, const Filter& f, int dst) {
 // chroma_h_pos: the chroma's horizontal siting as the frame reports it to
 // swscale (-513: the centre, its default and Motion-JPEG's; 0: left, MPEG-4
 // Part 2's AVCHROMA_LOC_LEFT), which only the filtering routes read.
-inline void yuv_to_rgb(int w, int h, int ncomp, int rx, int ry, const Plane* pl, bool full_range,
-                       uint8_t* out, int chroma_h_pos = -513, const int32_t* matrix = BT601) {
-    const Plane& Y = pl[0];
+// depth: the bits of a sample (8, or 10 / 12 in 16-bit planes).
+template <class T>
+void yuv_to_rgb(int w, int h, int ncomp, int rx, int ry, const PlaneT<T>* pl, bool full_range,
+                uint8_t* out, int chroma_h_pos = -513, const int32_t* matrix = BT601,
+                int depth = 8) {
+    const PlaneT<T>& Y = pl[0];
+    // a luma sample on the 15-bit scale (the unscaled horizontal scaler's one tap)
+    auto y15 = [&](int y, int x) { return int64_t(Y.at(y, x)) << (15 - depth); };
     if (ncomp == 1) {
         for (int y = 0; y < h; ++y)
             for (int x = 0; x < w; ++x) {
@@ -426,12 +442,12 @@ inline void yuv_to_rgb(int w, int h, int ncomp, int rx, int ry, const Plane* pl,
         return;
     }
     const Coeffs k = coeffs(full_range, matrix);
-    const Plane &U = pl[1], &V = pl[2];
-    if (rx == 2 && h % 2 == 0) {  // the unscaled SIMD converter
+    const PlaneT<T> &U = pl[1], &V = pl[2];
+    if (depth == 8 && rx == 2 && h % 2 == 0) {  // the unscaled SIMD converter
         for (int y = 0; y < h; ++y) {
-            const uint8_t* yr = &Y.px[size_t(y) * Y.stride];
-            const uint8_t* ur = &U.px[size_t(y / ry) * U.stride];
-            const uint8_t* vr = &V.px[size_t(y / ry) * V.stride];
+            const T* yr = &Y.px[size_t(y) * Y.stride];
+            const T* ur = &U.px[size_t(y / ry) * U.stride];
+            const T* vr = &V.px[size_t(y / ry) * V.stride];
             uint8_t* o = out + size_t(y) * w * 3;
             for (int x = 0; x < w; ++x)
                 put_pmulhw(k, o + 3 * x, yr[x] * 8, ur[x / 2] * 8, vr[x / 2] * 8);
@@ -441,7 +457,7 @@ inline void yuv_to_rgb(int w, int h, int ncomp, int rx, int ry, const Plane* pl,
     const Filter vf = chroma_filter(U.h, h, ry - 1, 2, 1 << 12);
     if ((rx == 1 && ry == 1) || w % 2 == 1) {  // full chroma: resampled to w x h, then write_full
         const Filter hf = chroma_filter(U.w, w, rx - 1, 4, 1 << 14, chroma_h_pos);
-        const std::vector<int32_t> u15 = hscale(U, hf, w), v15 = hscale(V, hf, w);
+        const std::vector<int32_t> u15 = hscale(U, hf, w, depth), v15 = hscale(V, hf, w, depth);
         for (int y = 0; y < h; ++y) {
             const int32_t* c = &vf.coef[size_t(y) * vf.size];
             // a 2-tap row summing to 4096 takes yuv2rgb_full_1 (the taps as
@@ -454,8 +470,7 @@ inline void yuv_to_rgb(int w, int h, int ncomp, int rx, int ry, const Plane* pl,
                     su += int64_t(c[j]) * u15[size_t(r) * w + x];
                     sv += int64_t(c[j]) * v15[size_t(r) * w + x];
                 }
-                put_full(k, out + (size_t(y) * w + x) * 3, int64_t(Y.at(y, x)) << 9, su >> 10,
-                         sv >> 10);
+                put_full(k, out + (size_t(y) * w + x) * 3, y15(y, x) << 2, su >> 10, sv >> 10);
             }
         }
         return;
@@ -465,12 +480,12 @@ inline void yuv_to_rgb(int w, int h, int ncomp, int rx, int ry, const Plane* pl,
     // rows, then two C rows
     const int cw = (w + 1) >> 1;
     const Filter hf = chroma_filter(U.w, cw, rx - 1, 4, 1 << 14, chroma_h_pos, 1);
-    const std::vector<int32_t> u15 = hscale(U, hf, cw), v15 = hscale(V, hf, cw);
+    const std::vector<int32_t> u15 = hscale(U, hf, cw, depth), v15 = hscale(V, hf, cw, depth);
     std::vector<int> uc(cw), vc(cw);
     for (int y = 0; y < h; ++y) {
         const int32_t* c = &vf.coef[size_t(y) * vf.size];
         const int r0 = vf.pos[y];
-        auto line = [&](const Plane& p, int j, int x) {  // the 15-bit rows
+        auto line = [&](const PlaneT<T>& p, int j, int x) {  // the 15-bit rows
             return int64_t((&p == &U ? u15 : v15)[size_t(std::min(r0 + j, p.h - 1)) * cw + x]);
         };
         const bool mmx = y < h - 2;
@@ -478,7 +493,7 @@ inline void yuv_to_rgb(int w, int h, int ncomp, int rx, int ry, const Plane* pl,
                                                c[1] >= 0 && c[1] <= 4096);
         for (int x = 0; x < cw; ++x) {
             for (int ch = 0; ch < 2; ++ch) {
-                const Plane& p = ch ? V : U;
+                const PlaneT<T>& p = ch ? V : U;
                 int64_t s;
                 if (mmx && one_line) {  // yuv2packed1: one line, or the mean of two
                     s = (vf.size == 1 || c[1] < 2048) ? line(p, 0, x) >> 4
@@ -495,12 +510,15 @@ inline void yuv_to_rgb(int w, int h, int ncomp, int rx, int ry, const Plane* pl,
                 (ch ? vc : uc)[x] = static_cast<int>(s);
             }
         }
-        // luma through the same vertical scaler: 8 Y (one line) or 8 Y + 4
+        // luma through the same vertical scaler: its 15-bit value >> 4 (one
+        // line) or >> 4 plus 4 (8 Y, 8 Y + 4 at 8 bits), or in the C rows
+        // rounded to 8 bits (Y itself at 8 bits; up to 256 from deeper
+        // samples, which the luma table's headroom takes unclipped)
         const int ly = mmx && !one_line ? 4 : 0;
         for (int x = 0; x < w; ++x) {
             uint8_t* o = out + (size_t(y) * w + x) * 3;
-            if (mmx) put_pmulhw(k, o, Y.at(y, x) * 8 + ly, uc[x / 2], vc[x / 2]);
-            else put_table(k, o, Y.at(y, x), uc[x / 2], vc[x / 2]);
+            if (mmx) put_pmulhw(k, o, int((y15(y, x) >> 4) + ly), uc[x / 2], vc[x / 2]);
+            else put_table(k, o, int((y15(y, x) + 64) >> 7), uc[x / 2], vc[x / 2]);
         }
     }
 }

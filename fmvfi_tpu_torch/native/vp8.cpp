@@ -43,6 +43,17 @@
 //     thresholds;
 //   - the reference update: golden and alt-ref copies from the frames
 //     before this one, then refreshes, then last.
+// In libwebp's mode (cv2.imread's lossy WebP, set_libwebp) the key frame's
+// planes follow libwebp's VP8 decoder at the data's ends instead: the last
+// token partition runs to the end of the data libwebp is given (the file
+// past the chunk), the first partition and the others end at their sizes
+// (a size past the data cut to it), and a decision that needs a bit past a
+// partition's end (VP8LoadFinalBytes: one byte of zeros, then eof_) fails
+// the frame, as "Premature end-of-file encountered" (a token partition) or
+// "Premature end-of-partition0 encountered" fail it there; so do an inter
+// or hidden frame, a version past 3, a first partition as long as the
+// chunk or past the data, and the partition sizes of ParsePartitions (their
+// table past the data, an empty last partition).
 // The colour space bit (reserved) and the clamping type bit set are refused
 // as unsupported (the caller names ROADMAP item 18.4): no stream from a
 // VP8 encoder cv2 can read here sets them, so no fixture pins FFmpeg's
@@ -438,6 +449,7 @@ struct Picture {
 class Decoder {
   public:
     bool decode(const uint8_t* data, size_t n, const uint8_t* after = nullptr, size_t n_after = 0);
+    void set_libwebp(bool on) { libwebp_ = on; }
     int width() const { return width_; }
     int height() const { return height_; }
     int keyframe() const { return keyframe_; }
@@ -448,7 +460,7 @@ class Decoder {
     void frame_planes(uint8_t* y, uint8_t* u, uint8_t* v) const;
 
   private:
-    void parse_header(const uint8_t* buf, size_t n);
+    void parse_header(const uint8_t* buf, size_t n, size_t n_data);
     void setup_dimensions(int w, int h);
     void compute_quants();
     void decode_modes(MB& mb, int mx, int my);
@@ -467,6 +479,7 @@ class Decoder {
     MB& mb_at(int mx, int my) { return mbs_[size_t(my + 1) * (mbw_ + 1) + mx + 1]; }
 
     std::vector<uint8_t> data_;  // the packet, zero-padded
+    bool libwebp_ = false;
     RangeCoder c_;
     RangeCoder parts_[8];
     int num_partitions_ = 1;
@@ -538,12 +551,22 @@ void Decoder::compute_quants() {
     }
 }
 
-void Decoder::parse_header(const uint8_t* buf, size_t n) {
+// n: the frame's bytes; n_data: the bytes the last token partition may run
+// to (n, or in libwebp's mode the data after the chunk too)
+void Decoder::parse_header(const uint8_t* buf, size_t n, size_t n_data) {
     if (n < 3) fail(CORRUPT, "a VP8 frame of " + std::to_string(n) + " bytes");
     keyframe_ = !(buf[0] & 1);
     version_ = (buf[0] >> 1) & 7;
     show_ = (buf[0] >> 4) & 1;
     const size_t header_size = (buf[0] | buf[1] << 8 | size_t(buf[2]) << 16) >> 5;
+    if (libwebp_) {  // VP8GetInfo's and VP8GetHeaders' checks
+        if (!keyframe_) fail(CORRUPT, "libwebp decodes key frames only");
+        if (version_ > 3) fail(CORRUPT, "a VP8 version past 3 (libwebp: incorrect keyframe parameters)");
+        if (!show_) fail(CORRUPT, "a hidden VP8 frame (libwebp: frame not displayable)");
+        if (header_size >= n) fail(CORRUPT, "a first partition as long as its VP8 chunk");
+        if (n < 10 || header_size > n_data - 10) fail(CORRUPT, "a first partition past the data");
+        n = n_data;  // the partitions read on to the data's end
+    }
     buf += 3;
     n -= 3;
     features_ = 0;
@@ -570,7 +593,7 @@ void Decoder::parse_header(const uint8_t* buf, size_t n) {
     } else if (!have_key_) {
         fail(CORRUPT, "an inter frame without a decoded key frame before it");
     }
-    c_.init(buf, static_cast<int>(header_size));
+    c_.init(buf, static_cast<int>(header_size), libwebp_);
     const uint8_t* parts = buf + header_size;
     size_t left = n - header_size;
 
@@ -595,6 +618,7 @@ void Decoder::parse_header(const uint8_t* buf, size_t n) {
     } else {
         seg_update_map_ = false;
     }
+    if (libwebp_ && c_.past_end()) fail(CORRUPT, "the segment header past the first partition");
     simple_ = c_.bit();
     if (simple_) features_ |= F_SIMPLE_FILTER;
     filter_level_ = c_.uint(6);
@@ -615,6 +639,7 @@ void Decoder::parse_header(const uint8_t* buf, size_t n) {
                 }
         }
     }
+    if (libwebp_ && c_.past_end()) fail(CORRUPT, "the filter header past the first partition");
     // the token partitions: the sizes of all but the last, 3 bytes each
     num_partitions_ = 1 << c_.uint(2);
     const size_t table = 3 * size_t(num_partitions_ - 1);
@@ -623,12 +648,16 @@ void Decoder::parse_header(const uint8_t* buf, size_t n) {
     parts += table;
     left -= table;
     for (int i = 0; i < num_partitions_ - 1; ++i) {
-        const size_t size = sizes[3 * i] | sizes[3 * i + 1] << 8 | size_t(sizes[3 * i + 2]) << 16;
-        if (size > left) fail(CORRUPT, "a token partition past the frame's end");
-        parts_[i].init(parts, static_cast<int>(size));
+        size_t size = sizes[3 * i] | sizes[3 * i + 1] << 8 | size_t(sizes[3 * i + 2]) << 16;
+        if (size > left) {
+            if (!libwebp_) fail(CORRUPT, "a token partition past the frame's end");
+            size = left;  // libwebp cuts it to the data
+        }
+        parts_[i].init(parts, static_cast<int>(size), libwebp_);
         parts += size;
         left -= size;
     }
+    if (libwebp_ && !left) fail(CORRUPT, "an empty last token partition");
     parts_[num_partitions_ - 1].init(parts, static_cast<int>(left));
 
     yac_qi_ = c_.uint(7);
@@ -1441,10 +1470,11 @@ void Decoder::loop_filter() {
 // file's after its VP8 chunk), which a range decoder may read past the last
 // partition's end; zeros (a demuxer's packet padding) when there are none
 bool Decoder::decode(const uint8_t* data, size_t n, const uint8_t* after, size_t n_after) {
+    const size_t n_data = libwebp_ ? n + n_after : n;
     data_.assign(data, data + n);
-    data_.insert(data_.end(), after, after + std::min<size_t>(n_after, 32));
-    data_.resize(n + 32, 0);  // what the range decoders read past a partition's end
-    parse_header(data_.data(), n);
+    data_.insert(data_.end(), after, after + (libwebp_ ? n_after : std::min<size_t>(n_after, 32)));
+    data_.resize(n_data + 32, 0);  // what the range decoders read past a partition's end
+    parse_header(data_.data(), n, n_data);
     cur_ = std::make_shared<Picture>();
     for (int i = 0; i < 3; ++i) {
         fmvfi_ff::Plane& p = cur_->p[i];
@@ -1459,7 +1489,7 @@ bool Decoder::decode(const uint8_t* data, size_t n, const uint8_t* after, size_t
         uint8_t left_nnz[9] = {};
         RangeCoder& tok = parts_[my & (num_partitions_ - 1)];
         for (int mx = 0; mx < mbw_; ++mx) {
-            if (tok.is_end())
+            if (!libwebp_ && tok.is_end())
                 fail(CORRUPT, "a token partition read past its end at macroblock (" +
                                   std::to_string(mx) + ", " + std::to_string(my) + ")");
             MB& mb = mb_at(mx, my);
@@ -1473,6 +1503,9 @@ bool Decoder::decode(const uint8_t* data, size_t n, const uint8_t* after, size_t
                 std::memset(left_nnz, 0, 8);
                 if (mb.mode != B_PRED && mb.mode != SPLITMV) t_nnz[8] = left_nnz[8] = 0;
             }
+            if (libwebp_ && (tok.past_end() || c_.past_end()))
+                fail(CORRUPT, "a partition read past its end at macroblock (" + std::to_string(mx) +
+                                  ", " + std::to_string(my) + ") (libwebp: premature end of file)");
             if (mb.ref == INTRA) intra_predict(mb, mx, my);
             else inter_predict(mb, mx, my);
             filter_params(mb);
@@ -1547,6 +1580,9 @@ void fmvfi_vp8_frame(void* handle, uint8_t* out) { static_cast<Decoder*>(handle)
 void fmvfi_vp8_planes(void* handle, uint8_t* y, uint8_t* u, uint8_t* v) {
     static_cast<Decoder*>(handle)->frame_planes(y, u, v);
 }
+
+// the decoder's mode: FFmpeg's (0, the default) or libwebp's (1)
+void fmvfi_vp8_libwebp(void* handle, int32_t on) { static_cast<Decoder*>(handle)->set_libwebp(on != 0); }
 
 void fmvfi_vp8_close(void* handle) { delete static_cast<Decoder*>(handle); }
 

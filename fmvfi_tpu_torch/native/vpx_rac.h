@@ -12,11 +12,17 @@ using fmvfi_jpeg::CORRUPT;
 using fmvfi_jpeg::fail;
 
 // FFmpeg's VPXRangeCoder (vpx_rac.h): a 24-bit window refilled 16 bits at
-// a time; the data is padded with zeros, which is what it reads past the end
+// a time; the data is padded with zeros, which is what it reads past the end.
+// past_end() is libwebp's VP8BitReader eof_ on the same data: its decisions
+// are this coder's, but it sets eof_ once a decision needs a bit past the
+// partition's end (the shifts so far exceed 8 size - 8), or at once for an
+// empty partition
 class RangeCoder {
   public:
-    void init(const uint8_t* buf, int size) {
-        if (size < 1) fail(CORRUPT, "an empty partition");
+    void init(const uint8_t* buf, int size, bool allow_empty = false) {
+        if (size < 1 && !allow_empty) fail(CORRUPT, "an empty partition");
+        size_ = size;
+        shifted_ = 0;
         end_ = buf + size;
         high_ = 255;
         bits_ = -16;
@@ -29,6 +35,7 @@ class RangeCoder {
         high_ <<= shift;
         code_ <<= shift;
         bits_ += shift;
+        shifted_ += shift;
         if (bits_ >= 0 && buf_ < end_) {
             code_ |= (uint32_t(buf_[0]) << 8 | buf_[1]) << bits_;
             buf_ += 2;
@@ -65,6 +72,7 @@ class RangeCoder {
         return -i;
     }
     // vpx_rac_is_end: true once the end was seen at more than ten checks
+    bool past_end() const { return shifted_ > 8 * int64_t(size_) - 8; }
     bool is_end() {
         if (end_ <= buf_ && bits_ >= 0) ++end_reached_;
         return end_reached_ > 10;
@@ -74,7 +82,8 @@ class RangeCoder {
     const uint8_t* buf_ = nullptr;
     const uint8_t* end_ = nullptr;
     uint32_t high_ = 255, code_ = 0;
-    int bits_ = 0, end_reached_ = 0;
+    int bits_ = 0, end_reached_ = 0, size_ = 0;
+    int64_t shifted_ = 0;
 };
 
 }  // namespace fmvfi_vpx

@@ -9,11 +9,12 @@ results come down into pinned memory, both copied asynchronously, so the
 host waits only for a finished result: pair i+1's work is queued on the card
 before the host waits for pair i's.  Video files are read when they hold
 what utils/formats.py's table lists: Motion-JPEG, MPEG-4 Part 2, MPEG-1/2,
-VP8 or VP9 in AVI (utils/avi.py), MP4 / M4V / MOV (utils/mp4.py), Matroska
-/ WebM (utils/mkv.py), MPEG transport and program streams and raw MPEG
-video (utils/mpegts.py) and IVF (utils/ivf.py), each frame decoded as
-cv2.VideoCapture decodes it (FFmpeg's decoders and swscale's conversion:
-native/mjpeg.cpp, mpeg4.cpp, mpeg12.cpp, vp8.cpp and vp9.cpp; an MP4
+VP8 or VP9 (8, 10 and 12 bits), PNG and raw frames in AVI (utils/avi.py),
+MP4 / M4V / MOV (utils/mp4.py), Matroska / WebM (utils/mkv.py), MPEG
+transport and program streams and raw MPEG video (utils/mpegts.py) and IVF
+(utils/ivf.py), each frame decoded as cv2.VideoCapture decodes it
+(FFmpeg's decoders and swscale's conversion: native/mjpeg.cpp, mpeg4.cpp,
+mpeg12.cpp, vp8.cpp, vp9.cpp, png.cpp and rawvideo.cpp; an MP4
 track's rotation applied as cv2 applies it; MPEG-1/2's display order and
 the frame it holds back until the end of the stream, as cv2 drains the
 decoder); the container is told from the file's bytes, as FFmpeg probes
@@ -125,12 +126,14 @@ def _open(path: str):
     if container == "avi":
         stream = avi.open_video(path)
         return (avi.iter_frames(stream),
-                formats.decoder(stream.codec, fourcc=stream.strf["compression"]), 0,
+                formats.decoder(stream.codec, fourcc=stream.strf["compression"],
+                                size=(stream.strf["width"], stream.strf["height"])), 0,
                 stream.codec)
     if container == "mp4":
         track = mp4.open_video(path)
-        return (mp4.iter_samples(track), formats.decoder(track.decoder, track.config),
-                track.rotation, track.decoder)
+        return (mp4.iter_samples(track),
+                formats.decoder(track.decoder, track.config, track.codec,
+                                (track.width, track.height)), track.rotation, track.decoder)
     if container == "ivf":
         clip = ivf.open_video(path)
         return ivf.iter_frames(clip), formats.decoder(clip.codec), 0, clip.codec
@@ -166,7 +169,7 @@ def _iter_decoded(path: str) -> Iterator[np.ndarray]:
         if "18.4" in str(e) or str(e).startswith(("no frames decoded", path)):
             raise
         raise _as_refusal(path, "", e) from None
-    item = "18.4h" if codec == "mpeg12" else "18.4"
+    item = {"mpeg12": "18.4h", "png": "18.4g", "rawvideo": "18.4g"}.get(codec, "18.4")
     for i, data in enumerate(samples):
         try:
             frame = decode(data)

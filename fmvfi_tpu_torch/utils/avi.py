@@ -31,9 +31,13 @@ also 'rec ' lists, files without an index, '##db' chunks and OpenDML's
 'AVIX' extensions: `open_video` parses the headers and picks the first
 video stream, which must be Motion-JPEG, MPEG-4 Part 2, MPEG-1/2 (cv2's
 PIM1 and MPG2 writers store PIM1 and mpg2), VP8 or VP9 (VP80, VP90: what
-cv2.VideoWriter writes for those FourCCs), told by the strf compression
-FourCC as FFmpeg's demuxer picks the codec (NotImplementedError otherwise,
-naming the FourCC and ROADMAP item 18.4), `iter_frames` streams its
+cv2.VideoWriter writes for those FourCCs), PNG (png, MPNG) or raw frames
+of the tags cv2 writes and reads back (RGBA; GREY, Y800 and Y8, which
+cv2's writer fills with 12-bit-a-pixel yuv420p packets and FFmpeg reads
+as grey; I420, IYUV, YV12), told by the strf compression FourCC as
+FFmpeg's demuxer picks the codec (NotImplementedError otherwise, naming
+the FourCC and ROADMAP item 18.4, or 18.4g for raw frames the port does not
+convert: BI_RGB, 'DIB ', packed YUV), `iter_frames` streams its
 frames' bytes from the 'movi' lists in file order, and `read` returns the
 headers, the idx1 index and every frame.  pipeline/video.py decodes the
 frames with utils/formats.py's decoders, as cv2.VideoCapture decodes
@@ -51,6 +55,7 @@ from typing import Dict, Iterator, List, NamedTuple, Tuple
 import numpy as np
 
 from .. import native
+from . import formats
 from .formats import unsupported
 
 RIFF_LIMIT = 1 << 30  # RIFF 1.0: the whole file under 1 GiB
@@ -175,9 +180,14 @@ MPEG12_FOURCCS = (b"MPG1", b"MPG2", b"PIM1", b"PIM2", b"MPEG", b"MP1V", b"MP2V",
                   b"MMES", b"LMP2", b"EM2V", b"DVR ", b"\x01\x00\x00\x10", b"\x02\x00\x00\x10")
 VP8_FOURCCS = (b"VP80",)
 VP9_FOURCCS = (b"VP90",)  # what cv2.VideoWriter(..., "VP90", ...) stores
+PNG_FOURCCS = (b"PNG ", b"MPNG", b"PNG1")  # riff.c's png tags (upper-cased)
 CODECS = {**{f: "mjpeg" for f in MJPEG_FOURCCS}, **{f: "mpeg4" for f in MPEG4_FOURCCS},
           **{f: "mpeg12" for f in MPEG12_FOURCCS}, **{f: "vp8" for f in VP8_FOURCCS},
-          **{f: "vp9" for f in VP9_FOURCCS}}
+          **{f: "vp9" for f in VP9_FOURCCS}, **{f: "png" for f in PNG_FOURCCS}}
+# raw frames the port does not convert (ROADMAP 18.4g): BI_RGB (0) and 'DIB '
+# (bottom-up BGR rows), packed and other planar YUV, other RGB orders
+RAW_REFUSED = (b"\0\0\0\0", b"DIB ", b"RGB ", b"RAW ", b"YUY2", b"UYVY", b"YVYU", b"Y422",
+               b"UYNV", b"YV16", b"Y41P", b"YVU9", b"YUV9", b"BGRA", b"ABGR", b"ARGB", b"Y16 ")
 
 
 def _walk(f, start: int, end: int):
@@ -225,7 +235,8 @@ def _strf(body: bytes) -> Dict[str, object]:
 class VideoStream(NamedTuple):
     """An AVI file's first video stream: the file's main header, the
     stream's headers, its number (its frames are the '<nn>dc' and '<nn>db'
-    chunks) and its codec ("mjpeg", "mpeg4", "mpeg12", "vp8" or "vp9")."""
+    chunks) and its codec ("mjpeg", "mpeg4", "mpeg12", "vp8", "vp9", "png"
+    or "rawvideo")."""
 
     path: str
     avih: Dict[str, int]
@@ -265,10 +276,15 @@ def open_video(path) -> VideoStream:
             continue
         if strf is None:
             raise ValueError(f"{path}: video stream {number} has no strf header")
-        codec = CODECS.get(strf["compression"].upper())  # FFmpeg's choice: strh's handler
-        if codec is None:                                  # is not read for it
+        tag = strf["compression"]
+        codec = CODECS.get(tag.upper())  # FFmpeg's choice: strh's handler is not read for it
+        if codec is None and tag in formats.RAW_PIXEL_FORMATS:
+            codec = "rawvideo"
+            strf = dict(strf, height=abs(strf["height"]))  # never flipped (measured)
+        if codec is None:
             raise unsupported(path, f"a video stream whose strf compression is "
-                                    f"{strf['compression'].decode('latin-1')!r}")
+                                    f"{tag.decode('latin-1')!r}",
+                              "18.4g" if tag.upper() in RAW_REFUSED else "18.4")
         return VideoStream(path, avih, strh, strf, number, codec)
     raise ValueError(f"{path}: no video stream")
 

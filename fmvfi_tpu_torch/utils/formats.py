@@ -12,11 +12,14 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
 
+import numpy as np
+
 from .. import native
 
 READS = (
-    ("AVI", ("Motion-JPEG", "MPEG-4 Part 2 (mp4v)", "MPEG-1/2", "VP8", "VP9")),
-    ("MP4 / M4V / MOV", ("mp4v", "MPEG-1/2", "Motion-JPEG", "VP9")),
+    ("AVI", ("Motion-JPEG", "MPEG-4 Part 2 (mp4v)", "MPEG-1/2", "VP8", "VP9", "PNG",
+             "raw RGBA / grey / I420 / YV12 frames")),
+    ("MP4 / M4V / MOV", ("mp4v", "MPEG-1/2", "Motion-JPEG", "VP9", "PNG", "raw RGBA frames")),
     ("Matroska / WebM (.mkv, .webm)", ("VP8", "VP9", "Motion-JPEG", "mp4v", "MPEG-1/2")),
     ("MPEG transport and program streams (.ts, .m2ts, .mpg, .vob)", ("MPEG-1/2", "mp4v")),
     ("raw MPEG video (.m1v, .m2v)", ("MPEG-1/2",)),
@@ -25,6 +28,8 @@ READS = (
 # ROADMAP Queue 1's items, each with why the port does not read the input yet
 ITEMS = {
     "18.4": "other codecs need a video decoder the card's machine lacks",
+    "18.4g": "FFmpeg's rawvideo decoder reads it in a pixel format the port does not convert, "
+             "or cv2's writer writes no such file",
     "18.4h": "FFmpeg's MPEG-1/2 decoder decodes it otherwise, or cv2 returns no pixels of it",
     "18.4k": "cv2 reads a lone BMP, TIFF or PNM image, or a numbered sequence of them, as a "
              "video through FFmpeg's own decoders for them; the port reads lone PNG, JPEG and "
@@ -53,12 +58,63 @@ def unsupported(path: str, what: str, item: str = "18.4") -> NotImplementedError
                                f"item {item}: {ITEMS[item]})")
 
 
-def decoder(codec: str, config: bytes = b"", fourcc: bytes = b""
+# FFmpeg's raw.c tags of the raw frames the port converts, each with its
+# pixel format (rawdec.c picks it by the stream's tag)
+RAW_PIXEL_FORMATS = {b"RGBA": "rgba", b"GREY": "gray", b"Y800": "gray", b"Y8  ": "gray",
+                     b"I420": "yuv420p", b"IYUV": "yuv420p", b"YV12": "yvu420p"}
+
+
+def raw_frame(data: bytes, fourcc: bytes, width: int, height: int) -> np.ndarray:
+    """One packet of FFmpeg's rawvideo decoder in the pixel format of
+    `fourcc`, as swscale hands it to cv2, (height, width, 3) uint8 RGB:
+    rgba with alpha dropped, grey repeated to three channels (its rows 4-byte
+    aligned when the packet holds that many: rawdec.c's linesize_align, so
+    cv2's 12-bit-a-pixel GREY packets read skewed rows at widths not a
+    multiple of 4), yuv420p (yvu420p: V before U) through swscale's BT.601
+    limited-range routes.  Tagged raw frames are never flipped, whatever
+    biHeight's sign.  ValueError for a packet shorter than a frame."""
+    fmt = RAW_PIXEL_FORMATS[fourcc]
+    w, h = width, height
+    cw, ch = (w + 1) // 2, (h + 1) // 2
+    need = {"rgba": 4 * w * h, "gray": w * h}.get(fmt, w * h + 2 * cw * ch)
+    if len(data) < need:
+        raise ValueError(f"a raw {fmt} packet of {len(data)} bytes for a {w}x{h} frame "
+                         f"({need} bytes)")
+    buf = np.frombuffer(data, np.uint8)
+    if fmt == "rgba":
+        return np.ascontiguousarray(buf[:need].reshape(h, w, 4)[..., :3])
+    if fmt == "gray":
+        stride = (w + 3) & ~3
+        stride = stride if stride * h <= len(data) else w
+        y = np.lib.stride_tricks.as_strided(buf, (h, w), (stride, 1))
+        return np.repeat(y[..., None], 3, axis=2)
+    y = buf[:w * h].reshape(h, w)
+    u = buf[w * h:w * h + cw * ch].reshape(ch, cw)
+    v = buf[w * h + cw * ch:need].reshape(ch, cw)
+    if fmt == "yvu420p":
+        u, v = v, u
+    return native.yuv420p_swscale(y, u, v)
+
+
+def png_frame(data: bytes) -> np.ndarray:
+    """A PNG packet as FFmpeg's png decoder and swscale hand it to cv2 (the
+    frame's size its IHDR's, whatever the container says)."""
+    from . import image2
+    return image2.png_frame(data, "a PNG frame")
+
+
+def decoder(codec: str, config: bytes = b"", fourcc: bytes = b"", size: Tuple[int, int] = (0, 0)
             ) -> Tuple[Callable, Optional[Callable[[], list]]]:
     """(decode, flush) for a stream of `codec` ("mjpeg", "mpeg4", "mpeg12",
-    "vp8" or "vp9"): decode(packet) returns a frame, None or a list of
-    frames; flush, where the codec holds frames back (MPEG-1/2's display
-    order), returns the frames left at the end of the stream."""
+    "vp8", "vp9", "png" or "rawvideo", the last in the pixel format of its
+    `fourcc` at `size`, (width, height)): decode(packet) returns a frame,
+    None or a list of frames; flush, where the codec holds frames back
+    (MPEG-1/2's display order), returns the frames left at the end of the
+    stream."""
+    if codec == "png":
+        return png_frame, None
+    if codec == "rawvideo":
+        return (lambda data: raw_frame(data, fourcc, *size)), None
     if codec == "mjpeg":
         return native.mjpeg_decode, None
     if codec == "mpeg4":

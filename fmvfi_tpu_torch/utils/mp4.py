@@ -10,7 +10,9 @@ it: 0x20 MPEG-4 Visual, whose DecoderSpecificInfo holds the VOS / VO / VOL
 headers; 0x60-0x65 and 0x6A MPEG-2 and MPEG-1, whose DecoderSpecificInfo
 is the sequence header; 0x6C Motion-JPEG: what cv2's MPG2 and MJPG writers
 store in .mp4), QuickTime's `m2v1` / `m1v ` (MPEG-1/2) and `jpeg`
-(Motion-JPEG) entries (what those writers store in .mov), or its `vp09`
+(Motion-JPEG) entries (what those writers store in .mov), `png ` (PNG
+frames) and `RGBA` (raw frames: what cv2's png and RGBA writers store in
+.mov; `raw ` and packed YUV raise naming item 18.4g), or its `vp09`
 sample entry (VP9, what cv2.VideoWriter(fourcc "VP90") writes into .mp4;
 its `vpcC` changes nothing cv2 returns), `tkhd`'s display matrix composed with `mvhd`'s (the
 rotation cv2 applies, CAP_PROP_ORIENTATION_AUTO: 90, 180 or 270 degrees
@@ -63,6 +65,10 @@ MJPEG_OBJECT_TYPE = 0x6C
 # m2v1 and 'm1v ' in .mov) and Motion-JPEG (its MJPG writer stores jpeg)
 MPEG12_ENTRIES = (b"m1v ", b"m1v1", b"mp1v", b"m2v1", b"mp2v")
 MJPEG_ENTRIES = (b"jpeg",)
+# QuickTime sample entries of PNG frames and of raw frames whose pixel
+# format the port converts (cv2's png and RGBA writers store them in .mov)
+PNG_ENTRIES = (b"png ",)
+RAW_ENTRIES = (b"RGBA",)
 
 
 def _boxes(data: bytes, start: int = 0, end: Optional[int] = None) -> Iterator[Tuple[bytes, int, int]]:
@@ -263,8 +269,9 @@ def _video_track(path: str, moov: bytes, start: int, length: int):
     if not entries:
         raise ValueError(f"{path}: an empty stsd box")
     codec, p, n = entries[0]
-    if codec not in (b"mp4v", b"vp09") + MPEG12_ENTRIES + MJPEG_ENTRIES:
-        raise unsupported(path, f"a {codec.decode('latin-1')!r} video track")
+    if codec not in (b"mp4v", b"vp09") + MPEG12_ENTRIES + MJPEG_ENTRIES + PNG_ENTRIES + RAW_ENTRIES:
+        raise unsupported(path, f"a {codec.decode('latin-1')!r} video track",
+                          "18.4g" if codec in (b"raw ", b"2vuy", b"yuv2", b"v210") else "18.4")
     width, height = struct.unpack(">HH", stsd[p + 24:p + 28])
     children = {kind: stsd[q:q + m] for kind, q, m in _boxes(stsd, p + 78, p + n)}
     config = b""
@@ -277,6 +284,10 @@ def _video_track(path: str, moov: bytes, start: int, length: int):
         decoder = "mpeg12"  # the sequence header is in the samples
     elif codec in MJPEG_ENTRIES:
         decoder = "mjpeg"
+    elif codec in PNG_ENTRIES:
+        decoder = "png"  # the frame's size is its IHDR's
+    elif codec in RAW_ENTRIES:
+        decoder = "rawvideo"  # at the sample entry's size
     else:
         if b"esds" not in children:
             raise ValueError(f"{path}: an mp4v sample entry without esds")

@@ -9,15 +9,19 @@ file whose sizes do not hold together raises ValueError.
 
 `decode` returns what `cv2.imread(path)` returns, in RGB order, with the
 EXIF Orientation of an `EXIF` chunk (imageio applies it):
-- a lossy image: its VP8 key frame (native/vp8.cpp: the planes that
-  libwebp's decoder and FFmpeg's share) through libwebp's fancy upsampler
-  and its YUV -> RGB conversion (native/webp.cpp);
+- a lossy image: its VP8 key frame (native/vp8.cpp in libwebp's mode: the
+  planes FFmpeg's decoder also makes, but the last partition running on to
+  the file's end, as cv2 hands libwebp the whole file, and a read past a
+  partition's end a ValueError, as libwebp then returns no image) through
+  libwebp's fancy upsampler and its YUV -> RGB conversion (native/webp.cpp);
 - a lossless image: native/webp.cpp's VP8L decoder, alpha dropped;
 - alpha (`ALPH`, or VP8L's own) is dropped, not blended, as cv2 does; an
   `ALPH` chunk is still checked as libwebp and FFmpeg decode it (its
   header, a raw plane's size, a VP8L-coded plane decoded), and a corrupt
   one raises ValueError, as both then return no picture;
-- an animation: its first frame, at its offset on a black canvas.
+- an animation: its first frame, at its offset on a black canvas;
+- a canvas past cv2's limits (a side over 2**20, over 2**30 pixels) raises
+  ValueError, as cv2.imread returns None.
 
 `video_frame` returns what cv2.VideoCapture returns of a lone WebP given
 as a video (FFmpeg's image2 demuxer and webp decoder): a lossy image
@@ -178,7 +182,8 @@ def check_alpha(alpha: bytes, width: int, height: int) -> None:
 
 
 def _lossy(bitstream: bytes, planes: bool, after: bytes = b"") -> np.ndarray:
-    dec = native.Vp8Decoder()
+    """planes: libwebp's decoding and conversion (imread), else FFmpeg's."""
+    dec = native.Vp8Decoder(libwebp=planes)
     try:
         rgb = dec.decode(bitstream, after)
         if rgb is None or not dec.info["keyframe"]:
@@ -196,10 +201,12 @@ def _lossless(bitstream: bytes, ffmpeg: bool = False) -> np.ndarray:
 
 
 def decode_frame(frame: Frame) -> np.ndarray:
-    """One frame as libwebp gives it to cv2.imread, (h, w, 3) RGB."""
+    """One frame as libwebp gives it to cv2.imread, (h, w, 3) RGB: cv2
+    hands libwebp the whole file, so a lossy frame's last partition runs
+    on past its chunk to the file's end."""
     if frame.codec == "VP8L":
         return _lossless(frame.bitstream)
-    img = _lossy(frame.bitstream, planes=True)
+    img = _lossy(frame.bitstream, planes=True, after=frame.rest[len(frame.bitstream):])
     if frame.alpha is not None:
         check_alpha(frame.alpha, img.shape[1], img.shape[0])
     return img
@@ -211,6 +218,8 @@ def decode(data: bytes) -> Tuple[np.ndarray, bytes]:
     webp = parse(data)
     if not webp.frames:
         raise ValueError("an animation without frames")
+    if webp.width > 1 << 20 or webp.height > 1 << 20 or webp.width * webp.height > 1 << 30:
+        raise ValueError(f"a {webp.width}x{webp.height} WebP: past cv2's image size limits")
     frame = webp.frames[0]
     img = decode_frame(frame)
     if webp.animated:

@@ -36,6 +36,7 @@ the middlebury evaluation; the 2-pair batch serves video --batch 2 and the
 synthetic evaluation).
 """
 
+import importlib.util
 import json
 import os
 import sys
@@ -63,6 +64,11 @@ from test_torch_convert import reference_phase_sd
 LSB = 1
 EVAL_DB = 0.05
 SIZE = 64
+_spec = importlib.util.spec_from_file_location(
+    "make_input_fixtures", os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "tools", "make_input_fixtures.py"))
+TOOL = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(TOOL)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -99,6 +105,9 @@ def inputs(tmp_path_factory):
     gif = [Image.fromarray((np.clip(f, 0, 1) * 255 + 0.5).astype(np.uint8)).quantize(64)
            for f in clip]
     gif[0].save(d / "clip.gif", save_all=True, append_images=gif[1:], duration=40, loop=0)
+    # the clip at full precision as a 10-bit VP9 (profile 2) WebM, coded by cv2's libvpx
+    TOOL.vp9_webm(str(d / "clip10.webm"), TOOL.vp9_encode(
+        [np.ascontiguousarray(f[..., ::-1]) for f in clip], bit_depth=10, bitrate=400), SIZE, SIZE)
     for k, scene in enumerate(("Dimetrodon", "Venus")):
         a, mid, b = translation_triplet(SIZE, SIZE, dx=1.0 + k, dy=-1.0, seed=10 + k)
         _write(d / "mb" / "other" / scene / "frame10.png", a)
@@ -135,6 +144,8 @@ def _commands(d, out):
                           f"{out}/video_jpeg", *ph]
     cmds["video_gif"] = ["video", "--input", str(d / "clip.gif"), "--output_dir",
                          f"{out}/video_gif", *ph]
+    cmds["video_vp9_10bit"] = ["video", "--input", str(d / "clip10.webm"), "--output_dir",
+                               f"{out}/video_vp9_10bit", "--method", "fusion", *ph]
     os.makedirs(f"{out}/interp_webp", exist_ok=True)
     cmds["interpolate_webp"] = ["interpolate", "--first_frame", str(d / "a.webp"),
                                 "--second_frame", str(d / "b.webp"), "--output_frame",
@@ -328,6 +339,21 @@ def test_video_on_animated_gif_matches_jax_cli(inputs, jax_out):
     for i in range(4):
         np.testing.assert_array_equal(cv2.imread(str(out / "video_gif" / names[2 * i])),
                                       cv2.imread(str(jax_out / "video_gif" / names[2 * i])))
+
+
+def test_video_on_a_10_bit_vp9_webm_matches_jax_cli(inputs, jax_out):
+    """`video --method fusion` on the clip as a 10-bit VP9 WebM (swscale's
+    16-bit route under cv2): every PNG within 1 LSB of JAX's, the originals
+    exact."""
+    out = _run_port(inputs, "video_vp9_10bit")
+    names = sorted(os.listdir(jax_out / "video_vp9_10bit"))
+    assert names == [f"{i:05d}.png" for i in range(7)]
+    assert sorted(os.listdir(out / "video_vp9_10bit")) == names
+    for n in names:
+        _within_lsb(out / "video_vp9_10bit" / n, jax_out / "video_vp9_10bit" / n)
+    for i in range(4):
+        np.testing.assert_array_equal(cv2.imread(str(out / "video_vp9_10bit" / names[2 * i])),
+                                      cv2.imread(str(jax_out / "video_vp9_10bit" / names[2 * i])))
 
 
 @pytest.mark.parametrize("mode,n_out", [("per_pair", 7), ("factor4", 13), ("batch2", 7),

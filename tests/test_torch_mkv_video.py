@@ -24,8 +24,9 @@ images_to_video(".mkv") writes a file cv2 reads with the right count, fps
 and size, whose frames cv2 and the port decode alike, equal to the
 encoder's own reconstruction, within 1 dB below JAX's file.  What the port
 cannot decode as cv2 does raises NotImplementedError naming it and item
-18.4: AV1, H.264, HEVC and Theora tracks, a VP9 track of profile 2 (VP9 in
-general: tests/test_torch_vp9_video.py), ContentEncodings, an mp4v track
+18.4: AV1, H.264, HEVC and Theora tracks, a VP9 track in the reserved
+colour space (VP9 in general: tests/test_torch_vp9_video.py),
+ContentEncodings, an mp4v track
 whose Colour says BT.709 or full range.
 """
 
@@ -286,17 +287,20 @@ def _colour(crop=(), **values):
     return edit
 
 
-def _vp9_profile2(entry, tree):
-    """The VP9 track's key frame marked profile 2 (10 or 12 bits a sample)."""
+def _vp9_reserved_colour(entry, tree):
+    """The VP9 track's (profile 0) key frame given the reserved colour space
+    (6), which cv2 converts with no swscale matrix."""
     cluster = next(c for c in TOOL.ebml_find(tree, TOOL.SEGMENT) if c[0] == TOOL.CLUSTER)
     block = next(e for e in cluster[1] if e[0] == 0xA3)
     data = bytearray(block[1])
-    data[4] |= 0x10  # after the track number, timecode and flags: profile_high_bit
+    # after the track number, timecode and flags (4 bytes), the frame's
+    # marker, profile, flags and sync code (32 bits): color_space, 3 bits
+    data[8] = (data[8] & 0x1F) | (6 << 5)
     block[1] = bytes(data)
 
 
 @pytest.mark.parametrize("name,edit,what", [
-    ("vp9.webm", _vp9_profile2, "VP9 profile 2"),
+    ("vp9.webm", _vp9_reserved_colour, "reserved VP9 colour space"),
     ("av1.webm", _codec(b"V_AV1"), "V_AV1"),
     ("avc.mkv", _codec(b"V_MPEG4/ISO/AVC"), "V_MPEG4/ISO/AVC"),
     ("hevc.mkv", _codec(b"V_MPEGH/ISO/HEVC"), "V_MPEGH/ISO/HEVC"),

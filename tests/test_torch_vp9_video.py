@@ -26,8 +26,9 @@ bit for bit:
   a VP9 file in each container, and `cli video --method fusion` on a 64x64
   WebM against JAX's `cli video` (>= 60 dB a frame, the originals exact).
 What the port cannot decode as cv2 does raises NotImplementedError naming
-item 18.4 (profiles 2 and 3, reference scaling, intra-only frames, the
-reserved and sRGB colour spaces); malformed streams raise ValueError.
+item 18.4 (reference scaling, intra-only frames, the reserved and sRGB
+colour spaces, at every bit depth); malformed streams raise ValueError.
+Profiles 2 and 3 (10 and 12 bits): tests/test_torch_vp9_highbd.py.
 """
 
 import hashlib
@@ -273,13 +274,11 @@ def _clip(tmp_path, name, **kw):
     return path
 
 
-def _first_byte(mask):
-    return lambda pk: [bytes([pk[0][0] | mask]) + pk[0][1:]] + pk[1:]
-
-
 @pytest.mark.parametrize("name,make,what", [
-    ("profile2.webm", lambda t: _forged(t, "p2.webm", _first_byte(0x10)), "VP9 profile 2"),
-    ("profile3.webm", lambda t: _forged(t, "p3.webm", _first_byte(0x30)), "VP9 profile 3"),
+    ("scaling10.webm", lambda t: _clip(t, "s10.webm", resize_at=(3, (30, 24)), bit_depth=10),
+     "reference scaling"),
+    ("srgb12.webm", lambda t: _clip(t, "rgb12.webm", fmt="444", color_space=7, bit_depth=12),
+     "sRGB"),
     ("scaling.webm", lambda t: _clip(t, "s.webm", resize_at=(3, (30, 24))), "reference scaling"),
     ("intra_only.webm", lambda t: _forged(t, "io.webm", lambda pk: pk[:1] + [b"\x84\x80" + bytes(
         30)] + pk[1:]), "intra-only"),

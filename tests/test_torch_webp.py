@@ -16,9 +16,14 @@ cv2.imread and PIL, FFmpeg's webp decoder under cv2.VideoCapture):
 - the EXIF Orientation 1-8 applied as cv2.imread applies it, and not on
   the video route;
 - an animated WebP as video: JAX's ValueError (cv2 decodes no frame);
-- truncated and corrupted files raise ValueError, never crash.
+- truncated and corrupted files raise ValueError, never crash;
+- corrupted lossy files (group webp_corrupt) read as libwebp reads them
+  (the last partition on past the chunk to the file's end, a partition run
+  out an error) and cv2's image size limits.
 """
 
+import hashlib
+import importlib.util
 import io
 import os
 
@@ -35,6 +40,10 @@ from fmvfi_tpu_torch.utils import imageio, webp
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 INPUTS = os.path.join(ROOT, chip_smoke.INPUTS_DIR)
+_spec = importlib.util.spec_from_file_location(
+    "make_input_fixtures", os.path.join(ROOT, "tools", "make_input_fixtures.py"))
+TOOL = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(TOOL)
 WEBP_STILLS = tuple(n for n in chip_smoke.INPUT_PINS
                     if n.startswith("webp_") and chip_smoke.INPUT_PINS[n][0] == "imread")
 # the transforms each lossless fixture was made to use (libwebp's choices)
@@ -199,3 +208,45 @@ def test_truncated_and_corrupted_files_raise(toolchain, tmp_path, name):
             assert imageio.imread(path).dtype == np.uint8
         except ValueError:
             pass
+
+
+@pytest.mark.parametrize("name", [n for n, _, _, _ in TOOL.WEBP_CORRUPT])
+def test_corrupted_lossy_webps_read_as_libwebp(toolchain, name):
+    """Corrupted copies of the lossy fixtures (tools/make_input_fixtures.py
+    group webp_corrupt), read as cv2.imread's libwebp reads them: cv2 hands
+    libwebp the whole file, so the last token partition runs on past the
+    VP8 chunk into the file's tail (FFmpeg's range decoder would read zeros
+    there); a canvas past cv2's image size limit is no image (ValueError,
+    as cv2.imread gives JAX None)."""
+    path = os.path.join(INPUTS, name)
+    try:
+        ref = cv2.imread(path, cv2.IMREAD_COLOR)
+    except cv2.error:  # cv2's size validation raises before the decoder runs
+        ref = None
+    if name in TOOL.WEBP_NO_IMAGE:
+        assert ref is None and name not in chip_smoke.INPUT_PINS
+        with pytest.raises(ValueError, match="cv2's image size limits"):
+            imageio.imread(path)
+        return
+    ours = imageio.imread(path)
+    np.testing.assert_array_equal(ours, ref[..., ::-1])
+    contract, digest = chip_smoke.INPUT_PINS[name]
+    assert contract == "imread" and hashlib.sha256(ours.tobytes()).hexdigest() == digest
+    # the chunk alone (the file's tail not handed on) runs out: no image
+    with open(path, "rb") as f:
+        frame = webp.parse(f.read()).frames[0]
+    with pytest.raises(ValueError, match="premature end of file"):
+        webp._lossy(frame.bitstream, planes=True, after=b"")
+
+
+def test_libwebp_mode_fails_where_a_partition_runs_out(toolchain):
+    """A lossy WebP whose last partition is cut (the file ends there): libwebp
+    returns no image, and the port raises ValueError naming the premature
+    end; FFmpeg's mode decodes the same bytes (zeros past the end)."""
+    with open(os.path.join(INPUTS, "webp_lossy_53x37.webp"), "rb") as f:
+        frame = webp.parse(f.read()).frames[0]
+    cut = frame.bitstream[:-40]
+    dec = native.Vp8Decoder(libwebp=True)
+    with pytest.raises(ValueError, match="premature end of file|past the first partition"):
+        dec.decode(cut)
+    assert native.Vp8Decoder().decode(cut).shape == (37, 53, 3)

@@ -302,6 +302,12 @@ def make(out: str) -> dict:
         files[name] = None
     for name in make_webp_gif(out):
         files[name] = None
+    for name in make_vp9_highbd(out):
+        files[name] = None
+    for name in make_lossless_video(out):
+        files[name] = None
+    for name in make_webp_corrupt(out):
+        files[name] = None
     return pins(out, files)
 
 
@@ -475,15 +481,8 @@ def _libvpx():
 
 
 def _i420(bgr: np.ndarray) -> np.ndarray:
-    """A BGR frame as I420 planes (odd sides: chroma of the edge-repeated
-    even-sided frame)."""
-    h, w = bgr.shape[:2]
-    big = cv2.copyMakeBorder(bgr, 0, h & 1, 0, w & 1, cv2.BORDER_REPLICATE)
-    hh, ww = big.shape[:2]
-    yuv = cv2.cvtColor(big, cv2.COLOR_BGR2YUV_I420).reshape(-1)
-    q = (hh // 2) * (ww // 2)
-    return np.concatenate([yuv[:hh * ww].reshape(hh, ww)[:h, :w].reshape(-1),
-                           yuv[hh * ww:hh * ww + 2 * q]])
+    """A BGR frame as I420 planes, one after the other (_yuv420's)."""
+    return np.concatenate([p.reshape(-1) for p in _yuv420(bgr)])
 
 
 def vp8_encode(frames, version: int = 0, partitions: int = 0, bitrate: int = 200,
@@ -629,9 +628,11 @@ SMOKE_WEBM = "vp8_cv2_1080x1920.webm"
 # libvpx's encoder controls (vp8cx.h's vp8e_enc_control_id)
 VP9_CONTROLS = dict(cpu_used=13, auto_alt_ref=14, lossless=32, tile_columns=33, tile_rows=34,
                     frame_parallel=35, aq_mode=36, color_space=46, color_range=51)
-# vpx_img_fmt and chroma subsampling (x, y) of each sampling
+# vpx_img_fmt and chroma subsampling (x, y) of each sampling (the 16-bit
+# formats add VPX_IMG_FMT_HIGHBITDEPTH, 0x800)
 VP9_FORMATS = {"420": (0x102, 1, 1), "422": (0x105, 1, 0), "444": (0x106, 0, 0),
                "440": (0x107, 0, 1)}
+VPX_CODEC_USE_HIGHBITDEPTH = 0x40000
 
 
 def _yuv_planes(bgr: np.ndarray, fmt: str) -> np.ndarray:
@@ -648,34 +649,72 @@ def _yuv_planes(bgr: np.ndarray, fmt: str) -> np.ndarray:
     return np.concatenate([yuv[..., 0].reshape(-1)] + [c.reshape(-1) for c in chroma])
 
 
+def _yuv_planes16(bgr: np.ndarray, fmt: str, bit_depth: int, seed: int) -> np.ndarray:
+    """A BGR frame as 16-bit planes of `bit_depth` bits, laid out as
+    vpx_img_wrap reads them with stride_align 2 (rows of even length, chroma
+    rows half that when subsampled): a uint8 frame through cv2's BGR2YUV,
+    each sample shifted up and its new low bits seeded noise; a float one
+    (in [0, 1]) through BT.601's limited-range matrix at full precision.
+    The chroma is averaged down."""
+    rng = np.random.default_rng(seed)
+    _, sx, sy = VP9_FORMATS[fmt]
+    h, w = bgr.shape[:2]
+    if bgr.dtype == np.uint8:
+        yuv = cv2.cvtColor(bgr, cv2.COLOR_BGR2YUV).astype(np.float32)
+    else:
+        b, g, r = (bgr[..., c].astype(np.float64) for c in range(3))
+        y = 0.299 * r + 0.587 * g + 0.114 * b
+        yuv = np.stack([16 + 219 * y, 128 + 224 * 0.564 * (b - y),
+                        128 + 224 * 0.713 * (r - y)], -1).astype(np.float32)
+    sw = (w + 1) & ~1
+    rows = []
+    for c in range(3):
+        p = yuv[..., c]
+        stride = sw
+        if c and (sx or sy):
+            p = cv2.resize(p, ((w + sx) >> sx, (h + sy) >> sy), interpolation=cv2.INTER_AREA)
+            stride = sw >> sx
+        if bgr.dtype == np.uint8:
+            p = (np.rint(p).astype(np.int32) << (bit_depth - 8)) + rng.integers(
+                0, 1 << (bit_depth - 8), p.shape)
+        else:
+            p = np.clip(np.rint(p * (1 << (bit_depth - 8))), 0, (1 << bit_depth) - 1)
+        plane = np.zeros((p.shape[0], stride), np.uint16)
+        plane[:, :p.shape[1]] = p
+        rows.append(plane.reshape(-1))
+    return np.concatenate(rows)
+
+
 def vp9_encode(frames, fmt: str = "420", bitrate: int = 200, two_pass: bool = False,
                lag: int = 0, error_resilient: bool = False, realtime: bool = True,
-               cbr: bool = False, kf_max_dist=None, resize_at=None, **controls) -> list:
+               cbr: bool = False, kf_max_dist=None, resize_at=None, bit_depth: int = 8,
+               **controls) -> list:
     """VP9 packets of BGR frames, coded by cv2's libvpx through ctypes:
-    profile 0 (4:2:0) or 1 (`fmt` 444, 422, 440), two-pass with `lag`
-    frames of look-ahead (auto-alt-ref: hidden frames in superframes),
-    error-resilient, CBR, the VP9_CONTROLS given as keywords (frame_parallel
-    0 turns the backward adaptation on), and `resize_at` (frame index,
-    (width, height)): the frames from there coded at another size, which
-    the encoder predicts across by reference scaling."""
+    profile 0 (4:2:0) or 1 (`fmt` 444, 422, 440), or at `bit_depth` 10 or
+    12 profile 2 or 3 (VPX_CODEC_USE_HIGHBITDEPTH, 16-bit planes from
+    _yuv_planes16), two-pass with `lag` frames of look-ahead (auto-alt-ref:
+    hidden frames in superframes), error-resilient, CBR, the VP9_CONTROLS
+    given as keywords (frame_parallel 0 turns the backward adaptation on),
+    and `resize_at` (frame index, (width, height)): the frames from there
+    coded at another size, which the encoder predicts across by reference
+    scaling."""
     lib = _libvpx()
+    args = (fmt, bitrate, lag, error_resilient, cbr, kf_max_dist, resize_at, bit_depth, controls)
     if two_pass:
-        stats = _vp9_pass(lib, frames, fmt, 1, None, bitrate, lag, error_resilient, False, cbr,
-                          kf_max_dist, resize_at, controls)
-        return _vp9_pass(lib, frames, fmt, 2, b"".join(stats), bitrate, lag, error_resilient,
-                         False, cbr, kf_max_dist, resize_at, controls)
-    return _vp9_pass(lib, frames, fmt, 0, None, bitrate, lag, error_resilient, realtime, cbr,
-                     kf_max_dist, resize_at, controls)
+        stats = _vp9_pass(lib, frames, 1, None, False, *args)
+        return _vp9_pass(lib, frames, 2, b"".join(stats), False, *args)
+    return _vp9_pass(lib, frames, 0, None, realtime, *args)
 
 
-def _vp9_pass(lib, frames, fmt, npass, stats, bitrate, lag, error_resilient, realtime, cbr,
-              kf_max_dist, resize_at, controls) -> list:
+def _vp9_pass(lib, frames, npass, stats, realtime, fmt, bitrate, lag, error_resilient, cbr,
+              kf_max_dist, resize_at, bit_depth, controls) -> list:
     import ctypes
     h, w = frames[0].shape[:2]
     cfg = ctypes.create_string_buffer(4096)
     assert lib.vpx_codec_enc_config_default(lib.vpx_codec_vp9_cx(), cfg, 0) == 0
     words = (ctypes.c_uint32 * 64).from_buffer(cfg)
-    words[2], words[3], words[4] = int(fmt != "420"), w, h
+    words[2], words[3], words[4] = int(fmt != "420") + (2 if bit_depth > 8 else 0), w, h
+    words[5] = words[6] = bit_depth  # g_bit_depth, g_input_bit_depth
     words[9], words[11], words[28] = int(error_resilient), lag, bitrate
     if cbr:
         words[18] = 1  # VPX_CBR
@@ -689,8 +728,9 @@ def _vp9_pass(lib, frames, fmt, npass, stats, bitrate, lag, error_resilient, rea
             ctypes.c_void_p.from_buffer(cfg, 80).value = ctypes.addressof(keep)
             ctypes.c_size_t.from_buffer(cfg, 88).value = len(stats)
     ctx = ctypes.create_string_buffer(1024)
+    flags = VPX_CODEC_USE_HIGHBITDEPTH if bit_depth > 8 else 0
     for abi in range(64):  # VPX_ENCODER_ABI_VERSION of this build
-        err = lib.vpx_codec_enc_init_ver(ctx, lib.vpx_codec_vp9_cx(), cfg, 0, abi)
+        err = lib.vpx_codec_enc_init_ver(ctx, lib.vpx_codec_vp9_cx(), cfg, flags, abi)
         if err != 3:  # VPX_CODEC_ABI_MISMATCH
             break
     assert err == 0, f"vpx_codec_enc_init_ver: {err}"
@@ -718,9 +758,13 @@ def _vp9_pass(lib, frames, fmt, npass, stats, bitrate, lag, error_resilient, rea
             assert lib.vpx_codec_enc_config_set(ctx, cfg) == 0
         fw, fh = words[3], words[4]
         if f.shape[:2] != (fh, fw):
-            f = cv2.resize(f, (fw, fh), interpolation=cv2.INTER_AREA)
-        planes = _yuv_planes(f, fmt)
-        lib.vpx_img_wrap(img, VP9_FORMATS[fmt][0], fw, fh, 1, planes.ctypes.data)
+            f = cv2.resize(f, (fw, fh), interpolation=cv2.INTER_AREA).astype(f.dtype)
+        if bit_depth > 8:
+            planes = _yuv_planes16(f, fmt, bit_depth, seed=i)
+            lib.vpx_img_wrap(img, VP9_FORMATS[fmt][0] | 0x800, fw, fh, 2, planes.ctypes.data)
+        else:
+            planes = _yuv_planes(f, fmt)
+            lib.vpx_img_wrap(img, VP9_FORMATS[fmt][0], fw, fh, 1, planes.ctypes.data)
         assert lib.vpx_codec_encode(ctx, img, i, 1, 0, deadline) == 0
         drain()
     while True:  # flush the lagged frames
@@ -734,8 +778,11 @@ def _vp9_pass(lib, frames, fmt, npass, stats, bitrate, lag, error_resilient, rea
 
 
 def vp9_key(packet: bytes) -> bool:
-    """Whether a VP9 packet starts with a key frame (profile 0-2 headers)."""
-    return (packet[0] >> 6) == 2 and not (packet[0] >> 3) & 1 and not (packet[0] >> 2) & 1
+    """Whether a VP9 packet starts with a key frame (profile 3 headers have
+    a reserved bit before show_existing_frame)."""
+    b = packet[0]
+    shift = 1 if (b >> 4) & 3 == 3 else 0
+    return (b >> 6) == 2 and not (b >> (3 - shift)) & 1 and not (b >> (2 - shift)) & 1
 
 
 def vp9_webm(path: str, packets, w: int, h: int, fps: int = 30) -> None:
@@ -905,6 +952,147 @@ def make_vp9(out: str):
 
 
 SMOKE_VP9 = "vp9_cv2_1080x1920.webm"
+SMOKE_VP9_10BIT = "vp9_hbd10_1080x1920.webm"
+
+
+def ivf_file(path: str, packets, w: int, h: int, fourcc: bytes = b"VP90", fps: int = 30) -> None:
+    """Packets in an IVF file (32-byte header; a 12-byte header a frame)."""
+    with open(path, "wb") as f:
+        f.write(struct.pack("<4sHH4sHHIIII", b"DKIF", 0, 32, fourcc, w, h, fps, 1, len(packets), 0))
+        for i, p in enumerate(packets):
+            f.write(struct.pack("<IQ", len(p), i) + p)
+
+
+class PacketAvi(avi.MjpgWriter):
+    """An AVI of coded packets under a FourCC (the port's AVI writer, its
+    frames given as bytes), its strf's biBitCount `bit_count` and biHeight
+    negated when `top_down`."""
+
+    def __init__(self, path, width: int, height: int, fourcc: bytes, fps: float = 30,
+                 bit_count: int = 24, top_down: bool = False):
+        self.fourcc, self.bit_count, self.top_down = fourcc, bit_count, top_down
+        super().__init__(path, width, height, fps)
+
+    def _headers(self) -> bytes:
+        head = bytearray(super()._headers())
+        at = head.index(b"strf") + 8
+        struct.pack_into("<Ii", head, at + 4, self.width, -self.height if self.top_down
+                         else self.height)
+        struct.pack_into("<H", head, at + 14, self.bit_count)
+        return bytes(head)
+
+    def write_packet(self, data: bytes, key: bool) -> None:
+        self._chunk(data, avi.AVIIF_KEYFRAME if key else 0)
+
+
+def mp4_with_packets(template: bytes, packets, keys, size=None) -> bytes:
+    """An MP4 file `template` (cv2's, of as many samples) with its samples
+    replaced by `packets`, one chunk after the moov: stsz, stsc, stco and
+    stss rewritten, every other box kept (the sample entry too, its width
+    and height set to `size`, (w, h), when given)."""
+    top = {kind: (at, size) for kind, at, size in _mp4_boxes(template, 0, len(template))}
+    n = len(packets)
+
+    def rebuild(data, start, end, chunk_at):
+        out = b""
+        for kind, at, length in _mp4_boxes(data, start, end):
+            body = data[at + 8:at + length]
+            if kind in (b"moov", b"trak", b"mdia", b"minf", b"stbl"):
+                body = rebuild(data, at + 8, at + length, chunk_at)
+            elif kind == b"stsz":
+                body = struct.pack(f">4xII{n}I", 0, n, *map(len, packets))
+            elif kind == b"stsc":
+                body = struct.pack(">4xIIII", 1, 1, n, 1)
+            elif kind == b"stco":
+                body = struct.pack(">4xII", 1, chunk_at)
+            elif kind == b"stss":
+                k = [i + 1 for i, key in enumerate(keys) if key]
+                body = struct.pack(f">4xI{len(k)}I", len(k), *k)
+            elif kind == b"stsd" and size is not None:  # the first entry's width, height
+                body = body[:40] + struct.pack(">HH", *size) + body[44:]
+            out += struct.pack(">I4s", 8 + len(body), kind) + body
+        return out
+
+    at, length = top[b"ftyp"]
+    head = template[at:at + length]
+    at, length = top[b"moov"]
+    moov = rebuild(template, at, at + length, 0)
+    chunk_at = len(head) + len(moov) + 8
+    moov = rebuild(template, at, at + length, chunk_at)
+    assert len(head) + len(moov) + 8 == chunk_at
+    mdat = struct.pack(">I4s", 8 + sum(map(len, packets)), b"mdat")
+    return head + moov + mdat + b"".join(packets)
+
+
+def _mp4_boxes(data: bytes, start: int, end: int):
+    pos = start
+    while pos + 8 <= end:
+        size, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        yield kind, pos, size
+        pos += size
+
+
+def make_vp9_highbd(out: str):
+    """Write the VP9 profile 2 and 3 fixtures (10 and 12 bits, each
+    sampling, odd and even sides, the coding tools and colour facts, every
+    container); yields their names."""
+    rng = np.random.default_rng(2032)
+
+    def scene(n, h, w):
+        step = (float(rng.uniform(-4, 4)), float(rng.uniform(-4, 4)))
+        return sliding(rng, n, h, w, step=step)
+
+    def clip(name, frames, bd, **kw):
+        h, w = frames[0].shape[:2]
+        path = os.path.join(out, name)
+        packets = vp9_encode(frames, bit_depth=bd, **kw)
+        if name.endswith(".ivf"):
+            ivf_file(path, packets, w, h)
+        elif name.endswith(".avi"):
+            with PacketAvi(path, w, h, b"VP90") as mux:
+                for p in packets:
+                    mux.write_packet(p, vp9_key(p))
+        elif name.endswith(".mp4"):
+            cv2_video(path, "VP90", frames[:len(packets)])
+            with open(path, "rb") as f:
+                template = f.read()
+            with open(path, "wb") as f:
+                f.write(mp4_with_packets(template, packets, [vp9_key(p) for p in packets]))
+        else:
+            with mkv.MkvMuxer(path, "V_VP9", w, h, 30,
+                              doc_type="webm" if name.endswith(".webm") else "matroska") as mux:
+                for p in packets:
+                    mux.write_frame(p, vp9_key(p))
+        return name
+
+    # each sampling at 10 and 12 bits, the four parities of the sides
+    for bd, cases in ((10, (("420", 48, 64), ("422", 37, 45), ("444", 31, 40), ("440", 38, 29))),
+                      (12, (("420", 37, 45), ("422", 31, 46), ("444", 18, 33), ("440", 40, 48)))):
+        for fmt, h, w in cases:
+            yield clip(f"vp9_hbd{bd}_{fmt}_{w}x{h}.webm", scene(6, h, w), bd, fmt=fmt,
+                       bitrate=150, frame_parallel=0)
+    yield clip("vp9_hbd10_lossless_33x17.webm", scene(4, 17, 33), 10, lossless=1)
+    yield clip("vp9_hbd12_lossless_444_23x19.webm", scene(3, 19, 23), 12, fmt="444", lossless=1)
+    yield clip("vp9_hbd10_altref_45x37.webm", scene(16, 37, 45), 10, two_pass=True, lag=8,
+               bitrate=120, frame_parallel=0)
+    yield clip("vp9_hbd12_errres_40x24.webm", scene(8, 24, 40), 12, bitrate=80,
+               error_resilient=True, kf_max_dist=4)
+    yield clip("vp9_hbd10_tilecols_520x40.webm", scene(3, 40, 520), 10, bitrate=400,
+               tile_columns=1, frame_parallel=0)
+    yield clip("vp9_hbd10_bt709_full_47x35.webm", scene(5, 35, 47), 10, color_space=2,
+               color_range=1)
+    yield clip("vp9_hbd12_bt2020_422_30x26.webm", scene(5, 26, 30), 12, fmt="422", color_space=5)
+    # the other containers: Matroska, MP4 (cv2's vpcC says 8 bits; cv2
+    # reads the stream's own header), AVI (VP90) and IVF
+    yield clip("vp9_hbd10_44x36.mkv", scene(6, 36, 44), 10, bitrate=100)
+    yield clip("vp9_hbd12_444_64x48.mp4", scene(6, 48, 64), 12, fmt="444", bitrate=150)
+    yield clip("vp9_hbd10_30x28.avi", scene(6, 28, 30), 10, bitrate=100)
+    yield clip("ivf_vp9_hbd12_440_36x44.ivf", scene(6, 44, 36), 12, fmt="440", bitrate=100)
+    # the smoke's clip at 10 bits: translation_video(5, 1080, 1920, step=2.0,
+    # seed=0)[:3] at full precision
+    smoke = translation_video(5, 1080, 1920, step=2.0, seed=0)[:3]
+    yield clip(SMOKE_VP9_10BIT, [np.ascontiguousarray(f[..., ::-1]) for f in smoke], 10,
+               bitrate=20000, cpu_used=8)
 
 
 # --- MPEG-1 / MPEG-2 and the other containers --------------------------------
@@ -1734,8 +1922,135 @@ def make_webp_gif(out: str):
     yield put("gif_clip_comment_third_32x24.gif", gif_file(32, 24, small, pal16))
 
 
+def make_lossless_video(out: str):
+    """Write the PNG and raw-frame AVI and MOV fixtures: cv2.VideoWriter's
+    (even sides; GREY at a width not a multiple of 4, whose rows FFmpeg reads
+    4-byte aligned) and forged ones at odd sides (PNG colour types and
+    depths, raw frames, a top-down RGBA AVI); yields their names."""
+    rng = np.random.default_rng(2033)
+
+    def cv2_file(name, fourcc, h, w, n=3):
+        cv2_video(os.path.join(out, name), fourcc, sliding(rng, n, h, w), fps=10)
+        return name
+
+    for name, fourcc, (h, w) in (("lossless_cv2_png_64x48.avi", "png ", (48, 64)),
+                                 ("lossless_cv2_mpng_46x36.avi", "MPNG", (36, 46)),
+                                 ("lossless_cv2_png_42x30.mov", "png ", (30, 42)),
+                                 ("lossless_cv2_rgba_46x36.avi", "RGBA", (36, 46)),
+                                 ("lossless_cv2_rgba_64x48.mov", "RGBA", (48, 64)),
+                                 ("lossless_cv2_grey_46x36.avi", "GREY", (36, 46)),
+                                 ("lossless_cv2_y800_64x48.avi", "Y800", (48, 64)),
+                                 ("lossless_cv2_y8_42x30.avi", "Y8  ", (30, 42)),
+                                 ("lossless_cv2_i420_46x36.avi", "I420", (36, 46)),
+                                 ("lossless_cv2_iyuv_64x48.avi", "IYUV", (48, 64)),
+                                 ("lossless_cv2_yv12_42x30.avi", "YV12", (30, 42))):
+        yield cv2_file(name, fourcc, h, w)
+
+    def png(a, mode=None):
+        buf = io.BytesIO()
+        Image.fromarray(a, mode).save(buf, "PNG")
+        return buf.getvalue()
+
+    def avi_file(name, fourcc, w, h, packets, bit_count=24, top_down=False):
+        with PacketAvi(os.path.join(out, name), w, h, fourcc, 10, bit_count, top_down) as mux:
+            for p in packets:
+                mux.write_packet(p, True)
+        return name
+
+    h, w = 37, 45
+    rgb = [f[..., ::-1] for f in sliding(rng, 2, h, w)]
+    yield avi_file("lossless_png_rgb_45x37.avi", b"png ", w, h, [png(f) for f in rgb])
+    yield avi_file("lossless_png_kinds_31x17.avi", b"MPNG", 31, 17, [
+        png(rng.integers(0, 256, (17, 31), np.uint8)),
+        png(rng.integers(0, 256, (17, 31, 4), np.uint8), "RGBA"),
+        png(rng.integers(0, 65536, (17, 31)).astype(np.uint16)),
+        _png_rgb16(rng.integers(0, 65536, (17, 31, 3)))])
+    pal = Image.fromarray(rgb[0]).quantize(16)
+    buf = io.BytesIO()
+    pal.save(buf, "PNG")
+    yuv = [np.concatenate([p.reshape(-1) for p in _yuv420(f)]) for f in sliding(rng, 2, h, w)]
+    yield avi_file("lossless_i420_45x37.avi", b"I420", w, h, [y.tobytes() for y in yuv], 12)
+    yield avi_file("lossless_grey_45x37.avi", b"GREY", w, h, [y.tobytes() for y in yuv], 12)
+    yield avi_file("lossless_rgba_topdown_45x37.avi", b"RGBA", w, h, [
+        np.concatenate([f, np.full((h, w, 1), 255, np.uint8)], -1).tobytes() for f in rgb], 32,
+        top_down=True)
+    # a MOV of PNG frames at an odd size (FFmpeg reads the size from each
+    # IHDR) and one of raw RGBA frames whose sample entry says 45x37
+    template = os.path.join(out, "lossless_png_pal_45x37.mov")
+    cv2_video(template, "png ", sliding(rng, 2, 36, 44), fps=10)
+    with open(template, "rb") as f:
+        data = f.read()
+    with open(template, "wb") as f:
+        f.write(mp4_with_packets(data, [buf.getvalue(), png(rgb[1])], [True, True]))
+    yield "lossless_png_pal_45x37.mov"
+    template = os.path.join(out, "lossless_rgba_45x37.mov")
+    cv2_video(template, "RGBA", sliding(rng, 2, 36, 44), fps=10)
+    with open(template, "rb") as f:
+        data = f.read()
+    frames = [np.concatenate([f, np.full((h, w, 1), 255, np.uint8)], -1).tobytes() for f in rgb]
+    with open(template, "wb") as f:
+        f.write(mp4_with_packets(data, frames, [True, True], size=(w, h)))
+    yield "lossless_rgba_45x37.mov"
+
+
+# corrupted copies of two WebP fixtures that libwebp (cv2.imread) reads
+# otherwise than FFmpeg's range decoder would: bytes duplicated inside the
+# lossy file's VP8 chunk (its last partition runs on past the chunk into
+# the file's tail, as cv2 hands libwebp the whole file), and bits flipped in
+# the animation (its canvas grows past cv2's image size limit: no image)
+WEBP_CORRUPT = (("corrupt_webp_dup140_53x37.webp", "webp_lossy_53x37.webp", (140, 154), ()),
+                ("corrupt_webp_dup372_53x37.webp", "webp_lossy_53x37.webp", (372, 78), ()),
+                ("corrupt_webp_dup407_53x37.webp", "webp_lossy_53x37.webp", (407, 47), ()),
+                ("corrupt_webp_dup244_53x37.webp", "webp_lossy_53x37.webp", (244, 147), ()),
+                ("corrupt_webp_canvas_53x37.webp", "webp_anim_lossy_53x37.webp", None,
+                 ((26, 128), (115, 32), (606, 128), (910, 8), (1094, 32), (1525, 16),
+                  (1560, 8), (1682, 16))))
+# what cv2.imread reads of none of them (pinned as ValueError, not pixels)
+WEBP_NO_IMAGE = ("corrupt_webp_canvas_53x37.webp",)
+
+
+def make_webp_corrupt(out: str):
+    """Write WEBP_CORRUPT from their sources in `out`; yields the names
+    cv2.imread reads an image of."""
+    for name, source, dup, flips in WEBP_CORRUPT:
+        with open(os.path.join(out, source), "rb") as f:
+            data = bytearray(f.read())
+        if dup:
+            at, n = dup
+            data[at:at] = data[at:at + n]
+        for at, mask in flips:
+            data[at] ^= mask
+        with open(os.path.join(out, name), "wb") as f:
+            f.write(bytes(data))
+        if name not in WEBP_NO_IMAGE:
+            yield name
+
+
+def _png_rgb16(samples: np.ndarray) -> bytes:
+    """A 16-bit RGB PNG (filter 0) of (h, w, 3) samples."""
+    h, w = samples.shape[:2]
+    rows = samples.astype(">u2").reshape(h, w * 6 // 2).view(np.uint8).reshape(h, w * 6)
+    raw = b"".join(b"\0" + r.tobytes() for r in rows)
+    return (b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16, 2, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(raw)) + _chunk(b"IEND", b""))
+
+
+def _yuv420(bgr: np.ndarray):
+    """cv2's I420 planes of a BGR frame at any size (odd sides through the
+    edge-repeated even frame, cropped): Y (h, w), U and V ((h+1)/2, (w+1)/2)."""
+    h, w = bgr.shape[:2]
+    big = cv2.copyMakeBorder(bgr, 0, h & 1, 0, w & 1, cv2.BORDER_REPLICATE)
+    hh, ww = big.shape[:2]
+    yuv = cv2.cvtColor(big, cv2.COLOR_BGR2YUV_I420).reshape(-1)
+    q = (hh // 2) * (ww // 2)
+    return (yuv[:hh * ww].reshape(hh, ww)[:h, :w],
+            yuv[hh * ww:hh * ww + q].reshape(hh // 2, ww // 2),
+            yuv[hh * ww + q:].reshape(hh // 2, ww // 2))
+
+
 GROUPS = dict(mpeg12=make_mpeg12, containers=make_containers, stills=make_stills,
-              webp_gif=make_webp_gif)
+              webp_gif=make_webp_gif, vp9_highbd=make_vp9_highbd,
+              lossless_video=make_lossless_video, webp_corrupt=make_webp_corrupt)
 
 
 def main() -> int:

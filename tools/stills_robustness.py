@@ -11,8 +11,9 @@ Builds bmp.cpp, tiff.cpp, jpeg.cpp, webp.cpp, gif.cpp and vp8.cpp with
 build/fmvfi_tpu_torch/sanitize/, then runs itself again with the
 sanitizer's runtime preloaded and the port's native library replaced by
 that build, and reads through utils/imageio.py:
-- every BMP, PNM, TIFF, WebP and GIF fixture of tests/data/inputs/, held
-  to chip_smoke.INPUT_PINS;
+- every BMP, PNM, TIFF, WebP and GIF fixture of tests/data/inputs/ (the
+  corrupted lossy WebPs that libwebp reads past their chunk too), held to
+  chip_smoke.INPUT_PINS;
 - `--streams` seeded run-length BMPs (RLE8 and RLE4, sizes 1-39 x 1-19,
   random runs, absolute runs, deltas, ends of line and of bitmap, a
   quarter with a bit flipped) and TIFF strips LZW-coded by the port's
@@ -28,6 +29,7 @@ that build, and reads through utils/imageio.py:
   the PNM fixtures and the WebP and GIF fixtures (corrupt JPEG data is
   ROADMAP item 18.10's) with bits flipped, bytes zeroed or duplicated, or
   the file cut short.
+`--keep DIR` copies each file of another outcome into DIR.
 Every file must end in ValueError, in NotImplementedError (a flipped field
 that names a format the port does not read) or in cv2's pixels (a
 sanitizer report ends the run); a WebP or GIF read as video is held to
@@ -42,6 +44,7 @@ import hashlib
 import importlib.util
 import io
 import os
+import shutil
 import struct
 import subprocess
 import sys
@@ -108,7 +111,7 @@ def _random_rle(rng, w: int, h: int, bits: int) -> bytes:
     return bytes(out)
 
 
-def worker(lib_path: str, streams: int, corrupt: int, seed: int) -> int:
+def worker(lib_path: str, streams: int, corrupt: int, seed: int, keep=None) -> int:
     import ctypes
 
     import cv2
@@ -133,9 +136,9 @@ def worker(lib_path: str, streams: int, corrupt: int, seed: int) -> int:
     native._lib = lib  # the port's still codecs now call the sanitized build
     tool = _tool()
     inputs = os.path.join(ROOT, chip_smoke.INPUTS_DIR)
-    names = sorted(n for n in chip_smoke.INPUTS_STILL_PINS if n.startswith(("bmp_", "pnm_",
-                                                                            "tiff_", "webp_",
-                                                                            "gif_")))
+    names = sorted(n for n in chip_smoke.INPUT_PINS if n.startswith(("bmp_", "pnm_", "tiff_",
+                                                                     "webp_", "gif_",
+                                                                     "corrupt_webp_")))
 
     def read(name):
         path = os.path.join(inputs, name)
@@ -169,7 +172,12 @@ def worker(lib_path: str, streams: int, corrupt: int, seed: int) -> int:
             other.append(f"{what}: {type(e).__name__}: {e}")
             return
         if ref is None or not np.array_equal(ours, ref[..., ::-1]):
-            other.append(f"{what}: decoded, but {'cv2 reads no image' if ref is None else 'unequal to cv2'}")
+            other.append(f"{what}: decoded, but "
+                         f"{'cv2 reads no image' if ref is None else 'unequal to cv2'}")
+            if keep:
+                os.makedirs(keep, exist_ok=True)
+                shutil.copy(path, os.path.join(keep, f"other_{len(other)}"
+                                                     f"{os.path.splitext(path)[1]}"))
         else:
             outcomes["equal"] += 1
 
@@ -321,10 +329,11 @@ def main() -> int:
     p.add_argument("--streams", type=int, default=300)
     p.add_argument("--corrupt", type=int, default=600)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--keep", help="a directory to copy each file with another outcome into")
     p.add_argument("--worker", help=argparse.SUPPRESS)
     args = p.parse_args()
     if args.worker:
-        return worker(args.worker, args.streams, args.corrupt, args.seed)
+        return worker(args.worker, args.streams, args.corrupt, args.seed, args.keep)
     lib = build()
     # the sanitizer's runtime, and libstdc++ beside it so that its exception
     # interceptors find __cxa_throw
@@ -336,7 +345,8 @@ def main() -> int:
                UBSAN_OPTIONS="print_stacktrace=1:halt_on_error=1")
     return subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", lib,
                            "--streams", str(args.streams), "--corrupt", str(args.corrupt),
-                           "--seed", str(args.seed)], env=env).returncode
+                           "--seed", str(args.seed)] + (["--keep", args.keep] if args.keep else []),
+                          env=env).returncode
 
 
 if __name__ == "__main__":
