@@ -151,8 +151,9 @@ Phases, each printing one JSON line with its seconds:
               128 --max_num 1 --methods adacof` (JAX's 9 set keys, K1 once
               a set); where ffmpeg and ffprobe are on PATH (nothing is
               installed);
-  inputs    - (after photo; lines inputs_pins, inputs_video, inputs_mp4v, inputs_mkv,
-              inputs_vp9, inputs_mpeg, inputs_frames)
+  inputs    - (after photo; lines inputs_pins, inputs_webp_gif,
+              inputs_vp9_highbd_lossless, inputs_h263, inputs_video,
+              inputs_mp4v, inputs_mkv, inputs_vp9, inputs_mpeg, inputs_frames)
               the inputs JAX reads through cv2, read here without it: the
               fixtures of tests/data/inputs/ (tools/make_input_fixtures.py:
               Adam7 PNGs, progressive JPEGs, one cut after its second scan
@@ -189,6 +190,16 @@ Phases, each printing one JSON line with its seconds:
               corrupted WebPs libwebp reads on past their chunk, all
               equal, and the committed 1080p 10-bit VP9 WebM's key and
               inter frames decoded (median of 5, on the calling thread);
+              (line inputs_h263) the pins of the H.263 family (H.263 in
+              AVI, 3GP and MOV with OBMC, 4MV, GOB headers, DQUANT, Annex D
+              and PEI; Sorenson in FLV and AVI, formats 0 and 1, disposable
+              pictures; MS-MPEG4 v2 and v3 with slices, flipflop rounding,
+              DC escapes and x86's inexact unrounded averages; mp4v with
+              short-header pictures), all equal, and the committed 1080p
+              MS-MPEG4 v3 AVI's and Sorenson FLV's key and inter pictures and
+              the 352x288 H.263 AVI's I and P pictures decoded (medians of
+              5, on the calling thread) beside the card's name and power
+              limit;
               the video phase's first 3 frames written as a 1080x1920 MJPG
               AVI with MjpgWriter and `cli video --input clip.avi --method
               fusion` on it: 5 PNGs, the originals those read_video_frames
@@ -284,7 +295,13 @@ Phases, each printing one JSON line with its seconds:
               VP9 WebM with --method fusion (line cli_video_vp9_10bit:
               tests/data/inputs/vp9_hbd10_1080x1920.webm, the clip's 3
               frames at full precision in profile 2, the same checks, K1
-              3 a pair) and --batch 2 (9
+              3 a pair), on the committed 1080p MS-MPEG4 v3 AVI with
+              --method fusion (line cli_video_msmpeg4: tests/data/inputs/
+              msmpeg4_cv2_mp43_1080x1920.avi, cv2's MP43 writer on the
+              clip's 3 frames; the frames equal to their pin, the originals
+              exact, the interpolated frames against double_frame_rate per
+              pair in this process (identical, and >= 60 dB), ms a pair, K1
+              6) and --batch 2 (9
               PNGs, the originals exact at the even positions, K1 [2, 4, 2]
               per pair and [4, 8, 4] per dispatch, batch 2 within 1 LSB of
               per pair), `evaluate` on a 2-scene middlebury layout of
@@ -1057,6 +1074,111 @@ INPUT_PINS = {
         ("imread", "ba9b3272cc679c95b1163a3a78aca351c8d1a60a62ff6eb76efeb144c8ce441e"),
     "corrupt_webp_dup407_53x37.webp":
         ("imread", "99e62e5791196f83c8313f14fedd5d2e67d2b9e8544f5688129392d265e50254"),
+    "div3_cv2_80x64.avi":
+        ("video", "cb298eb14f764915ad462ca37f9c25c920660111c8c6fe8febe518e4f7911f6f"),
+    "flv1_45x37.flv": ("video", "2be4a86deb16bb9f2fb6f0ad09c37b0f663d56904ed00fe27842713fcee8f950"),
+    "flv1_cv2_160x120.flv":
+        ("video", "2f1ec22c2bf12e5efee4edae4b9050c600e8ee3619c5d805d55ccab29b967298"),
+    "flv1_cv2_44x36.flv":
+        ("video", "675e587f03cf4d5a5c048855e4455583c9c3fa6c620eb7b15b8b8f28cb1b8cf0"),
+    "flv1_cv2_64x48.avi":
+        ("video", "19f7b8ab6af6475c9c85650c8506771a485fb1759fdf17e017cbac62d3f21367"),
+    "flv1_cv2_64x48.flv":
+        ("video", "479099651f0eefb8112da738fab38f20be27df96a82197edc75c5d13e91f57cb"),
+    "flv1_cv2_smooth_1080x1920.flv":
+        ("video", "bd3b3d41adc210670bc5e24d1837c8c707363eab20ef8472b6a55c3249e4164a"),
+    "flv1_cv2_still_64x48.flv":
+        ("video", "6792f76ccdb8b6b427d25ddf2d13b4a6aa77598a05fd7da916b50e5cd4aa2ebf"),
+    "flv1_disposable_64x48.flv":
+        ("video", "50d97a9b4a248239edd8ccd7ea741a8317ebdd0792d1285a23cdcc83fdb4a8c8"),
+    "flv1_format0_176x144.flv":
+        ("video", "65f6b1a1741f7e83a723906c7eb144b266bc26063675763efd6e942322df1470"),
+    "flv1_q1_64x48.flv":
+        ("video", "22289958061d1462afb8d3775044190d958382a734173103c3f55a017121bc85"),
+    "flv1_q31_64x48.flv":
+        ("video", "a32c799513ec042e82e8dbf0f08b3f9150fed49bb8d5dca75dfd8baf6e602a4a"),
+    "h263_annexd_176x144.avi":
+        ("video", "e62a78f0078ef9e977f1bac71f0f0bf08318c624895dd73b03472ab44de53fc2"),
+    "h263_cv2_128x96.3gp":
+        ("video", "a8794691a1b3a791bfd77ed701122fd170d60336a7becf0d7f7755d52dac129d"),
+    "h263_cv2_176x144.avi":
+        ("video", "9ad3002e1aa18d2a8b1515d006ba187f76591d428423c02bf1c60033e9e4f6a2"),
+    "h263_cv2_176x144.mov":
+        ("video", "998a006c89e0630729ef0316fde219cf8855fd17dcabe3ad90dfae5f3dda8e50"),
+    "h263_cv2_352x288.avi":
+        ("video", "3b14ad2d3711e1b8209b77d090aebfa614212f35fb65b84fb4a63050ddfecce3"),
+    "h263_cv2_still_176x144.avi":
+        ("video", "6823f4a0839f0fe5ed292021a252c3f573d360d84d80831cdf8a387071a00236"),
+    "h263_cv2_u263_128x96.avi":
+        ("video", "4577d72e74b687f58ff05f4c4235288d9b963db6ab6b5e4a6c92ceff195f9ce6"),
+    "h263_dquant_176x144.avi":
+        ("video", "226673ce6d7d368ba6f13ad275c7e1de59028eb6c93edc7bb3624fc8f6f97c7d"),
+    "h263_gob_q1_176x144.avi":
+        ("video", "5990d160e29cdfe13ec8f687649ecf74dc803ac8409790c77f805679440e43ef"),
+    "h263_mv4_176x144.avi":
+        ("video", "450bd790126e286981b5f4e086569e7d8c946e61b14557d0e7bfb5caefa47efe"),
+    "h263_noise_q1_176x144.avi":
+        ("video", "b233fdd7ce9f8c63578a29c875a717f00d45197d54212f5bb9e3212113239238"),
+    "h263_obmc_176x144.3gp":
+        ("video", "8a69c99fa5cf58ff989b0f5de0276cefc22ed86aff885ccd9a795425541ae6d3"),
+    "h263_obmc_176x144.avi":
+        ("video", "47bbbb530c41f45df425befb33bfed85e9147936dfee40e3cef78c30636666f3"),
+    "h263_obmc_gob_352x288.avi":
+        ("video", "7708eadf806c025dbfeb56041f786e456c0a9bd28484e14b8ab3b81d44c78f8a"),
+    "h263_obmc_mv4_q4_176x144.avi":
+        ("video", "5b8f520590f19afed8c3aa8c022aa7319b7a03e512a7458c1a878466bd6b3c45"),
+    "h263_pei_176x144.avi":
+        ("video", "6abf85a1042837e1aa39ff07a3e8e77cdbe2e74a204ae346207042f5e29ab410"),
+    "h263_q31_176x144.avi":
+        ("video", "826adb2eeef61fb84b6e74e26cba9a085f00eb189cc70c00c0091cccd2a7ed51"),
+    "mp42_cv2_44x36.avi":
+        ("video", "4bd99823968d411d60862ad45fa01700a36c438e9cda505ad3e0ed88b8bbcf9d"),
+    "mp42_cv2_64x48.avi":
+        ("video", "4c0529aebfa58aacf4baccf0d6138cd6f7a4d4e3cfa32cac8a19b2bb4a40561d"),
+    "mp42_cv2_still_64x48.avi":
+        ("video", "15f4926070fbdb4f3b228283dfd6e9f581ee0535175ca625d28c2d4210f588cd"),
+    "mp43_cv2_44x36.avi":
+        ("video", "d4e5bf679c0fbbfe5a2784d9d8bc0a819c95de8eb1b1c5816ad47ecdb4fc67dd"),
+    "mp43_cv2_64x48.avi":
+        ("video", "54cf7547932c154c66a9831b08dc6711289a5e0afa09b7db24e6fe2c1cb1bed2"),
+    "mp43_cv2_still_64x48.avi":
+        ("video", "1f5a0c8811f46f17a53d522f184f0a1b2c190a9a3619b9bf59fec3ecfaef60d5"),
+    "mp4v_shortheader_176x144.avi":
+        ("video", "eb031b5e89013d696feb7f7d17aeda2fa659054becee07f4b25fcd68df821c82"),
+    "msmpeg4_cv2_mp43_1080x1920.avi":
+        ("video", "fc220081a5c45b969dd519411c1dbb91460c0193fc4a0b48aae08c406ba12836"),
+    "msmpeg4v2_blocks_q2_64x48.avi":
+        ("video", "39bc8bdfbdc5affcf92cd338d7f18e073665b00a2fadc5c6a1e990f16056a668"),
+    "msmpeg4v2_q1_64x48.avi":
+        ("video", "30af74790f5a378114cd11ab0069fcf1d685aadb158b68430c8831bba98f9c69"),
+    "msmpeg4v2_q31_64x48.avi":
+        ("video", "02535cfdeb9802d0de0fcdcc9223d32bf2bec83b56ff2baced86a7f53d6aa721"),
+    "msmpeg4v2_q8_64x48.avi":
+        ("video", "a3a78194f79039d64be5fbd833f5b9908262a3753944ea8a2d04cff3184b4933"),
+    "msmpeg4v2_slices_64x48.avi":
+        ("video", "e879a95803c1b6430d40dc8ea9562315b20339e95c38c114fad8c7f01273ca05"),
+    "msmpeg4v3_45x37.avi":
+        ("video", "6619782025648e4c33b5437d3dfef454f8ed305382f79dd464537f49d08ae10f"),
+    "msmpeg4v3_blocks_q2_64x48.avi":
+        ("video", "82160c152c10a7252d8d6bd559342c3e9e668c1f93a7b49a683a7198d42e5a47"),
+    "msmpeg4v3_moving_blocks_64x48.avi":
+        ("video", "c2d828f68982f2efc57e47cabf06e723e0d7890b9d063e566a15687365d65dbe"),
+    "msmpeg4v3_noflipflop_64x48.avi":
+        ("video", "e25ddbdb1109f7cd8c777ed2138de27de46a1bee9e3eb9ae2555894b1998e883"),
+    "msmpeg4v3_q1_64x48.avi":
+        ("video", "dfbb979ef6bcab17cb5e9331492d500fbe095a0887a583b18bf9f243ca2e11a0"),
+    "msmpeg4v3_q31_64x48.avi":
+        ("video", "b6c8bc0cc939b51ac991d8d53cb0b4ab83eac458ae06a6829503ad34f1bcf142"),
+    "msmpeg4v3_q8_64x48.avi":
+        ("video", "4c5e807f8052e1d1a4690ac469e5226e13fe2ae058bbbcf5f873185e8630e511"),
+    "msmpeg4v3_slices_64x48.avi":
+        ("video", "415b777d4c2db586db28fc7da07bc40b5ac25e294fe3803d02459acbee908b1f"),
+    "corrupt_vp9_hbd12_lossless_444_23x19.webm":
+        ("video", "419674a0a166b843ed4ab033224219ab8c835db2d4bc6d4d33b93fc9e4866def"),
+    "flv1_45x37.flv":
+        ("video", "2be4a86deb16bb9f2fb6f0ad09c37b0f663d56904ed00fe27842713fcee8f950"),
+    "msmpeg4v3_tables0_acpred_64x48.avi":
+        ("video", "4177927ecfc31f7e142289ebc390ad79b2dcaddab9d692bc7fb6466f8251cd85"),
 }
 INPUTS_FRAME_DIRS = ("adam7_frames", "progressive_frames")
 INPUTS_CLIP_FRAMES = 3  # of the video phase's clip, written as a 1080p MJPG AVI
@@ -1090,7 +1212,14 @@ INPUTS_WEBP_REPS = 5  # timed decodes of the 1080p WebP and GIF, one host thread
 # the clip's 3 frames at full precision as a 10-bit VP9 (profile 2) WebM, coded by libvpx
 INPUTS_VP9_10BIT = "vp9_hbd10_1080x1920.webm"
 # the pins of line inputs_vp9_highbd_lossless
-INPUTS_HIGHBD_LOSSLESS = ("vp9_hbd", "ivf_vp9_hbd", "lossless_", "corrupt_webp_")
+INPUTS_HIGHBD_LOSSLESS = ("vp9_hbd", "ivf_vp9_hbd", "lossless_", "corrupt_webp_", "corrupt_vp9_")
+# the H.263 family's timed files (line inputs_h263): the clip's 3 frames as cv2's MP43
+# (MS-MPEG4 v3) AVI, 3 frames of the GIF's smooth scene as cv2's FLV1 (Sorenson) FLV, and a
+# 352x288 H.263 AVI of cv2's H263 writer; and the family's pins
+INPUTS_MSMPEG4 = "msmpeg4_cv2_mp43_1080x1920.avi"
+INPUTS_FLV = "flv1_cv2_smooth_1080x1920.flv"
+INPUTS_H263 = "h263_cv2_352x288.avi"
+INPUTS_H263_PINS = ("h263_", "flv1_", "mp42_", "mp43_", "div3_", "msmpeg4", "mp4v_short")
 
 
 def _line(**kw):
@@ -1670,6 +1799,55 @@ def _inputs(dev, repo, models, ada_path, fusion_path, clip, smi, work):
             n.startswith(INPUTS_HIGHBD_LOSSLESS) for n in INPUT_PINS) or not all(
                 hbd["pins"].values()):
         raise AssertionError(f"inputs: VP9 profiles 2-3 and the lossless frames: {hbd}")
+
+    # (a4) the H.263 family: its pins (read in (a)), and the committed 1080p
+    # MS-MPEG4 v3 AVI's and Sorenson FLV's key and inter pictures and the
+    # 352x288 H.263 AVI's I and P pictures decoded on the card's host, each
+    # decode with its swscale conversion, medians of INPUTS_DECODE_REPS
+    from fmvfi_tpu_torch.utils import flv
+    t0 = time.perf_counter()
+
+    def timed_pictures(make, data):
+        ms = dict(I=[], P=[])
+        for _ in range(INPUTS_DECODE_REPS):
+            decoder = make()
+            for sample in data:
+                t = time.perf_counter()
+                frame = decoder.decode(sample)
+                ms[decoder.picture_type].append(1e3 * (time.perf_counter() - t))
+            decoder.close()
+        return frame, ms
+
+    ms_stream = avi.open_video(os.path.join(repo, INPUTS_DIR, INPUTS_MSMPEG4))
+    ms_size = (ms_stream.strf["width"], ms_stream.strf["height"])
+    ms_packets = list(avi.iter_frames(ms_stream))
+    ms_frame, ms_ms = timed_pictures(lambda: native.Msmpeg4Decoder(3, ms_size), ms_packets)
+    flv_packets = list(flv.iter_frames(flv.open_video(os.path.join(repo, INPUTS_DIR, INPUTS_FLV))))
+    flv_frame, flv_ms = timed_pictures(lambda: native.H263Decoder("flv1"), flv_packets)
+    h263_packets = list(avi.iter_frames(avi.open_video(os.path.join(repo, INPUTS_DIR,
+                                                                     INPUTS_H263))))
+    h263_frame, h263_ms = timed_pictures(lambda: native.H263Decoder("h263"), h263_packets)
+    family = dict(seconds=time.perf_counter() - t0, card=smi,
+                  msmpeg4_avi=INPUTS_MSMPEG4, msmpeg4_bytes=[len(p) for p in ms_packets],
+                  msmpeg4_size=list(ms_frame.shape[:2]),
+                  msmpeg4_decode_1080p_key_ms=float(np.median(ms_ms["I"])),
+                  msmpeg4_decode_1080p_inter_ms=float(np.median(ms_ms["P"])),
+                  flv=INPUTS_FLV, flv_bytes=[len(p) for p in flv_packets],
+                  flv_size=list(flv_frame.shape[:2]),
+                  sorenson_decode_1080p_key_ms=float(np.median(flv_ms["I"])),
+                  sorenson_decode_1080p_inter_ms=float(np.median(flv_ms["P"])),
+                  h263_avi=INPUTS_H263, h263_size=list(h263_frame.shape[:2]),
+                  h263_decode_352x288_i_ms=float(np.median(h263_ms["I"])),
+                  h263_decode_352x288_p_ms=float(np.median(h263_ms["P"])),
+                  decode_ms=dict(msmpeg4=ms_ms, sorenson=flv_ms, h263=h263_ms),
+                  pins={k: v["equal"] for k, v in pins.items() if k.startswith(INPUTS_H263_PINS)})
+    _line(phase="inputs_h263", **family)
+    if (family["msmpeg4_size"] != [1080, 1920] or family["flv_size"] != [1080, 1920]
+            or family["h263_size"] != [288, 352] or not all(
+                len(v[k]) for v in (ms_ms, flv_ms, h263_ms) for k in "IP")
+            or len(family["pins"]) != sum(n.startswith(INPUTS_H263_PINS) for n in INPUT_PINS)
+            or not all(family["pins"].values())):
+        raise AssertionError(f"inputs: the H.263 family: {family}")
 
     # (b) the full-width path: a 1080p MJPG AVI through `cli video`, K1
     # counted around the command (the models it builds take the recording warp)
@@ -2671,6 +2849,48 @@ def _cli(dev, repo, ada_path, fusion_path, pair, clip, smi, work):
     if (n_hbd != 3 or not r["decoded_equal_to_pin"] or not r["originals_exact"]
             or not min(r["interpolated_vs_per_pair_db"]) >= PLAIN_AGREEMENT_DB):
         raise AssertionError(f"cli video on the 10-bit VP9 WebM: {r}")
+    # the committed 1080p MS-MPEG4 v3 AVI (cv2's MP43 writer: the clip's 3
+    # frames) through `cli video --method fusion`: per pair, K1 3 a pair, the
+    # originals exact, the interpolated frames against double_frame_rate here
+    ms_path = os.path.join(repo, INPUTS_DIR, INPUTS_MSMPEG4)
+    t = time.perf_counter()
+    ms_frames = read_video_frames(ms_path)
+    ms_read_s = time.perf_counter() - t
+    ms_digest = hashlib.sha256(np.ascontiguousarray(quantize(ms_frames)).tobytes()).hexdigest()
+    r = run("video_msmpeg4", ["video", "--input", ms_path, "--output_dir",
+                              os.path.join(work, "video_msmpeg4"), "--method", "fusion",
+                              "--phase_checkpoint", phase_pt],
+            [2, 4, 2] * (len(ms_frames) - 1))
+    ms_names = sorted(os.listdir(os.path.join(work, "video_msmpeg4")))
+    ms_outs = [imageio.imread(os.path.join(work, "video_msmpeg4", n)) for n in ms_names]
+    ada = AdaCoFNet().to(dev).eval()
+    ada.load_state_dict(load_adacof_weights(ada_path))
+    fusion = FusionNet(variant=infer_variant(fusion_sd)).to(dev).eval()
+    fusion.load_state_dict(fusion_sd)
+    phase = PhaseNetCore().to(dev).eval()
+    phase.load_state_dict(phase_net_from_torch(phase_pt))
+    ms_per_pair = [quantize(f) for f in double_frame_rate(
+        ms_frames, FusionModels(phase, ada, fusion), device=dev)]
+    del ada, fusion, phase
+    n_ms = len(ms_frames)
+    r.update(frames=n_ms, size=list(ms_frames.shape[1:3]), read_seconds=ms_read_s,
+             avi_bytes=os.path.getsize(ms_path), pngs_written=len(ms_names),
+             decoded_equal_to_pin=ms_digest == INPUT_PINS[INPUTS_MSMPEG4][1],
+             originals_exact=len(ms_outs) == 2 * n_ms - 1 and all(
+                 np.array_equal(ms_outs[2 * i], quantize(ms_frames[i])) for i in range(n_ms)),
+             interpolated_identical_to_per_pair=len(ms_outs) == 2 * n_ms - 1 and all(
+                 np.array_equal(ms_outs[2 * i + 1], ms_per_pair[2 * i + 1])
+                 for i in range(n_ms - 1)),
+             interpolated_vs_per_pair_db=[
+                 _psnr(ms_outs[2 * i + 1].astype(np.float64) / 255,
+                       ms_per_pair[2 * i + 1].astype(np.float64) / 255)
+                 for i in range(n_ms - 1)],
+             ms_per_pair=r["ms"] / max(n_ms - 1, 1), card=smi)
+    _line(phase="cli_video_msmpeg4", input=INPUTS_MSMPEG4, **r)
+    if (n_ms != 3 or r["k1_launches"] != 6 or not r["decoded_equal_to_pin"]
+            or not r["originals_exact"] or not r["interpolated_identical_to_per_pair"]
+            or not min(r["interpolated_vs_per_pair_db"]) >= PLAIN_AGREEMENT_DB):
+        raise AssertionError(f"cli video on the 1080p MS-MPEG4 v3 AVI: {r}")
     batch_lsb = max(int(np.abs(
         imageio.imread(os.path.join(work, "video_per_pair", n)).astype(np.int16)
         - imageio.imread(os.path.join(work, "video_batch2", n)).astype(np.int16)).max())

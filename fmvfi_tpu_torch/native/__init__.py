@@ -9,7 +9,10 @@ jpeg_common.h, and the MPEG-4 Part 2 decoder of mpeg4.cpp and encoder of
 mpeg4_enc.cpp (for utils/mp4.py and utils/avi.py), which share FFmpeg's
 IDCT and swscale's conversion with mjpeg.cpp through ffmpeg_common.h, and
 the VP8 decoder of vp8.cpp (for utils/mkv.py) and the VP9 decoder of vp9.cpp
-(for utils/mkv.py, mp4.py and avi.py), on the same conversion; and the
+(for utils/mkv.py, mp4.py and avi.py), on the same conversion, the H.263
+and Sorenson decoder of h263.cpp (for utils/avi.py, mp4.py and flv.py) and
+the MS-MPEG4 decoder of msmpeg4.cpp (for utils/avi.py), which share
+mpeg4.cpp's mpegvideo core through h263_common.h; and the
 still-image codecs behind utils/bmp.py (run-length BMP data, bmp.cpp) and
 utils/tiff.py (LZW and PackBits strips, tiff.cpp).
 
@@ -52,11 +55,13 @@ MPEG4_SOURCES = tuple(Path(__file__).resolve().parent / f for f in ("mpeg4.cpp",
 VP8_SOURCE = Path(__file__).resolve().parent / "vp8.cpp"
 VP9_SOURCE = Path(__file__).resolve().parent / "vp9.cpp"
 MPEG12_SOURCE = Path(__file__).resolve().parent / "mpeg12.cpp"
+H263_SOURCES = tuple(Path(__file__).resolve().parent / f for f in ("h263.cpp", "msmpeg4.cpp"))
 RAW_SOURCE = Path(__file__).resolve().parent / "rawvideo.cpp"
 STILL_SOURCES = tuple(Path(__file__).resolve().parent / f
                       for f in ("bmp.cpp", "tiff.cpp", "webp.cpp", "gif.cpp"))
 HEADERS = tuple(Path(__file__).resolve().parent / h
-                for h in ("jpeg_common.h", "ffmpeg_common.h", "mpeg4.h", "vpx_rac.h"))
+                for h in ("jpeg_common.h", "ffmpeg_common.h", "h263_common.h", "mpeg4.h",
+                          "vpx_rac.h"))
 FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-pthread")
 
 _lock = threading.Lock()
@@ -72,7 +77,7 @@ _I64 = ctypes.c_int64
 
 def _sources() -> Tuple[Path, ...]:
     return (SOURCE, PNG_SOURCE, JPEG_SOURCE, JPEG_ENC_SOURCE, MJPEG_SOURCE) + MPEG4_SOURCES + (
-        VP8_SOURCE, VP9_SOURCE, MPEG12_SOURCE, RAW_SOURCE) + STILL_SOURCES
+        VP8_SOURCE, VP9_SOURCE, MPEG12_SOURCE, RAW_SOURCE) + H263_SOURCES + STILL_SOURCES
 
 
 def library_path() -> Path:
@@ -161,6 +166,7 @@ def library() -> ctypes.CDLL:
                 _bind_vp8(lib)
                 _bind_vp9(lib)
                 _bind_mpeg12(lib)
+                _bind_h263(lib)
                 _bind_stills(lib)
                 _lib = lib
                 return _lib
@@ -276,7 +282,8 @@ def yuv16_swscale(y: np.ndarray, u: np.ndarray, v: np.ndarray, depth: int,
                   full_range: bool = False) -> np.ndarray:
     """Planes of `depth` bits in uint16 (Y (h, w), U and V at their
     subsampling, told by their shapes) as swscale converts them to BGR24
-    for cv2 (BT.601; rawvideo.cpp): (h, w, 3) uint8 RGB."""
+    for cv2 (BT.601; rawvideo.cpp): (h, w, 3) uint8 RGB.  Depth 8 takes the
+    8-bit formats' routes (yuv420p, yuv440p, ...)."""
     lib = library()
     h, w = y.shape
     planes = [np.ascontiguousarray(p, dtype=np.uint16) for p in (y, u, v)]
@@ -289,7 +296,12 @@ def yuv16_swscale(y: np.ndarray, u: np.ndarray, v: np.ndarray, depth: int,
     return out
 
 
-_JPEG_ERRORS = {1: NotImplementedError, 2: ValueError}
+class EndOfStream(Exception):
+    """A packet on which FFmpeg's decoder fails, so that cv2.VideoCapture
+    stops reading the file there (Mpeg4Decoder: a packet without a VOP)."""
+
+
+_JPEG_ERRORS = {1: NotImplementedError, 2: ValueError, 3: EndOfStream}
 MAX_JPEG_PIXELS = 1 << 30  # cv2's limit (CV_IO_MAX_IMAGE_PIXELS)
 
 
@@ -598,6 +610,22 @@ def _bind_mpeg12(lib: ctypes.CDLL) -> None:
     lib.fmvfi_mpeg12_close.argtypes = [_VP]
 
 
+def _bind_h263(lib: ctypes.CDLL) -> None:
+    for name in ("h263", "msmpeg4"):
+        opener = getattr(lib, f"fmvfi_{name}_open")
+        opener.argtypes = [_I32, ctypes.c_char_p, _I32, ctypes.POINTER(_I32)]
+        opener.restype = _VP
+        dec = getattr(lib, f"fmvfi_{name}_decode")
+        dec.argtypes = [_VP, _VP, _I64, _VP, ctypes.c_char_p, _I32]
+        dec.restype = _I32
+        for fn in ("frame", "close"):
+            getattr(lib, f"fmvfi_{name}_{fn}").restype = None
+        getattr(lib, f"fmvfi_{name}_frame").argtypes = [_VP, _VP]
+        getattr(lib, f"fmvfi_{name}_close").argtypes = [_VP]
+    lib.fmvfi_msmpeg4_set_size.argtypes = [_VP, _I32, _I32]
+    lib.fmvfi_msmpeg4_set_size.restype = _I32
+
+
 def _fourcc_int(fourcc: bytes) -> int:
     return int.from_bytes(fourcc.ljust(4, b"\0")[:4], "little") if fourcc else 0
 
@@ -612,8 +640,10 @@ class Mpeg4Decoder:
     the container's codec tag, upper-cased as FFmpeg reads it (it picks
     FFmpeg's Xvid / DivX behaviour when no user data names the encoder).
     Raises NotImplementedError for what FFmpeg decodes differently or with
-    workarounds (mpeg4.cpp lists it) and ValueError for a malformed stream,
-    each with the reason."""
+    workarounds (mpeg4.cpp lists it), ValueError for a malformed stream and
+    EndOfStream for a packet without a VOP (headers alone or a short video
+    header picture: FFmpeg fails it and cv2 reads no further), each with the
+    reason."""
 
     def __init__(self, config: bytes = b"", fourcc: bytes = b""):
         lib = library()
@@ -862,6 +892,94 @@ MPEG12_FEATURES = dict(
     custom_inter=2048, quant_ext=4096, bt709=8192, escape=16384, bidirectional=32768,
     half_pel=65536, interlaced_seq=1 << 17, multi_row_slice=1 << 18, mba_escape=1 << 19,
     backward=1 << 20, zero_mv=1 << 21)
+
+
+# h263.cpp's feature bits (H263Decoder.features): what a picture used
+H263_FEATURES = dict(p_picture=1, skipped=2, intra_in_p=4, dquant=8, four_mv=16, obmc=32,
+                     long_vectors=64, gob=128, escape=256, escape_long=512,
+                     sorenson_esc7=1024, sorenson_esc11=2048, disposable=4096, pei=8192)
+# msmpeg4.cpp's feature bits (Msmpeg4Decoder.features)
+MSMPEG4_FEATURES = dict(p_picture=1, skipped=2, intra_in_p=4, ac_pred=8, escape1=16,
+                        escape2=32, escape3=64, dc_escape=128, slices=256, flipflop=512,
+                        mv_escape=1024, ext_header=2048, rl_table1=4096, rl_table2=8192,
+                        dc_table1=16384, mv_table1=32768)
+
+
+class _H263Family:
+    """A decoder of FFmpeg's H.263 family (h263.cpp, msmpeg4.cpp): one
+    container sample a picture, `decode(packet)` returning its frame
+    ((H, W, 3) uint8 RGB); `picture_type` and `features` describe the last
+    one.  NotImplementedError for what FFmpeg decodes otherwise, ValueError
+    for a malformed stream, each with the reason."""
+
+    NAME = ""
+    _h = None
+
+    def __init__(self, variant: int):
+        lib = library()
+        self._lib = lib
+        self._msg = ctypes.create_string_buffer(256)
+        code = _I32(0)
+        self._h = getattr(lib, f"fmvfi_{self.NAME}_open")(variant, self._msg, len(self._msg),
+                                                          ctypes.byref(code))
+        if not self._h:
+            raise _JPEG_ERRORS[code.value](self._msg.value.decode("ascii", "replace"))
+        self._info = np.zeros(5, np.int32)
+        self.picture_type = ""
+        self.features = 0
+
+    def decode(self, packet: bytes) -> Optional[np.ndarray]:
+        buf = np.frombuffer(packet, np.uint8) if packet else np.zeros(0, np.uint8)
+        code = getattr(self._lib, f"fmvfi_{self.NAME}_decode")(
+            self._h, buf.ctypes.data, buf.size, self._info.ctypes.data, self._msg,
+            len(self._msg))
+        if code:
+            raise _JPEG_ERRORS[code](self._msg.value.decode("ascii", "replace"))
+        w, h, got, kind, self.features = (int(v) for v in self._info)
+        if not got:
+            return None
+        self.picture_type = chr(kind)
+        out = np.empty((h, w, 3), np.uint8)
+        getattr(self._lib, f"fmvfi_{self.NAME}_frame")(self._h, out.ctypes.data)
+        return out
+
+    def close(self) -> None:
+        if self._h:
+            getattr(self._lib, f"fmvfi_{self.NAME}_close")(self._h)
+            self._h = None
+
+    def __del__(self):
+        self.close()
+
+
+class H263Decoder(_H263Family):
+    """H.263 (variant "h263": FFmpeg's h263 decoder) or Sorenson Spark
+    (variant "flv1": its flv decoder) as cv2.VideoCapture decodes them
+    (h263.cpp, features in H263_FEATURES): each packet one picture, its size
+    from the picture header."""
+
+    NAME = "h263"
+
+    def __init__(self, variant: str = "h263"):
+        if variant not in ("h263", "flv1"):
+            raise ValueError(f"no H.263 variant {variant!r}")
+        super().__init__(0 if variant == "h263" else 1)
+
+
+class Msmpeg4Decoder(_H263Family):
+    """MS-MPEG4 v2 or v3 (`version` 2 or 3: FFmpeg's msmpeg4v2 and msmpeg4
+    decoders) as cv2.VideoCapture decodes it (msmpeg4.cpp, features in
+    MSMPEG4_FEATURES) at the container's `size` (width, height): each
+    packet one picture."""
+
+    NAME = "msmpeg4"
+
+    def __init__(self, version: int, size: Tuple[int, int]):
+        if version not in (2, 3):
+            raise ValueError(f"no MS-MPEG4 version {version!r}")
+        super().__init__(int(version))
+        if self._lib.fmvfi_msmpeg4_set_size(self._h, int(size[0]), int(size[1])):
+            raise ValueError(f"an MS-MPEG4 stream of size {size[0]}x{size[1]}")
 
 
 class Mpeg12Decoder:

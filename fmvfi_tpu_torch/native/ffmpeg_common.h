@@ -496,8 +496,11 @@ void yuv_to_rgb(int w, int h, int ncomp, int rx, int ry, const PlaneT<T>* pl, bo
                 const PlaneT<T>& p = ch ? V : U;
                 int64_t s;
                 if (mmx && one_line) {  // yuv2packed1: one line, or the mean of two
-                    s = (vf.size == 1 || c[1] < 2048) ? line(p, 0, x) >> 4
-                                                      : (line(p, 0, x) + line(p, 1, x)) >> 5;
+                    // (a 16-bit sum shifted logically, psrlw: a negative sum
+                    // from an overshooting horizontal filter reads high)
+                    s = (vf.size == 1 || c[1] < 2048)
+                            ? line(p, 0, x) >> 4
+                            : static_cast<uint16_t>(line(p, 0, x) + line(p, 1, x)) >> 5;
                 } else if (mmx) {  // yuv2packedX: pmulhw per tap, plus the rounder
                     s = 4;
                     for (int j = 0; j < vf.size; ++j) s += (line(p, j, x) * c[j]) >> 16;

@@ -9,7 +9,9 @@
 // the decoder, bit for bit, for what FFmpeg's encoder (and so cv2's "mp4v"
 // writer) produces:
 //   - VOS, VO and VOL headers, in the packet or out of band (an MP4 file's
-//     esds), VOP headers (a not-coded VOP yields no frame, as in FFmpeg);
+//     esds), VOP headers (a not-coded VOP yields no frame, as in FFmpeg; a
+//     packet without a VOP, a short video header picture among them, ends
+//     the stream: FFmpeg fails it and cv2 stops reading, code 3);
 //   - I-VOPs: intra DC VLCs or, past intra_dc_vlc_thr, the DC as a TCOEF;
 //     DC prediction with FFmpeg's dc_val arithmetic (the prediction rounded
 //     to the scale, the stored DC clipped to 0..2047); AC prediction with
@@ -34,7 +36,7 @@
 // sprites), interlaced VOLs, quarter-pel, MPEG quantisation, data
 // partitioning, resync markers, reduced resolution, newpred, scalability,
 // complexity estimation, shapes other than rectangular, more than 8 bits,
-// the short video header, streams that FFmpeg identifies as Xvid or DivX
+// streams that FFmpeg identifies as Xvid or DivX
 // (from the user data, or from the FourCC when none names the encoder),
 // old FFmpeg builds with bug workarounds, and a packet holding more than
 // one VOP (DivX's packed bitstream).
@@ -46,7 +48,8 @@
 //     one packet; info = {width, height, frame out (0/1), VOP type, rounding type}
 //   fmvfi_mpeg4_frame(handle, out): the last frame, height * width * 3 RGB
 //   fmvfi_mpeg4_close(handle)
-// Codes: 0, 1 (unsupported) or 2 (corrupt), msg saying why.
+// Codes: 0, 1 (unsupported), 2 (corrupt) or 3 (the end of what cv2 reads),
+// msg saying why.
 
 #include "mpeg4.h"
 
@@ -57,111 +60,16 @@
 
 namespace fmvfi_mpeg4 {
 
-const RunLevelTable kIntraTcoef = {
-    {{2, 2},   {6, 3},   {15, 4},  {13, 5},  {12, 5},  {21, 6},  {19, 6},  {18, 6},  {23, 7},
-     {31, 8},  {30, 8},  {29, 8},  {37, 9},  {36, 9},  {35, 9},  {33, 9},  {33, 10}, {32, 10},
-     {15, 10}, {14, 10}, {7, 11},  {6, 11},  {32, 11}, {33, 11}, {80, 12}, {81, 12}, {82, 12},
-     {14, 4},  {20, 6},  {22, 7},  {28, 8},  {32, 9},  {31, 9},  {13, 10}, {34, 11}, {83, 12},
-     {85, 12}, {11, 5},  {21, 7},  {30, 9},  {12, 10}, {86, 12}, {17, 6},  {27, 8},  {29, 9},
-     {11, 10}, {16, 6},  {34, 9},  {10, 10}, {13, 6},  {28, 9},  {8, 10},  {18, 7},  {27, 9},
-     {84, 12}, {20, 7},  {26, 9},  {87, 12}, {25, 8},  {9, 10},  {24, 8},  {35, 11}, {23, 8},
-     {25, 9},  {24, 9},  {7, 10},  {88, 12}, {7, 4},   {12, 6},  {22, 8},  {23, 9},  {6, 10},
-     {5, 11},  {4, 11},  {89, 12}, {15, 6},  {22, 9},  {5, 10},  {14, 6},  {4, 10},  {17, 7},
-     {36, 11}, {16, 7},  {37, 11}, {19, 7},  {90, 12}, {21, 8},  {91, 12}, {20, 8},  {19, 8},
-     {26, 8},  {21, 9},  {20, 9},  {19, 9},  {18, 9},  {17, 9},  {38, 11}, {39, 11}, {92, 12},
-     {93, 12}, {94, 12}, {95, 12}, {3, 7}},
-    {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,  0,  0,  0,  0,  0,  0,  0,  0,  0, 0, 0, 0, 0, 0, 0,
-     0, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,  2,  2,  2,  2,  2,  3,  3,  3,  3, 4, 4, 4, 5, 5, 5,
-     6, 6, 6, 7, 7, 7, 8, 8, 9, 9, 10, 11, 12, 13, 14, 0, 0,  0,  0,  0, 0, 0, 0, 1, 1, 1,
-     2, 2, 3, 3, 4, 4, 5, 5, 6, 6, 7,  8,  9,  10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20},
-    {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26,
-     27, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 1, 2, 3, 4, 5, 1, 2, 3, 4, 1, 2, 3, 1, 2, 3,
-     1, 2, 3, 1, 2, 3, 1, 2, 1, 2, 1, 1, 1, 1, 1, 1, 2, 3, 4, 5, 6, 7, 8, 1, 2, 3,
-     1, 2, 1, 2, 1, 2, 1, 2, 1, 2, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1},
-    67};
-
-const RunLevelTable kInterTcoef = {
-    {{2, 2},   {15, 4},  {21, 6},  {23, 7},  {31, 8},  {37, 9},  {36, 9},  {33, 10}, {32, 10},
-     {7, 11},  {6, 11},  {32, 11}, {6, 3},   {20, 6},  {30, 8},  {15, 10}, {33, 11}, {80, 12},
-     {14, 4},  {29, 8},  {14, 10}, {81, 12}, {13, 5},  {35, 9},  {13, 10}, {12, 5},  {34, 9},
-     {82, 12}, {11, 5},  {12, 10}, {83, 12}, {19, 6},  {11, 10}, {84, 12}, {18, 6},  {10, 10},
-     {17, 6},  {9, 10},  {16, 6},  {8, 10},  {22, 7},  {85, 12}, {21, 7},  {20, 7},  {28, 8},
-     {27, 8},  {33, 9},  {32, 9},  {31, 9},  {30, 9},  {29, 9},  {28, 9},  {27, 9},  {26, 9},
-     {34, 11}, {35, 11}, {86, 12}, {87, 12}, {7, 4},   {25, 9},  {5, 11},  {15, 6},  {4, 11},
-     {14, 6},  {13, 6},  {12, 6},  {19, 7},  {18, 7},  {17, 7},  {16, 7},  {26, 8},  {25, 8},
-     {24, 8},  {23, 8},  {22, 8},  {21, 8},  {20, 8},  {19, 8},  {24, 9},  {23, 9},  {22, 9},
-     {21, 9},  {20, 9},  {19, 9},  {18, 9},  {17, 9},  {7, 10},  {6, 10},  {5, 10},  {4, 10},
-     {36, 11}, {37, 11}, {38, 11}, {39, 11}, {88, 12}, {89, 12}, {90, 12}, {91, 12}, {92, 12},
-     {93, 12}, {94, 12}, {95, 12}, {3, 7}},
-    {0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  1,  1,  1,  1,  1,  1,  2,  2,  2,
-     2,  3,  3,  3,  4,  4,  4,  5,  5,  5,  6,  6,  6,  7,  7,  8,  8,  9,  9,  10, 10,
-     11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 0,  0,  0,  1,  1,
-     2,  3,  4,  5,  6,  7,  8,  9,  10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22,
-     23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35, 36, 37, 38, 39, 40},
-    {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 1, 2, 3, 4, 5, 6, 1, 2, 3, 4, 1, 2, 3, 1,
-     2, 3, 1, 2, 3, 1, 2, 3, 1, 2, 1, 2, 1, 2, 1, 2, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
-     1, 1, 1, 1, 1, 1, 1, 2, 3, 1, 2, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
-     1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1},
-    58};
-
 namespace {
 
-RunLevelLimits make_limits(const RunLevelTable& t) {
-    RunLevelLimits l{};
-    for (int i = 0; i < 102; ++i) {
-        const int last = i >= t.last;
-        l.max_level[last][t.run[i]] = std::max<uint8_t>(l.max_level[last][t.run[i]], t.level[i]);
-        l.max_run[last][t.level[i]] = std::max<uint8_t>(l.max_run[last][t.level[i]], t.run[i]);
-    }
-    return l;
-}
-
-// A code table as a lookup of `bits` bits: symbol and length, -1 / 0 for
-// no code.
-struct Lut {
-    int bits = 0;
-    std::vector<int16_t> sym;
-    std::vector<uint8_t> len;
-    Lut(const Code* codes, int n) {
-        for (int i = 0; i < n; ++i) bits = std::max<int>(bits, codes[i].len);
-        sym.assign(size_t(1) << bits, -1);
-        len.assign(size_t(1) << bits, 0);
-        for (int i = 0; i < n; ++i) {
-            if (!codes[i].len) continue;
-            const int pad = bits - codes[i].len;
-            const size_t first = size_t(codes[i].code) << pad;
-            for (size_t j = 0; j < (size_t(1) << pad); ++j) {
-                sym[first + j] = static_cast<int16_t>(i);
-                len[first + j] = codes[i].len;
-            }
-        }
-    }
-    int read(Bits& b, const char* what) const {
-        const uint32_t v = b.show(bits);
-        if (sym[v] < 0) fail(CORRUPT, std::string("an invalid ") + what + " code");
-        b.skip(len[v]);
-        return sym[v];
-    }
-};
-
-const Lut& lut_intra_mcbpc() { static const Lut l(kIntraMcbpc, 9); return l; }
-const Lut& lut_inter_mcbpc() { static const Lut l(kInterMcbpc, 28); return l; }
-const Lut& lut_cbpy() { static const Lut l(kCbpy, 16); return l; }
-const Lut& lut_mvd() { static const Lut l(kMvd, 33); return l; }
-const Lut& lut_dc(int chroma) {
-    static const Lut lum(kDcLum, 13), chrom(kDcChrom, 13);
+const Vlc& lut_dc(int chroma) {
+    static const Vlc lum(kDcLum, 13), chrom(kDcChrom, 13);
     return chroma ? chrom : lum;
 }
-const Lut& lut_tcoef(bool intra) {
-    static const Lut in(kIntraTcoef.vlc, 103), inter(kInterTcoef.vlc, 103);
+const Vlc& lut_tcoef(bool intra) {
+    static const Vlc in(kIntraTcoef.vlc, 103), inter(kInterTcoef.vlc, 103);
     return intra ? in : inter;
 }
-
-int mid_pred(int a, int b, int c) { return std::max(std::min(a, b), std::min(std::max(a, b), c)); }
-
-int rounded_div(int a, int b) { return (a > 0 ? a + (b >> 1) : a - (b >> 1)) / b; }
-
-int sign_extend(int v, int bits) { return static_cast<int>(uint32_t(v) << (32 - bits)) >> (32 - bits); }
 
 // the start codes of a packet: offsets of the byte after each 00 00 01
 std::vector<size_t> start_codes(const uint8_t* d, size_t n) {
@@ -174,52 +82,7 @@ std::vector<size_t> start_codes(const uint8_t* d, size_t n) {
     return at;
 }
 
-// A half-pel prediction of an s x s block at integer position (sx, sy) of
-// `ref`, whose samples are read with coordinates clamped to edge_w x edge_h
-// (FFmpeg's emulated_edge_mc), into dst: put_pixels_tab (rounded) or
-// put_no_rnd_pixels_tab.
-void mc_block(const fmvfi_ff::Plane& ref, uint8_t* dst, size_t stride, int sx, int sy, int dxy,
-              int s, int edge_w, int edge_h, bool no_rounding) {
-    const int r1 = no_rounding ? 0 : 1, r2 = no_rounding ? 1 : 2;
-    const bool inside = sx >= 0 && sy >= 0 && sx + s + 1 <= edge_w && sy + s + 1 <= edge_h;
-    auto px = [&](int y, int x) -> int {
-        if (!inside) {
-            x = x < 0 ? 0 : (x >= edge_w ? edge_w - 1 : x);
-            y = y < 0 ? 0 : (y >= edge_h ? edge_h - 1 : y);
-        }
-        return ref.px[size_t(y) * ref.stride + x];
-    };
-    for (int y = 0; y < s; ++y) {
-        uint8_t* o = dst + size_t(y) * stride;
-        const int yy = sy + y;
-        for (int x = 0; x < s; ++x) {
-            const int xx = sx + x;
-            int v;
-            switch (dxy) {
-                case 0: v = px(yy, xx); break;
-                case 1: v = (px(yy, xx) + px(yy, xx + 1) + r1) >> 1; break;
-                case 2: v = (px(yy, xx) + px(yy + 1, xx) + r1) >> 1; break;
-                default:
-                    v = (px(yy, xx) + px(yy, xx + 1) + px(yy + 1, xx) + px(yy + 1, xx + 1) + r2) >>
-                        2;
-            }
-            o[x] = static_cast<uint8_t>(v);
-        }
-    }
-}
-
-// ff_h263_round_chroma: a sum of four luma vectors to one chroma vector
-int round_chroma(int x) {
-    static const int tab[16] = {0, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2};
-    return tab[x & 15] + ((x >> 3) & ~1);
-}
-
 }  // namespace
-
-const RunLevelLimits& limits(const RunLevelTable& t) {
-    static const RunLevelLimits intra = make_limits(kIntraTcoef), inter = make_limits(kInterTcoef);
-    return &t == &kIntraTcoef ? intra : inter;
-}
 
 void Decoder::configure(const uint8_t* d, size_t n) {
     size_t vop_at = n;
@@ -407,38 +270,32 @@ void Decoder::allocate() {
             p.w = c ? (vol_.width + 1) / 2 : vol_.width;
             p.h = c ? (vol_.height + 1) / 2 : vol_.height;
         }
-    for (int c = 0; c < 3; ++c) {
-        const size_t cells = size_t(dc_stride(c)) * (c ? mbh_ + 1 : 2 * mbh_ + 1);
-        dc_[c].assign(cells, 1024);
-        ac_[c].assign(cells * 16, 0);
-    }
-    mv_.assign(size_t(2 * mbw_ + 2) * (2 * mbh_ + 1) * 2, 0);
-    mb_q_.assign(size_t(mbw_) * mbh_, 0);
+    ip_.allocate(mbw_, mbh_);
+    mv_.allocate(mbw_, mbh_);
 }
 
 bool Decoder::decode(const uint8_t* d, size_t n) {
-    if (n >= 3 && (((uint32_t(d[0]) << 16 | uint32_t(d[1]) << 8 | d[2]) >> 2) == 0x20))
-        fail(UNSUPPORTED, "an MPEG-4 short video header (H.263) picture");
     size_t vop_at = n;
     headers(d, n, &vop_at);
-    if (vop_at == n) return false;
+    // FFmpeg's mpeg4 decoder looks for a VOP start code and fails a packet
+    // without one: headers alone, or a short video header (H.263) picture,
+    // which FFmpeg 8's decoder no longer reads; cv2 stops reading there
+    if (vop_at == n)
+        fail(END_OF_STREAM, n >= 3 && ((uint32_t(d[0]) << 16 | uint32_t(d[1]) << 8 | d[2]) >> 2) == 0x20
+                                ? "a short video header (H.263) picture, which FFmpeg's mpeg4 "
+                                  "decoder fails"
+                                : "a packet without a VOP, which FFmpeg's mpeg4 decoder fails");
     if (!vol_.seen) fail(CORRUPT, "a VOP before any VOL header");
     check_encoder();
     return decode_vop(d + vop_at, n - vop_at);
 }
 
-int Decoder::dc_index(int mbx, int mby, int n) const {
-    if (n < 4) return (2 * mby + (n >> 1) + 1) * dc_stride(0) + 2 * mbx + (n & 1) + 1;
-    return (mby + 1) * dc_stride(1) + mbx + 1;
-}
-
 int Decoder::dc_prediction(int mbx, int mby, int n, int* dir) const {
-    const int c = n < 4 ? 0 : n - 3, s = dc_stride(c), i = dc_index(mbx, mby, n);
-    const int16_t* dc = dc_[c].data();
-    const int a = dc[i - 1], b = dc[i - 1 - s], cc = dc[i - s];
+    int a, b, c;
+    ip_.neighbours(mbx, mby, n, &a, &b, &c);
     int pred;
-    if (std::abs(a - b) < std::abs(b - cc)) {
-        pred = cc;
+    if (std::abs(a - b) < std::abs(b - c)) {
+        pred = c;
         *dir = 1;  // from the block above
     } else {
         pred = a;
@@ -452,124 +309,10 @@ void Decoder::store_dc(int mbx, int mby, int n, int level) {
     const int scale = n < 4 ? kYDcScale[qscale_] : kCDcScale[qscale_];
     int v = level * scale;
     if (v & ~2047) v = v < 0 ? 0 : 2047;
-    dc_[n < 4 ? 0 : n - 3][dc_index(mbx, mby, n)] = static_cast<int16_t>(v);
-}
-
-void Decoder::ac_prediction(int mbx, int mby, int n, int dir, int16_t* p) const {
-    const int c = n < 4 ? 0 : n - 3, s = dc_stride(c), i = dc_index(mbx, mby, n);
-    const int16_t* ac = &ac_[c][size_t(i) * 16];
-    if (dir == 0) {
-        const int16_t* left = ac - 16;
-        const int q = mbx > 0 ? mb_q_[size_t(mby) * mbw_ + mbx - 1] : qscale_;
-        const bool same = mbx == 0 || q == qscale_ || n == 1 || n == 3;
-        for (int k = 1; k < 8; ++k)
-            p[k * 8] = static_cast<int16_t>(same ? left[k] : rounded_div(left[k] * q, qscale_));
-    } else {
-        const int16_t* top = ac - size_t(16) * s;
-        const int q = mby > 0 ? mb_q_[size_t(mby - 1) * mbw_ + mbx] : qscale_;
-        const bool same = mby == 0 || q == qscale_ || n == 2 || n == 3;
-        for (int k = 1; k < 8; ++k)
-            p[k] = static_cast<int16_t>(same ? top[k + 8] : rounded_div(top[k + 8] * q, qscale_));
-    }
-}
-
-void Decoder::store_ac(int mbx, int mby, int n, const int16_t* block) {
-    int16_t* ac = &ac_[n < 4 ? 0 : n - 3][size_t(dc_index(mbx, mby, n)) * 16];
-    for (int k = 1; k < 8; ++k) {
-        ac[k] = block[k * 8];
-        ac[8 + k] = block[k];
-    }
-}
-
-void Decoder::clear_intra(int mbx, int mby) {
-    for (int n = 0; n < 6; ++n) {
-        const int c = n < 4 ? 0 : n - 3, i = dc_index(mbx, mby, n);
-        dc_[c][i] = 1024;
-        std::fill_n(&ac_[c][size_t(i) * 16], 16, 0);
-    }
-}
-
-void Decoder::predict_mv(int mbx, int mby, int blk, int* px, int* py) {
-    static const int off[4] = {2, 1, 1, -1};
-    const int bx = 2 * mbx + (blk & 1), by = 2 * mby + (blk >> 1);
-    const int16_t* A = mv_at(bx - 1, by);
-    if (mby == 0 && blk < 3) {  // the first row: FFmpeg's first_slice_line cases
-        if (blk == 0 && mbx == 0) {
-            *px = *py = 0;
-        } else if (blk < 2) {
-            *px = A[0];
-            *py = A[1];
-        } else {
-            const int16_t *B = mv_at(bx, by - 1), *C = mv_at(bx + off[blk], by - 1);
-            const int a0 = mbx == 0 ? 0 : A[0], a1 = mbx == 0 ? 0 : A[1];
-            *px = mid_pred(a0, B[0], C[0]);
-            *py = mid_pred(a1, B[1], C[1]);
-        }
-        return;
-    }
-    const int16_t *B = mv_at(bx, by - 1), *C = mv_at(bx + off[blk], by - 1);
-    *px = mid_pred(A[0], B[0], C[0]);
-    *py = mid_pred(A[1], B[1], C[1]);
-}
-
-void Decoder::motion(const fmvfi_ff::Plane* ref, uint8_t* const* dst, const size_t* stride,
-                     int mbx, int mby, const int (*mv)[2], bool four, bool no_rounding) const {
-    const int ew = mbw_ * 16, eh = mbh_ * 16;  // h_edge_pos, v_edge_pos
-    const int w = vol_.width, h = vol_.height;
-    if (!four) {  // mpeg_motion_internal, FMT_H263
-        const int mx = mv[0][0], my = mv[0][1];
-        const int dxy = ((my & 1) << 1) | (mx & 1);
-        const int sx = mbx * 16 + (mx >> 1), sy = mby * 16 + (my >> 1);
-        mc_block(ref[0], dst[0], stride[0], sx, sy, dxy, 16, ew, eh, no_rounding);
-        const int uvdxy = dxy | (my & 2) | ((mx & 2) >> 1);
-        for (int c = 1; c < 3; ++c)
-            mc_block(ref[c], dst[c], stride[c], sx >> 1, sy >> 1, uvdxy, 8, ew >> 1, eh >> 1,
-                     no_rounding);
-        return;
-    }
-    int sumx = 0, sumy = 0;
-    for (int i = 0; i < 4; ++i) {  // hpel_motion
-        const int mx = mv[i][0], my = mv[i][1];
-        int sx = mbx * 16 + (i & 1) * 8 + (mx >> 1), sy = mby * 16 + (i >> 1) * 8 + (my >> 1);
-        int dxy = 0;
-        sx = std::clamp(sx, -16, w);
-        if (sx != w) dxy |= mx & 1;
-        sy = std::clamp(sy, -16, h);
-        if (sy != h) dxy |= (my & 1) << 1;
-        mc_block(ref[0], dst[0] + (i >> 1) * 8 * stride[0] + (i & 1) * 8, stride[0], sx, sy, dxy, 8,
-                 ew, eh, no_rounding);
-        sumx += mx;
-        sumy += my;
-    }
-    // chroma_4mv_motion
-    int mx = round_chroma(sumx), my = round_chroma(sumy);
-    int dxy = ((my & 1) << 1) | (mx & 1);
-    mx >>= 1;
-    my >>= 1;
-    int sx = mbx * 8 + mx, sy = mby * 8 + my;
-    sx = std::clamp(sx, -8, w >> 1);
-    if (sx == (w >> 1)) dxy &= ~1;
-    sy = std::clamp(sy, -8, h >> 1);
-    if (sy == (h >> 1)) dxy &= ~2;
-    for (int c = 1; c < 3; ++c)
-        mc_block(ref[c], dst[c], stride[c], sx, sy, dxy, 8, ew >> 1, eh >> 1, no_rounding);
+    ip_.set_dc(mbx, mby, n, v);
 }
 
 namespace {
-
-int decode_mv(Bits& b, int pred, int fcode) {
-    const int code = lut_mvd().read(b, "MVD");
-    if (code == 0) return pred;
-    const int sign = b.get1(), shift = fcode - 1;
-    int val = code;
-    if (shift) {
-        val = (val - 1) << shift;
-        val |= static_cast<int>(b.get(shift));
-        ++val;
-    }
-    if (sign) val = -val;
-    return sign_extend(val + pred, 5 + fcode);
-}
 
 // The TCOEF run of one block into block[] (natural order), dequantised as
 // FFmpeg's VLC tables dequantise (level * qmul + qadd; intra: qmul 1, qadd
@@ -578,7 +321,7 @@ int decode_coefficients(Bits& b, int16_t* block, bool intra, const int* scan, in
                         int qadd) {
     const RunLevelTable& t = intra ? kIntraTcoef : kInterTcoef;
     const RunLevelLimits& lim = limits(t);
-    const Lut& lut = lut_tcoef(intra);
+    const Vlc& lut = lut_tcoef(intra);
     for (;;) {
         int idx = lut.read(b, "TCOEF");
         int run, level, last;
@@ -649,7 +392,7 @@ bool Decoder::decode_vop(const uint8_t* d, size_t n) {
     }
     vop_type_ = p_vop ? 'P' : 'I';
     for (int c = 0; c < 3; ++c) std::swap(cur_[c], ref_[c]);
-    std::fill(mv_.begin(), mv_.end(), 0);
+    mv_.clear();
 
     alignas(16) int16_t block[6][64];
     for (int mby = 0; mby < mbh_; ++mby) {
@@ -679,7 +422,7 @@ bool Decoder::decode_vop(const uint8_t* d, size_t n) {
                 const int zero[1][2] = {{0, 0}};
                 motion(ref_, dst, stride, mbx, mby, zero, false, no_rounding_);
                 clear_intra(mbx, mby);
-                mb_q_[mb] = static_cast<int8_t>(qscale_);
+                ip_.mb_q[mb] = static_cast<int8_t>(qscale_);
                 continue;
             }
             const bool intra = !p_vop || (cbpc & 4);
@@ -717,12 +460,7 @@ bool Decoder::decode_vop(const uint8_t* d, size_t n) {
                     if (!dc_vlc) blk[0] = static_cast<int16_t>(predict_dc(mbx, mby, k, blk[0], &dir));
                     predict_ac(mbx, mby, k, blk, dir, ac_pred);
                     // dct_unquantize_h263_intra, then idct_put
-                    const int qmul = qscale_ << 1, qadd = (qscale_ - 1) | 1;
-                    blk[0] = static_cast<int16_t>(blk[0] * (k < 4 ? kYDcScale[qscale_] : kCDcScale[qscale_]));
-                    for (int j = 1; j < 64; ++j)
-                        if (blk[j])
-                            blk[j] = static_cast<int16_t>(blk[j] < 0 ? blk[j] * qmul - qadd
-                                                                    : blk[j] * qmul + qadd);
+                    dequant_intra(blk, qscale_, k < 4 ? kYDcScale[qscale_] : kCDcScale[qscale_]);
                 }
                 for (int k = 0; k < 6; ++k) {
                     fmvfi_ff::Plane& p = cur_[k < 4 ? 0 : k - 3];
@@ -734,7 +472,7 @@ bool Decoder::decode_vop(const uint8_t* d, size_t n) {
                     int16_t* v = mv_at(2 * mbx + (k & 1), 2 * mby + (k >> 1));
                     v[0] = v[1] = 0;
                 }
-                mb_q_[mb] = static_cast<int8_t>(qscale_);
+                ip_.mb_q[mb] = static_cast<int8_t>(qscale_);
                 continue;
             }
             const bool four = cbpc & 16;
@@ -774,7 +512,7 @@ bool Decoder::decode_vop(const uint8_t* d, size_t n) {
                 fmvfi_ff::simple_idct_add(block[k], &p.px[y * p.stride + x], p.stride);
             }
             clear_intra(mbx, mby);
-            mb_q_[mb] = static_cast<int8_t>(qscale_);
+            ip_.mb_q[mb] = static_cast<int8_t>(qscale_);
         }
     }
     if (b.left() < 0) fail(CORRUPT, "a VOP cut short");

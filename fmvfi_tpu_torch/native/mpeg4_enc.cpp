@@ -309,7 +309,7 @@ public:
         w.put(q_, 5);
         if (!intra) w.put(1, 3);  // vop_fcode_forward
         pred_.qscale_ = q_;
-        std::fill(pred_.mv_.begin(), pred_.mv_.end(), 0);
+        pred_.mv_.clear();
         if (!intra) ref_.build(dec_.reference()[0], mbw_ * 16, mbh_ * 16, kPad);
         for (int mby = 0; mby < mbh_; ++mby)
             for (int mbx = 0; mbx < mbw_; ++mbx) macroblock(w, mbx, mby, intra);
@@ -508,7 +508,7 @@ private:
             if (best <= act + 512) {
                 inter_mb(w, mbx, mby, use4 ? four : nullptr, mx, my, step);
                 pred_.clear_intra(mbx, mby);
-                pred_.mb_q_[mb] = static_cast<int8_t>(pred_.qscale_);
+                pred_.ip_.mb_q[mb] = static_cast<int8_t>(pred_.qscale_);
                 return;
             }
         }
@@ -535,7 +535,7 @@ private:
             int16_t* v = pred_.mv_at(2 * mbx + (k & 1), 2 * mby + (k >> 1));
             v[0] = v[1] = 0;
         }
-        pred_.mb_q_[mb] = static_cast<int8_t>(pred_.qscale_);
+        pred_.ip_.mb_q[mb] = static_cast<int8_t>(pred_.qscale_);
     }
 
     static int dquant_code(int step) { return step == -1 ? 0 : step == -2 ? 1 : step == 1 ? 2 : 3; }

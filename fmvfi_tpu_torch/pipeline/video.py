@@ -9,18 +9,20 @@ results come down into pinned memory, both copied asynchronously, so the
 host waits only for a finished result: pair i+1's work is queued on the card
 before the host waits for pair i's.  Video files are read when they hold
 what utils/formats.py's table lists: Motion-JPEG, MPEG-4 Part 2, MPEG-1/2,
-VP8 or VP9 (8, 10 and 12 bits), PNG and raw frames in AVI (utils/avi.py),
-MP4 / M4V / MOV (utils/mp4.py), Matroska / WebM (utils/mkv.py), MPEG
-transport and program streams and raw MPEG video (utils/mpegts.py) and IVF
-(utils/ivf.py), each frame decoded as cv2.VideoCapture decodes it
+VP8 or VP9 (8, 10 and 12 bits), H.263, Sorenson Spark, MS-MPEG4 v2 / v3,
+PNG and raw frames in AVI (utils/avi.py), MP4 / M4V / MOV / 3GP
+(utils/mp4.py), Matroska / WebM (utils/mkv.py), MPEG transport and program
+streams and raw MPEG video (utils/mpegts.py), IVF (utils/ivf.py) and FLV
+(utils/flv.py), each frame decoded as cv2.VideoCapture decodes it
 (FFmpeg's decoders and swscale's conversion: native/mjpeg.cpp, mpeg4.cpp,
-mpeg12.cpp, vp8.cpp, vp9.cpp, png.cpp and rawvideo.cpp; an MP4
-track's rotation applied as cv2 applies it; MPEG-1/2's display order and
-the frame it holds back until the end of the stream, as cv2 drains the
-decoder); the container is told from the file's bytes, as FFmpeg probes
-it.  Other codecs and containers (H.264, HEVC, AV1; FLV, Ogg, ...) raise
-NotImplementedError naming ROADMAP item 18.4 (the card's machine has no
-decoder for them).  A lone PNG, JPEG or WebP image, and a printf pattern
+mpeg12.cpp, vp8.cpp, vp9.cpp, h263.cpp, msmpeg4.cpp, png.cpp and
+rawvideo.cpp; an MP4 track's rotation applied as cv2 applies it;
+MPEG-1/2's display order and the frame it holds back until the end of the
+stream, as cv2 drains the decoder); the container is told from the file's
+bytes, as FFmpeg probes it.  Other codecs and containers (H.264, HEVC,
+AV1, VP6; Ogg, ASF, ...) raise NotImplementedError naming ROADMAP item
+18.4 (the card's machine has no decoder for them), what the H.263 family's
+decoders decode otherwise item 18.4i.  A lone PNG, JPEG or WebP image, and a printf pattern
 of them or of GIFs (`frames/%05d.png`), read as one video as
 cv2.VideoCapture reads them (FFmpeg's image2 demuxer, or cv2's own image
 backend for GIFs: utils/image2.py); a lone GIF is a clip of every image in
@@ -38,8 +40,9 @@ from typing import Callable, Iterator, List, Sequence
 import numpy as np
 import torch
 
+from .. import native
 from ..ops.pyramid import make_filters, max_pyr_height
-from ..utils import avi, formats, gif, image2, imageio, ivf, mkv, mp4, mpegts
+from ..utils import avi, flv, formats, gif, image2, imageio, ivf, mkv, mp4, mpegts
 from ..utils.resample import resize_bilinear_u8
 from .interpolate import (
     FusionModels,
@@ -60,12 +63,11 @@ FRAME_SUFFIXES = (".png", ".jpg", ".jpeg")  # JAX's
 
 ISO_BOXES = (b"ftyp", b"moov", b"mdat", b"free", b"skip", b"wide", b"pnot", b"uuid")
 MATROSKA = b"\x1aE\xdf\xa3"  # the EBML header's id
-OTHER_CONTAINERS = ((b"FLV", "an FLV file"), (b"OggS", "an Ogg file"),
-                    (b"0&\xb2u", "an ASF (WMV) file"))
+OTHER_CONTAINERS = ((b"OggS", "an Ogg file"), (b"0&\xb2u", "an ASF (WMV) file"))
 
 
 def _container(path: str) -> str:
-    """"avi", "mp4", "mkv", "ivf", "ts", "ps" or "es" (a raw MPEG video
+    """"avi", "mp4", "mkv", "ivf", "flv", "ts", "ps" or "es" (a raw MPEG video
     stream) from the file's first bytes, as FFmpeg probes them, "gif" for a
     GIF (FFmpeg's gif demuxer: every image a frame), or "image" for another
     lone image or a numbered image sequence (FFmpeg's image2, read by
@@ -87,6 +89,8 @@ def _container(path: str) -> str:
         return "mkv"
     if head.startswith(ivf.MAGIC):
         return "ivf"
+    if flv.is_flv(head):
+        return "flv"
     if mpegts.ts_packet_size(head):
         return "ts"
     if head.startswith(mpegts.PACK):
@@ -137,6 +141,9 @@ def _open(path: str):
     if container == "ivf":
         clip = ivf.open_video(path)
         return ivf.iter_frames(clip), formats.decoder(clip.codec), 0, clip.codec
+    if container == "flv":
+        clip = flv.open_video(path)
+        return flv.iter_frames(clip), formats.decoder("flv1"), 0, "flv1"
     stream = mpegts.open_stream(path, container)
     return mpegts.iter_packets(stream), formats.decoder(stream.codec), 0, stream.codec
 
@@ -169,10 +176,13 @@ def _iter_decoded(path: str) -> Iterator[np.ndarray]:
         if "18.4" in str(e) or str(e).startswith(("no frames decoded", path)):
             raise
         raise _as_refusal(path, "", e) from None
-    item = {"mpeg12": "18.4h", "png": "18.4g", "rawvideo": "18.4g"}.get(codec, "18.4")
+    item = {"mpeg12": "18.4h", "png": "18.4g", "rawvideo": "18.4g", "h263": "18.4i",
+            "flv1": "18.4i", "msmpeg4": "18.4i"}.get(codec, "18.4")
     for i, data in enumerate(samples):
         try:
             frame = decode(data)
+        except native.EndOfStream:  # FFmpeg fails the packet: cv2 reads no further
+            return
         except (ValueError, NotImplementedError) as e:
             raise _as_refusal(path, f"frame {i}: ", e, item) from None
         if frame is None:  # a packet of headers or a not-coded VOP

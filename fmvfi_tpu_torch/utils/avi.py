@@ -181,9 +181,24 @@ MPEG12_FOURCCS = (b"MPG1", b"MPG2", b"PIM1", b"PIM2", b"MPEG", b"MP1V", b"MP2V",
 VP8_FOURCCS = (b"VP80",)
 VP9_FOURCCS = (b"VP90",)  # what cv2.VideoWriter(..., "VP90", ...) stores
 PNG_FOURCCS = (b"PNG ", b"MPNG", b"PNG1")  # riff.c's png tags (upper-cased)
+# riff.c's tags of the H.263 family (upper-cased, as FFmpeg's second,
+# case-blind pass matches them; read off cv2's libavformat): h263, flv1,
+# msmpeg4v2 and msmpeg4v3 (cv2's H263 / U263, FLV1, MP42 and MP43 / DIV3
+# writers); ZyGo is left out (FFmpeg's h263 decoder reads more of a 'ZYGO'
+# picture)
+H263_FOURCCS = (b"H263", b"X263", b"T263", b"L263", b"VX1K", b"M263", b"LSVM", b"U263", b"VSM4")
+FLV1_FOURCCS = (b"FLV1", b"S263")
+# (tag -> MS-MPEG4 version)
+MSMPEG4_FOURCCS = {b"MP42": 2, b"DIV2": 2, b"MP43": 3, b"DIV3": 3, b"MPG3": 3, b"DIV5": 3,
+                   b"DIV6": 3, b"DIV4": 3, b"DVX3": 3, b"AP41": 3, b"COL1": 3, b"COL0": 3}
+# the family's other decoders: MS-MPEG4 v1, WMV1 / WMV2, Intel H.263 (18.4i)
+H263_FAMILY_REFUSED = {b"MPG4": "MS-MPEG4 v1", b"MP41": "MS-MPEG4 v1", b"WMV1": "WMV1",
+                       b"WMV2": "WMV2", b"GXVE": "WMV2", b"I263": "Intel H.263"}
 CODECS = {**{f: "mjpeg" for f in MJPEG_FOURCCS}, **{f: "mpeg4" for f in MPEG4_FOURCCS},
           **{f: "mpeg12" for f in MPEG12_FOURCCS}, **{f: "vp8" for f in VP8_FOURCCS},
-          **{f: "vp9" for f in VP9_FOURCCS}, **{f: "png" for f in PNG_FOURCCS}}
+          **{f: "vp9" for f in VP9_FOURCCS}, **{f: "png" for f in PNG_FOURCCS},
+          **{f: "h263" for f in H263_FOURCCS}, **{f: "flv1" for f in FLV1_FOURCCS},
+          **{f: "msmpeg4" for f in MSMPEG4_FOURCCS}}
 # raw frames the port does not convert (ROADMAP 18.4g): BI_RGB (0) and 'DIB '
 # (bottom-up BGR rows), packed and other planar YUV, other RGB orders
 RAW_REFUSED = (b"\0\0\0\0", b"DIB ", b"RGB ", b"RAW ", b"YUY2", b"UYVY", b"YVYU", b"Y422",
@@ -235,8 +250,8 @@ def _strf(body: bytes) -> Dict[str, object]:
 class VideoStream(NamedTuple):
     """An AVI file's first video stream: the file's main header, the
     stream's headers, its number (its frames are the '<nn>dc' and '<nn>db'
-    chunks) and its codec ("mjpeg", "mpeg4", "mpeg12", "vp8", "vp9", "png"
-    or "rawvideo")."""
+    chunks) and its codec ("mjpeg", "mpeg4", "mpeg12", "vp8", "vp9", "png",
+    "rawvideo", "h263", "flv1" or "msmpeg4")."""
 
     path: str
     avih: Dict[str, int]
@@ -281,6 +296,9 @@ def open_video(path) -> VideoStream:
         if codec is None and tag in formats.RAW_PIXEL_FORMATS:
             codec = "rawvideo"
             strf = dict(strf, height=abs(strf["height"]))  # never flipped (measured)
+        if codec is None and tag.upper() in H263_FAMILY_REFUSED:
+            raise unsupported(path, f"{H263_FAMILY_REFUSED[tag.upper()]} video (FourCC "
+                                    f"{tag.decode('latin-1')!r})", "18.4i")
         if codec is None:
             raise unsupported(path, f"a video stream whose strf compression is "
                                     f"{tag.decode('latin-1')!r}",

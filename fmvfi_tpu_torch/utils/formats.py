@@ -2,7 +2,7 @@
 
 `READS` lists each container the port reads with the codecs it decodes in
 it, as cv2.VideoCapture decodes them; every refusal message of the readers
-(pipeline/video.py, utils/avi.py, mp4.py, mkv.py, mpegts.py, ivf.py) names
+(pipeline/video.py, utils/avi.py, mp4.py, mkv.py, mpegts.py, ivf.py, flv.py) names
 it through `unsupported`, with the ROADMAP item that would lift the
 refusal.  `decoder` turns a codec name of those readers into the native
 decoder's calls.
@@ -18,12 +18,15 @@ from .. import native
 
 READS = (
     ("AVI", ("Motion-JPEG", "MPEG-4 Part 2 (mp4v)", "MPEG-1/2", "VP8", "VP9", "PNG",
-             "raw RGBA / grey / I420 / YV12 frames")),
-    ("MP4 / M4V / MOV", ("mp4v", "MPEG-1/2", "Motion-JPEG", "VP9", "PNG", "raw RGBA frames")),
+             "raw RGBA / grey / I420 / YV12 frames", "H.263", "Sorenson Spark (FLV1)",
+             "MS-MPEG4 v2 / v3 (MP42, MP43 / DIV3)")),
+    ("MP4 / M4V / MOV / 3GP", ("mp4v", "MPEG-1/2", "Motion-JPEG", "VP9", "PNG", "raw RGBA frames",
+                               "H.263")),
     ("Matroska / WebM (.mkv, .webm)", ("VP8", "VP9", "Motion-JPEG", "mp4v", "MPEG-1/2")),
     ("MPEG transport and program streams (.ts, .m2ts, .mpg, .vob)", ("MPEG-1/2", "mp4v")),
     ("raw MPEG video (.m1v, .m2v)", ("MPEG-1/2",)),
     ("IVF", ("VP8", "VP9")),
+    ("FLV", ("Sorenson Spark (FLV1)",)),
 )
 # ROADMAP Queue 1's items, each with why the port does not read the input yet
 ITEMS = {
@@ -31,6 +34,9 @@ ITEMS = {
     "18.4g": "FFmpeg's rawvideo decoder reads it in a pixel format the port does not convert, "
              "or cv2's writer writes no such file",
     "18.4h": "FFmpeg's MPEG-1/2 decoder decodes it otherwise, or cv2 returns no pixels of it",
+    "18.4i": "FFmpeg's H.263 family decodes it with what the port's H.263, Sorenson and "
+             "MS-MPEG4 v2 / v3 decoders do not repeat (H.263+, MS-MPEG4 v1, WMV1 / WMV2, "
+             "Intel H.263)",
     "18.4k": "cv2 reads a lone BMP, TIFF or PNM image, or a numbered sequence of them, as a "
              "video through FFmpeg's own decoders for them; the port reads lone PNG, JPEG and "
              "WebP images, GIF clips and sequences of them",
@@ -106,11 +112,14 @@ def png_frame(data: bytes) -> np.ndarray:
 def decoder(codec: str, config: bytes = b"", fourcc: bytes = b"", size: Tuple[int, int] = (0, 0)
             ) -> Tuple[Callable, Optional[Callable[[], list]]]:
     """(decode, flush) for a stream of `codec` ("mjpeg", "mpeg4", "mpeg12",
-    "vp8", "vp9", "png" or "rawvideo", the last in the pixel format of its
+    "vp8", "vp9", "h263", "flv1", "msmpeg4", "png" or "rawvideo", the last
+    in the pixel format of its
     `fourcc` at `size`, (width, height)): decode(packet) returns a frame,
     None or a list of frames; flush, where the codec holds frames back
     (MPEG-1/2's display order), returns the frames left at the end of the
-    stream."""
+    stream.  "h263" and "flv1" take their sizes from the pictures;
+    "msmpeg4" is version 2 or 3 by its `fourcc` (utils/avi.py's
+    MSMPEG4_FOURCCS), at `size`."""
     if codec == "png":
         return png_frame, None
     if codec == "rawvideo":
@@ -126,4 +135,9 @@ def decoder(codec: str, config: bytes = b"", fourcc: bytes = b"", size: Tuple[in
     if codec == "mpeg12":
         dec = native.Mpeg12Decoder(config)
         return dec.decode, dec.flush
+    if codec in ("h263", "flv1"):
+        return native.H263Decoder(codec).decode, None
+    if codec == "msmpeg4":
+        from .avi import MSMPEG4_FOURCCS
+        return native.Msmpeg4Decoder(MSMPEG4_FOURCCS[fourcc.upper()], size).decode, None
     raise ValueError(f"no decoder for codec {codec!r}")

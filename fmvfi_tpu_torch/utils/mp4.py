@@ -1,4 +1,4 @@
-"""ISO base media files (.mp4, .m4v, .mov) without cv2: a reader for pipeline/video.py and a writer for
+"""ISO base media files (.mp4, .m4v, .mov, .3gp) without cv2: a reader for pipeline/video.py and a writer for
 utils/datasets.py::images_to_video.
 
 The reader (`open_video`, `iter_samples`) walks the boxes as FFmpeg's mov
@@ -12,7 +12,8 @@ is the sequence header; 0x6C Motion-JPEG: what cv2's MPG2 and MJPG writers
 store in .mp4), QuickTime's `m2v1` / `m1v ` (MPEG-1/2) and `jpeg`
 (Motion-JPEG) entries (what those writers store in .mov), `png ` (PNG
 frames) and `RGBA` (raw frames: what cv2's png and RGBA writers store in
-.mov; `raw ` and packed YUV raise naming item 18.4g), or its `vp09`
+.mov; `raw ` and packed YUV raise naming item 18.4g), `s263` / `h263`
+(H.263: what cv2's H263 writer stores in .3gp and .mov), or its `vp09`
 sample entry (VP9, what cv2.VideoWriter(fourcc "VP90") writes into .mp4;
 its `vpcC` changes nothing cv2 returns), `tkhd`'s display matrix composed with `mvhd`'s (the
 rotation cv2 applies, CAP_PROP_ORIENTATION_AUTO: 90, 180 or 270 degrees
@@ -69,6 +70,9 @@ MJPEG_ENTRIES = (b"jpeg",)
 # format the port converts (cv2's png and RGBA writers store them in .mov)
 PNG_ENTRIES = (b"png ",)
 RAW_ENTRIES = (b"RGBA",)
+# isom.c's sample entries of H.263 (cv2's H263 writer stores s263 in .3gp,
+# h263 in .mov); each sample one picture, its size from its header
+H263_ENTRIES = (b"s263", b"h263", b"H263")
 
 
 def _boxes(data: bytes, start: int = 0, end: Optional[int] = None) -> Iterator[Tuple[bytes, int, int]]:
@@ -269,7 +273,8 @@ def _video_track(path: str, moov: bytes, start: int, length: int):
     if not entries:
         raise ValueError(f"{path}: an empty stsd box")
     codec, p, n = entries[0]
-    if codec not in (b"mp4v", b"vp09") + MPEG12_ENTRIES + MJPEG_ENTRIES + PNG_ENTRIES + RAW_ENTRIES:
+    if codec not in ((b"mp4v", b"vp09") + MPEG12_ENTRIES + MJPEG_ENTRIES + PNG_ENTRIES + RAW_ENTRIES
+                     + H263_ENTRIES):
         raise unsupported(path, f"a {codec.decode('latin-1')!r} video track",
                           "18.4g" if codec in (b"raw ", b"2vuy", b"yuv2", b"v210") else "18.4")
     width, height = struct.unpack(">HH", stsd[p + 24:p + 28])
@@ -288,6 +293,8 @@ def _video_track(path: str, moov: bytes, start: int, length: int):
         decoder = "png"  # the frame's size is its IHDR's
     elif codec in RAW_ENTRIES:
         decoder = "rawvideo"  # at the sample entry's size
+    elif codec in H263_ENTRIES:
+        decoder = "h263"
     else:
         if b"esds" not in children:
             raise ValueError(f"{path}: an mp4v sample entry without esds")

@@ -105,6 +105,12 @@ def inputs(tmp_path_factory):
     gif = [Image.fromarray((np.clip(f, 0, 1) * 255 + 0.5).astype(np.uint8)).quantize(64)
            for f in clip]
     gif[0].save(d / "clip.gif", save_all=True, append_images=gif[1:], duration=40, loop=0)
+    # the clip as cv2's MP43 (MS-MPEG4 v3) AVI and FLV1 (Sorenson Spark) FLV
+    for name, fourcc in (("clip_mp43.avi", "MP43"), ("clip_flv1.flv", "FLV1")):
+        writer = cv2.VideoWriter(str(d / name), cv2.VideoWriter_fourcc(*fourcc), 15, (SIZE, SIZE))
+        for i in range(len(clip)):
+            writer.write(cv2.imread(str(d / "clip" / f"f{i}.png")))
+        writer.release()
     # the clip at full precision as a 10-bit VP9 (profile 2) WebM, coded by cv2's libvpx
     TOOL.vp9_webm(str(d / "clip10.webm"), TOOL.vp9_encode(
         [np.ascontiguousarray(f[..., ::-1]) for f in clip], bit_depth=10, bitrate=400), SIZE, SIZE)
@@ -146,6 +152,10 @@ def _commands(d, out):
                          f"{out}/video_gif", *ph]
     cmds["video_vp9_10bit"] = ["video", "--input", str(d / "clip10.webm"), "--output_dir",
                                f"{out}/video_vp9_10bit", "--method", "fusion", *ph]
+    cmds["video_msmpeg4"] = ["video", "--input", str(d / "clip_mp43.avi"), "--output_dir",
+                             f"{out}/video_msmpeg4", "--method", "fusion", *ph]
+    cmds["video_flv"] = ["video", "--input", str(d / "clip_flv1.flv"), "--output_dir",
+                         f"{out}/video_flv", *ph]
     os.makedirs(f"{out}/interp_webp", exist_ok=True)
     cmds["interpolate_webp"] = ["interpolate", "--first_frame", str(d / "a.webp"),
                                 "--second_frame", str(d / "b.webp"), "--output_frame",
@@ -354,6 +364,22 @@ def test_video_on_a_10_bit_vp9_webm_matches_jax_cli(inputs, jax_out):
     for i in range(4):
         np.testing.assert_array_equal(cv2.imread(str(out / "video_vp9_10bit" / names[2 * i])),
                                       cv2.imread(str(jax_out / "video_vp9_10bit" / names[2 * i])))
+
+
+@pytest.mark.parametrize("name", ["video_msmpeg4", "video_flv"])
+def test_video_on_the_h263_family_matches_jax_cli(inputs, jax_out, name):
+    """`video` on the clip as cv2's MP43 AVI (--method fusion) and FLV1 FLV
+    (native/msmpeg4.cpp, h263.cpp and utils/flv.py under the port, FFmpeg
+    under cv2): every PNG within 1 LSB of JAX's, the originals exact."""
+    out = _run_port(inputs, name)
+    names = sorted(os.listdir(jax_out / name))
+    assert names == [f"{i:05d}.png" for i in range(7)]
+    assert sorted(os.listdir(out / name)) == names
+    for n in names:
+        _within_lsb(out / name / n, jax_out / name / n)
+    for i in range(4):
+        np.testing.assert_array_equal(cv2.imread(str(out / name / names[2 * i])),
+                                      cv2.imread(str(jax_out / name / names[2 * i])))
 
 
 @pytest.mark.parametrize("mode,n_out", [("per_pair", 7), ("factor4", 13), ("batch2", 7),

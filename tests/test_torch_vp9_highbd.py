@@ -125,9 +125,9 @@ def _libswscale_bgr(y, u, v, depth):
     h, w = y.shape
     ss = (int(u.shape[1] < w), int(u.shape[0] < h))
     name = {(1, 1): "yuv420p", (1, 0): "yuv422p", (0, 0): "yuv444p", (0, 1): "yuv440p"}[ss]
-    fmt = util.av_get_pix_fmt(f"{name}{depth}le".encode())
+    fmt = util.av_get_pix_fmt((name if depth == 8 else f"{name}{depth}le").encode())
     ctx = sws.sws_getContext(w, h, fmt, w, h, util.av_get_pix_fmt(b"bgr24"), 4, None, None, None)
-    planes = [np.ascontiguousarray(p, np.uint16) for p in (y, u, v)]
+    planes = [np.ascontiguousarray(p, np.uint8 if depth == 8 else np.uint16) for p in (y, u, v)]
     src = (ctypes.c_void_p * 4)(*[p.ctypes.data for p in planes], None)
     strides = (ctypes.c_int * 4)(*[p.strides[0] for p in planes], 0)
     pitch = w * 3 + 64  # room for the SIMD writers past a row's end
@@ -138,13 +138,13 @@ def _libswscale_bgr(y, u, v, depth):
     return buf[:h * pitch].reshape(h, pitch)[:, :w * 3].reshape(h, w, 3)[..., ::-1]
 
 
-# extreme alternating chroma at 4:4:0 (even widths' half-width route) is
-# not among the cases: it differs from libswscale at 8 bits as at 10
-# (ROADMAP Q3-10, open)
+# extreme alternating chroma at 4:4:0 (even widths' half-width route, whose
+# downscaling filter overshoots below 0) pins ROADMAP Q3-10: swscale's
+# yuv2packed1 averages two such lines with a logical shift; depth 8 runs
+# the 8-bit formats' routes
 @pytest.mark.parametrize("fmt,mode", [(f, m) for f in sorted(SAMPLINGS)
-                                      for m in ("random", "extreme", "white")
-                                      if (f, m) != ("440", "extreme")])
-@pytest.mark.parametrize("depth", [10, 12])
+                                      for m in ("random", "extreme", "white")])
+@pytest.mark.parametrize("depth", [8, 10, 12])
 def test_swscale_16_bit_routes_against_libswscale(toolchain, depth, fmt, mode):
     rng = np.random.default_rng(depth * 100 + sorted(SAMPLINGS).index(fmt) * 10 + len(mode))
     sx, sy = SAMPLINGS[fmt]
@@ -174,6 +174,23 @@ def test_fixture_decodes_as_cv2_jax_and_its_pin(toolchain, name):
     if name != chip_smoke.INPUTS_VP9_10BIT:  # JAX's reader is plain cv2 (the 1080p clip: above)
         np.testing.assert_array_equal(pt_video.read_video_frames(path),
                                       jx_video.read_video_frames(path))
+
+
+def test_a_corrupt_clip_past_the_12_bit_range_decodes_as_cv2(toolchain):
+    """ROADMAP Q3-11: a copy of the 12-bit lossless 4:4:4 fixture with 8 bits
+    flipped, whose inter frames lose lossless coding and carry coefficients
+    past the 12-bit range (libvpx rejects the clip): residuals past 16 bits,
+    which x86's 16-bpp transforms saturate and add to the samples in 16
+    bits, decode equal to cv2 and to the pin."""
+    source, name, _ = TOOL.VP9_Q3_11
+    assert name in chip_smoke.INPUT_PINS and source in FIXTURES
+    path = os.path.join(INPUTS, name)
+    ours = assert_as_cv2(path, 3)
+    assert hashlib.sha256(np.stack(ours).tobytes()).hexdigest() == chip_smoke.INPUT_PINS[name][1]
+    dec = native.Vp9Decoder()
+    lossless = [dec.decode(p) is not None and bool(dec.info["features"] & native.VP9_FEATURES[
+        "lossless"]) for p in packets(path)]
+    assert lossless[0] and not lossless[1]
 
 
 def test_fixtures_are_what_they_were_made_for(toolchain):

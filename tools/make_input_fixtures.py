@@ -97,7 +97,7 @@ from fmvfi_tpu_torch.eval.synth import translation_video  # noqa: E402
 from fmvfi_tpu_torch.utils import avi, mkv  # noqa: E402
 
 VIDEO_SUFFIXES = (".avi", ".mp4", ".mov", ".m4v", ".mkv", ".webm", ".mpg", ".vob", ".ts",
-                  ".m2ts", ".m1v", ".m2v", ".ivf")
+                  ".m2ts", ".m1v", ".m2v", ".ivf", ".flv", ".3gp")
 
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
          (0, 1, 1, 2))
@@ -307,6 +307,8 @@ def make(out: str) -> dict:
     for name in make_lossless_video(out):
         files[name] = None
     for name in make_webp_corrupt(out):
+        files[name] = None
+    for name in make_h263(out):
         files[name] = None
     return pins(out, files)
 
@@ -2048,9 +2050,429 @@ def _yuv420(bgr: np.ndarray):
             yuv[hh * ww + q:].reshape(hh // 2, ww // 2))
 
 
+# --- the H.263 family: H.263, Sorenson Spark, MS-MPEG4 v2 / v3 ------------
+
+SMOKE_MSMPEG4 = "msmpeg4_cv2_mp43_1080x1920.avi"
+SMOKE_FLV = "flv1_cv2_smooth_1080x1920.flv"
+SMOKE_H263 = "h263_cv2_352x288.avi"
+# a corrupted copy of the 12-bit lossless 4:4:4 VP9 fixture (8 bits flipped:
+# tools/video_robustness.py's seed 0, file 169 in its first version), whose
+# inter frames are no longer lossless and carry coefficients past the 12-bit
+# range: residuals past 16 bits, added as x86's 16-bpp transforms add them
+# (ROADMAP Q3-11); (source, name, (byte, mask) flips)
+VP9_Q3_11 = ("vp9_hbd12_lossless_444_23x19.webm", "corrupt_vp9_hbd12_lossless_444_23x19.webm",
+             ((165, 4), (426, 2), (877, 1), (2082, 16), (2096, 32), (2819, 2), (3325, 128),
+              (4337, 16)))
+
+
+class Bitstream:
+    """Bits of a packet as a list, for forging header fields."""
+
+    def __init__(self, data: bytes):
+        self.bits = [int(b) for b in "".join(f"{x:08b}" for x in data)]
+
+    def get(self, at: int, n: int) -> int:
+        return int("".join(map(str, self.bits[at:at + n])) or "0", 2)
+
+    def set(self, at: int, n: int, value: int) -> None:
+        self.bits[at:at + n] = [int(b) for b in f"{value:0{n}b}"]
+
+    def bytes(self) -> bytes:
+        return _bits_to_bytes(self.bits)
+
+
+def flv_file(path: str, packets, keys, fps: int = 15) -> None:
+    """Sorenson packets in an FLV file: the header, PreviousTagSize0, an
+    onMetaData script tag and one video tag a packet (frame type 1 or 2,
+    codec 2)."""
+    def tag(kind: int, ms: int, body: bytes) -> bytes:
+        head = bytes([kind]) + len(body).to_bytes(3, "big") + (ms & 0xFFFFFF).to_bytes(3, "big")
+        return head + bytes([ms >> 24, 0, 0, 0]) + body + struct.pack(">I", len(body) + 11)
+
+    meta = (b"\x02\x00\x0aonMetaData\x08\x00\x00\x00\x01\x00\x09framerate\x00"
+            + struct.pack(">d", fps) + b"\x00\x00\x09")
+    with open(path, "wb") as f:
+        f.write(b"FLV\x01\x01" + struct.pack(">I", 9) + struct.pack(">I", 0))
+        f.write(tag(18, 0, meta))
+        for i, (p, key) in enumerate(zip(packets, keys)):
+            f.write(tag(9, i * 1000 // fps, bytes([(1 if key else 2) << 4 | 2]) + p))
+
+
+def h263_to_sorenson(packet: bytes, size_code: int = 0) -> bytes:
+    """A baseline H.263 picture (no GOB headers, Annex F or PEI) as a
+    Sorenson picture of format 0 (H.263's escape): the 50-bit picture
+    header replaced by Sorenson's (sizes of 8 bits for size_code 0), the
+    macroblocks kept."""
+    b = Bitstream(packet)
+    assert b.get(0, 22) == 0x20 and b.get(35, 3) in (1, 2, 3)
+    tr, fmt, p_pic, quant = b.get(22, 8), b.get(35, 3), b.get(38, 1), b.get(43, 5)
+    w, h = ((128, 96), (176, 144), (352, 288))[fmt - 1]
+    head = f"{1:017b}{0:05b}{tr:08b}{size_code:03b}"
+    if size_code == 0:
+        head += f"{w:08b}{h:08b}"
+    head += f"{p_pic:02b}0{quant:05b}0"
+    return _bits_to_bytes([int(c) for c in head] + b.bits[50:])
+
+
+def _bits_to_bytes(bits) -> bytes:
+    bits = list(bits) + [0] * (-len(bits) % 8)
+    return bytes(int("".join(map(str, bits[i:i + 8])), 2) for i in range(0, len(bits), 8))
+
+
+def sorenson_forge(packet: bytes, kind=None, size=None) -> bytes:
+    """A Sorenson picture with its picture type (2: disposable) or its 8-bit
+    size fields rewritten."""
+    b = Bitstream(packet)
+    at = 17 + 5 + 8
+    code = b.get(at, 3)
+    at += 3
+    if size is not None:
+        assert code == 0
+        b.set(at, 8, size[0])
+        b.set(at + 8, 8, size[1])
+    at += {0: 16, 1: 32}.get(code, 0)
+    if kind is not None:
+        b.set(at, 2, kind)
+    return b.bytes()
+
+
+def msmpeg4_forge(packet: bytes, slices=None, clear_flipflop=False, pad=0) -> bytes:
+    """An MS-MPEG4 I picture with its slice code set to `slices` slices, its
+    extension's flipflop_rounding cleared (the packet's last set bit, before
+    the zero padding), or `pad` zero bytes appended (FFmpeg then ignores the
+    extension)."""
+    b = Bitstream(packet)
+    assert b.get(0, 2) == 0
+    if slices is not None:
+        b.set(7, 5, 0x16 + slices)
+    if clear_flipflop:
+        last = max(i for i, v in enumerate(b.bits) if v)
+        b.bits[last] = 0
+    return b.bytes() + bytes(pad)
+
+
+def make_h263(out: str):
+    """Write the H.263-family fixtures: cv2.VideoWriter's H263 (AVI, 3GP,
+    MOV), U263, FLV1 (FLV, AVI), MP42, MP43 and DIV3 (AVI), odd sides cropped
+    to even; clips coded by cv2's libavcodec through ctypes in settings cv2's
+    writer never takes (OBMC, 4MV, GOB headers, DQUANT, quantisers 1-31,
+    Sorenson at 11-bit escapes); forged ones (Sorenson format 0 from H.263
+    pictures, a disposable picture, sizes the picture headers or the AVI say
+    45x37, MS-MPEG4 slices, flipflop_rounding off, an extension FFmpeg
+    ignores, H.263's Annex D bit); mp4v AVIs with short-header (H.263)
+    pictures; the corrupted 12-bit VP9 clip of VP9_Q3_11; and the smoke's
+    three files.  Yields their names."""
+    rng = np.random.default_rng(2500)
+
+    def cv2_file(name, fourcc, h, w, n=4, step=(2.5, -1.5), fps=15):
+        cv2_video(os.path.join(out, name), fourcc, sliding(rng, n, h, w, step=step), fps=fps)
+        return name
+
+    for name, fourcc, (h, w) in (("h263_cv2_176x144.avi", "H263", (144, 176)),
+                                 ("h263_cv2_128x96.3gp", "H263", (96, 128)),
+                                 ("h263_cv2_176x144.mov", "H263", (144, 176)),
+                                 ("h263_cv2_u263_128x96.avi", "U263", (96, 128)),
+                                 ("flv1_cv2_64x48.flv", "FLV1", (48, 64)),
+                                 ("flv1_cv2_44x36.flv", "FLV1", (37, 45)),
+                                 ("flv1_cv2_160x120.flv", "FLV1", (120, 160)),
+                                 ("flv1_cv2_64x48.avi", "FLV1", (48, 64)),
+                                 ("mp42_cv2_64x48.avi", "MP42", (48, 64)),
+                                 ("mp42_cv2_44x36.avi", "MP42", (37, 45)),
+                                 ("mp43_cv2_64x48.avi", "MP43", (48, 64)),
+                                 ("mp43_cv2_44x36.avi", "MP43", (37, 45)),
+                                 ("div3_cv2_80x64.avi", "DIV3", (64, 80))):
+        yield cv2_file(name, fourcc, h, w, n=5 if fourcc in ("MP42", "MP43", "DIV3") else 4)
+    # the smoke's 352x288 clip (its timed H.263 I and P pictures)
+    yield cv2_file(SMOKE_H263, "H263", 288, 352, n=3)
+    # a still scene (skipped macroblocks) that cuts to another (intra
+    # macroblocks in P pictures), in each codec
+    still = sliding(rng, 1, 48, 64, step=(0, 0)) * 3 + sliding(rng, 2, 48, 64, step=(9, 7))
+    for name, fourcc in (("mp43_cv2_still_64x48.avi", "MP43"), ("mp42_cv2_still_64x48.avi", "MP42"),
+                         ("flv1_cv2_still_64x48.flv", "FLV1")):
+        cv2_video(os.path.join(out, name), fourcc, still, fps=15)
+        yield name
+    cv2_video(os.path.join(out, "h263_cv2_still_176x144.avi"), "H263",
+              sliding(rng, 1, 144, 176, step=(0, 0)) * 3 + sliding(rng, 2, 144, 176, step=(9, 7)))
+    yield "h263_cv2_still_176x144.avi"
+
+    def packets_avi(name, fourcc, w, h, packets):
+        with PacketAvi(os.path.join(out, name), w, h, fourcc, 15) as mux:
+            for i, p in enumerate(packets):
+                mux.write_packet(p, i == 0)
+        return name
+
+    # libavcodec's h263 encoder: Annex F (OBMC, 4MV), GOB headers, DQUANT,
+    # the quantiser's range (1: 11-bit escaped levels)
+    scene = yuv_scene(rng, 5, 144, 176, step=(3.5, -2.5))
+    for name, options in (("h263_obmc_176x144.avi", {"obmc": 1}),
+                          ("h263_mv4_176x144.avi", {"flags": "+mv4"}),
+                          ("h263_obmc_mv4_q4_176x144.avi", {"obmc": 1, "flags": "+mv4",
+                                                            "qmin": 4, "qmax": 4}),
+                          ("h263_gob_q1_176x144.avi", {"ps": 300, "qmin": 1, "qmax": 1}),
+                          ("h263_dquant_176x144.avi", {"scplx_mask": 0.5, "flags": "+mv4"}),
+                          ("h263_q31_176x144.avi", {"qmin": 31, "qmax": 31})):
+        yield packets_avi(name, b"H263", 176, 144,
+                          mpeg12_encode(scene, 176, 144, "h263", options=options))
+    cif = yuv_scene(rng, 3, 288, 352, step=(5.5, 2.5))
+    yield packets_avi("h263_obmc_gob_352x288.avi", b"H263", 352, 288,
+                      mpeg12_encode(cif, 352, 288, "h263", options={"obmc": 1, "ps": 500,
+                                                                    "flags": "+mv4"}))
+    # pixel noise at quantiser 1 (levels past 127: H.263's -128 escape)
+    noise = [tuple(rng.integers(0, 256, (hh, ww), np.uint8) for hh, ww in
+                   ((144, 176), (72, 88), (72, 88))) for _ in range(2)]
+    yield packets_avi("h263_noise_q1_176x144.avi", b"H263", 176, 144,
+                      mpeg12_encode(noise, 176, 144, "h263", options={"qmin": 1, "qmax": 1}))
+    # PEI set, one PSPARE byte, in each picture's header
+    spare = []
+    for p in mpeg12_encode(scene[:3], 176, 144, "h263", options={"qmin": 6, "qmax": 6}):
+        b = Bitstream(p)
+        b.bits[49:49] = [1, 1, 0, 1, 0, 0, 1, 0, 1]
+        spare.append(b.bytes())
+    yield packets_avi("h263_pei_176x144.avi", b"H263", 176, 144, spare)
+    # Annex D's bit set on the pictures of a clip (vectors decoded without
+    # the modulo wrap)
+    plain = mpeg12_encode(scene, 176, 144, "h263", options={"qmin": 3, "qmax": 3})
+    annex_d = []
+    for p in plain:
+        b = Bitstream(p)
+        b.set(39, 1, 1)
+        annex_d.append(b.bytes())
+    yield packets_avi("h263_annexd_176x144.avi", b"H263", 176, 144, annex_d)
+    # 3GP and MOV of libavcodec's pictures (samples replaced in cv2's files)
+    for name, template in (("h263_obmc_176x144.3gp", "h263_cv2_128x96.3gp"),):
+        with open(os.path.join(out, template), "rb") as f:
+            data = f.read()
+        obmc = mpeg12_encode(yuv_scene(rng, 4, 144, 176), 176, 144, "h263",
+                             options={"obmc": 1, "flags": "+mv4"})
+        with open(os.path.join(out, name), "wb") as f:
+            f.write(mp4_with_packets(data, obmc, [True] + [False] * 3, size=(176, 144)))
+        yield name
+
+    # Sorenson: libavcodec's flv encoder (format 1) at quantisers 1 and 31;
+    # format 0 (H.263's escape, -128 announcing 11 bits) from H.263 pictures
+    # at quantiser 1; a disposable picture; a header saying 45x37
+    small = yuv_scene(rng, 4, 48, 64, step=(3.5, 2.5))
+    for name, q in (("flv1_q1_64x48.flv", 1), ("flv1_q31_64x48.flv", 31)):
+        pk = mpeg12_encode(small, 64, 48, "flv", options={"qmin": q, "qmax": q})
+        flv_file(os.path.join(out, name), pk, [True] + [False] * (len(pk) - 1))
+        yield name
+    h263_q1 = mpeg12_encode(scene[:4], 176, 144, "h263", options={"qmin": 1, "qmax": 1})
+    fmt0 = [h263_to_sorenson(p, 0 if i % 2 else 3) for i, p in enumerate(h263_q1)]
+    flv_file(os.path.join(out, "flv1_format0_176x144.flv"), fmt0, [True, False, False, False])
+    yield "flv1_format0_176x144.flv"
+    # disposable pictures: the second (FFmpeg skips it: no last picture yet)
+    # and the fourth (shown; the fifth predicts from the third)
+    pk = mpeg12_encode(yuv_scene(rng, 5, 48, 64, step=(3.5, 2.5)), 64, 48, "flv",
+                       options={"qmin": 3, "qmax": 3})
+    pk[1], pk[3] = sorenson_forge(pk[1], kind=2), sorenson_forge(pk[3], kind=2)
+    flv_file(os.path.join(out, "flv1_disposable_64x48.flv"), pk, [True] + [False] * (len(pk) - 1))
+    yield "flv1_disposable_64x48.flv"
+    odd = mpeg12_encode(yuv_scene(rng, 3, 36, 44), 44, 36, "flv", options={"qmin": 4, "qmax": 4})
+    flv_file(os.path.join(out, "flv1_45x37.flv"), [sorenson_forge(p, size=(45, 37)) for p in odd],
+             [True, False, False])
+    yield "flv1_45x37.flv"
+
+    # MS-MPEG4: quantisers, slices (forged slice codes; FFmpeg's encoder
+    # writes one), flipflop_rounding off, an extension FFmpeg ignores, a
+    # size the AVI says is 45x37
+    clip = yuv_scene(rng, 5, 48, 64, step=(3.5, 2.5))
+    for version, codec, tag in ((2, "msmpeg4v2", b"MP42"), (3, "msmpeg4", b"MP43")):
+        for q in (1, 8, 31):
+            yield packets_avi(f"msmpeg4v{version}_q{q}_64x48.avi", tag, 64, 48,
+                              mpeg12_encode(clip, 64, 48, codec, options={"qmin": q, "qmax": q}))
+        pk = mpeg12_encode(clip, 64, 48, codec, options={"qmin": 5, "qmax": 5, "g": 2})
+        yield packets_avi(f"msmpeg4v{version}_slices_64x48.avi", tag, 64, 48, [
+            msmpeg4_forge(p, slices=(2, 3)[i // 2 % 2]) if i % 2 == 0 else p
+            for i, p in enumerate(pk)])
+    # 8x8 blocks of black and white (DC differences past v3's escape)
+    blocks = []
+    for _ in range(3):
+        y = np.kron(rng.integers(0, 2, (6, 8)), np.ones((8, 8))).astype(np.uint8) * 255
+        c = np.kron(rng.integers(0, 2, (3, 4)), np.ones((8, 8))).astype(np.uint8) * 255
+        blocks.append((y, c, 255 - c))
+    for version, codec, tag in ((2, "msmpeg4v2", b"MP42"), (3, "msmpeg4", b"MP43")):
+        yield packets_avi(f"msmpeg4v{version}_blocks_q2_64x48.avi", tag, 64, 48,
+                          mpeg12_encode(blocks, 64, 48, codec, options={"qmin": 2, "qmax": 2}))
+    # a black and white pattern moving a pixel right, down or both a frame:
+    # chroma at half-pel (x86's inexact unrounded averages where a 0 takes
+    # the decremented operand), no_rounding alternating
+    big = np.kron(rng.integers(0, 2, (20, 24)), np.ones((4, 4))).astype(np.uint8) * 255
+    moving, at = [], np.array([4, 4])
+    for step in ((0, 0), (0, 1), (1, 0), (1, 1), (0, 1), (1, 0), (1, 1)):
+        at += step
+        y = big[at[0]:at[0] + 48, at[1]:at[1] + 64]
+        moving.append((y, y[::2, ::2], 255 - y[::2, ::2]))
+    yield packets_avi("msmpeg4v3_moving_blocks_64x48.avi", b"MP43", 64, 48,
+                      mpeg12_encode(moving, 64, 48, "msmpeg4", options={"qmin": 3, "qmax": 3}))
+    pk = mpeg12_encode(clip, 64, 48, "msmpeg4", options={"qmin": 4, "qmax": 4, "g": 3})
+    yield packets_avi("msmpeg4v3_noflipflop_64x48.avi", b"MP43", 64, 48, [
+        msmpeg4_forge(p, clear_flipflop=True) if i == 0 else (
+            msmpeg4_forge(p, pad=3) if i == 3 else p) for i, p in enumerate(pk)])
+    pk = mpeg12_encode(yuv_scene(rng, 3, 36, 44), 44, 36, "msmpeg4", options={"qmin": 6, "qmax": 6})
+    yield packets_avi("msmpeg4v3_45x37.avi", b"DIV3", 45, 37, pk)
+    # what FFmpeg's encoder never writes: DC table 0, MV table 0 and its
+    # escape, AC prediction (a stream of this file's own writer)
+    yield packets_avi("msmpeg4v3_tables0_acpred_64x48.avi", b"MP43", 64, 48,
+                      msmpeg4v3_synthetic(rng, 64, 48, 4))
+
+    # mp4v with short-header (H.263) pictures: FFmpeg's mpeg4 decoder fails
+    # each, and cv2 reads no further (no frames; the VOPs before them)
+    h263 = mpeg12_encode(scene[:3], 176, 144, "h263", options={"qmin": 4, "qmax": 4})
+    cv2_video(os.path.join(out, "mp4v_shortheader_176x144.avi"), "FMP4",
+              sliding(rng, 2, 144, 176))
+    mp4v = list(avi.iter_frames(avi.open_video(os.path.join(out, "mp4v_shortheader_176x144.avi"))))
+    yield packets_avi("mp4v_shortheader_176x144.avi", b"FMP4", 176, 144, mp4v + h263)
+    vol = mp4v[0][:mp4v[0].index(b"\0\0\1\xb6")]
+    packets_avi("mp4v_shortheader_only_176x144.avi", b"FMP4", 176, 144, [vol + h263[0]] + h263[1:])
+
+    source, name, flips = VP9_Q3_11
+    with open(os.path.join(out, source), "rb") as f:
+        data = bytearray(f.read())
+    for at, mask in flips:
+        data[at] ^= mask
+    with open(os.path.join(out, name), "wb") as f:
+        f.write(bytes(data))
+    yield name
+
+    # the smoke's 1080p files: the video clip's first three frames as cv2's
+    # MP43 AVI, and the smooth scene's (as the GIF's) as cv2's FLV1 FLV
+    smoke = translation_video(5, 1080, 1920, step=2.0, seed=0)[:3]
+    cv2_video(os.path.join(out, SMOKE_MSMPEG4), "MP43",
+              [np.ascontiguousarray((f[..., ::-1] * 255).astype(np.uint8)) for f in smoke], fps=30)
+    yield SMOKE_MSMPEG4
+    cv2_video(os.path.join(out, SMOKE_FLV), "FLV1",
+              [np.ascontiguousarray(smooth_scene(t)[..., ::-1]) for t in range(3)], fps=15)
+    yield SMOKE_FLV
+
+
+def msmpeg4_tables() -> dict:
+    """native/msmpeg4.cpp's code tables by name (read from its source):
+    {name: list of ints}, code tables flattened (code, length, ...)."""
+    import re
+    src = open(os.path.join(ROOT, "fmvfi_tpu_torch", "native", "msmpeg4.cpp")).read()
+    out = {}
+    for m in re.finditer(r"const (?:Code32|Code|uint8_t|uint16_t) (k\w+)\[\d+\] = \{(.*?)\};", src,
+                         re.S):
+        out[m.group(1)] = [int(v) for v in re.findall(r"-?\d+", m.group(2))]
+    return out
+
+
+class BitWriter:
+    def __init__(self):
+        self.bits = []
+
+    def put(self, value: int, n: int) -> None:
+        self.bits += [int(b) for b in f"{value:0{n}b}"] if n else []
+
+    def code(self, table, index: int) -> None:
+        self.put(table[2 * index], table[2 * index + 1])
+
+    def bytes(self) -> bytes:
+        return _bits_to_bytes(self.bits)
+
+
+def msmpeg4v3_synthetic(rng, w: int, h: int, n: int, q: int = 6) -> list:
+    """An MS-MPEG4 v3 stream in what FFmpeg's encoder never writes: DC table
+    0, run/level tables 0 and 3 (chroma), MV table 0 with its escape, AC
+    prediction; an I picture of intra macroblocks (random coded-block
+    patterns, small DC steps, a few escape-3 coefficients a coded block),
+    then P pictures of inter macroblocks with random vectors (no residual)
+    and a few intra ones.  Codes from native/msmpeg4.cpp's tables (cv2,
+    decoding the result, is the judge)."""
+    t = msmpeg4_tables()
+    mbw, mbh = (w + 15) // 16, (h + 15) // 16
+    mv_lens = t["kMv0Len"]
+    acc, mv_codes = 0, []
+    for ln in mv_lens:  # codes from their lengths, in code order
+        mv_codes += [acc >> (32 - ln), ln]
+        acc += 1 << (32 - ln)
+    esc = {0: (t["kRl0Vlc"][2 * 132], t["kRl0Vlc"][2 * 132 + 1]),
+           3: (t["kRl3Vlc"][2 * 148], t["kRl3Vlc"][2 * 148 + 1])}
+    coded = {}  # luma blocks' coded flags of the I picture
+
+    def intra_mb(b, mbx, mby, in_p):
+        cbp = int(rng.integers(0, 64))
+        if in_p:
+            b.code(t["kMbNonIntra"], cbp)
+        else:
+            code = 0
+            for i in range(6):
+                bit = (cbp >> (5 - i)) & 1
+                if i < 4:
+                    bx, by = 2 * mbx + (i & 1), 2 * mby + (i >> 1)
+                    a_, b_, c_ = (coded.get(k, 0) for k in ((bx - 1, by), (bx - 1, by - 1),
+                                                            (bx, by - 1)))
+                    coded[(bx, by)] = bit
+                    bit ^= a_ if b_ == c_ else c_
+                code |= bit << (5 - i)
+            b.code(t["kMbIntra"], code)
+        b.put(1, 1)  # ac_pred
+        for k in range(6):
+            diff = int(rng.integers(-6, 7))
+            b.code(t["kDc0Chroma" if k >= 4 else "kDc0Lum"], abs(diff))
+            if diff:
+                b.put(diff < 0, 1)
+            if cbp >> (5 - k) & 1:
+                pos, count = 0, int(rng.integers(1, 4))
+                for j in range(count):
+                    run = int(rng.integers(0, 4))
+                    if pos + run + 1 > 63:
+                        run = 0
+                    pos += run + 1
+                    last = j == count - 1 or pos >= 60
+                    code, length = esc[3 if k >= 4 else 0]
+                    b.put(code, length)
+                    b.put(0, 2)  # escape 3
+                    b.put(int(last), 1)
+                    b.put(run, 6)
+                    level = int(rng.integers(1, 40)) * (1 if rng.integers(2) else -1)
+                    b.put(level & 0xFF, 8)
+                    if last:
+                        break
+
+    pictures = []
+    for f in range(n):
+        b = BitWriter()
+        b.put(0 if f == 0 else 1, 2)
+        b.put(q, 5)
+        if f == 0:
+            b.put(0x17, 5)
+            b.put(0, 1)  # rl_chroma_table_index 0
+            b.put(0, 1)  # rl_table_index 0
+            b.put(0, 1)  # dc_table_index 0
+        else:
+            b.put(0, 1)  # use_skip_mb_code
+            b.put(0, 1)  # rl_table_index 0
+            b.put(0, 1)  # dc_table_index 0
+            b.put(0, 1)  # mv_table_index 0
+        for mby in range(mbh):
+            for mbx in range(mbw):
+                if f == 0 or rng.integers(0, 8) == 0:
+                    intra_mb(b, mbx, mby, f > 0)
+                    continue
+                b.code(t["kMbNonIntra"], 0x40)  # inter, no residual
+                sym = (t["kMv0Sym"].index(0) if rng.integers(0, 4) == 0  # the escape
+                       else int(rng.integers(0, 1100)))
+                b.put(mv_codes[2 * sym], mv_codes[2 * sym + 1])
+                if t["kMv0Sym"][sym] == 0:  # the escape: two 6-bit values
+                    b.put(int(rng.integers(0, 64)), 6)
+                    b.put(int(rng.integers(0, 64)), 6)
+        if f == 0:  # the extension: fps, bit rate / 1024, flipflop_rounding
+            b.put(25, 5)
+            b.put(800, 11)
+            b.put(1, 1)
+        pictures.append(b.bytes())
+    return pictures
+
+
+# what cv2.VideoCapture reads no frame of (pinned as ValueError, not pixels)
+H263_NO_FRAMES = ("mp4v_shortheader_only_176x144.avi",)
+
+
 GROUPS = dict(mpeg12=make_mpeg12, containers=make_containers, stills=make_stills,
               webp_gif=make_webp_gif, vp9_highbd=make_vp9_highbd,
-              lossless_video=make_lossless_video, webp_corrupt=make_webp_corrupt)
+              lossless_video=make_lossless_video, webp_corrupt=make_webp_corrupt,
+              h263=make_h263)
 
 
 def main() -> int:

@@ -1,21 +1,25 @@
 #!/usr/bin/env python3
-"""native/vp9.cpp at 10 and 12 bits, and the PNG and raw-frame readers of
-AVI and MOV files (png.cpp, rawvideo.cpp), under AddressSanitizer and
+"""native/vp9.cpp at 10 and 12 bits, the PNG and raw-frame readers of AVI
+and MOV files (png.cpp, rawvideo.cpp), and the H.263 family (h263.cpp,
+msmpeg4.cpp, mpeg4.cpp; utils/flv.py) under AddressSanitizer and
 UndefinedBehaviorSanitizer, on the CPU:
 
-    python3 tools/video_robustness.py [--clips 60] [--corrupt 600] [--seed 0]
+    python3 tools/video_robustness.py [--clips 60] [--family-clips 30] [--corrupt 600]
+                                      [--seed 0]
 
-Builds vp9.cpp, png.cpp and rawvideo.cpp with
-`-fsanitize=address,undefined` into build/fmvfi_tpu_torch/sanitize/, then
-runs itself again with the sanitizer's runtime preloaded and the port's
-native library replaced by that build, and reads through
-pipeline/video.py:
-- every VP9 profile 2 / 3 and lossless AVI / MOV fixture of
-  tests/data/inputs/ (but the 1080p clip), held to chip_smoke.INPUT_PINS;
+Builds those sources with `-fsanitize=address,undefined` into
+build/fmvfi_tpu_torch/sanitize/, then runs itself again with the
+sanitizer's runtime preloaded and the port's native library replaced by
+that build, and reads through pipeline/video.py:
+- every VP9 profile 2 / 3, lossless AVI / MOV and H.263-family fixture of
+  tests/data/inputs/ (but the 1080p clips), held to chip_smoke.INPUT_PINS;
 - `--clips` seeded VP9 clips coded by cv2's libvpx at 10 or 12 bits
   (tools/make_input_fixtures.py::vp9_encode: sizes 1-99, each sampling,
   lossless, two-pass alt-ref, error-resilient, tile columns, colour
   configs), muxed into WebM, each bit-equal to cv2.VideoCapture;
+- `--family-clips` seeded clips of cv2's libavcodec (h263 with OBMC, 4MV
+  and GOB headers in AVI, flv in FLV, msmpeg4v2 / msmpeg4 in AVI; random
+  sizes and quantisers), each bit-equal to cv2.VideoCapture;
 - `--corrupt` copies of those fixtures with bits flipped, runs zeroed or
   duplicated, or the file cut short, each of which must decode or raise
   ValueError or NotImplementedError (a sanitizer report ends the run); the
@@ -39,10 +43,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 OUT = os.path.join(ROOT, "build", "fmvfi_tpu_torch", "sanitize")
 SOURCES = [os.path.join(ROOT, "fmvfi_tpu_torch", "native", f)
-           for f in ("vp9.cpp", "png.cpp", "rawvideo.cpp")]
+           for f in ("vp9.cpp", "png.cpp", "rawvideo.cpp", "h263.cpp", "msmpeg4.cpp", "mpeg4.cpp",
+                     "mpeg4_enc.cpp")]
 FLAGS = ["-O1", "-g", "-fno-omit-frame-pointer", "-fsanitize=address,undefined",
          "-fno-sanitize-recover=undefined", "-fPIC", "-shared"]
-PREFIXES = ("vp9_hbd", "ivf_vp9_hbd", "lossless_")
+PREFIXES = ("vp9_hbd", "ivf_vp9_hbd", "lossless_", "corrupt_vp9_", "h263_", "flv1_", "mp42_",
+            "mp43_", "div3_", "msmpeg4", "mp4v_short")
+FAMILY = ("h263_", "flv1_", "mp42_", "mp43_", "div3_", "msmpeg4", "mp4v_short")
 
 
 def build() -> str:
@@ -71,7 +78,33 @@ def _cv2_frames(path):
         frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
 
 
-def worker(lib_path: str, clips: int, corrupt: int, seed: int, keep=None) -> int:
+def family_clip(tool, rng, path: str) -> None:
+    """A seeded clip of cv2's libavcodec in the H.263 family at `path`."""
+    codec = str(rng.choice(["h263", "flv", "msmpeg4v2", "msmpeg4"]))
+    if codec == "h263":
+        w, h = ((128, 96), (176, 144), (352, 288))[int(rng.integers(3))]
+    else:
+        w, h = (int(v) for v in rng.integers(2, 120, 2))
+    q = int(rng.integers(1, 32))
+    options = {"qmin": q, "qmax": q, "g": int(rng.integers(2, 8))}
+    if codec == "h263":
+        options.update(obmc=int(rng.integers(2)), ps=int(rng.choice([0, 300])))
+        if rng.integers(2):
+            options["flags"] = "+mv4"
+    n = int(rng.integers(2, 7))
+    scene = tool.yuv_scene(rng, n, h, w, step=tuple(float(v) for v in rng.uniform(-6, 6, 2)))
+    data = tool.mpeg12_encode(scene, w, h, codec, options=options)
+    if codec == "flv":
+        tool.flv_file(path, data, [True] + [False] * (len(data) - 1))
+        return
+    tag = {"h263": b"H263", "msmpeg4v2": b"MP42", "msmpeg4": b"MP43"}[codec]
+    with tool.PacketAvi(path, w, h, tag, 15) as mux:
+        for i, p in enumerate(data):
+            mux.write_packet(p, i == 0)
+
+
+def worker(lib_path: str, clips: int, family_clips: int, corrupt: int, seed: int,
+           keep=None) -> int:
     import ctypes
 
     import numpy as np
@@ -82,6 +115,8 @@ def worker(lib_path: str, clips: int, corrupt: int, seed: int, keep=None) -> int
 
     lib = ctypes.CDLL(lib_path)
     native._bind_vp9(lib)
+    native._bind_h263(lib)
+    native._bind_mpeg4(lib)
     u8p, i32, i64 = ctypes.POINTER(ctypes.c_uint8), ctypes.c_int32, ctypes.c_int64
     lib.fmvfi_png_unfilter.argtypes = [u8p, i64, i64, i32, u8p]
     lib.fmvfi_png_unfilter.restype = i64
@@ -124,9 +159,20 @@ def worker(lib_path: str, clips: int, corrupt: int, seed: int, keep=None) -> int
                 unequal += 1
                 print(f"clip {k}: {w}x{h} {fmt} {bd} bits {kw} unequal to cv2", flush=True)
         print(f"clips: {clips} coded, {unequal} unequal to cv2", flush=True)
+        family_unequal = 0
+        for k in range(family_clips):
+            path = os.path.join(tmp, f"family{k}" + (".flv" if k % 4 == 1 else ".avi"))
+            family_clip(tool, rng, path)
+            ours, theirs = list(video.iter_video_frames(path)), _cv2_frames(path)
+            if len(ours) != len(theirs) or not all(np.array_equal(a, b)
+                                                   for a, b in zip(ours, theirs)):
+                family_unequal += 1
+                print(f"family clip {k} unequal to cv2", flush=True)
+        unequal += family_unequal
+        print(f"family clips: {family_clips} coded, {family_unequal} unequal to cv2", flush=True)
 
         outcomes = dict(decoded=0, ValueError=0, NotImplementedError=0)
-        as_cv2 = dict(vp9=0, lossless=0)
+        as_cv2 = dict(vp9=0, lossless=0, h263_family=0)
         other, notes = [], []
         for k in range(corrupt):
             name = names[int(rng.integers(len(names)))]
@@ -160,7 +206,8 @@ def worker(lib_path: str, clips: int, corrupt: int, seed: int, keep=None) -> int
                 continue
             theirs = _cv2_frames(path)
             if len(ours) == len(theirs) and all(np.array_equal(a, b) for a, b in zip(ours, theirs)):
-                as_cv2["lossless" if name.startswith("lossless_") else "vp9"] += 1
+                as_cv2["lossless" if name.startswith("lossless_") else
+                       "h263_family" if name.startswith(FAMILY) else "vp9"] += 1
             else:
                 notes.append(f"{name} kind {kind} at {at}: {len(ours)} frames, cv2 {len(theirs)}"
                              f"{', unequal' if len(ours) == len(theirs) else ''}")
@@ -178,13 +225,15 @@ def worker(lib_path: str, clips: int, corrupt: int, seed: int, keep=None) -> int
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--clips", type=int, default=60)
+    p.add_argument("--family-clips", type=int, default=30)
     p.add_argument("--corrupt", type=int, default=600)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--keep", help="a directory to copy each file decoded unlike cv2 into")
     p.add_argument("--worker", help=argparse.SUPPRESS)
     args = p.parse_args()
     if args.worker:
-        return worker(args.worker, args.clips, args.corrupt, args.seed, args.keep)
+        return worker(args.worker, args.clips, args.family_clips, args.corrupt, args.seed,
+                      args.keep)
     lib = build()
     # the sanitizer's runtime, and libstdc++ beside it so that its exception
     # interceptors find __cxa_throw
@@ -195,7 +244,8 @@ def main() -> int:
                ASAN_OPTIONS="detect_leaks=0:abort_on_error=1",
                UBSAN_OPTIONS="print_stacktrace=1:halt_on_error=1")
     return subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", lib,
-                           "--clips", str(args.clips), "--corrupt", str(args.corrupt),
+                           "--clips", str(args.clips), "--family-clips", str(args.family_clips),
+                           "--corrupt", str(args.corrupt),
                            "--seed", str(args.seed)] + (["--keep", args.keep] if args.keep else []),
                           env=env).returncode
 
